@@ -112,7 +112,6 @@ def generate_cached(
     top_k: int | None = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device | None = None,
-    attn_impl: str = "auto",
 ) -> torch.Tensor:
     """KV-cached sampling; returns ``[B, P + max_new_tokens]`` ids on the
     CPU. Runs on CUDA unless ``device="cpu"`` is passed.
@@ -129,7 +128,7 @@ def generate_cached(
     gen = torch.Generator(device=dev).manual_seed(seed)
     gens = [gen] * b
 
-    h, cache = prefill(w, config, prompt, total, attn_impl)
+    h, cache = prefill(w, config, prompt, total)
     ids = torch.zeros((b, total), dtype=torch.long, device=dev)
     ids[:, :p] = prompt
     ids[:, p] = sample_token(gpt2.logits_fp32(w, h[:, -1]), gens, temperature, top_k)

@@ -19,17 +19,22 @@ import torch
 MASK_VALUE = -1e4
 
 
+def causal_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """fp32 scaled scores ``[B, H, T, T]`` of ``[B, H, T, D]`` q and k, with
+    the positions above the diagonal filled with ``MASK_VALUE``."""
+    t, d = q.shape[2], q.shape[3]
+    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    return scores.masked_fill(~causal, MASK_VALUE)
+
+
 def causal_attention(
     q: torch.Tensor,  # [B, H, T, D]
     k: torch.Tensor,
     v: torch.Tensor,
 ) -> torch.Tensor:
     """Dense causal attention. Returns [B, H, T, D] in q's dtype."""
-    t, d = q.shape[2], q.shape[3]
-    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
-    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-    scores = scores.masked_fill(~causal, MASK_VALUE)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(causal_scores(q, k), dim=-1).to(q.dtype)
     return probs @ v
 
 
@@ -47,25 +52,23 @@ def select_attention_impl(
 ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
     """The prefill attention for ``[B, T, H, D]`` q/k/v on ``device``.
 
-    ``"auto"`` is the CUDA flash kernel for CUDA tensors (at every prefill
-    width) and the dense plain version for CPU tensors; ``"kernel"`` is the
-    flash kernel and refuses the CPU; ``"plain"`` is the dense version on
-    any device."""
+    ``"auto"`` is the flash wrapper, which launches the CUDA kernel on CUDA
+    tensors (at every prefill width) and runs the dense plain version on
+    CPU tensors; ``"kernel"`` is the same wrapper but refuses the CPU;
+    ``"plain"`` is the dense version on any device."""
     from gpt_2_distributed_torch.ops.flash_attention import (
         flash_attention_bthd,
     )
 
     if impl == "plain":
         return causal_attention_bthd
-    if impl == "kernel":
-        if device.type != "cuda":
-            raise ValueError(
-                "attn_impl='kernel' needs CUDA tensors: the flash kernel has "
-                "no CPU build (use 'auto' or 'plain' on the CPU)"
-            )
+    if impl == "kernel" and device.type != "cuda":
+        raise ValueError(
+            "attn_impl='kernel' needs CUDA tensors: the flash kernel has "
+            "no CPU build (use 'auto' or 'plain' on the CPU)"
+        )
+    if impl in ("auto", "kernel"):
         return flash_attention_bthd
-    if impl == "auto":
-        return flash_attention_bthd if device.type == "cuda" else causal_attention_bthd
     raise ValueError(
         f"unknown attention impl {impl!r}; expected auto|kernel|plain"
     )

@@ -3,9 +3,10 @@ its plain PyTorch version, and their wrapper.
 
 Counterpart of ``gpt_2_distributed_tpu/ops/flash_attention.py`` (the
 forward of its Pallas kernel, without dropout). The kernel runs on CUDA
-tensors only; a CPU tensor goes to :func:`flash_attention_plain`, and a
-CUDA tensor launches the kernel or raises — there is no fallback from a
-failed build or launch to the plain version.
+tensors only; a CPU tensor goes to the plain version, and a CUDA tensor
+launches the kernel or raises — there is no fallback from a failed build
+or launch to the plain version. The plain version is the dense prefill
+attention of ``ops/attention.py`` (its ``o`` bit for bit), plus the lse.
 
 ``flash_attention_fwd.launches`` counts kernel launches (never plain
 calls), so a run can show that its main path went through the kernel.
@@ -14,11 +15,11 @@ calls), so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from gpt_2_distributed_torch.kernels import build
+from gpt_2_distributed_torch.ops.attention import causal_attention_bthd, causal_scores
 
 LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -37,18 +38,18 @@ _SIGNATURES = {
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dense masked causal attention in fp32 over ``[B, H, T, D]``.
+    """Dense causal attention over ``[B, H, T, D]``: fp32 scores and
+    softmax, probabilities cast to q's dtype before the product with V
+    (``ops/attention.py::causal_attention``, bit for bit).
 
     Returns ``(o, lse)``: ``o`` in q's dtype and ``lse`` the fp32 base-2
     log-sum-exp of each row's scaled scores, ``[B, H, T]`` — the same pair
-    the kernel writes."""
-    t, d = q.shape[2], q.shape[3]
-    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
-    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-    scores = scores.masked_fill(~causal, float("-inf"))
+    the kernel writes. fp32 inputs give the fp32 reference the kernel is
+    held against."""
+    scores = causal_scores(q, k)
     lse = torch.logsumexp(scores, dim=-1)
-    o = torch.softmax(scores, dim=-1) @ v.float()
-    return o.to(q.dtype), lse * LOG2E
+    o = torch.softmax(scores, dim=-1).to(q.dtype) @ v
+    return o, lse * LOG2E
 
 
 def _check_operand(name: str, x: torch.Tensor, shape) -> None:
@@ -105,12 +106,9 @@ def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor,
     """``[B, T, H, D]`` entry point (the model's layout); returns o only.
 
     The kernel reads and writes through strides, so the head-major views
-    cost no copy."""
+    cost no copy. CPU tensors use the dense plain version."""
     if not q.is_cuda:
-        o, _ = flash_attention_plain(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        )
-        return o.transpose(1, 2)
+        return causal_attention_bthd(q, k, v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_kernel(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                    o.transpose(1, 2))

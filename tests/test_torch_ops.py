@@ -96,12 +96,24 @@ def test_flash_wrapper_on_cpu_is_the_plain_version():
     o_p, lse_p = flash.flash_attention_plain(q, k, v)
     assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
     assert flash.flash_attention_fwd.launches == before   # no kernel ran
+    # One plain formulation for prefill: the flash plain version's o is the
+    # dense attention's, bit for bit, in bf16 too.
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    assert torch.equal(flash.flash_attention_plain(qb, kb, vb)[0],
+                       attention.causal_attention(qb, kb, vb))
 
 
 def test_select_attention_impl_dispatch():
     cpu = torch.device("cpu")
-    assert attention.select_attention_impl("auto", cpu) is attention.causal_attention_bthd
+    # The device choice is the wrapper's: "auto" hands over the flash
+    # wrapper, which runs the dense plain version on CPU tensors.
+    assert attention.select_attention_impl("auto", cpu) is flash.flash_attention_bthd
     assert attention.select_attention_impl("plain", cpu) is attention.causal_attention_bthd
+    q, k, v = (x.transpose(1, 2) for x in map(_t, _qkv(1, 2, 24, 16, seed=3)))
+    before = flash.flash_attention_fwd.launches
+    assert torch.equal(attention.select_attention_impl("auto", cpu)(q, k, v),
+                       attention.causal_attention_bthd(q, k, v))
+    assert flash.flash_attention_fwd.launches == before
     with pytest.raises(ValueError, match="needs CUDA"):
         attention.select_attention_impl("kernel", cpu)
     with pytest.raises(ValueError, match="unknown attention impl"):

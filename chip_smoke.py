@@ -6,15 +6,21 @@ In order, and failing (nonzero exit, no result line) at the first check
 that does not hold:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions, and builds every kernel of the serving path from
-   ``gpt_2_distributed_torch/csrc`` with one ``nvcc`` per source, in
-   parallel;
+   CUDA versions, and builds every kernel of the serving and training
+   paths from ``gpt_2_distributed_torch/csrc`` with one ``nvcc`` per
+   source, in parallel;
 2. K1, the flash-attention forward: the kernel against its plain version
    at [1, 12, T, 64] bf16 for T in 1024, 512, 208, 16 (208 and 16 ragged),
    element by element, plus a planted fault (one key tile swapped) that
    the check must reject; then times the kernel, the plain version and
    PyTorch's ``scaled_dot_product_attention`` (the yardstick; the port
    never calls it) with CUDA events, each launch on a flushed L2;
+   then, at the training shape [4, 12, 1024, 64], K1 with dropout 0.1
+   against its plain version with the same seed (planted fault: seed + 1)
+   and K2, the flash backward, at dropout 0 and 0.1: dq, dk, dv against the
+   plain backward in fp32 on the same lse and delta, two launches
+   bit-identical, a planted fault (one key tile of v swapped), times beside
+   SDPA's forward and backward;
 3. K3, paged decode: the kernel against its plain version at the serving
    pool shape (8 sequences, 12 heads, D 64, 513 blocks of 16) with mixed
    lengths including an idle slot, shuffled block placement, then all
@@ -29,12 +35,20 @@ that does not hold:
    prints how many greedy streams equal ``generate_cached(batch=1)``'s;
    then holds one prefill and one decode step of the kernel path against
    the plain path on the same pool state (fp32 logits);
-5. prints the ``kernels`` JSON line, then the device line last.
+5. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
+   kernel path (K1/K2) and the plain path (dense attention), same params,
+   batch and seeds: the loss and every grad;
+6. trains: ``train.main()`` on synthetic shards at 124M full width, seq
+   1024, batch 4, accum 4, dropout 0.1, 16 steps and one eval of 4
+   batches; checks finite losses, a first loss near ln 50257, a falling
+   loss, no skipped step, and K1 = 12 x (micro-batches + eval batches), K2
+   = 12 x micro-batches launches; prints ms/step, tok/s and MFU;
+7. prints the ``kernels`` JSON line, then the device line last.
 
-``--profile`` adds, after step 4, a ``torch.profiler`` window over one
-admission step (a 960-token prefill and one decode step) and over 8 decode
-steps at batch 8, and
-prints each window's wall time, device-busy time and its top kernels.
+``--profile`` adds ``torch.profiler`` windows over one serving admission
+step (a 960-token prefill and one decode step), 8 decode steps at batch 8
+and one 124M optimizer step, and prints each window's wall time,
+device-busy time and its top kernels.
 
 Every time here is measured on the card in this run; every bound is
 computed from this run's shapes and the H100 SXM peaks (3.35 TB/s,
@@ -68,6 +82,21 @@ LSE_TOL = 1e-4
 # Whole-model logits (std ~0.55 at this init) after 12 bf16 layers whose
 # attention differs by the roundings above.
 LOGITS_TOL = 0.1
+# K2's dq, dk and dv are held to the same per-element bound as o: the
+# kernel computes in fp32 and rounds each grad to bf16 once; the plain
+# backward runs in fp32 on the same bf16 values, the same lse and delta.
+
+# Whole 124M model, one micro-batch, kernel path against plain path: the
+# plain path rounds the attention probabilities to bf16 before the product
+# with V and takes bf16 matmul outputs in its backward, where the kernels
+# keep fp32; those roundings (~2^-9 relative) move the loss (~10.8) by
+# ~1e-3 and each grad tensor by ~1e-2 of its norm through 12 layers.
+MODEL_LOSS_TOL = 0.02
+MODEL_GRAD_TOL = 0.05
+
+TRAIN_SHAPE = (4, 12, 1024, 64)   # [B, H, T, D] of 124M at batch 4, seq 1024
+DROPOUT = 0.1
+ATTN_SEED = 0x5EED1234
 
 
 def fail(msg: str) -> None:
@@ -110,15 +139,14 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_flash(flush) -> dict:
+def phase_flash(flush) -> None:
+    """K1 without dropout at the serving path's prefill shapes."""
     from gpt_2_distributed_torch.ops.flash_attention import (
         flash_attention_fwd,
         flash_attention_plain,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = 0.0
-    row = None
     for t in (1024, 512, 208, 16):
         q, k, v = (torch.randn(1, 12, t, 64, generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(3))
@@ -131,7 +159,6 @@ def phase_flash(flush) -> dict:
               f"max|lse - plain| {err_lse:.3e} (tol {LSE_TOL:.0e})", flush=True)
         if not (ratio <= 1.0 and err_lse <= LSE_TOL):
             fail(f"K1 disagrees with its plain version at T={t}")
-        max_err = max(max_err, err_o)
         if t == 1024:
             # Planted fault: key tile 5 replaced by tile 6, as a kernel that
             # loaded the wrong tile would see it. The check must reject it.
@@ -151,11 +178,104 @@ def phase_flash(flush) -> dict:
         b_ms, b_by = bound_ms(nbytes, flops)
         print(f"K1 T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
-        if row is None:   # the T = 1024 shape goes into the kernels line
-            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by)
-    row["max_abs_err"] = max_err
-    return row
+
+
+def sdpa_bwd(q, k, v, do, rate):
+    """PyTorch's fused attention backward on the same inputs (the yardstick
+    ``library_ms`` of K2; the port never calls it): the forward runs once
+    outside the timed region, each timed call is one backward."""
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, dropout_p=rate, is_causal=True)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+
+
+def phase_flash_train(flush) -> tuple[dict, dict]:
+    """K1 with dropout and K2 at the training shape [4, 12, 1024, 64]."""
+    from gpt_2_distributed_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_plain,
+    )
+
+    b, h, t, d = TRAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    seed = ATTN_SEED
+    causal = 2 * b * h * d * t * (t + 1) / 2    # one causal [T, T] x [T, D] product
+
+    # K1 with dropout, against its plain version in fp32 with the same seed.
+    o, lse = flash_attention_fwd(q, k, v, DROPOUT, seed)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_plain(q.float(), k.float(), v.float(), DROPOUT, seed)
+    err_o, ratio = held(o, o_ref)
+    err_lse = (lse - lse_ref).abs().max().item()
+    print(f"K1 dropout {DROPOUT} {list(TRAIN_SHAPE)}: max|o - plain| {err_o:.3e}, "
+          f"max err/tol {ratio:.3f}, max|lse - plain| {err_lse:.3e}", flush=True)
+    if not (ratio <= 1.0 and err_lse <= LSE_TOL):
+        fail("K1 with dropout disagrees with its plain version")
+    # Planted fault: the next seed draws another mask.
+    _, ratio_bad = held(flash_attention_fwd(q, k, v, DROPOUT, seed + 1)[0], o_ref)
+    print(f"K1 dropout planted fault (seed + 1): max err/tol {ratio_bad:.1f}", flush=True)
+    if ratio_bad <= 1.0:
+        fail("the K1 dropout check lets a planted fault through")
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, DROPOUT, seed), flush)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, DROPOUT, seed), flush)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, dropout_p=DROPOUT, is_causal=True), flush)
+    b_ms, b_by = bound_ms(4 * q.numel() * 2 + lse.numel() * 4, 2 * causal)
+    print(f"K1 dropout: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+    k1_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                  bound_by=b_by, max_abs_err=err_o)
+
+    # K2 at dropout 0 and 0.1: both sides take K1's lse and the same delta.
+    max_err = 0.0
+    for rate in (0.0, DROPOUT):
+        o, lse = flash_attention_fwd(q, k, v, rate, seed)
+        delta = (do.float() * o.float()).sum(-1)
+        grads = flash_attention_bwd(q, k, v, do, lse, delta, rate, seed)
+        again = flash_attention_bwd(q, k, v, do, lse, delta, rate, seed)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, a) for g, a in zip(grads, again))
+        refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                         lse, delta, rate, seed)
+        checks = [held(g, r) for g, r in zip(grads, refs)]
+        print(f"K2 dropout {rate}: max|d - plain| dq {checks[0][0]:.3e} dk "
+              f"{checks[1][0]:.3e} dv {checks[2][0]:.3e}; max err/tol "
+              f"{max(c[1] for c in checks):.3f}; two launches bit-identical: {same}",
+              flush=True)
+        if not (same and all(c[1] <= 1.0 for c in checks)):
+            fail(f"K2 at dropout {rate} disagrees with its plain version or "
+                 f"with itself")
+        max_err = max([max_err] + [c[0] for c in checks])
+        # Planted fault: v's key tile 5 replaced by tile 6 (dq and dk see it
+        # through do . v^T).
+        v_bad = v.clone()
+        v_bad[:, :, 320:384] = v[:, :, 384:448]
+        bad = flash_attention_bwd(q, k, v_bad, do, lse, delta, rate, seed)
+        ratio_bad = max(held(g, r)[1] for g, r in zip(bad, refs))
+        print(f"K2 dropout {rate} planted fault (one v tile swapped): max "
+              f"err/tol {ratio_bad:.1f}", flush=True)
+        if ratio_bad <= 1.0:
+            fail("the K2 check lets a planted fault through")
+        ms = time_ms(lambda: flash_attention_bwd(q, k, v, do, lse, delta, rate, seed),
+                     flush)
+        plain_ms = time_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, do, lse, delta, rate, seed), flush)
+        lib_ms = time_ms(sdpa_bwd(q, k, v, do, rate), flush)
+        # Reads q, k, v, do (bf16), lse, delta (fp32); writes dq, dk, dv;
+        # five causal products (s, do v^T, dq, dk, dv).
+        b_ms, b_by = bound_ms(7 * q.numel() * 2 + 2 * lse.numel() * 4, 5 * causal)
+        print(f"K2 dropout {rate}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa backward {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
+              flush=True)
+        k2_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                      bound_by=b_by)   # the dropout-0.1 case goes into the line
+    k2_row["max_abs_err"] = max_err
+    return k1_row, k2_row
 
 
 def paged_case(lengths, gen, n=513, h=12, bs=16, d=64):
@@ -362,6 +482,118 @@ def phase_serving(profile_steps: bool) -> tuple[int, int]:
     return k1, k3
 
 
+def phase_model_paths() -> None:
+    """One 124M training micro-batch, dropout 0.1, through the kernel path
+    (K1/K2) and the plain path (dense attention) with the same params,
+    batch and seeds: loss and every grad."""
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+    from gpt_2_distributed_torch.models import gpt2
+    from gpt_2_distributed_torch.parallel.train_step import param_list, trainable_params
+
+    config = MODEL_PRESETS["124M"]
+    params = trainable_params(gpt2.init_params(config, seed=0), torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(0, config.vocab_size, (4, 1024), generator=gen, device="cuda")
+    y = torch.randint(0, config.vocab_size, (4, 1024), generator=gen, device="cuda")
+    out = {}
+    for impl in ("flash", "dense"):
+        _, loss = gpt2.forward(params, config.replace(attention_impl=impl), x, y,
+                               rng=(42, 0, 0), deterministic=False)
+        grads = torch.autograd.grad(loss, param_list(params))
+        out[impl] = (loss.item(), grads)
+    (loss_k, g_k), (loss_p, g_p) = out["flash"], out["dense"]
+    rel = [((a - b).norm() / b.norm()).item() for a, b in zip(g_k, g_p)]
+    finite = math.isfinite(loss_k) and all(torch.isfinite(g).all() for g in g_k)
+    print(f"model 124M, one micro-batch [4, 1024], dropout {DROPOUT}: loss kernel "
+          f"path {loss_k:.5f}, plain path {loss_p:.5f} (|diff| "
+          f"{abs(loss_k - loss_p):.2e}, tol {MODEL_LOSS_TOL}); grads: max relative "
+          f"L2 difference {max(rel):.3e} over {len(rel)} tensors (tol "
+          f"{MODEL_GRAD_TOL}), median {sorted(rel)[len(rel) // 2]:.3e}", flush=True)
+    if not (finite and abs(loss_k - loss_p) <= MODEL_LOSS_TOL
+            and max(rel) <= MODEL_GRAD_TOL):
+        fail("the kernel path's loss or grads disagree with the plain path")
+
+
+def phase_training(profile: bool) -> tuple[int, int]:
+    """``train.main()`` at 124M on synthetic shards; returns the K1 and K2
+    launches of the run."""
+    import tempfile
+
+    from gpt_2_distributed_torch import train
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+    from gpt_2_distributed_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from gpt_2_distributed_torch.utils import flops
+
+    steps, accum, eval_batches = 16, 4, 4
+    with tempfile.TemporaryDirectory() as data_dir:
+        write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
+        flash_attention_fwd.launches = 0
+        flash_attention_bwd.launches = 0
+        t0 = time.monotonic()
+        tracker = train.main([
+            "--data_dir", data_dir, "--model", "124M", "--seq_len", "1024",
+            "--batch", "4", "--grad_accum_steps", str(accum), "--dropout",
+            str(DROPOUT), "--lr", "6e-4", "--max_steps", str(steps), "--eval_every",
+            str(steps), "--eval_batches", str(eval_batches), "--cli_every", "1",
+        ])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        k1, k2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    losses = list(tracker.buffers["loss"])
+    tok_s = sorted(tracker.buffers["tokens_per_second"])
+    tok_s = tok_s[len(tok_s) // 2]    # median step; the first carries warm-up
+    ms_step = tracker.tokens_per_step / tok_s * 1e3
+    mfu = flops.mfu(tok_s, MODEL_PRESETS["124M"], 1024, BF16_FLOPS_PER_S)
+    eval_loss = tracker.buffers["eval_loss"][-1]
+    skipped = tracker.buffers.get("skipped_steps", [0])[-1]
+    print(f"training 124M: {steps} steps of {tracker.tokens_per_step} tokens in "
+          f"{wall:.1f} s (set-up included); median {ms_step:.1f} ms/step, "
+          f"{tok_s:,.0f} tok/s, MFU {100 * mfu:.2f}% of {BF16_FLOPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s; first loss {losses[0]:.4f}, last 5 mean "
+          f"{sum(losses[-5:]) / 5:.4f}, eval loss {eval_loss:.4f}, skipped "
+          f"{skipped:.0f}; launches K1 {k1}, K2 {k2}", flush=True)
+    micro = steps * accum
+    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+            and math.isfinite(eval_loss)):
+        fail("training produced a missing or non-finite loss")
+    if abs(losses[0] - math.log(50257)) > 0.3:
+        fail(f"first loss {losses[0]:.4f} is not near ln(50257) = 10.82")
+    if not sum(losses[-5:]) / 5 < losses[0]:
+        fail("the training loss did not fall")
+    if skipped:
+        fail(f"{skipped} steps were skipped by the guard")
+    if not (k1 == 12 * (micro + eval_batches) and k2 == 12 * micro):
+        fail(f"launch counts K1 {k1} / K2 {k2} != 12 x {micro + eval_batches} / "
+             f"12 x {micro}")
+    if profile:
+        profile_train_step()
+    return k1, k2
+
+
+def profile_train_step() -> None:
+    """A torch.profiler window over one optimizer step (4 micro-batches of
+    [4, 1024]) of the 124M train step, after one warm-up step."""
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+    from gpt_2_distributed_torch.models import gpt2
+    from gpt_2_distributed_torch.parallel import train_step as ts
+    from gpt_2_distributed_torch.resilience import init_guard_state
+
+    config = MODEL_PRESETS["124M"]
+    params = ts.trainable_params(gpt2.init_params(config, seed=0), torch.device("cuda"))
+    step = ts.make_train_step(config, ts.make_optimizer(params, 1e-4), guard=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randint(0, config.vocab_size, (4, 4, 1024), generator=gen, device="cuda")
+    y = torch.randint(0, config.vocab_size, (4, 4, 1024), generator=gen, device="cuda")
+    ones = torch.ones(4, device="cuda")
+    guard = step(params, init_guard_state(), x, y, 42, 0, ones)[0]
+    profile_window("training step 124M (4 x [4, 1024])",
+                   lambda: (step(params, guard, x, y, 42, 1, ones), 1)[1])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -382,24 +614,34 @@ def main() -> None:
     from gpt_2_distributed_torch.kernels import build
 
     t0 = time.monotonic()
-    reports = build.build(["flash_fwd", "paged_decode"])
+    reports = build.build(["flash_fwd", "flash_bwd", "paged_decode"])
     print(f"kernels built in {time.monotonic() - t0:.1f} s", flush=True)
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    profile = "--profile" in sys.argv[1:]
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
-    k1_row = phase_flash(flush)
+    phase_flash(flush)
+    k1_row, k2_row = phase_flash_train(flush)
     k3_row = phase_paged(flush)
     del flush
-    k1, k3 = phase_serving("--profile" in sys.argv[1:])
+    k1_serve, k3 = phase_serving(profile)
+    phase_model_paths()
+    k1_train, k2 = phase_training(profile)
+    print(f"launches on the main paths: K1 {k1_serve} serving + {k1_train} "
+          f"training, K2 {k2} training, K3 {k3} serving", flush=True)
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
-             launches=k1, **k1_row),
+             launches=k1_serve + k1_train, **k1_row),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
+             replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",
+             launches=k2, **k2_row),
         dict(name="paged_attention_kernel", route="cuda",
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",

@@ -1,17 +1,15 @@
-"""Model and serving configuration for the PyTorch/CUDA port.
+"""Model, training and serving configuration for the PyTorch/CUDA port.
 
 The port keeps its own copy of the JAX package's configuration surface
 (``gpt_2_distributed_tpu/config.py``) rather than importing it: the field
 names, defaults, validation messages and presets are the same, so a reader
 can move between the two packages, but nothing here depends on JAX.
 
-Only what the serving path of this slice reads is carried over. The
-training fields (dropout rates, ``remat``, ``scan_layers``, the
-fused-kernel switches, the blocked-loss knobs) come with the training
-slice of the port. The ``ServeConfig`` options whose engine code is
-not ported yet are still fields — so a caller moving from the JAX engine
-sees them — but a non-default value is refused at construction instead of
-being ignored.
+Fields whose code paths are not ported yet are still fields — so a caller
+moving from the JAX package sees them — but a non-default value is refused
+at construction instead of being ignored: ``GPT2Config.remat``,
+``fused_layers``, ``fused_matmul`` and ``attention_impl="ring"``, and the
+``ServeConfig`` scheduler options named in its docstring.
 """
 
 from __future__ import annotations
@@ -19,28 +17,106 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+# Row-chunk default for the blocked cross-entropy (``ops/losses.py``).
+DEFAULT_BLOCK_ROWS = 1024
+
+
+def _later_slice(owner: str, field: str, value) -> ValueError:
+    return ValueError(
+        f"{owner}.{field}={value!r} is not ported to PyTorch yet: it comes "
+        f"in a later slice of the port"
+    )
+
 
 @dataclass(frozen=True)
 class GPT2Config:
-    """Architecture hyperparameters for a GPT-2 style decoder-only LM.
+    """Architecture and training hyperparameters for a GPT-2 style
+    decoder-only LM.
 
     Defaults are GPT-2 124M (vocab 50257, 1024 positions, width 768, 12
-    layers, 12 heads, LN eps 1e-5, init std 0.02). The dropout rates join
-    with the training slice: serving runs in eval mode."""
+    layers, 12 heads, 0.1 dropouts, LN eps 1e-5, init std 0.02).
+
+    Training fields, with the JAX package's meanings:
+
+    * ``embd_dropout`` / ``attn_dropout`` / ``resid_dropout`` — dropout on
+      the embedding sum, on the attention probabilities (inside the flash
+      kernel), and on the attention out-projection, the MLP activation and
+      the MLP out-projection.
+    * ``attention_impl`` — "flash" (the flash autograd function: the CUDA
+      kernels K1/K2 for CUDA tensors, their plain versions on the CPU),
+      "dense" (plain PyTorch dense attention on any device), "auto" (the
+      same as "flash"; the JAX package's "auto" picks dense off the TPU,
+      while the port's flash wrapper already runs its plain version on
+      the CPU). "ring" needs sequence parallelism: a later slice.
+    * ``loss_impl`` — "blocked" (the logit-free chunked cross-entropy,
+      ``ops/losses.py``) or "dense" (full fp32 logits).
+    * ``loss_block_rows`` — row-chunk size of the blocked cross-entropy.
+    * ``scan_layers`` — has no PyTorch counterpart: the JAX package chooses
+      between a ``lax.scan`` over stacked layer params and an unrolled
+      loop, while eager PyTorch loops over the per-layer dictionaries either
+      way. Both values are accepted and run the same code.
+    * ``remat``, ``fused_layers``, ``fused_matmul`` — activation
+      checkpointing and the fused Pallas epilogue/matmul kernels; only
+      their defaults (off) are ported.
+    """
 
     vocab_size: int = 50257
     n_positions: int = 1024
     n_embd: int = 768
     n_layer: int = 12
     n_head: int = 12
+    embd_dropout: float = 0.1
+    attn_dropout: float = 0.1
+    resid_dropout: float = 0.1
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
+    remat: bool | str = False
+    scan_layers: bool = True
+    attention_impl: str = "auto"
+    loss_impl: str = "blocked"
+    fused_layers: str = "off"
+    fused_matmul: str = "off"
+    loss_block_rows: int = DEFAULT_BLOCK_ROWS
 
     def __post_init__(self) -> None:
         if self.n_embd % self.n_head != 0:
             raise ValueError(
                 f"n_embd={self.n_embd} must be divisible by n_head={self.n_head}"
             )
+        if self.attention_impl not in ("auto", "dense", "flash", "ring"):
+            raise ValueError(
+                f"attention_impl={self.attention_impl!r}: expected "
+                "'auto', 'dense', 'flash' or 'ring'"
+            )
+        if self.fused_layers not in ("off", "ln", "gelu", "all"):
+            raise ValueError(
+                f"fused_layers={self.fused_layers!r}: expected "
+                "'off', 'ln', 'gelu' or 'all'"
+            )
+        if self.fused_matmul not in ("off", "mlp", "proj", "all"):
+            raise ValueError(
+                f"fused_matmul={self.fused_matmul!r}: expected "
+                "'off', 'mlp', 'proj' or 'all'"
+            )
+        if self.loss_impl not in ("blocked", "dense"):
+            raise ValueError(
+                f"loss_impl={self.loss_impl!r}: expected 'blocked' or 'dense'"
+            )
+        if self.loss_block_rows < 1:
+            raise ValueError(
+                f"loss_block_rows={self.loss_block_rows} must be >= 1"
+            )
+        if self.remat not in (False, True, "block", "mlp", "attn", "dots"):
+            raise ValueError(
+                f"remat={self.remat!r}: expected False, True, 'block', "
+                f"'mlp', 'attn' or 'dots'"
+            )
+        for field, default in (("remat", False), ("fused_layers", "off"),
+                               ("fused_matmul", "off")):
+            if getattr(self, field) != default:
+                raise _later_slice("GPT2Config", field, getattr(self, field))
+        if self.attention_impl == "ring":
+            raise _later_slice("GPT2Config", "attention_impl", "ring")
 
     @property
     def head_dim(self) -> int:
@@ -49,15 +125,18 @@ class GPT2Config:
     def replace(self, **kwargs) -> "GPT2Config":
         return dataclasses.replace(self, **kwargs)
 
+    def num_params(self, include_embeddings: bool = True) -> int:
+        """Exact parameter count (lm_head is tied to wte, so it adds nothing)."""
+        c, l, v, p = self.n_embd, self.n_layer, self.vocab_size, self.n_positions
+        per_block = (2 * (2 * c) + c * 3 * c + 3 * c + c * c + c
+                     + c * 4 * c + 4 * c + 4 * c * c + c)
+        n = l * per_block + 2 * c
+        if include_embeddings:
+            n += v * c + p * c
+        return n
+
 
 ATTN_IMPLS = ("auto", "kernel", "plain")
-
-
-def _later_slice(field: str, value) -> ValueError:
-    return ValueError(
-        f"ServeConfig.{field}={value!r} is not ported to the PyTorch engine "
-        f"yet: it comes in a later slice of the port"
-    )
 
 
 @dataclass(frozen=True)
@@ -125,7 +204,7 @@ class ServeConfig:
                                ("spec", "")):
             value = getattr(self, field)
             if value != default:
-                raise _later_slice(field, value)
+                raise _later_slice("ServeConfig", field, value)
 
     def max_blocks_per_seq(self, n_positions: int) -> int:
         """Static block-table width: enough blocks for a full-context

@@ -1,15 +1,19 @@
 // Causal flash-attention forward for Hopper (sm_90a), bf16 in and out.
 //
 // Replaces: gpt_2_distributed_tpu/ops/flash_attention.py::_fwd_kernel
-// (the Pallas TPU kernel built in _build._raw_fwd), forward only and
-// without dropout: serving is deterministic; the backward and the
-// in-kernel dropout come with the training slice.
+// (the Pallas TPU kernel built in _build._raw_fwd), with its in-kernel
+// dropout. The backward is csrc/flash_bwd.cu (K2).
 //
 // Computes, for every (b, h) and every query row t < T,
-//   o[t]   = softmax_j<=t(q[t] . k[j] / sqrt(D)) @ v
-//   lse[t] = log2(sum_j<=t exp2(q[t] . k[j] * log2(e) / sqrt(D)))
-// with the scale folded into q in base 2, as the TPU kernel does, so a
-// later backward kernel can rebuild the probabilities from lse.
+//   p[t, j] = softmax_j<=t(q[t] . k[j] / sqrt(D))
+//   o[t]    = sum_j keep[t, j] * p[t, j] / (1 - rate) * v[j]
+//   lse[t]  = log2(sum_j<=t exp2(q[t] . k[j] * log2(e) / sqrt(D)))
+// with the scale folded into q in base 2, as the TPU kernel does, so the
+// backward rebuilds the probabilities from lse. The row sum takes the
+// UNDROPPED p; keep[t, j] is dropout_hash_bits(seed, b, h, t, j) >=
+// threshold on absolute coordinates (gpt_2_distributed_torch/ops/spmd.py),
+// so the mask is the TPU kernel's bit for bit. Dropout is a template flag:
+// the no-dropout kernel that serving launches is the same code as before.
 //
 // What bounds it on the H100: at the serving shapes (T <= 1024, D = 64)
 // the inputs are a few MB, read in ~2 us at 3.35 TB/s, and the causal
@@ -39,11 +43,32 @@
 
 namespace {
 
+// dropout_hash_bits (gpt_2_distributed_torch/ops/spmd.py) in uint32, split
+// so the (b, h) part is formed once per block and the row and column parts
+// once per row and key. csrc/flash_bwd.cu carries the same four functions.
+__device__ __forceinline__ unsigned dropout_hash_bh(unsigned seed, unsigned b,
+                                                    unsigned h) {
+  return seed ^ (b * 0x9E3779B1u) ^ (h * 0x85EBCA77u);
+}
+__device__ __forceinline__ unsigned dropout_hash_row(unsigned row) {
+  return row * 0xC2B2AE3Du;
+}
+__device__ __forceinline__ unsigned dropout_hash_col(unsigned col) {
+  return col * 0x27D4EB2Fu;
+}
+__device__ __forceinline__ unsigned dropout_hash_finish(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
+
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per tile
 constexpr int NT = 256;  // threads: a 16 x 16 grid of 4x4 patches
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -51,7 +76,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     long long qsb, long long qsh, long long qst,
     long long ksb, long long ksh, long long kst,
     long long vsb, long long vsh, long long vst,
-    long long osb, long long osh, long long ost) {
+    long long osb, long long osh, long long ost,
+    unsigned seed, unsigned threshold, float keep) {
   constexpr int DP = D + 1;   // padded rows spread column reads over banks
   constexpr int PP = BK + 1;
   constexpr int DC = D / 16;  // accumulator columns per thread
@@ -69,6 +95,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int tx = tid % 16;
   const int q0 = qt * BQ;
   const float scale = 1.4426950408889634f * rsqrtf((float)D);
+  // Row part of the dropout hash, per owned row (the column part is
+  // formed per key below).
+  unsigned hrow[4];
+  if (DROP) {
+    const unsigned hbh = dropout_hash_bh(seed, b, h);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) hrow[r] = hbh ^ dropout_hash_row(q0 + ty * 4 + r);
+  }
 
   const __nv_bfloat16* qb = q + b * qsb + h * qsh;
   const __nv_bfloat16* kb = k + b * ksb + h * ksh;
@@ -140,8 +174,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float p = exp2f(s[r][c] - m_new);
+        float p = exp2f(s[r][c] - m_new);
         sum += p;
+        if (DROP) {
+          const unsigned bits = dropout_hash_finish(
+              hrow[r] ^ dropout_hash_col(k0 + tx * 4 + c));
+          p = bits >= threshold ? p / keep : 0.f;
+        }
         ps[(ty * 4 + r) * PP + tx * 4 + c] = p;
       }
 #pragma unroll
@@ -180,40 +219,55 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int T, const long long* st, cudaStream_t stream) {
+           int B, int H, int T, const long long* st, unsigned seed,
+           unsigned threshold, float keep, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<D, DROP><<<grid, NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), H, T,
       st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11]);
+      st[6], st[7], st[8], st[9], st[10], st[11], seed, threshold, keep);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int H, int T, const long long* st, unsigned seed,
+             unsigned threshold, float keep, cudaStream_t stream) {
+  return threshold ? launch<D, true>(q, k, v, o, lse, B, H, T, st, seed,
+                                     threshold, keep, stream)
+                   : launch<D, false>(q, k, v, o, lse, B, H, T, st, seed,
+                                      threshold, keep, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: bf16 [B, H, T, D] with element strides (b, h, t) given in
 // `strides` as 12 int64 (q, k, v, o in that order); the d stride is 1.
-// lse: fp32 [B, H, T], contiguous. Returns cudaGetLastError().
+// lse: fp32 [B, H, T], contiguous. Dropout keeps hash bits >= threshold
+// and divides the kept probabilities by `keep` (1 - rate); threshold 0
+// launches the kernel without dropout. Returns cudaGetLastError().
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int T, int D,
-                              const long long* strides, void* stream) {
+                              const long long* strides, unsigned seed,
+                              unsigned threshold, float keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, lse, B, H, T, strides, s);
-    case 64: return launch<64>(q, k, v, o, lse, B, H, T, strides, s);
-    case 128: return launch<128>(q, k, v, o, lse, B, H, T, strides, s);
+    case 32: return launch_d<32>(q, k, v, o, lse, B, H, T, strides, seed, threshold, keep, s);
+    case 64: return launch_d<64>(q, k, v, o, lse, B, H, T, strides, seed, threshold, keep, s);
+    case 128: return launch_d<128>(q, k, v, o, lse, B, H, T, strides, seed, threshold, keep, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,11 @@
 """GPT-2 as plain parameter dictionaries plus functions on tensors.
 
 Counterpart of ``gpt_2_distributed_tpu/models/gpt2.py`` (pre-LN GPT-2,
-learned positions, fused qkv, tanh GELU, tied lm_head), eval mode only: the
-serving path has no dropout. The training forward comes with the training
-slice.
+learned positions, fused qkv, tanh GELU, tied lm_head). The serving path
+(``models/decode.py``, ``serving/engine.py``) runs the block helpers in eval
+mode on a precast weight copy; the training forward (:func:`forward`,
+:func:`hidden_states`) casts the fp32 params per call, has every dropout
+site of the JAX model, and ends in the blocked cross-entropy.
 
 Two dictionaries of the same structure:
 
@@ -31,7 +33,19 @@ import torch
 
 from gpt_2_distributed_torch.config import GPT2Config
 from gpt_2_distributed_torch.ops.activations import gelu_tanh
-from gpt_2_distributed_torch.ops.layers import layer_norm
+from gpt_2_distributed_torch.ops.attention import select_attention_impl
+from gpt_2_distributed_torch.ops.layers import (
+    SITE_ATTN,
+    SITE_ATTN_RESID,
+    SITE_EMBD,
+    SITE_MLP_ACT,
+    SITE_MLP_RESID,
+    attention_seed,
+    dropout,
+    layer_norm,
+    site_key,
+)
+from gpt_2_distributed_torch.ops.losses import IGNORE_INDEX, blocked_cross_entropy
 
 INIT_SEED = 42
 
@@ -106,11 +120,16 @@ def attn_out(o: torch.Tensor, bp: dict) -> torch.Tensor:
     return o @ bp["attn_proj_w"] + bp["attn_proj_b"]
 
 
-def mlp_sublayer(config: GPT2Config, x: torch.Tensor, bp: dict) -> torch.Tensor:
-    """x + mlp(ln2(x)), eval mode."""
+def mlp_sublayer(config: GPT2Config, x: torch.Tensor, bp: dict,
+                 rate: float = 0.0, keys=(None, None)) -> torch.Tensor:
+    """x + dropout(proj(dropout(gelu(fc(ln2(x)))))): dropout after the
+    activation and after the projection, with ``keys`` the two sites' key
+    words; eval mode (no dropout) when ``rate`` is 0."""
     y = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], config.layer_norm_eps)
     y = gelu_tanh(y @ bp["mlp_fc_w"] + bp["mlp_fc_b"])
-    return x + (y @ bp["mlp_proj_w"] + bp["mlp_proj_b"])
+    y = dropout(y, rate, keys[0], rate == 0.0)
+    y = y @ bp["mlp_proj_w"] + bp["mlp_proj_b"]
+    return x + dropout(y, rate, keys[1], rate == 0.0)
 
 
 def final_norm(w: dict, config: GPT2Config, x: torch.Tensor) -> torch.Tensor:
@@ -120,3 +139,113 @@ def final_norm(w: dict, config: GPT2Config, x: torch.Tensor) -> torch.Tensor:
 def logits_fp32(w: dict, h: torch.Tensor) -> torch.Tensor:
     """Tied-head logits in fp32 from hidden states ``h`` [..., C]."""
     return h.float() @ w["head"].t()
+
+
+# --- training forward -------------------------------------------------------
+
+
+def _cast_block(bp: dict, dtype: torch.dtype) -> dict:
+    """One layer's fp32 params with the matmul weights and biases cast to
+    the compute dtype (differentiably: the grads land on the fp32 params);
+    LayerNorm parameters stay fp32."""
+    return {k: v if k in _FP32_KEYS else v.to(dtype) for k, v in bp.items()}
+
+
+def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
+           rng: tuple[int, int, int] | None, deterministic: bool) -> torch.Tensor:
+    """One pre-LN block, x + attn(ln1(x)); x + mlp(ln2(x)), with the JAX
+    model's dropout sites: attention probabilities (inside the attention),
+    attention out-projection, MLP activation, MLP out-projection."""
+    b, t, c = x.shape
+    train = not deterministic
+
+    def key(site):
+        return site_key(*rng, layer, site) if train else None
+
+    attn_rate = config.attn_dropout if train else 0.0
+    resid_rate = config.resid_dropout if train else 0.0
+    y = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], config.layer_norm_eps)
+    q, k, v = qkv_proj(config, y, bp)
+    attn_fn = select_attention_impl(config.attention_impl, x.device)
+    seed = attention_seed(key(SITE_ATTN)) if attn_rate > 0.0 else None
+    o = attn_fn(q, k, v, attn_rate, seed).reshape(b, t, c)
+    x = x + dropout(attn_out(o, bp), resid_rate, key(SITE_ATTN_RESID),
+                    resid_rate == 0.0)
+    return mlp_sublayer(config, x, bp, resid_rate,
+                        (key(SITE_MLP_ACT), key(SITE_MLP_RESID)))
+
+
+def hidden_states(
+    params: dict,
+    config: GPT2Config,
+    idx: torch.Tensor,  # [B, T] int token ids
+    *,
+    rng: tuple[int, int, int] | None = None,
+    deterministic: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Backbone forward from the fp32 ``params``: embeddings -> block stack
+    -> final LayerNorm; returns ``[B, T, C]`` in ``compute_dtype``.
+
+    ``rng`` is ``(run seed, optimizer step, micro-batch)``: every dropout
+    site's key words come from it and the site's (layer, site) through
+    :func:`ops.layers.site_key`, statelessly, so the same step redraws the
+    same masks. ``deterministic=False`` (training) needs it."""
+    b, t = idx.shape
+    if t > config.n_positions:
+        raise ValueError(
+            f"sequence length {t} exceeds n_positions {config.n_positions}"
+        )
+    if not deterministic and rng is None:
+        raise ValueError("training-mode forward (deterministic=False) needs rng")
+    w = {"wte": params["wte"].to(compute_dtype), "wpe": params["wpe"].to(compute_dtype)}
+    x = embed(w, config, idx, torch.arange(t, device=idx.device)[None])
+    if not deterministic:
+        x = dropout(x, config.embd_dropout, site_key(*rng, 0, SITE_EMBD), False)
+    for layer, bp in enumerate(params["blocks"]):
+        x = _block(config, x, _cast_block(bp, compute_dtype), layer, rng,
+                   deterministic)
+    return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"],
+                      config.layer_norm_eps)
+
+
+def forward(
+    params: dict,
+    config: GPT2Config,
+    idx: torch.Tensor,                   # [B, T] int token ids
+    labels: torch.Tensor | None = None,  # [B, T] next-token ids, -100 = ignore
+    *,
+    rng: tuple[int, int, int] | None = None,
+    deterministic: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    return_logits: bool = False,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """Forward pass from the fp32 ``params``; returns ``(logits [B, T, V]
+    fp32 | None, loss fp32 | None)``, as the JAX package's ``forward``.
+
+    With labels and no ``return_logits`` (the training path) the loss is the
+    blocked cross-entropy (``loss_impl="blocked"``) and no ``[B, T, V]``
+    logits are made; ``loss_impl="dense"`` takes the full fp32 logits."""
+    x = hidden_states(params, config, idx, rng=rng, deterministic=deterministic,
+                      compute_dtype=compute_dtype)
+    wte = params["wte"].to(compute_dtype)
+    if labels is not None and not return_logits and config.loss_impl == "blocked":
+        loss = blocked_cross_entropy(x.reshape(-1, config.n_embd), wte,
+                                     labels.reshape(-1), config.loss_block_rows)
+        return None, loss
+    # fp32 sums of the compute-dtype products (exact for bf16 operands).
+    logits = x.float() @ wte.float().t()
+    loss = cross_entropy(logits, labels) if labels is not None else None
+    if labels is not None and not return_logits:
+        return None, loss
+    return logits, loss
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Flat token-mean cross-entropy with ignore_index -100, in fp32."""
+    logits = logits.float()
+    valid = labels != IGNORE_INDEX
+    safe = torch.where(valid, labels, 0).clamp(0, logits.shape[-1] - 1).long()
+    ll = torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
+    ll = torch.where(valid, ll, 0.0)
+    return -(ll.sum() / valid.sum().clamp(min=1))

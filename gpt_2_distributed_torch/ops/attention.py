@@ -1,12 +1,18 @@
-"""Dense causal attention and the prefill attention dispatch
+"""Dense causal attention and the attention dispatch
 (``gpt_2_distributed_tpu/ops/attention.py``).
 
-The dense version is the plain PyTorch path for prefill: scores from the
-compute-dtype operands accumulated in fp32 (bf16 x bf16 products are exact
-in fp32, so upcasting before the product reproduces JAX's
-``preferred_element_type=float32``), causal positions filled with the
-reference's -1e4, an fp32 softmax, and the probabilities cast back to the
-compute dtype before the product with V.
+The dense version is the plain PyTorch path for prefill and training:
+scores from the compute-dtype operands accumulated in fp32 (bf16 x bf16
+products are exact in fp32, so upcasting before the product reproduces
+JAX's ``preferred_element_type=float32``), causal positions filled with the
+reference's -1e4, an fp32 softmax, dropout on the probabilities, and the
+probabilities cast back to the compute dtype before the product with V.
+
+Dropout here draws its mask from the flash kernels' stream
+(``ops/spmd.py::dropout_hash_bits`` with an int32 seed) instead of the JAX
+dense path's ``jax.random.bernoulli``: the JAX package declares mask streams
+implementation-specific, and one stream lets the plain path stand in for
+the kernel path with the same masks.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import math
 from typing import Callable
 
 import torch
+
+from gpt_2_distributed_torch.ops.spmd import causal_dropout_keep
 
 MASK_VALUE = -1e4
 
@@ -28,47 +36,74 @@ def causal_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return scores.masked_fill(~causal, MASK_VALUE)
 
 
+def dropout_probs(probs: torch.Tensor, dropout_rate: float,
+                  seed: int | None) -> torch.Tensor:
+    """Attention dropout on probabilities ``[B, H, T, T]``: keep
+    ``dropout_hash_bits(seed, b, h, row, col) >= uint32(rate * 2^32)`` and
+    divide the kept ones by the keep probability, as the flash kernels do."""
+    if dropout_rate <= 0.0:
+        return probs
+    if seed is None:
+        raise ValueError("attention dropout requires a seed")
+    b, h, t, _ = probs.shape
+    keep = causal_dropout_keep(seed, dropout_rate, b, h, t, probs.device)
+    return torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
+
+
 def causal_attention(
     q: torch.Tensor,  # [B, H, T, D]
     k: torch.Tensor,
     v: torch.Tensor,
+    dropout_rate: float = 0.0,
+    seed: int | None = None,
 ) -> torch.Tensor:
-    """Dense causal attention. Returns [B, H, T, D] in q's dtype."""
-    probs = torch.softmax(causal_scores(q, k), dim=-1).to(q.dtype)
-    return probs @ v
+    """Dense causal attention with dropout on the probabilities
+    (:func:`dropout_probs`). Returns [B, H, T, D] in q's dtype."""
+    probs = dropout_probs(torch.softmax(causal_scores(q, k), dim=-1), dropout_rate, seed)
+    return probs.to(q.dtype) @ v
 
 
 def causal_attention_bthd(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
+                          v: torch.Tensor, dropout_rate: float = 0.0,
+                          seed: int | None = None) -> torch.Tensor:
     """Dense causal attention over the model's [B, T, H, D] layout."""
     out = causal_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        dropout_rate, seed,
     )
     return out.transpose(1, 2)
 
 
-def select_attention_impl(
-    impl: str, device: torch.device
-) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
-    """The prefill attention for ``[B, T, H, D]`` q/k/v on ``device``.
+def select_attention_impl(impl: str, device: torch.device) -> Callable[..., torch.Tensor]:
+    """The attention for ``[B, T, H, D]`` q/k/v on ``device``; the callable
+    takes ``(q, k, v, dropout_rate=0.0, seed=None)``.
 
-    ``"auto"`` is the flash wrapper, which launches the CUDA kernel on CUDA
-    tensors (at every prefill width) and runs the dense plain version on
-    CPU tensors; ``"kernel"`` is the same wrapper but refuses the CPU;
-    ``"plain"`` is the dense version on any device."""
+    Serving names (``ServeConfig.attn_impl``): ``"auto"`` is the flash
+    wrapper, which launches the CUDA kernels on CUDA tensors (at every
+    width) and runs their plain versions on CPU tensors; ``"kernel"`` is
+    the same wrapper but refuses the CPU; ``"plain"`` is the dense version
+    on any device. Training names (``GPT2Config.attention_impl``):
+    ``"flash"`` is the flash wrapper, ``"dense"`` the dense version;
+    ``"ring"`` comes with sequence parallelism."""
     from gpt_2_distributed_torch.ops.flash_attention import (
         flash_attention_bthd,
     )
 
-    if impl == "plain":
+    if impl in ("plain", "dense"):
         return causal_attention_bthd
     if impl == "kernel" and device.type != "cuda":
         raise ValueError(
             "attn_impl='kernel' needs CUDA tensors: the flash kernel has "
             "no CPU build (use 'auto' or 'plain' on the CPU)"
         )
-    if impl in ("auto", "kernel"):
+    if impl in ("auto", "kernel", "flash"):
         return flash_attention_bthd
+    if impl == "ring":
+        raise ValueError(
+            "attention impl 'ring' is not ported to PyTorch yet: it comes "
+            "in a later slice of the port"
+        )
     raise ValueError(
-        f"unknown attention impl {impl!r}; expected auto|kernel|plain"
+        f"unknown attention impl {impl!r}; expected "
+        f"auto|kernel|plain|flash|dense"
     )

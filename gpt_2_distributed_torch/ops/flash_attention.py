@@ -1,83 +1,172 @@
-"""Causal flash-attention forward: the CUDA kernel ``csrc/flash_fwd.cu``,
-its plain PyTorch version, and their wrapper.
+"""Causal flash attention with in-kernel dropout: the CUDA kernels
+``csrc/flash_fwd.cu`` (K1) and ``csrc/flash_bwd.cu`` (K2), their plain
+PyTorch versions, and the autograd function over them.
 
-Counterpart of ``gpt_2_distributed_tpu/ops/flash_attention.py`` (the
-forward of its Pallas kernel, without dropout). The kernel runs on CUDA
+Counterpart of ``gpt_2_distributed_tpu/ops/flash_attention.py`` (its Pallas
+forward and backward kernels and their custom VJP). The kernels run on CUDA
 tensors only; a CPU tensor goes to the plain version, and a CUDA tensor
-launches the kernel or raises — there is no fallback from a failed build
-or launch to the plain version. The plain version is the dense prefill
-attention of ``ops/attention.py`` (its ``o`` bit for bit), plus the lse.
+launches the kernel or raises — there is no fallback from a failed build or
+launch to the plain version.
 
-``flash_attention_fwd.launches`` counts kernel launches (never plain
-calls), so a run can show that its main path went through the kernel.
+Semantics, as the JAX kernels: the forward keeps the base-2 log-sum-exp
+``lse`` of each row's UNDROPPED scaled scores; dropout keeps
+``dropout_hash_bits(seed, b, h, row, col) >= uint32(int(rate * 2^32))``
+(``ops/spmd.py``) on absolute coordinates and divides the kept
+probabilities by ``1 - rate``. The backward recomputes ``p = exp2(s - lse)``
+(the normalized, undropped probability) and the same mask, with
+``delta = rowsum(do * o)`` in fp32 taken in torch over the DROPPED output:
+``dpd = do v^T``, ``dp = keep * dpd / kp``, ``pd = keep * p / kp``,
+``ds = p (dp - delta)``, ``dq = ds k / sqrt(D)``, ``dk = ds^T q / sqrt(D)``,
+``dv = pd^T do``.
+
+``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches`` count
+kernel launches (never plain calls), so a run can show that its main path
+went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from gpt_2_distributed_torch.kernels import build
-from gpt_2_distributed_torch.ops.attention import causal_attention_bthd, causal_scores
+from gpt_2_distributed_torch.ops.attention import causal_scores, dropout_probs
+from gpt_2_distributed_torch.ops.spmd import causal_dropout_keep
 
 LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
+_DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]  # seed, threshold, keep
 _SIGNATURES = {
     "flash_fwd_bf16": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
         ctypes.c_void_p, ctypes.c_void_p,                    # o, lse
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H T D
         ctypes.c_void_p,                                     # int64 strides[12]
+        *_DROPOUT_ARGS,
+        ctypes.c_void_p,                                     # stream
+    ],
+}
+_BWD_SIGNATURES = {
+    "flash_bwd_bf16": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # do, lse, delta
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dq, dk, dv
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H T D
+        ctypes.c_void_p,                                     # int64 strides[21]
+        *_DROPOUT_ARGS,
         ctypes.c_void_p,                                     # stream
     ],
 }
 
 
+def _dropout_words(dropout_rate: float, seed: int | None) -> tuple[int, int, float]:
+    """(seed as uint32, keep threshold, keep probability) for the kernels;
+    threshold 0 keeps everything."""
+    if dropout_rate <= 0.0:
+        return 0, 0, 1.0
+    if seed is None:
+        raise ValueError("flash attention dropout requires a seed")
+    return seed & 0xFFFFFFFF, int(dropout_rate * (2 ** 32)), 1.0 - dropout_rate
+
+
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    dropout_rate: float = 0.0, seed: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense causal attention over ``[B, H, T, D]``: fp32 scores and
-    softmax, probabilities cast to q's dtype before the product with V
-    (``ops/attention.py::causal_attention``, bit for bit).
+    softmax, dropout on the probabilities, probabilities cast to q's dtype
+    before the product with V (``ops/attention.py::causal_attention``, bit
+    for bit).
 
     Returns ``(o, lse)``: ``o`` in q's dtype and ``lse`` the fp32 base-2
-    log-sum-exp of each row's scaled scores, ``[B, H, T]`` — the same pair
-    the kernel writes. fp32 inputs give the fp32 reference the kernel is
-    held against."""
+    log-sum-exp of each row's undropped scaled scores, ``[B, H, T]`` — the
+    same pair the kernel writes. fp32 inputs give the fp32 reference the
+    kernel is held against."""
     scores = causal_scores(q, k)
     lse = torch.logsumexp(scores, dim=-1)
-    o = torch.softmax(scores, dim=-1).to(q.dtype) @ v
+    probs = dropout_probs(torch.softmax(scores, dim=-1), dropout_rate, seed)
+    o = probs.to(q.dtype) @ v
     return o, lse * LOG2E
 
 
-def _check_operand(name: str, x: torch.Tensor, shape) -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"flash kernel: {name} must be bfloat16, got {x.dtype}")
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+    dropout_rate: float = 0.0, seed: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`flash_attention_plain` with the JAX kernel's
+    arithmetic (module docstring), in fp32 whatever the input dtype, as K2
+    computes it; returns ``(dq, dk, dv)`` in the inputs' dtypes.
+
+    ``lse`` is the forward's base-2 ``[B, H, T]`` and ``delta`` the fp32
+    ``rowsum(do * o)``. The scale ``log2(e)/sqrt(D)`` is folded into q, so
+    ``dk`` comes out ``log2(e)`` too large and is divided back, as in the
+    JAX kernel."""
+    b, h, t, d = q.shape
+    scale = LOG2E / math.sqrt(d)
+    qs = q.float() * scale
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    s = qs @ k.float().transpose(-1, -2)
+    p = torch.where(causal, torch.exp2(s - lse[..., None]), 0.0)
+    dpd = do.float() @ v.float().transpose(-1, -2)
+    if dropout_rate > 0.0:
+        if seed is None:
+            raise ValueError("flash attention dropout requires a seed")
+        keep = causal_dropout_keep(seed, dropout_rate, b, h, t, q.device)
+        kp = 1.0 - dropout_rate
+        pd = torch.where(keep, p / kp, 0.0)
+        dp = torch.where(keep, dpd / kp, 0.0)
+    else:
+        pd, dp = p, dpd
+    ds = p * (dp - delta[..., None])
+    dq = (ds @ k.float()) * (scale / LOG2E)
+    dk = (ds.transpose(-1, -2) @ qs) * (1.0 / LOG2E)
+    dv = pd.transpose(-1, -2) @ do.float()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_operand(name: str, x: torch.Tensor, shape, dtype=torch.bfloat16) -> None:
+    if x.dtype != dtype:
+        raise TypeError(f"flash kernel: {name} must be {str(dtype)[6:]}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"flash kernel: {name} shape {tuple(x.shape)} != {tuple(shape)}")
     if x.stride(-1) != 1:
         raise ValueError(f"flash kernel: {name} needs a unit stride on its last dim")
 
 
-def _launch_kernel(q, k, v, o):
-    """Launch the kernel on [B, H, T, D] views (any b/h/t strides)."""
+def _check_operands(q: torch.Tensor, named: dict) -> None:
     b, h, t, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel: head dim {d} not in {KERNEL_HEAD_DIMS}")
-    for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
-        _check_operand(name, x, (b, h, t, d))
+    for name, x in named.items():
+        if name in ("lse", "delta"):
+            _check_operand(name, x, (b, h, t), torch.float32)
+            if not x.is_contiguous():
+                raise ValueError(f"flash kernel: {name} must be contiguous")
+        else:
+            _check_operand(name, x, (b, h, t, d))
         if x.device != q.device:
             raise ValueError(f"flash kernel: {name} on {x.device}, q on {q.device}")
+
+
+def _strides(*xs: torch.Tensor) -> torch.Tensor:
+    """The (b, h, t) element strides of each [B, H, T, D] operand, int64."""
+    return torch.tensor([s for x in xs for s in x.stride()[:3]], dtype=torch.int64)
+
+
+def _launch_fwd(q, k, v, o, dropout_rate, seed):
+    """Launch K1 on [B, H, T, D] views (any b/h/t strides); returns lse."""
+    b, h, t, d = q.shape
+    _check_operands(q, {"q": q, "k": k, "v": v, "o": o})
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    strides = torch.tensor(
-        [s for x in (q, k, v, o) for s in x.stride()[:3]], dtype=torch.int64
-    )
+    strides = _strides(q, k, v, o)
     lib = build.load("flash_fwd", _SIGNATURES)
     code = lib.flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, h, t, d, strides.data_ptr(),
+        b, h, t, d, strides.data_ptr(), *_dropout_words(dropout_rate, seed),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(code, "flash_fwd_bf16")
@@ -86,30 +175,100 @@ def _launch_kernel(q, k, v, o):
 
 
 def flash_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    dropout_rate: float = 0.0, seed: int | None = None,
+    o: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal attention over ``[B, H, T, D]``; returns ``(o, lse)`` with
-    ``lse`` fp32 base-2 ``[B, H, T]``. CUDA tensors launch the kernel (bf16,
-    D in 32/64/128, any T); CPU tensors use the plain version."""
+    ``lse`` fp32 base-2 ``[B, H, T]``. CUDA tensors launch K1 (bf16, D in
+    32/64/128, any T), writing into ``o`` when given (any b/h/t strides);
+    CPU tensors use the plain version."""
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v)
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = _launch_kernel(q, k, v, o)
+        return flash_attention_plain(q, k, v, dropout_rate, seed)
+    if o is None:
+        o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = _launch_fwd(q, k, v, o, dropout_rate, seed)
     return o, lse
 
 
 flash_attention_fwd.launches = 0
 
 
-def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
-    """``[B, T, H, D]`` entry point (the model's layout); returns o only.
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+    dropout_rate: float = 0.0, seed: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of causal flash attention over ``[B, H, T, D]``.
 
-    The kernel reads and writes through strides, so the head-major views
-    cost no copy. CPU tensors use the dense plain version."""
+    CUDA tensors launch K2 (its dk/dv kernel, then its dq kernel) and get
+    the three grads as views of one ``[B, T, 3, H, D]`` buffer, the layout
+    of the fused qkv product's grad; CPU tensors use the plain version."""
     if not q.is_cuda:
-        return causal_attention_bthd(q, k, v)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_kernel(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                   o.transpose(1, 2))
-    return o
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, dropout_rate, seed)
+    b, h, t, d = q.shape
+    buf = torch.empty((b, t, 3, h, d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = (buf[:, :, i].transpose(1, 2) for i in range(3))
+    _check_operands(q, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                        "delta": delta, "dq": dq, "dk": dk, "dv": dv})
+    strides = _strides(q, k, v, do, dq, dk, dv)
+    lib = build.load("flash_bwd", _BWD_SIGNATURES)
+    code = lib.flash_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, t, d, strides.data_ptr(), *_dropout_words(dropout_rate, seed),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(code, "flash_bwd_bf16")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v) over [B, H, T, D] views; K1 forward, K2
+    backward on CUDA tensors, their plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dropout_rate, seed, bthd_out):
+        o = None
+        if q.is_cuda and bthd_out:
+            b, h, t, d = q.shape
+            o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+        o, lse = flash_attention_fwd(q, k, v, dropout_rate, seed, o=o)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.dropout = (dropout_rate, seed)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta, *ctx.dropout)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    dropout_rate: float = 0.0, seed: int | None = None,
+) -> torch.Tensor:
+    """Differentiable causal flash attention over ``[B, H, T, D]``, the JAX
+    package's ``flash_attention`` with the kernel seed given directly
+    (the JAX entry point draws it from a key). Returns o."""
+    return _FlashAttention.apply(q, k, v, dropout_rate, seed, False)
+
+
+def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         dropout_rate: float = 0.0,
+                         seed: int | None = None) -> torch.Tensor:
+    """``[B, T, H, D]`` entry point (the model's layout); returns o.
+
+    The kernels read and write through strides, so the head-major views of
+    the fused qkv product and of o cost no copy."""
+    o = _FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), dropout_rate, seed, True)
+    return o.transpose(1, 2)

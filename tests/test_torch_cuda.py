@@ -64,6 +64,57 @@ def test_flash_kernel_matches_plain(cuda, t):
     assert torch.equal(o_bthd.transpose(1, 2), o)
 
 
+@pytest.mark.parametrize("t", [208, 1024])
+def test_flash_kernel_dropout_matches_plain(cuda, t):
+    rng = np.random.default_rng(t + 1)
+    q, k, v = (_bf16(rng, 2, 12, t, 64, device=cuda) for _ in range(3))
+    seed = 0x7EADBEEF
+    o, lse = flash.flash_attention_fwd(q, k, v, 0.1, seed)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash.flash_attention_plain(q.float(), k.float(), v.float(), 0.1, seed)
+    assert _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    # Another seed draws another mask: the check must see it.
+    assert not _close(flash.flash_attention_fwd(q, k, v, 0.1, seed + 1)[0], o_ref)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_bwd_kernel_matches_plain_and_is_deterministic(cuda, rate):
+    rng = np.random.default_rng(5)
+    q, k, v, do = (_bf16(rng, 2, 12, 333, 64, device=cuda) for _ in range(4))
+    seed = 123457
+    o, lse = flash.flash_attention_fwd(q, k, v, rate, seed)
+    delta = (do.float() * o.float()).sum(-1)
+    before = flash.flash_attention_bwd.launches
+    grads = flash.flash_attention_bwd(q, k, v, do, lse, delta, rate, seed)
+    again = flash.flash_attention_bwd(q, k, v, do, lse, delta, rate, seed)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))   # no atomics
+    refs = flash.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                           lse, delta, rate, seed)
+    for g, r in zip(grads, refs):
+        assert _close(g, r)
+
+
+def test_model_trains_through_k1_and_k2(cuda):
+    from gpt_2_distributed_torch.parallel import train_step as ts
+    from gpt_2_distributed_torch.resilience import init_guard_state
+
+    cfg = GPT2Config(vocab_size=257, n_positions=128, n_embd=128, n_layer=2, n_head=2)
+    params = ts.trainable_params(gpt2.init_params(cfg, seed=0), cuda)
+    step = ts.make_train_step(cfg, ts.make_optimizer(params, 1e-3), guard=True)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 257, (2, 2, 100))).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 257, (2, 2, 100))).to(cuda)
+    k1, k2 = flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches
+    guard, m = step(params, init_guard_state(), x, y, 0, 0, torch.ones(2, device=cuda))
+    assert m.skip_reason == 0 and np.isfinite(m.loss.item())
+    # Two layers, two micro-batches: K1 and K2 once per layer and micro-batch.
+    assert flash.flash_attention_fwd.launches - k1 == 4
+    assert flash.flash_attention_bwd.launches - k2 == 4
+
+
 def _paged_case(rng, device, lengths=(0, 1, 17, 100, 64, 33), h=12, d=64,
                 bs=16, m=8, n=64):
     b = len(lengths)

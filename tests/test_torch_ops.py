@@ -116,8 +116,13 @@ def test_select_attention_impl_dispatch():
     assert flash.flash_attention_fwd.launches == before
     with pytest.raises(ValueError, match="needs CUDA"):
         attention.select_attention_impl("kernel", cpu)
+    # The training names (GPT2Config.attention_impl) map onto the same two.
+    assert attention.select_attention_impl("flash", cpu) is flash.flash_attention_bthd
+    assert attention.select_attention_impl("dense", cpu) is attention.causal_attention_bthd
+    with pytest.raises(ValueError, match="later slice"):
+        attention.select_attention_impl("ring", cpu)
     with pytest.raises(ValueError, match="unknown attention impl"):
-        attention.select_attention_impl("dense", cpu)
+        attention.select_attention_impl("xla", cpu)
 
 
 def _paged_case(rng, b=4, h=2, d=8, bs=4, m=4, n_blocks=32):

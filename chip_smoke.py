@@ -26,7 +26,16 @@ that does not hold:
    lengths including an idle slot, shuffled block placement, then all
    lengths 1024, plus a planted fault (one table entry swapped); times
    both versions the same way;
-4. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
+4. the fused layer epilogues of ``csrc/fused_layer.cu``: K4
+   (LN+residual+dropout) forward and backward, K5 (residual+dropout)
+   forward and its backward mask-scale, K6 (bias+GELU+dropout) forward
+   and backward, at [4096, 768] / [4096, 3072] (124M, batch 4 x 1024) and
+   at the ragged [1000, 1600] / [1000, 6400] (1.5B widths), dropout 0 and
+   0.1: each against its plain version run in fp32 on the same values,
+   element by element, the backward kernels twice and bit-identical, a
+   planted fault per kernel (seed + 1); times at the 124M shape beside the
+   plain version and the nearest PyTorch call;
+5. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
    greedily, then the same 8 prompts sampled at temperature 1.0 (16 new
    tokens each), through ``ServingEngine`` at the full width of the 124M
    preset with random weights, bf16, max_batch 8, block_size 16, 513
@@ -35,24 +44,29 @@ that does not hold:
    prints how many greedy streams equal ``generate_cached(batch=1)``'s;
    then holds one prefill and one decode step of the kernel path against
    the plain path on the same pool state (fp32 logits);
-5. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
+6. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
    kernel path (K1/K2) and the plain path (dense attention), same params,
-   batch and seeds: the loss and every grad;
-6. trains: ``train.main()`` on synthetic shards at 124M full width, seq
+   batch and seeds, then at dropout 0 with ``fused_layers`` "all" (K4-K6)
+   and "off": the loss and every grad;
+7. trains: ``train.main()`` on synthetic shards at 124M full width, seq
    1024, batch 4, accum 4, dropout 0.1, 16 steps and one eval of 4
-   batches; checks finite losses, a first loss near ln 50257, a falling
-   loss, no skipped step, and K1 = 12 x (micro-batches + eval batches), K2
-   = 12 x micro-batches launches; prints ms/step, tok/s and MFU;
-7. prints the ``kernels`` JSON line, then the device line last.
+   batches, once with ``--fused_layers off`` and once with ``all``; checks
+   finite losses, a first loss near ln 50257, a falling loss, no skipped
+   step, and the exact launches: K1 = 12 x (micro-batches + eval
+   batches), K2 = 12 x micro-batches in both runs; in the fused run K4
+   and K6 forward = 12 x (micro-batches + eval batches), K4 and K6
+   backward, K5 and its mask-scale = 12 x micro-batches (none in the
+   other); prints each run's ms/step, tok/s and MFU;
+8. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` adds ``torch.profiler`` windows over one serving admission
 step (a 960-token prefill and one decode step), 8 decode steps at batch 8
-and one 124M optimizer step, and prints each window's wall time,
-device-busy time and its top kernels.
+and one 124M optimizer step with ``fused_layers`` off and all, and prints
+each window's wall time, device-busy time and its top kernels.
 
 Every time here is measured on the card in this run; every bound is
 computed from this run's shapes and the H100 SXM peaks (3.35 TB/s,
-989 TFLOP/s bf16).
+989 TFLOP/s bf16, 67 TFLOP/s fp32 outside the tensor cores).
 """
 
 from __future__ import annotations
@@ -90,13 +104,32 @@ LOGITS_TOL = 0.1
 # plain path rounds the attention probabilities to bf16 before the product
 # with V and takes bf16 matmul outputs in its backward, where the kernels
 # keep fp32; those roundings (~2^-9 relative) move the loss (~10.8) by
-# ~1e-3 and each grad tensor by ~1e-2 of its norm through 12 layers.
+# ~1e-3 and each grad tensor by ~1e-2 of its norm through 12 layers. The
+# same bounds hold fused_layers "all" against "off": K6 keeps the GELU in
+# fp32 where the unfused GELU rounds each of its bf16 steps.
 MODEL_LOSS_TOL = 0.02
 MODEL_GRAD_TOL = 0.05
+
+# The fused epilogues K4-K6 are held the same way, against their plain
+# versions run in fp32 on the same bf16 values with the kernels' inner bf16
+# roundings. Their column sums (dscale, dbias, db) add the same fp32 terms
+# in other orders: each side lies within N 2^-24 sum|t| of the exact sum
+# (the recursive-summation bound), so for N <= 4096 rows
+# |d - ref| <= rel |ref| + COLSUM_TOL sum|t|, rel being db's one bf16
+# rounding (O_REL_TOL) and 0 for the fp32 dscale and dbias.
+COLSUM_TOL = 2.0 ** -11
+# The epilogues do a few tens of fp32 and uint32 operations an element
+# (the hash ~10, LayerNorm or tanh-GELU and its derivative ~10-25), timed
+# against the CUDA cores' fp32 peak: a tenth of their byte time or less.
+FP32_FLOPS_PER_S = 67e12
 
 TRAIN_SHAPE = (4, 12, 1024, 64)   # [B, H, T, D] of 124M at batch 4, seq 1024
 DROPOUT = 0.1
 ATTN_SEED = 0x5EED1234
+FUSED_SEED = 0x5EED4321
+# [N, C, F] of the fused epilogues: 124M at batch 4 x 1024 (timed), and the
+# 1.5B widths at a ragged row count.
+FUSED_SHAPES = ((4096, 768, 3072), (1000, 1600, 6400))
 
 
 def fail(msg: str) -> None:
@@ -133,10 +166,19 @@ def held(o: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err.max().item(), (err / (O_REL_TOL * ref.abs() + O_ABS_TOL)).max().item()
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def held_colsum(d: torch.Tensor, ref: torch.Tensor, terms: torch.Tensor) -> tuple[float, float]:
+    """Max |d - ref| of a column sum and the largest ratio of an element's
+    error to its tolerance, ``terms`` being the column's sum of |t|."""
+    rel = O_REL_TOL if d.dtype == torch.bfloat16 else 0.0
+    err = (d.float() - ref).abs()
+    return err.max().item(), (err / (rel * ref.abs() + COLSUM_TOL * terms)).max().item()
 
 
 def phase_flash(flush) -> None:
@@ -278,6 +320,176 @@ def phase_flash_train(flush) -> tuple[dict, dict]:
     return k1_row, k2_row
 
 
+FUSED_WRAPPERS = (
+    # (wrapper name in ops/fused_layer.py, the TPU function it replaces)
+    ("ln_residual_dropout_fwd", "gpt_2_distributed_tpu/ops/fused_layer.py:229"),
+    ("ln_residual_dropout_bwd", "gpt_2_distributed_tpu/ops/fused_layer.py:267"),
+    ("residual_dropout_fwd", "gpt_2_distributed_tpu/ops/fused_layer.py:414"),
+    ("dropout_scale", "gpt_2_distributed_tpu/ops/fused_layer.py:465"),
+    ("bias_gelu_dropout_fwd", "gpt_2_distributed_tpu/ops/fused_layer.py:487"),
+    ("bias_gelu_dropout_bwd", "gpt_2_distributed_tpu/ops/fused_layer.py:499"),
+)
+
+
+def phase_fused(flush) -> dict[str, dict]:
+    """K4 (forward, backward), K5 (forward, backward rescale) and K6
+    (forward, backward) against their plain versions at FUSED_SHAPES, at
+    dropout 0 and 0.1, element by element; the backward kernels twice,
+    bit-identical; a planted fault per kernel (seed + 1); then times at the
+    124M shape, dropout 0.1. Returns each wrapper's row of the kernels line."""
+    from gpt_2_distributed_torch.ops import fused_layer as fl
+
+    bf, eps = torch.bfloat16, 1e-5
+    max_err = {name: 0.0 for name, _ in FUSED_WRAPPERS}
+    rows = {}
+
+    def hold(name, label, pairs, same=None):
+        """pairs: (kind, kernel output, reference[, column terms]) with kind
+        "elem", "stat" or "col"; ``same``: whether two launches gave the
+        same bits. Fails unless every one holds."""
+        ratio, err = 0.0, 0.0
+        for kind, got, ref, *terms in pairs:
+            if kind == "elem":
+                e, q = held(got, ref)
+            elif kind == "stat":
+                e = (got - ref).abs().max().item()
+                q = e / LSE_TOL
+            else:
+                e, q = held_colsum(got, ref, terms[0])
+            err, ratio = max(err, e), max(ratio, q)
+        max_err[name] = max(max_err[name], err)
+        text = f"{name} {label}: max|d - plain| {err:.3e}, max err/tol {ratio:.3f}"
+        if same is not None:
+            text += f", two launches bit-identical: {same}"
+        print(text, flush=True)
+        if not (ratio <= 1.0 and same is not False):
+            fail(f"{name} disagrees with its plain version ({label})")
+
+    def planted(name, got, ref):
+        _, ratio_bad = held(got, ref)
+        print(f"{name} planted fault (seed + 1): max err/tol {ratio_bad:.1f}", flush=True)
+        if ratio_bad <= 1.0:
+            fail(f"the {name} check lets a planted fault through")
+
+    for n, c, f in FUSED_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n)
+
+        def randn(*shape, scale=1.0, dtype=bf):
+            return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+        x, o, dr, dy = (randn(n, c) for _ in range(4))
+        scale = 1 + randn(c, scale=0.1, dtype=torch.float32)
+        bias = randn(c, scale=0.1, dtype=torch.float32)
+        h, dout, b = randn(n, f), randn(n, f), randn(f, scale=0.1)
+        seed = FUSED_SEED
+        for rate in (0.0, DROPOUT):
+            label = f"[{n}, {c}] dropout {rate}"
+            r, y, mean, rstd = fl.ln_residual_dropout_fwd(x, o, scale, bias, eps, rate, seed)
+            ref = fl.ln_residual_dropout_plain(x.float(), o.float(), scale, bias, eps, rate,
+                                               seed, dtype=bf)
+            hold("ln_residual_dropout_fwd", label, [
+                ("elem", r, ref[0]), ("elem", y, ref[1]), ("stat", mean, ref[2]),
+                ("stat", rstd, ref[3])])
+            grads = fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
+            again = fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
+            refs = fl.ln_residual_dropout_bwd_plain(r.float(), mean, rstd, scale, dr.float(),
+                                                    dy.float(), rate, seed)
+            rhat = (r.float() - mean[:, None]) * rstd[:, None]
+            hold("ln_residual_dropout_bwd", label, [
+                ("elem", grads[0], refs[0]), ("elem", grads[1], refs[1]),
+                ("col", grads[2], refs[2], (dy.float() * rhat).abs().sum(0)),
+                ("col", grads[3], refs[3], dy.float().abs().sum(0))],
+                same=all(torch.equal(g, a) for g, a in zip(grads, again)))
+            label = f"[{n}, {f}] dropout {rate}"
+            out = fl.bias_gelu_dropout_fwd(h, b, rate, seed)
+            out_ref = fl.bias_gelu_dropout_plain(h.float(), b.float(), rate, seed, dtype=bf)
+            hold("bias_gelu_dropout_fwd", label, [("elem", out, out_ref)])
+            dh, db = fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed)
+            dh2, db2 = fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed)
+            dh_p, db_p = fl.bias_gelu_dropout_bwd_plain(h.float(), b.float(), dout.float(),
+                                                        rate, seed, dtype=bf)
+            hold("bias_gelu_dropout_bwd", label, [
+                ("elem", dh, dh_p), ("col", db, db_p, dh_p.abs().sum(0))],
+                same=torch.equal(dh, dh2) and torch.equal(db, db2))
+        # K5 runs at dropout > 0 only (at 0 the op is the bare add).
+        label = f"[{n}, {c}] dropout {DROPOUT}"
+        r5 = fl.residual_dropout_fwd(x, o, DROPOUT, seed)
+        r5_ref = fl.residual_dropout_plain(x.float(), o.float(), DROPOUT, seed, dtype=bf)
+        hold("residual_dropout_fwd", label, [("elem", r5, r5_ref)])
+        do = fl.dropout_scale(dr, DROPOUT, seed)
+        do_ref = fl.dropout_scale_plain(dr.float(), DROPOUT, seed, dtype=bf)
+        hold("dropout_scale", label, [("elem", do, do_ref)])
+        # Planted faults: the next seed draws other masks.
+        planted("ln_residual_dropout_fwd",
+                fl.ln_residual_dropout_fwd(x, o, scale, bias, eps, DROPOUT, seed + 1)[0], ref[0])
+        planted("ln_residual_dropout_bwd",
+                fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, DROPOUT, seed + 1)[1],
+                refs[1])
+        planted("residual_dropout_fwd", fl.residual_dropout_fwd(x, o, DROPOUT, seed + 1), r5_ref)
+        planted("dropout_scale", fl.dropout_scale(dr, DROPOUT, seed + 1), do_ref)
+        planted("bias_gelu_dropout_fwd", fl.bias_gelu_dropout_fwd(h, b, DROPOUT, seed + 1),
+                out_ref)
+        planted("bias_gelu_dropout_bwd",
+                fl.bias_gelu_dropout_bwd(h, b, dout, DROPOUT, seed + 1)[0], dh_p)
+        if rows:
+            continue
+
+        # Times at the 124M shape, dropout 0.1, beside the plain versions
+        # (on the bf16 tensors, as the CPU path runs them) and the nearest
+        # single PyTorch call. Bytes: each input read once, each output
+        # written once; operations per element as FP32_FLOPS_PER_S says.
+        nc, nf = n * c, n * f
+        sc16, bi16 = scale.to(bf), bias.to(bf)
+        _, mean_l, rstd_l = torch.native_layer_norm(r, (c,), sc16, bi16, eps)
+        u = h + b
+        cases = {
+            "ln_residual_dropout_fwd": (
+                lambda: fl.ln_residual_dropout_fwd(x, o, scale, bias, eps, DROPOUT, seed),
+                lambda: fl.ln_residual_dropout_plain(x, o, scale, bias, eps, DROPOUT, seed),
+                lambda: torch.nn.functional.layer_norm(r, (c,), sc16, bi16, eps),
+                8 * nc + 8 * c + 8 * n, 30 * nc),
+            "ln_residual_dropout_bwd": (
+                lambda: fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, DROPOUT, seed),
+                lambda: fl.ln_residual_dropout_bwd_plain(r, mean, rstd, scale, dr, dy,
+                                                         DROPOUT, seed),
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, r, (c,), mean_l, rstd_l, sc16, bi16, [True, True, True]),
+                10 * nc + 8 * n + 12 * c, 35 * nc),
+            "residual_dropout_fwd": (
+                lambda: fl.residual_dropout_fwd(x, o, DROPOUT, seed),
+                lambda: fl.residual_dropout_plain(x, o, DROPOUT, seed),
+                None, 6 * nc, 15 * nc),
+            "dropout_scale": (
+                lambda: fl.dropout_scale(dr, DROPOUT, seed),
+                lambda: fl.dropout_scale_plain(dr, DROPOUT, seed),
+                None, 4 * nc, 13 * nc),
+            "bias_gelu_dropout_fwd": (
+                lambda: fl.bias_gelu_dropout_fwd(h, b, DROPOUT, seed),
+                lambda: fl.bias_gelu_dropout_plain(h, b, DROPOUT, seed),
+                lambda: torch.nn.functional.gelu(u, approximate="tanh"),
+                4 * nf + 2 * f, 30 * nf),
+            "bias_gelu_dropout_bwd": (
+                lambda: fl.bias_gelu_dropout_bwd(h, b, dout, DROPOUT, seed),
+                lambda: fl.bias_gelu_dropout_bwd_plain(h, b, dout, DROPOUT, seed),
+                lambda: torch.ops.aten.gelu_backward(dout, u, approximate="tanh"),
+                6 * nf + 4 * f, 40 * nf),
+        }
+        for name, (kernel, plain, library, nbytes, ops) in cases.items():
+            ms = time_ms(kernel, flush)
+            plain_ms = time_ms(plain, flush)
+            lib_ms = time_ms(library, flush) if library else None
+            b_ms, b_by = bound_ms(nbytes, ops, FP32_FLOPS_PER_S)
+            lib_text = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+            print(f"{name} [{n}, {f if 'gelu' in name else c}]: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library {lib_text}, bound {b_ms:.5f} ms ({b_by})",
+                  flush=True)
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                              bound_by=b_by)
+    for name, row in rows.items():
+        row["max_abs_err"] = max_err[name]
+    return rows
+
+
 def paged_case(lengths, gen, n=513, h=12, bs=16, d=64):
     """Pools of random bf16, and a table of shuffled distinct blocks."""
     b = len(lengths)
@@ -362,7 +574,7 @@ def profile_window(label: str, fn) -> None:
     print(f"profile {label}: {n} step(s), wall {wall_ms / n:.3f} ms/step, "
           f"device busy {busy_ms / n:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}% of wall)", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/step  "
               f"{e.count / n:6.1f}/step  {e.key[:90]}", flush=True)
 
@@ -483,9 +695,10 @@ def phase_serving(profile_steps: bool) -> tuple[int, int]:
 
 
 def phase_model_paths() -> None:
-    """One 124M training micro-batch, dropout 0.1, through the kernel path
-    (K1/K2) and the plain path (dense attention) with the same params,
-    batch and seeds: loss and every grad."""
+    """One 124M training micro-batch [4, 1024] twice, with the same params,
+    batch and seeds: at dropout 0.1 through the kernel path (K1/K2) and the
+    plain path (dense attention), then at dropout 0 with
+    ``fused_layers="all"`` (K4-K6) and "off"; the loss and every grad."""
     from gpt_2_distributed_torch.config import MODEL_PRESETS
     from gpt_2_distributed_torch.models import gpt2
     from gpt_2_distributed_torch.parallel.train_step import param_list, trainable_params
@@ -495,86 +708,104 @@ def phase_model_paths() -> None:
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randint(0, config.vocab_size, (4, 1024), generator=gen, device="cuda")
     y = torch.randint(0, config.vocab_size, (4, 1024), generator=gen, device="cuda")
-    out = {}
-    for impl in ("flash", "dense"):
-        _, loss = gpt2.forward(params, config.replace(attention_impl=impl), x, y,
-                               rng=(42, 0, 0), deterministic=False)
-        grads = torch.autograd.grad(loss, param_list(params))
-        out[impl] = (loss.item(), grads)
-    (loss_k, g_k), (loss_p, g_p) = out["flash"], out["dense"]
-    rel = [((a - b).norm() / b.norm()).item() for a, b in zip(g_k, g_p)]
-    finite = math.isfinite(loss_k) and all(torch.isfinite(g).all() for g in g_k)
-    print(f"model 124M, one micro-batch [4, 1024], dropout {DROPOUT}: loss kernel "
-          f"path {loss_k:.5f}, plain path {loss_p:.5f} (|diff| "
-          f"{abs(loss_k - loss_p):.2e}, tol {MODEL_LOSS_TOL}); grads: max relative "
-          f"L2 difference {max(rel):.3e} over {len(rel)} tensors (tol "
-          f"{MODEL_GRAD_TOL}), median {sorted(rel)[len(rel) // 2]:.3e}", flush=True)
-    if not (finite and abs(loss_k - loss_p) <= MODEL_LOSS_TOL
-            and max(rel) <= MODEL_GRAD_TOL):
-        fail("the kernel path's loss or grads disagree with the plain path")
+
+    def loss_and_grads(cfg):
+        _, loss = gpt2.forward(params, cfg, x, y, rng=(42, 0, 0), deterministic=False)
+        return loss.item(), torch.autograd.grad(loss, param_list(params))
+
+    no_dropout = config.replace(embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0)
+    for what, (label_a, cfg_a), (label_b, cfg_b) in (
+            (f"dropout {DROPOUT}", ("kernel path", config.replace(attention_impl="flash")),
+             ("plain path", config.replace(attention_impl="dense"))),
+            ("dropout 0", ("fused_layers all", no_dropout.replace(fused_layers="all")),
+             ("fused_layers off", no_dropout))):
+        (loss_a, g_a), (loss_b, g_b) = loss_and_grads(cfg_a), loss_and_grads(cfg_b)
+        rel = [((p - q).norm() / q.norm()).item() for p, q in zip(g_a, g_b)]
+        finite = math.isfinite(loss_a) and all(torch.isfinite(g).all() for g in g_a)
+        print(f"model 124M, one micro-batch [4, 1024], {what}: loss {label_a} "
+              f"{loss_a:.5f}, {label_b} {loss_b:.5f} (|diff| {abs(loss_a - loss_b):.2e}, "
+              f"tol {MODEL_LOSS_TOL}); grads: max relative L2 difference {max(rel):.3e} "
+              f"over {len(rel)} tensors (tol {MODEL_GRAD_TOL}), median "
+              f"{sorted(rel)[len(rel) // 2]:.3e}", flush=True)
+        if not (finite and abs(loss_a - loss_b) <= MODEL_LOSS_TOL
+                and max(rel) <= MODEL_GRAD_TOL):
+            fail(f"the {label_a}'s loss or grads disagree with the {label_b}'s")
 
 
-def phase_training(profile: bool) -> tuple[int, int]:
-    """``train.main()`` at 124M on synthetic shards; returns the K1 and K2
-    launches of the run."""
+def phase_training(profile: bool) -> dict[str, dict[str, int]]:
+    """``train.main()`` at 124M on synthetic shards, with ``--fused_layers``
+    off and then all; returns each run's launches by wrapper name."""
     import tempfile
 
     from gpt_2_distributed_torch import train
     from gpt_2_distributed_torch.config import MODEL_PRESETS
     from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
-    from gpt_2_distributed_torch.ops.flash_attention import (
-        flash_attention_bwd,
-        flash_attention_fwd,
-    )
+    from gpt_2_distributed_torch.ops import flash_attention as fa
+    from gpt_2_distributed_torch.ops import fused_layer as fl
     from gpt_2_distributed_torch.utils import flops
 
-    steps, accum, eval_batches = 16, 4, 4
+    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd}
+    wrappers.update((name, getattr(fl, name)) for name, _ in FUSED_WRAPPERS)
+    steps, accum, eval_batches, n_layer = 16, 4, 4, MODEL_PRESETS["124M"].n_layer
+    micro = steps * accum
+    fwd, bwd = n_layer * (micro + eval_batches), n_layer * micro
+    counts = {}
     with tempfile.TemporaryDirectory() as data_dir:
         write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
-        flash_attention_fwd.launches = 0
-        flash_attention_bwd.launches = 0
-        t0 = time.monotonic()
-        tracker = train.main([
-            "--data_dir", data_dir, "--model", "124M", "--seq_len", "1024",
-            "--batch", "4", "--grad_accum_steps", str(accum), "--dropout",
-            str(DROPOUT), "--lr", "6e-4", "--max_steps", str(steps), "--eval_every",
-            str(steps), "--eval_batches", str(eval_batches), "--cli_every", "1",
-        ])
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        k1, k2 = flash_attention_fwd.launches, flash_attention_bwd.launches
-    losses = list(tracker.buffers["loss"])
-    tok_s = sorted(tracker.buffers["tokens_per_second"])
-    tok_s = tok_s[len(tok_s) // 2]    # median step; the first carries warm-up
-    ms_step = tracker.tokens_per_step / tok_s * 1e3
-    mfu = flops.mfu(tok_s, MODEL_PRESETS["124M"], 1024, BF16_FLOPS_PER_S)
-    eval_loss = tracker.buffers["eval_loss"][-1]
-    skipped = tracker.buffers.get("skipped_steps", [0])[-1]
-    print(f"training 124M: {steps} steps of {tracker.tokens_per_step} tokens in "
-          f"{wall:.1f} s (set-up included); median {ms_step:.1f} ms/step, "
-          f"{tok_s:,.0f} tok/s, MFU {100 * mfu:.2f}% of {BF16_FLOPS_PER_S / 1e12:.0f} "
-          f"TFLOP/s; first loss {losses[0]:.4f}, last 5 mean "
-          f"{sum(losses[-5:]) / 5:.4f}, eval loss {eval_loss:.4f}, skipped "
-          f"{skipped:.0f}; launches K1 {k1}, K2 {k2}", flush=True)
-    micro = steps * accum
-    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
-            and math.isfinite(eval_loss)):
-        fail("training produced a missing or non-finite loss")
-    if abs(losses[0] - math.log(50257)) > 0.3:
-        fail(f"first loss {losses[0]:.4f} is not near ln(50257) = 10.82")
-    if not sum(losses[-5:]) / 5 < losses[0]:
-        fail("the training loss did not fall")
-    if skipped:
-        fail(f"{skipped} steps were skipped by the guard")
-    if not (k1 == 12 * (micro + eval_batches) and k2 == 12 * micro):
-        fail(f"launch counts K1 {k1} / K2 {k2} != 12 x {micro + eval_batches} / "
-             f"12 x {micro}")
+        for fused in ("off", "all"):
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.monotonic()
+            tracker = train.main([
+                "--data_dir", data_dir, "--model", "124M", "--seq_len", "1024",
+                "--batch", "4", "--grad_accum_steps", str(accum), "--dropout",
+                str(DROPOUT), "--lr", "6e-4", "--max_steps", str(steps), "--eval_every",
+                str(steps), "--eval_batches", str(eval_batches), "--cli_every", "1",
+                "--fused_layers", fused,
+            ])
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            got = counts[fused] = {name: w.launches for name, w in wrappers.items()}
+            losses = list(tracker.buffers["loss"])
+            tok_s = sorted(tracker.buffers["tokens_per_second"])
+            tok_s = tok_s[len(tok_s) // 2]    # median step; the first carries warm-up
+            ms_step = tracker.tokens_per_step / tok_s * 1e3
+            mfu = flops.mfu(tok_s, MODEL_PRESETS["124M"], 1024, BF16_FLOPS_PER_S)
+            eval_loss = tracker.buffers["eval_loss"][-1]
+            skipped = tracker.buffers.get("skipped_steps", [0])[-1]
+            print(f"training 124M, fused_layers {fused}: {steps} steps of "
+                  f"{tracker.tokens_per_step} tokens in {wall:.1f} s (set-up included); "
+                  f"median {ms_step:.1f} ms/step, {tok_s:,.0f} tok/s, MFU {100 * mfu:.2f}% "
+                  f"of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; first loss {losses[0]:.4f}, "
+                  f"last 5 mean {sum(losses[-5:]) / 5:.4f}, eval loss {eval_loss:.4f}, "
+                  f"skipped {skipped:.0f}; launches {got}", flush=True)
+            if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+                    and math.isfinite(eval_loss)):
+                fail(f"training (fused_layers {fused}) produced a missing or non-finite loss")
+            if abs(losses[0] - math.log(50257)) > 0.3:
+                fail(f"first loss {losses[0]:.4f} is not near ln(50257) = 10.82")
+            if not sum(losses[-5:]) / 5 < losses[0]:
+                fail(f"the training loss (fused_layers {fused}) did not fall")
+            if skipped:
+                fail(f"{skipped} steps were skipped by the guard")
+            # K1 runs in training and eval, K2 in training; with the fused
+            # layers K4 and K6 forward run in both, at rate 0 in eval, and
+            # K5 (rate > 0 only) and every backward in training.
+            want = {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
+            for name, _ in FUSED_WRAPPERS:
+                want[name] = 0 if fused == "off" else (
+                    fwd if name in ("ln_residual_dropout_fwd", "bias_gelu_dropout_fwd")
+                    else bwd)
+            if got != want:
+                fail(f"launch counts (fused_layers {fused}) {got} != {want}")
     if profile:
-        profile_train_step()
-    return k1, k2
+        for fused in ("off", "all"):
+            profile_train_step(fused)
+    return counts
 
 
-def profile_train_step() -> None:
+def profile_train_step(fused_layers: str) -> None:
     """A torch.profiler window over one optimizer step (4 micro-batches of
     [4, 1024]) of the 124M train step, after one warm-up step."""
     from gpt_2_distributed_torch.config import MODEL_PRESETS
@@ -582,7 +813,7 @@ def profile_train_step() -> None:
     from gpt_2_distributed_torch.parallel import train_step as ts
     from gpt_2_distributed_torch.resilience import init_guard_state
 
-    config = MODEL_PRESETS["124M"]
+    config = MODEL_PRESETS["124M"].replace(fused_layers=fused_layers)
     params = ts.trainable_params(gpt2.init_params(config, seed=0), torch.device("cuda"))
     step = ts.make_train_step(config, ts.make_optimizer(params, 1e-4), guard=True)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -590,7 +821,7 @@ def profile_train_step() -> None:
     y = torch.randint(0, config.vocab_size, (4, 4, 1024), generator=gen, device="cuda")
     ones = torch.ones(4, device="cuda")
     guard = step(params, init_guard_state(), x, y, 42, 0, ones)[0]
-    profile_window("training step 124M (4 x [4, 1024])",
+    profile_window(f"training step 124M (4 x [4, 1024]), fused_layers {fused_layers}",
                    lambda: (step(params, guard, x, y, 42, 1, ones), 1)[1])
 
 
@@ -614,7 +845,7 @@ def main() -> None:
     from gpt_2_distributed_torch.kernels import build
 
     t0 = time.monotonic()
-    reports = build.build(["flash_fwd", "flash_bwd", "paged_decode"])
+    reports = build.build(["flash_fwd", "flash_bwd", "paged_decode", "fused_layer"])
     print(f"kernels built in {time.monotonic() - t0:.1f} s", flush=True)
     for name, text in reports.items():
         for line in text.splitlines():
@@ -626,12 +857,17 @@ def main() -> None:
     phase_flash(flush)
     k1_row, k2_row = phase_flash_train(flush)
     k3_row = phase_paged(flush)
+    fused_rows = phase_fused(flush)
     del flush
     k1_serve, k3 = phase_serving(profile)
     phase_model_paths()
-    k1_train, k2 = phase_training(profile)
+    counts = phase_training(profile)
+    k1_train = sum(c["flash_attention_fwd"] for c in counts.values())
+    k2 = sum(c["flash_attention_bwd"] for c in counts.values())
     print(f"launches on the main paths: K1 {k1_serve} serving + {k1_train} "
-          f"training, K2 {k2} training, K3 {k3} serving", flush=True)
+          f"training, K2 {k2} training, K3 {k3} serving; fused_layers all: "
+          + ", ".join(f"{name} {counts['all'][name]}" for name, _ in FUSED_WRAPPERS),
+          flush=True)
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
@@ -646,6 +882,10 @@ def main() -> None:
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",
              launches=k3, **k3_row),
+    ] + [
+        dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
+             replaces=replaces, launches=counts["all"][name], **fused_rows[name])
+        for name, replaces in FUSED_WRAPPERS
     ]
     for k in kernels:
         k["kernel_ms"] = k["ms"]

@@ -8,8 +8,8 @@ can move between the two packages, but nothing here depends on JAX.
 Fields whose code paths are not ported yet are still fields — so a caller
 moving from the JAX package sees them — but a non-default value is refused
 at construction instead of being ignored: ``GPT2Config.remat``,
-``fused_layers``, ``fused_matmul`` and ``attention_impl="ring"``, and the
-``ServeConfig`` scheduler options named in its docstring.
+``fused_matmul`` and ``attention_impl="ring"``, and the ``ServeConfig``
+scheduler options named in its docstring.
 """
 
 from __future__ import annotations
@@ -55,9 +55,13 @@ class GPT2Config:
       between a ``lax.scan`` over stacked layer params and an unrolled
       loop, while eager PyTorch loops over the per-layer dictionaries either
       way. Both values are accepted and run the same code.
-    * ``remat``, ``fused_layers``, ``fused_matmul`` — activation
-      checkpointing and the fused Pallas epilogue/matmul kernels; only
-      their defaults (off) are ported.
+    * ``fused_layers`` — "off", or the fused layer epilogues of
+      ``ops/fused_layer.py`` (CUDA kernels K4-K6, their plain versions on
+      the CPU): "ln" for the LN+residual+dropout junction after the
+      attention and the block-closing residual+dropout, "gelu" for the
+      MLP's bias+GELU+dropout, "all" for both.
+    * ``remat``, ``fused_matmul`` — activation checkpointing and the fused
+      matmul kernels; only their defaults (off) are ported.
     """
 
     vocab_size: int = 50257
@@ -111,8 +115,7 @@ class GPT2Config:
                 f"remat={self.remat!r}: expected False, True, 'block', "
                 f"'mlp', 'attn' or 'dots'"
             )
-        for field, default in (("remat", False), ("fused_layers", "off"),
-                               ("fused_matmul", "off")):
+        for field, default in (("remat", False), ("fused_matmul", "off")):
             if getattr(self, field) != default:
                 raise _later_slice("GPT2Config", field, getattr(self, field))
         if self.attention_impl == "ring":

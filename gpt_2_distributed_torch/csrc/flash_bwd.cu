@@ -42,27 +42,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "dropout_hash.cuh"
 
-// dropout_hash_bits (gpt_2_distributed_torch/ops/spmd.py) in uint32, split
-// as in csrc/flash_fwd.cu, which carries the same four functions.
-__device__ __forceinline__ unsigned dropout_hash_bh(unsigned seed, unsigned b,
-                                                    unsigned h) {
-  return seed ^ (b * 0x9E3779B1u) ^ (h * 0x85EBCA77u);
-}
-__device__ __forceinline__ unsigned dropout_hash_row(unsigned row) {
-  return row * 0xC2B2AE3Du;
-}
-__device__ __forceinline__ unsigned dropout_hash_col(unsigned col) {
-  return col * 0x27D4EB2Fu;
-}
-__device__ __forceinline__ unsigned dropout_hash_finish(unsigned x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
+namespace {
 
 constexpr int BQ = 64;   // query rows per tile
 constexpr int BK = 64;   // keys per tile

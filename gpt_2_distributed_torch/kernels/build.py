@@ -3,9 +3,10 @@
 Each source in ``gpt_2_distributed_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C interface,
 at first use, under ``build/`` at the root of the checkout (listed in
-``.gitignore``). A library's file name carries a hash of its source, so an
-edited kernel is rebuilt and a stale library is never loaded. Sources that
-are built together are compiled by parallel ``nvcc`` processes.
+``.gitignore``). A library's file name carries a hash of its source and of
+every header in ``csrc/`` (``*.cuh``), so an edited kernel or header is
+rebuilt and a stale library is never loaded. Sources that are built
+together are compiled by parallel ``nvcc`` processes.
 
 The C entry points take raw device pointers, sizes, strides and the CUDA
 stream as plain integers, launch on that stream, and return
@@ -52,7 +53,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    sha = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.name.encode() + header.read_bytes())
+    digest = sha.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -34,6 +34,11 @@ import torch
 from gpt_2_distributed_torch.config import GPT2Config
 from gpt_2_distributed_torch.ops.activations import gelu_tanh
 from gpt_2_distributed_torch.ops.attention import select_attention_impl
+from gpt_2_distributed_torch.ops.fused_layer import (
+    fused_bias_gelu_dropout,
+    fused_ln_residual_dropout,
+    fused_residual_dropout,
+)
 from gpt_2_distributed_torch.ops.layers import (
     SITE_ATTN,
     SITE_ATTN_RESID,
@@ -120,14 +125,40 @@ def attn_out(o: torch.Tensor, bp: dict) -> torch.Tensor:
     return o @ bp["attn_proj_w"] + bp["attn_proj_b"]
 
 
+def _gelu_fused(config: GPT2Config) -> bool:
+    return config.fused_layers in ("gelu", "all")
+
+
+def _ln_fused(config: GPT2Config) -> bool:
+    return config.fused_layers in ("ln", "all")
+
+
+def _site_seed(key: tuple[int, int] | None) -> int | None:
+    """A fused kernel's int seed from its site's key words."""
+    return None if key is None else attention_seed(key)
+
+
+def _mlp_core(config: GPT2Config, y: torch.Tensor, bp: dict, rate: float,
+              key: tuple[int, int] | None) -> torch.Tensor:
+    """fc matmul -> bias -> tanh-GELU -> activation dropout ([B, T, 4C]).
+
+    With ``fused_layers`` in ("gelu", "all") the bias add, GELU and dropout
+    run as one epilogue over the matmul output (K6, ``ops/fused_layer.py``),
+    in eval mode too (at rate 0); otherwise the unfused composition."""
+    if _gelu_fused(config):
+        return fused_bias_gelu_dropout(y @ bp["mlp_fc_w"], bp["mlp_fc_b"], rate=rate,
+                                       seed=_site_seed(key), deterministic=rate == 0.0)
+    y = gelu_tanh(y @ bp["mlp_fc_w"] + bp["mlp_fc_b"])
+    return dropout(y, rate, key, rate == 0.0)
+
+
 def mlp_sublayer(config: GPT2Config, x: torch.Tensor, bp: dict,
                  rate: float = 0.0, keys=(None, None)) -> torch.Tensor:
     """x + dropout(proj(dropout(gelu(fc(ln2(x)))))): dropout after the
     activation and after the projection, with ``keys`` the two sites' key
     words; eval mode (no dropout) when ``rate`` is 0."""
     y = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], config.layer_norm_eps)
-    y = gelu_tanh(y @ bp["mlp_fc_w"] + bp["mlp_fc_b"])
-    y = dropout(y, rate, keys[0], rate == 0.0)
+    y = _mlp_core(config, y, bp, rate, keys[0])
     y = y @ bp["mlp_proj_w"] + bp["mlp_proj_b"]
     return x + dropout(y, rate, keys[1], rate == 0.0)
 
@@ -151,26 +182,52 @@ def _cast_block(bp: dict, dtype: torch.dtype) -> dict:
     return {k: v if k in _FP32_KEYS else v.to(dtype) for k, v in bp.items()}
 
 
+def _attention(config: GPT2Config, x: torch.Tensor, bp: dict, rate: float,
+               key: tuple[int, int] | None) -> torch.Tensor:
+    """proj(attn(ln1(x))), the attention sublayer before its dropout and
+    residual; ``rate`` is the attention-probability dropout."""
+    b, t, c = x.shape
+    y = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], config.layer_norm_eps)
+    q, k, v = qkv_proj(config, y, bp)
+    attn_fn = select_attention_impl(config.attention_impl, x.device)
+    seed = attention_seed(key) if rate > 0.0 else None
+    return attn_out(attn_fn(q, k, v, rate, seed).reshape(b, t, c), bp)
+
+
+def _mlp_half_fused(config: GPT2Config, x: torch.Tensor, y2: torch.Tensor, bp: dict,
+                    rate: float, keys) -> torch.Tensor:
+    """The MLP sublayer on the pre-normalized ``y2``, closing the block
+    with the fused residual+dropout kernel (K5). ``keys`` are the
+    activation and out-projection sites'."""
+    y = _mlp_core(config, y2, bp, rate, keys[0])
+    y = y @ bp["mlp_proj_w"] + bp["mlp_proj_b"]
+    return fused_residual_dropout(x, y, rate=rate, seed=_site_seed(keys[1]),
+                                  deterministic=rate == 0.0)
+
+
 def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
            rng: tuple[int, int, int] | None, deterministic: bool) -> torch.Tensor:
     """One pre-LN block, x + attn(ln1(x)); x + mlp(ln2(x)), with the JAX
     model's dropout sites: attention probabilities (inside the attention),
-    attention out-projection, MLP activation, MLP out-projection."""
-    b, t, c = x.shape
+    attention out-projection, MLP activation, MLP out-projection. With
+    ``fused_layers`` in ("ln", "all") the attention half ends in the fused
+    LN+residual+dropout junction (K4), which hands ``(r, ln2(r))`` to the
+    MLP half."""
     train = not deterministic
 
     def key(site):
         return site_key(*rng, layer, site) if train else None
 
-    attn_rate = config.attn_dropout if train else 0.0
     resid_rate = config.resid_dropout if train else 0.0
-    y = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], config.layer_norm_eps)
-    q, k, v = qkv_proj(config, y, bp)
-    attn_fn = select_attention_impl(config.attention_impl, x.device)
-    seed = attention_seed(key(SITE_ATTN)) if attn_rate > 0.0 else None
-    o = attn_fn(q, k, v, attn_rate, seed).reshape(b, t, c)
-    x = x + dropout(attn_out(o, bp), resid_rate, key(SITE_ATTN_RESID),
-                    resid_rate == 0.0)
+    o = _attention(config, x, bp, config.attn_dropout if train else 0.0, key(SITE_ATTN))
+    if _ln_fused(config):
+        x, y2 = fused_ln_residual_dropout(
+            x, o, bp["ln2_scale"], bp["ln2_bias"], eps=config.layer_norm_eps,
+            rate=resid_rate, seed=_site_seed(key(SITE_ATTN_RESID)),
+            deterministic=not train)
+        return _mlp_half_fused(config, x, y2, bp, resid_rate,
+                               (key(SITE_MLP_ACT), key(SITE_MLP_RESID)))
+    x = x + dropout(o, resid_rate, key(SITE_ATTN_RESID), resid_rate == 0.0)
     return mlp_sublayer(config, x, bp, resid_rate,
                         (key(SITE_MLP_ACT), key(SITE_MLP_RESID)))
 

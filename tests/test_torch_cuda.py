@@ -19,6 +19,7 @@ from gpt_2_distributed_torch.config import GPT2Config, ServeConfig
 from gpt_2_distributed_torch.models import gpt2
 from gpt_2_distributed_torch.models.decode import generate_cached
 from gpt_2_distributed_torch.ops import flash_attention as flash
+from gpt_2_distributed_torch.ops import fused_layer as fl
 from gpt_2_distributed_torch.ops import paged_attention as paged
 from gpt_2_distributed_torch.serving import ServingEngine
 
@@ -113,6 +114,91 @@ def test_model_trains_through_k1_and_k2(cuda):
     # Two layers, two micro-batches: K1 and K2 once per layer and micro-batch.
     assert flash.flash_attention_fwd.launches - k1 == 4
     assert flash.flash_attention_bwd.launches - k2 == 4
+
+
+# The fused epilogues (K4-K6) against their plain versions run in fp32 on
+# the same bf16 values with the kernels' inner bf16 roundings
+# (``dtype=torch.bfloat16``): every element output is held as above. The
+# column sums (dscale, dbias, db) add the same fp32 terms in other orders:
+# each side is within N 2^-24 sum|t| of the exact sum (the recursive-
+# summation bound), so |d - ref| <= rel |ref| + 2^-11 sum|t| for N <= 4096,
+# rel being db's bf16 rounding (2^-8) and 0 for the fp32 dscale and dbias.
+# The LayerNorm statistics are fp32 on both sides: 1e-4.
+
+
+def _colsum_close(d, ref, terms) -> bool:
+    rel = 2.0 ** -8 if d.dtype == torch.bfloat16 else 0.0
+    return bool(((d.float() - ref).abs() <= rel * ref.abs() + 2.0 ** -11 * terms).all())
+
+
+@pytest.mark.parametrize("n, c", [(333, 200), (77, 100)])   # 16-byte rows; element loads
+def test_fused_layer_kernels_match_plain(cuda, n, c):
+    rng = np.random.default_rng(n)
+    f = 4 * c
+    x, o, dr, dy = (_bf16(rng, n, c, device=cuda) for _ in range(4))
+    scale = torch.from_numpy(1 + 0.1 * rng.normal(size=c).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(0.1 * rng.normal(size=c).astype(np.float32)).to(cuda)
+    h, dout = _bf16(rng, n, f, device=cuda), _bf16(rng, n, f, device=cuda)
+    b = _bf16(rng, f, device=cuda) * 0.1
+    seed, bf = 0x9E3779B9, torch.bfloat16
+    for rate in (0.0, 0.1):
+        r, y, mean, rstd = fl.ln_residual_dropout_fwd(x, o, scale, bias, 1e-5, rate, seed)
+        r_p, y_p, mean_p, rstd_p = fl.ln_residual_dropout_plain(
+            x.float(), o.float(), scale, bias, 1e-5, rate, seed, dtype=bf)
+        assert torch.equal(r.float(), r_p) and _close(y, y_p)
+        assert max((mean - mean_p).abs().max().item(), (rstd - rstd_p).abs().max().item()) <= 1e-4
+        grads = fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
+        again = fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
+        refs = fl.ln_residual_dropout_bwd_plain(r.float(), mean, rstd, scale, dr.float(),
+                                                dy.float(), rate, seed)
+        rhat = (r.float() - mean[:, None]) * rstd[:, None]
+        assert all(torch.equal(g, a) for g, a in zip(grads, again))   # no atomics
+        assert _close(grads[0], refs[0]) and _close(grads[1], refs[1])
+        assert _colsum_close(grads[2], refs[2], (dy.float() * rhat).abs().sum(0))
+        assert _colsum_close(grads[3], refs[3], dy.float().abs().sum(0))
+
+        out = fl.bias_gelu_dropout_fwd(h, b, rate, seed)
+        assert _close(out, fl.bias_gelu_dropout_plain(h.float(), b.float(), rate, seed, dtype=bf))
+        dh, db = fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed)
+        dh2, db2 = fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed)
+        dh_p, db_p = fl.bias_gelu_dropout_bwd_plain(h.float(), b.float(), dout.float(), rate,
+                                                    seed, dtype=bf)
+        assert torch.equal(dh, dh2) and torch.equal(db, db2)
+        assert _close(dh, dh_p) and _colsum_close(db, db_p, dh_p.abs().sum(0))
+    # K5 (built for rate > 0 only, as in the JAX package).
+    r = fl.residual_dropout_fwd(x, o, 0.1, seed)
+    assert _close(r, fl.residual_dropout_plain(x.float(), o.float(), 0.1, seed, dtype=bf))
+    do = fl.dropout_scale(dr, 0.1, seed)
+    assert _close(do, fl.dropout_scale_plain(dr.float(), 0.1, seed, dtype=bf))
+    # Another seed draws another mask: each check must see it.
+    assert not torch.equal(fl.ln_residual_dropout_fwd(x, o, scale, bias, 1e-5, 0.1, seed + 1)[0]
+                           .float(), r_p)
+    assert not _close(fl.residual_dropout_fwd(x, o, 0.1, seed + 1),
+                      fl.residual_dropout_plain(x.float(), o.float(), 0.1, seed, dtype=bf))
+    assert not _close(fl.dropout_scale(dr, 0.1, seed + 1),
+                      fl.dropout_scale_plain(dr.float(), 0.1, seed, dtype=bf))
+    assert not _close(fl.bias_gelu_dropout_fwd(h, b, 0.1, seed + 1),
+                      fl.bias_gelu_dropout_plain(h.float(), b.float(), 0.1, seed, dtype=bf))
+
+
+def test_model_trains_through_the_fused_kernels(cuda):
+    from gpt_2_distributed_torch.parallel import train_step as ts
+    from gpt_2_distributed_torch.resilience import init_guard_state
+
+    cfg = GPT2Config(vocab_size=257, n_positions=128, n_embd=128, n_layer=2, n_head=2,
+                     fused_layers="all")
+    params = ts.trainable_params(gpt2.init_params(cfg, seed=0), cuda)
+    step = ts.make_train_step(cfg, ts.make_optimizer(params, 1e-3), guard=True)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 257, (2, 2, 100))).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 257, (2, 2, 100))).to(cuda)
+    wrappers = (fl.ln_residual_dropout_fwd, fl.ln_residual_dropout_bwd, fl.residual_dropout_fwd,
+                fl.dropout_scale, fl.bias_gelu_dropout_fwd, fl.bias_gelu_dropout_bwd)
+    before = [w.launches for w in wrappers]
+    guard, m = step(params, init_guard_state(), x, y, 0, 0, torch.ones(2, device=cuda))
+    assert m.skip_reason == 0 and np.isfinite(m.loss.item())
+    # Two layers, two micro-batches: each kernel once per layer and micro-batch.
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [4] * 6
 
 
 def _paged_case(rng, device, lengths=(0, 1, 17, 100, 64, 33), h=12, d=64,

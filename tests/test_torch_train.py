@@ -1,8 +1,9 @@
 """The port's training path against the JAX package on the CPU: the model's
-loss and every parameter's grad, three guarded AdamW steps with grad
-accumulation and a warmup + cosine schedule, the non-finite guard, dropout
-determinism, and the training CLI. fp32, tiny config, weights carried across
-with ``models/convert.py``."""
+loss and every parameter's grad (unfused and with each ``fused_layers``
+setting), three guarded AdamW steps with grad accumulation and a warmup +
+cosine schedule, the non-finite guard, dropout determinism, and the
+training CLI. fp32, tiny config, weights carried across with
+``models/convert.py``."""
 
 from __future__ import annotations
 
@@ -100,6 +101,42 @@ def test_model_loss_and_every_grad_match_jax(jax_params, tiny_config, loss_impl)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(loss_j), atol=MODEL_TOL, rtol=0)
     _assert_tree_close(grads_as_jax_tree(params, cfg.n_head), grads_j, MODEL_TOL, "grad")
+
+
+@pytest.mark.parametrize("fused_layers", ["ln", "gelu", "all"])
+def test_fused_model_loss_and_every_grad_match_jax(jax_params, tiny_config, fused_layers):
+    """``fused_layers`` at dropout 0: the port's fused epilogues (their plain
+    versions here) against the JAX model with the same setting (its Pallas
+    kernels in interpret mode), to the bound tests/test_fused_layer.py holds
+    JAX fused against unfused."""
+    jcfg = tiny_config.replace(fused_layers=fused_layers)
+    x, y = _batch(np.random.default_rng(4), jcfg.vocab_size, 2, 20)
+    loss_j, grads_j = jax.value_and_grad(
+        lambda p: jax_gpt2.forward(p, jcfg, jnp.asarray(x), jnp.asarray(y),
+                                   compute_dtype=jnp.float32)[1])(jax_params)
+    params = trainable(jax_params)
+    cfg = port_config(jcfg, fused_layers=fused_layers)
+    _, loss = gpt2.forward(params, cfg, torch.from_numpy(x), torch.from_numpy(y),
+                           compute_dtype=torch.float32)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(loss_j), atol=MODEL_TOL, rtol=0)
+    _assert_tree_close(grads_as_jax_tree(params, cfg.n_head), grads_j, MODEL_TOL, "grad")
+
+
+def test_fused_dropout_is_deterministic_per_seed_and_step(tiny_config):
+    """``fused_layers="all"`` at dropout 0.1: the same seed and step give the
+    same loss bit for bit; another step or seed draws other masks."""
+    cfg = port_config(tiny_config, fused_layers="all").replace(
+        embd_dropout=0.1, attn_dropout=0.1, resid_dropout=0.1)
+    params = gpt2.init_params(cfg, seed=1)
+    x, y = map(torch.from_numpy, _batch(np.random.default_rng(3), cfg.vocab_size, 2, 16))
+
+    def loss(seed, step):
+        return gpt2.forward(params, cfg, x, y, rng=(seed, step, 0), deterministic=False,
+                            compute_dtype=torch.float32)[1].item()
+
+    assert loss(7, 3) == loss(7, 3)
+    assert loss(7, 4) != loss(7, 3) and loss(8, 3) != loss(7, 3)
 
 
 def _schedule_args(lr=1e-3):
@@ -228,7 +265,7 @@ def test_train_cli_on_the_cpu(shard_dir, capsys):
     ([], "no CUDA device"),
     (["--training_mode", "ddp", "--device", "cpu"], "later slice"),
     (["--save_dir", "ckpt", "--device", "cpu"], "later slice"),
-    (["--fused_layers", "all", "--device", "cpu"], "later slice"),
+    (["--fused_matmul", "all", "--device", "cpu"], "later slice"),
 ])
 def test_train_cli_refusals(shard_dir, capsys, flags, message):
     if not flags and torch.cuda.is_available():

@@ -35,34 +35,52 @@ that does not hold:
    element by element, the backward kernels twice and bit-identical, a
    planted fault per kernel (seed + 1); times at the 124M shape beside the
    plain version and the nearest PyTorch call;
-5. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
+5. K7, the fused matmuls of ``csrc/fused_matmul.cu``: the forward with its
+   bias, gelu and resid epilogues, dgrad and wgrad (each with and without
+   the GELU prologue) at the 124M legs (qkv [4096, 768] -> 2304, attention
+   proj -> 768, fc -> 3072, MLP proj [4096, 3072] -> 768) and the ragged
+   1.5B legs [1000, 1600] -> 6400 and [1000, 6400] -> 1600, dropout 0 and
+   0.1: each against its plain version run in fp32 on the same values,
+   element by element within a bound that counts the fp32 summation of
+   the contraction, every kernel twice and bit-identical, planted faults
+   (seed + 1, one 32-deep tile of the contraction zeroed); the inference
+   epilogues (the unfused product, the tied head) the same way and a row's
+   bits alone, in a batch of 8 and inside 960 rows equal; times at the
+   124M legs beside the plain version and ``torch.addmm``/``matmul``;
+6. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
    greedily, then the same 8 prompts sampled at temperature 1.0 (16 new
    tokens each), through ``ServingEngine`` at the full width of the 124M
    preset with random weights, bf16, max_batch 8, block_size 16, 513
-   blocks; checks every request finished with its tokens and that the two
-   runs launched K1 12 times per prefill and K3 12 times per decode step;
-   prints how many greedy streams equal ``generate_cached(batch=1)``'s;
-   then holds one prefill and one decode step of the kernel path against
-   the plain path on the same pool state (fp32 logits);
-6. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
+   blocks; checks every request finished with its tokens and the launches
+   per prefill and decode step (K1 or K3 12 times, K7's forward 49 times,
+   K4 25 times); requires every greedy and sampled stream to equal
+   ``generate_cached(batch=1)``'s, printing for a stream that differs its
+   first differing step and the logits there; then holds one prefill and
+   one decode step of the kernel attention against the plain attention on
+   the same pool state (fp32 logits);
+7. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
    kernel path (K1/K2) and the plain path (dense attention), same params,
    batch and seeds, then at dropout 0 with ``fused_layers`` "all" (K4-K6)
-   and "off": the loss and every grad;
-7. trains: ``train.main()`` on synthetic shards at 124M full width, seq
+   and with ``fused_matmul`` "all" over it (K7), each against "off": the
+   loss and every grad;
+8. trains: ``train.main()`` on synthetic shards at 124M full width, seq
    1024, batch 4, accum 4, dropout 0.1, 16 steps and one eval of 4
-   batches, once with ``--fused_layers off`` and once with ``all``; checks
-   finite losses, a first loss near ln 50257, a falling loss, no skipped
-   step, and the exact launches: K1 = 12 x (micro-batches + eval
-   batches), K2 = 12 x micro-batches in both runs; in the fused run K4
-   and K6 forward = 12 x (micro-batches + eval batches), K4 and K6
-   backward, K5 and its mask-scale = 12 x micro-batches (none in the
-   other); prints each run's ms/step, tok/s and MFU;
-8. prints the ``kernels`` JSON line, then the device line last.
+   batches, with ``--fused_layers off``, with ``all``, and with
+   ``--fused_matmul all --fused_layers all``; checks finite losses, a
+   first loss near ln 50257, a falling loss, no skipped step, and the
+   exact launches: K1 = 12 x (micro-batches + eval batches), K2 = 12 x
+   micro-batches in every run; with the fused layers alone K4 and K6
+   forward = 12 x (micro-batches + eval batches), K4 and K6 backward, K5
+   and its mask-scale = 12 x micro-batches; with the fused matmuls none of
+   K4-K6, and K7's bias and gelu forward once and its resid forward twice
+   a layer and batch, its dgrad and wgrad once a leg and micro-batch;
+   prints each run's ms/step, tok/s and MFU;
+9. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` adds ``torch.profiler`` windows over one serving admission
 step (a 960-token prefill and one decode step), 8 decode steps at batch 8
-and one 124M optimizer step with ``fused_layers`` off and all, and prints
-each window's wall time, device-busy time and its top kernels.
+and one 124M optimizer step of each training run, and prints each
+window's wall time, device-busy time and its top kernels.
 
 Every time here is measured on the card in this run; every bound is
 computed from this run's shapes and the H100 SXM peaks (3.35 TB/s,
@@ -106,7 +124,9 @@ LOGITS_TOL = 0.1
 # keep fp32; those roundings (~2^-9 relative) move the loss (~10.8) by
 # ~1e-3 and each grad tensor by ~1e-2 of its norm through 12 layers. The
 # same bounds hold fused_layers "all" against "off": K6 keeps the GELU in
-# fp32 where the unfused GELU rounds each of its bf16 steps.
+# fp32 where the unfused GELU rounds each of its bf16 steps; and
+# fused_matmul "all" against "off": K7 adds the bias and the residual to
+# the fp32 accumulator where the unfused model rounds the product first.
 MODEL_LOSS_TOL = 0.02
 MODEL_GRAD_TOL = 0.05
 
@@ -490,6 +510,283 @@ def phase_fused(flush) -> dict[str, dict]:
     return rows
 
 
+MM_SEED = 0x5EED7777
+# The K7 legs (name, kind, N, K, M, salt): 124M at batch 4 x 1024 (timed),
+# then the 1.5B widths at a ragged row count.
+MM_LEGS = (
+    ("qkv", "bias", 4096, 768, 2304, 0),
+    ("attn proj", "resid", 4096, 768, 768, 5),
+    ("fc", "gelu", 4096, 768, 3072, 4),
+    ("mlp proj", "resid", 4096, 3072, 768, 6),
+    ("1.5B fc", "gelu", 1000, 1600, 6400, 4),
+    ("1.5B mlp proj", "resid", 1000, 6400, 1600, 6),
+)
+# K7 is held against its plain version run on fp32 copies of the same bf16
+# values, with the kernel's inner roundings (du rounded to bf16 before the
+# products; the inference epilogue's product rounded before its bias). Both
+# sides sum the same K exact products in fp32 in other orders, each within
+# K 2^-24 sum|t| of the exact sum, so for depths up to 8192 the sums differ
+# by at most MM_SUM_TOL sum|t|; the kernel then rounds its output once
+# (O_REL_TOL) and the epilogue carries the sum's error on (the GELU's slope
+# stays below 1.13 and dropout divides by 0.9: EPI_GAIN). Element by
+# element: |y - ref| <= O_REL_TOL |ref| + O_ABS_TOL + MM_SUM_TOL EPI_GAIN
+# sum|t|. The inference epilogue rounds the product before adding the bias:
+# where the two sums straddle a rounding boundary that rounding moves by
+# one ulp, 2 O_REL_TOL of the product.
+MM_SUM_TOL = 2.0 ** -10
+EPI_GAIN = 1.25
+
+
+def held_mm(got: torch.Tensor, ref: torch.Tensor, terms: torch.Tensor,
+            extra: torch.Tensor | float = 0.0) -> tuple[float, float]:
+    """Max |got - ref| of a product and the largest ratio of an element's
+    error to its tolerance, ``terms`` being its sum of |t| (times the
+    epilogue's gain)."""
+    rel = O_REL_TOL if got.dtype == torch.bfloat16 else 0.0
+    err = (got.float() - ref).abs()
+    tol = rel * ref.abs() + O_ABS_TOL + MM_SUM_TOL * terms + extra
+    return err.max().item(), (err / tol).max().item()
+
+
+MM_WRAPPERS = (
+    # (wrapper name in ops/fused_matmul.py, the TPU function it replaces)
+    ("mm_bias_fwd", "gpt_2_distributed_tpu/ops/fused_matmul.py:154"),
+    ("mm_gelu_fwd", "gpt_2_distributed_tpu/ops/fused_matmul.py:164"),
+    ("mm_resid_fwd", "gpt_2_distributed_tpu/ops/fused_matmul.py:180"),
+    ("mm_dgrad", "gpt_2_distributed_tpu/ops/fused_matmul.py:210"),
+    ("mm_dgrad_gelu", "gpt_2_distributed_tpu/ops/fused_matmul.py:231"),
+    ("mm_wgrad", "gpt_2_distributed_tpu/ops/fused_matmul.py:288"),
+    ("mm_wgrad_gelu", "gpt_2_distributed_tpu/ops/fused_matmul.py:293"),
+)
+# The inference epilogues of K7's forward kernel (serving's unfused
+# products and the tied head): the forward of _mm_bias_fwd_kernel with
+# other roundings, where the JAX package leaves the products to XLA.
+MM_SERVE_WRAPPERS = (
+    ("linear", "gpt_2_distributed_tpu/ops/fused_matmul.py:154"),
+    ("head_logits", "gpt_2_distributed_tpu/ops/fused_matmul.py:154"),
+)
+
+
+def phase_matmul(flush) -> dict[str, dict]:
+    """K7's forward (bias, gelu, resid), dgrad and wgrad kernels against
+    their plain versions at MM_LEGS, dropout 0 and 0.1, element by element;
+    every kernel launched twice and bit-identical; planted faults (seed + 1,
+    and one 32-deep tile of the contraction zeroed); the inference epilogues
+    (linear, head) likewise and bit-equal for a row alone, in a batch of 8
+    and inside 960 rows; times at the 124M legs beside the plain version and
+    ``torch.addmm``/``torch.matmul`` on the same product (the yardstick; the
+    port never calls it). Returns each wrapper's row of the kernels line."""
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
+
+    bf = torch.bfloat16
+    max_err: dict[str, float] = {}
+    rows: dict[str, dict] = {}
+    # The leg whose times go into a wrapper's row of the kernels line.
+    row_leg = {"mm_bias_fwd": "qkv", "mm_gelu_fwd": "fc", "mm_resid_fwd": "mlp proj",
+               "mm_dgrad": "mlp proj", "mm_dgrad_gelu": "fc", "mm_wgrad": "mlp proj",
+               "mm_wgrad_gelu": "fc"}
+
+    def hold(name, label, checks, same):
+        err = max(c[0] for c in checks)
+        ratio = max(c[1] for c in checks)
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        print(f"{name} {label}: max|d - plain| {err:.3e}, max err/tol {ratio:.3f}, "
+              f"two launches bit-identical: {same}", flush=True)
+        if not (ratio <= 1.0 and same):
+            fail(f"{name} disagrees with its plain version or with itself ({label})")
+
+    def planted(name, what, checks):
+        ratio = max(c[1] for c in checks)
+        print(f"{name} planted fault ({what}): max err/tol {ratio:.1f}", flush=True)
+        if ratio <= 1.0:
+            fail(f"the {name} check lets a planted fault through ({what})")
+
+    def timed(name, leg, kernel, plain, library, nbytes, flops):
+        ms = time_ms(kernel, flush)
+        plain_ms = time_ms(plain, flush)
+        lib_ms = time_ms(library, flush)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        print(f"{name} {leg}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch "
+              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); {flops / ms / 1e9:.1f} "
+              f"TFLOP/s", flush=True)
+        if row_leg.get(name) == leg:
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                              bound_by=b_by)
+
+    for leg, kind, n, k, m, salt in MM_LEGS:
+        gen = torch.Generator(device="cuda").manual_seed(n + k + m)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf)
+
+        x, w, b = randn(n, k), randn(k, m, scale=k ** -0.5), randn(m, scale=0.1)
+        r, g = randn(n, m), randn(n, m)
+        xf, wf, bfl, rf, gf = (t.float() for t in (x, w, b, r, g))
+        terms_fwd = xf.abs() @ wf.abs() + bfl.abs()
+        x_bad = x.clone()
+        x_bad[:, 32:64] = 0
+        g_bad = g.clone()
+        g_bad[:, 32:64] = 0
+        xr_bad = x.clone()
+        xr_bad[32:64] = 0
+        fwd_name = f"mm_{kind}_fwd"
+        gelu = kind == "gelu"
+        u = None
+        for rate in ((0.0,) if kind == "bias" else (0.0, DROPOUT)):
+            label = f"{leg} [{n}, {k}] -> {m} dropout {rate}"
+            seed = MM_SEED
+            gain = EPI_GAIN / (1.0 - rate)
+            if kind == "bias":
+                def fwd(x_, seed_=seed):
+                    return fm.mm_bias_fwd(x_, w, b), None
+                ref = (fm.matmul_fwd_plain("bias", xf, wf, bfl), None)
+            elif gelu:
+                def fwd(x_, seed_=seed, rate_=rate):
+                    return fm.mm_gelu_fwd(x_, w, b, rate_, seed_, salt)
+                ref = fm.matmul_fwd_plain("gelu", xf, wf, bfl, None, rate, seed, salt)
+            else:
+                def fwd(x_, seed_=seed, rate_=rate):
+                    return fm.mm_resid_fwd(x_, w, b, r, rate_, seed_, salt), None
+                ref = (fm.matmul_fwd_plain("resid", xf, wf, bfl, rf, rate, seed, salt), None)
+            (y, u), (y2, u2) = fwd(x), fwd(x)
+            torch.cuda.synchronize()
+            checks = [held_mm(y, ref[0], gain * terms_fwd)]
+            same = torch.equal(y, y2)
+            if gelu:
+                checks.append(held_mm(u, ref[1], terms_fwd))
+                same = same and torch.equal(u, u2)
+            hold(fwd_name, label, checks, same)
+            planted(fwd_name, "one K tile zeroed", [held_mm(fwd(x_bad)[0], ref[0],
+                                                            gain * terms_fwd)])
+            if rate > 0.0:
+                planted(fwd_name, "seed + 1", [held_mm(fwd(x, seed + 1)[0], ref[0],
+                                                       gain * terms_fwd)])
+
+            # dgrad and wgrad, on the forward's bf16 u where the leg has one.
+            uf = u.float() if gelu else None
+            dsalt, bwd_rate = salt, (0.0 if kind == "bias" else rate)
+            du = fm.du_plain(gf, uf, bwd_rate, seed, dsalt, bf)
+            dg_name, wg_name = ("mm_dgrad_gelu", "mm_wgrad_gelu") if gelu else (
+                "mm_dgrad", "mm_wgrad")
+
+            def dgrad(g_, seed_=seed):
+                if gelu:
+                    return fm.mm_dgrad_gelu(g_, u, w, bwd_rate, seed_, dsalt)
+                return fm.mm_dgrad(g_, w, bwd_rate, seed_, dsalt)
+
+            def wgrad(x_, seed_=seed):
+                if gelu:
+                    return fm.mm_wgrad_gelu(x_, g, u, bwd_rate, seed_, dsalt)
+                return fm.mm_wgrad(x_, g, bwd_rate, seed_, dsalt)
+
+            dx, dx2 = dgrad(g), dgrad(g)
+            dx_ref = fm.matmul_dgrad_plain(gf, wf, uf, bwd_rate, seed, dsalt, bf)
+            terms_dx = du.abs() @ wf.abs().t()
+            hold(dg_name, label, [held_mm(dx, dx_ref, terms_dx)], torch.equal(dx, dx2))
+            planted(dg_name, "one contraction tile of dy zeroed",
+                    [held_mm(dgrad(g_bad), dx_ref, terms_dx)])
+            (dw, db), (dw2, db2) = wgrad(x), wgrad(x)
+            dw_ref, db_ref = fm.matmul_wgrad_plain(xf, gf, uf, bwd_rate, seed, dsalt, bf)
+            terms_dw = xf.abs().t() @ du.abs()
+            hold(wg_name, label, [held_mm(dw, dw_ref, terms_dw),
+                                  held_mm(db, db_ref, du.abs().sum(0))],
+                 torch.equal(dw, dw2) and torch.equal(db, db2))
+            planted(wg_name, "one tile of the summed rows zeroed",
+                    [held_mm(wgrad(xr_bad)[0], dw_ref, terms_dw)])
+            if bwd_rate > 0.0:
+                planted(dg_name, "seed + 1", [held_mm(dgrad(g, seed + 1), dx_ref, terms_dx)])
+                planted(wg_name, "seed + 1",
+                        [held_mm(wgrad(x, seed + 1)[0], dw_ref, terms_dw)])
+        if n != 4096:
+            continue
+
+        # Times at the 124M leg, dropout 0.1 (the bias leg at 0). Bytes:
+        # each operand read once, each output written once.
+        rate = 0.0 if kind == "bias" else DROPOUT
+        seed = MM_SEED
+        out = 2 * n * m * (2 if kind != "bias" else 1)   # gelu writes u, resid reads r
+        flops = 2 * n * k * m
+        if kind == "bias":
+            kernel = lambda: fm.mm_bias_fwd(x, w, b)
+        elif gelu:
+            kernel = lambda: fm.mm_gelu_fwd(x, w, b, rate, seed, salt)
+        else:
+            kernel = lambda: fm.mm_resid_fwd(x, w, b, r, rate, seed, salt)
+        timed(fwd_name, leg, kernel,
+              lambda: fm.matmul_fwd_plain(kind, x, w, b, r, rate, seed, salt),
+              lambda: torch.addmm(b, x, w), 2 * (n * k + k * m + m) + out, flops)
+        u_bytes = 2 * n * m if gelu else 0
+        if gelu:
+            dkernel = lambda: fm.mm_dgrad_gelu(g, u, w, rate, seed, salt)
+            wkernel = lambda: fm.mm_wgrad_gelu(x, g, u, rate, seed, salt)
+        else:
+            dkernel = lambda: fm.mm_dgrad(g, w, rate, seed, salt)
+            wkernel = lambda: fm.mm_wgrad(x, g, rate, seed, salt)
+        timed(dg_name, leg, dkernel,
+              lambda: fm.matmul_dgrad_plain(g, w, u if gelu else None, rate, seed, salt),
+              lambda: torch.matmul(g, w.t()), 2 * (n * m + k * m + n * k) + u_bytes, flops)
+        timed(wg_name, leg, wkernel,
+              lambda: fm.matmul_wgrad_plain(x, g, u if gelu else None, rate, seed, salt),
+              lambda: torch.matmul(x.t(), g), 2 * (n * k + n * m + k * m) + 4 * m + u_bytes,
+              flops)
+
+    # The inference epilogues at the serving shapes: a decode step's fc
+    # product [8, 768] -> 3072 and its head [8, 768] -> 50257, held to their
+    # plain versions, and a row's bits alone, in a batch of 8 and inside 960
+    # rows (where it sits at another place in its tile).
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    c, f, v = 768, 3072, 50257
+    h = torch.randn(960, c, generator=gen, device="cuda").to(bf)
+    w = (torch.randn(c, f, generator=gen, device="cuda") * c ** -0.5).to(bf)
+    b = (torch.randn(f, generator=gen, device="cuda") * 0.1).to(bf)
+    wte = (torch.randn(v, c, generator=gen, device="cuda") * 0.02).to(bf)
+    for name, fn, ref_fn, terms_fn in (
+            ("linear", lambda t: fm.linear(t, w, b),
+             lambda t: fm.linear_plain(t.float(), w.float(), b.float(), bf),
+             lambda t: t.float().abs() @ w.float().abs()),
+            ("head_logits", lambda t: fm.head_logits(t, wte),
+             lambda t: fm.head_plain(t, wte),
+             lambda t: t.float().abs() @ wte.float().abs().t())):
+        for rows_n in (8, 960):
+            got, again = fn(h[:rows_n]), fn(h[:rows_n])
+            ref = ref_fn(h[:rows_n])
+            extra = 0.0
+            if name == "linear":   # the product rounded before its bias
+                extra = 2 * O_REL_TOL * (h[:rows_n].float() @ w.float()).abs()
+            torch.cuda.synchronize()
+            hold(name, f"[{rows_n}, {c}] -> {got.shape[1]}",
+                 [held_mm(got, ref, terms_fn(h[:rows_n]), extra)], torch.equal(got, again))
+        full = fn(h)
+        invariant = torch.equal(fn(h[:8]), full[:8]) and all(
+            torch.equal(fn(h[i:i + 1])[0], full[i]) for i in (0, 5, 130, 959))
+        print(f"{name}: rows 0, 5, 130, 959 alone, in a batch of 8 and inside 960 rows "
+              f"bit-equal: {invariant}", flush=True)
+        if not invariant:
+            fail(f"{name}: a row's result depends on the rows beside it")
+        x8 = h[:8]
+        if name == "linear":
+            kernel, plain = (lambda: fm.linear(x8, w, b),
+                             lambda: fm.linear_plain(x8, w, b))
+            library, n_out = (lambda: torch.addmm(b, x8, w)), f
+            nbytes = 2 * (8 * c + c * f + f + 8 * f)
+        else:
+            kernel, plain = (lambda: fm.head_logits(x8, wte),
+                             lambda: fm.head_plain(x8, wte))
+            library, n_out = (lambda: torch.matmul(x8, wte.t())), v
+            nbytes = 2 * (8 * c + v * c) + 4 * 8 * v
+        ms = time_ms(kernel, flush)
+        plain_ms = time_ms(plain, flush)
+        lib_ms = time_ms(library, flush)
+        b_ms, b_by = bound_ms(nbytes, 2 * 8 * c * n_out)
+        print(f"{name} [8, {c}] -> {n_out}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+    for name, row in rows.items():
+        row["max_abs_err"] = max_err[name]
+    return rows
+
+
 def paged_case(lengths, gen, n=513, h=12, bs=16, d=64):
     """Pools of random bf16, and a table of shuffled distinct blocks."""
     b = len(lengths)
@@ -579,10 +876,14 @@ def profile_window(label: str, fn) -> None:
               f"{e.count / n:6.1f}/step  {e.key[:90]}", flush=True)
 
 
-def phase_serving(profile_steps: bool) -> tuple[int, int]:
+def phase_serving(profile_steps: bool) -> dict[str, int]:
+    """Serves the 8 requests greedily and sampled; returns the launches of
+    the serving path's kernels by wrapper name."""
     from gpt_2_distributed_torch.config import MODEL_PRESETS, ServeConfig
     from gpt_2_distributed_torch.models import decode, gpt2
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
     from gpt_2_distributed_torch.ops.flash_attention import flash_attention_fwd
+    from gpt_2_distributed_torch.ops.fused_layer import ln_residual_dropout_fwd
     from gpt_2_distributed_torch.ops.paged_attention import paged_attention_kernel
     from gpt_2_distributed_torch.serving import ServingEngine
 
@@ -631,32 +932,65 @@ def phase_serving(profile_steps: bool) -> tuple[int, int]:
                 fail(f"{label} request {h.id} emitted a token outside the vocab")
         return handles, prefills, steps
 
-    flash_attention_fwd.launches = 0
-    paged_attention_kernel.launches = 0
+    wrappers = {"flash_attention_fwd": flash_attention_fwd,
+                "paged_attention_kernel": paged_attention_kernel,
+                "linear": fm.linear, "head_logits": fm.head_logits,
+                "ln_residual_dropout_fwd": ln_residual_dropout_fwd}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
     greedy, pf_g, st_g = run(eng, "greedy", 64, 0)
-    _, pf_s, st_s = run(eng_s, "sampled (temperature 1.0)", 16, 50)
-    k1, k3 = flash_attention_fwd.launches, paged_attention_kernel.launches
+    sampled, pf_s, st_s = run(eng_s, "sampled (temperature 1.0)", 16, 50)
+    got = {name: wrapper.launches for name, wrapper in wrappers.items()}
     prefills, steps = pf_g + pf_s, st_g + st_s
-    print(f"serving: launches K1 {k1}, K3 {k3} over {prefills} prefills and "
-          f"{steps} decode steps", flush=True)
+    print(f"serving: launches {got} over {prefills} prefills and {steps} decode steps",
+          flush=True)
+    # Per prefill and per decode step: K1 (prefill) or K3 (decode) once a
+    # layer; the qkv, out-projection, fc and proj products a layer and the
+    # head once through K7's forward; two LayerNorms a layer and the final
+    # one through K4.
     n_layer = config.n_layer
-    if not (k1 > 0 and k3 > 0 and k1 == n_layer * prefills
-            and k3 == n_layer * steps):
-        fail(f"launch counts K1 {k1} / K3 {k3} != {n_layer} x {prefills} "
-             f"prefills / {n_layer} x {steps} decode steps")
+    want = {"flash_attention_fwd": n_layer * prefills, "paged_attention_kernel": n_layer * steps,
+            "linear": 4 * n_layer * (prefills + steps), "head_logits": prefills + steps,
+            "ln_residual_dropout_fwd": (2 * n_layer + 1) * (prefills + steps)}
+    if not (prefills and steps and got == want):
+        fail(f"serving launch counts {got} != {want}")
     del eng_s
 
-    # The engine's exactness oracle, on the card. Batch 1 and batch 8 (and
-    # the prompt width against its block bucket) run different matmul and
-    # attention tiles, so bit-identical streams are not required here: the
-    # count is printed. The CPU tests require them.
-    same = 0
-    for h, p in zip(greedy, prompts):
-        ids = decode.generate_cached(params, config, [p], max_new_tokens=64,
-                                     temperature=0.0)
-        same += ids[0, len(p):].tolist() == h.generated
-    print(f"serving: {same} of {len(greedy)} greedy engine streams equal "
-          f"generate_cached(batch=1)'s", flush=True)
+    # The engine's exactness oracle, on the card: every stream equals
+    # generate_cached(batch=1)'s, greedy and sampled. A stream that differs
+    # is localised: its first differing step, and the two tokens' logits
+    # and the top-two gap of a batch-1 prefill of the common prefix.
+    def oracle(p, new, seed, temperature):
+        return decode.generate_cached(params, config, [p], seed=seed, max_new_tokens=new,
+                                      temperature=temperature,
+                                      block_size=serve.block_size)[0, len(p):].tolist()
+
+    differ = 0
+    for label, handles, new, seed0, temperature in (("greedy", greedy, 64, 0, 0.0),
+                                                    ("sampled", sampled, 16, 50, 1.0)):
+        same = 0
+        for i, (h, p) in enumerate(zip(handles, prompts)):
+            want_ids = oracle(p, new, seed0 + i, temperature)
+            if want_ids == h.generated:
+                same += 1
+                continue
+            t = next(j for j, (a, c) in enumerate(zip(h.generated, want_ids)) if a != c)
+            with torch.no_grad():
+                hid, _ = decode.prefill(eng.w, config,
+                                        torch.tensor([p + want_ids[:t]], device="cuda"),
+                                        len(p) + t)
+                logits = gpt2.logits_fp32(eng.w, hid[:, -1])[0]
+            top = logits.topk(2).values
+            print(f"serving {label} request {h.id} (prompt {len(p)}): first differing "
+                  f"step {t}: engine token {h.generated[t]} (logit "
+                  f"{logits[h.generated[t]].item():.6f}), generate_cached token "
+                  f"{want_ids[t]} (logit {logits[want_ids[t]].item():.6f}), top-two gap "
+                  f"{(top[0] - top[1]).item():.3e}", flush=True)
+        print(f"serving: {same} of {len(handles)} {label} engine streams equal "
+              f"generate_cached(batch=1)'s", flush=True)
+        differ += len(handles) - same
+    if differ:
+        fail(f"{differ} engine streams differ from generate_cached(batch=1)'s")
 
     # Kernel path against plain path on the same state: one prefill, then
     # one decode step over the pools of 8 freshly admitted requests.
@@ -691,14 +1025,15 @@ def phase_serving(profile_steps: bool) -> tuple[int, int]:
           flush=True)
     if not (finite and err_prefill <= LOGITS_TOL and err_decode <= LOGITS_TOL):
         fail("kernel path logits disagree with the plain path")
-    return k1, k3
+    return got
 
 
 def phase_model_paths() -> None:
     """One 124M training micro-batch [4, 1024] twice, with the same params,
     batch and seeds: at dropout 0.1 through the kernel path (K1/K2) and the
     plain path (dense attention), then at dropout 0 with
-    ``fused_layers="all"`` (K4-K6) and "off"; the loss and every grad."""
+    ``fused_layers="all"`` (K4-K6) and with ``fused_matmul="all"`` over it
+    (K7), each against "off"; the loss and every grad."""
     from gpt_2_distributed_torch.config import MODEL_PRESETS
     from gpt_2_distributed_torch.models import gpt2
     from gpt_2_distributed_torch.parallel.train_step import param_list, trainable_params
@@ -718,7 +1053,10 @@ def phase_model_paths() -> None:
             (f"dropout {DROPOUT}", ("kernel path", config.replace(attention_impl="flash")),
              ("plain path", config.replace(attention_impl="dense"))),
             ("dropout 0", ("fused_layers all", no_dropout.replace(fused_layers="all")),
-             ("fused_layers off", no_dropout))):
+             ("fused_layers off", no_dropout)),
+            ("dropout 0", ("fused_matmul all + fused_layers all",
+                           no_dropout.replace(fused_matmul="all", fused_layers="all")),
+             ("fused off", no_dropout))):
         (loss_a, g_a), (loss_b, g_b) = loss_and_grads(cfg_a), loss_and_grads(cfg_b)
         rel = [((p - q).norm() / q.norm()).item() for p, q in zip(g_a, g_b)]
         finite = math.isfinite(loss_a) and all(torch.isfinite(g).all() for g in g_a)
@@ -732,9 +1070,17 @@ def phase_model_paths() -> None:
             fail(f"the {label_a}'s loss or grads disagree with the {label_b}'s")
 
 
+TRAIN_RUNS = (
+    # (label, --fused_layers, --fused_matmul)
+    ("off", "off", "off"),
+    ("fused_layers all", "all", "off"),
+    ("fused_matmul all", "all", "all"),
+)
+
+
 def phase_training(profile: bool) -> dict[str, dict[str, int]]:
-    """``train.main()`` at 124M on synthetic shards, with ``--fused_layers``
-    off and then all; returns each run's launches by wrapper name."""
+    """``train.main()`` at 124M on synthetic shards, once for each of
+    TRAIN_RUNS; returns each run's launches by wrapper name."""
     import tempfile
 
     from gpt_2_distributed_torch import train
@@ -742,18 +1088,20 @@ def phase_training(profile: bool) -> dict[str, dict[str, int]]:
     from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
     from gpt_2_distributed_torch.ops import flash_attention as fa
     from gpt_2_distributed_torch.ops import fused_layer as fl
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
     from gpt_2_distributed_torch.utils import flops
 
     wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_bwd": fa.flash_attention_bwd}
     wrappers.update((name, getattr(fl, name)) for name, _ in FUSED_WRAPPERS)
+    wrappers.update((name, getattr(fm, name)) for name, _ in MM_WRAPPERS + MM_SERVE_WRAPPERS)
     steps, accum, eval_batches, n_layer = 16, 4, 4, MODEL_PRESETS["124M"].n_layer
     micro = steps * accum
     fwd, bwd = n_layer * (micro + eval_batches), n_layer * micro
     counts = {}
     with tempfile.TemporaryDirectory() as data_dir:
         write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
-        for fused in ("off", "all"):
+        for label, fused_layers, fused_matmul in TRAIN_RUNS:
             for w in wrappers.values():
                 w.launches = 0
             t0 = time.monotonic()
@@ -762,11 +1110,11 @@ def phase_training(profile: bool) -> dict[str, dict[str, int]]:
                 "--batch", "4", "--grad_accum_steps", str(accum), "--dropout",
                 str(DROPOUT), "--lr", "6e-4", "--max_steps", str(steps), "--eval_every",
                 str(steps), "--eval_batches", str(eval_batches), "--cli_every", "1",
-                "--fused_layers", fused,
+                "--fused_layers", fused_layers, "--fused_matmul", fused_matmul,
             ])
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
-            got = counts[fused] = {name: w.launches for name, w in wrappers.items()}
+            got = counts[label] = {name: w.launches for name, w in wrappers.items()}
             losses = list(tracker.buffers["loss"])
             tok_s = sorted(tracker.buffers["tokens_per_second"])
             tok_s = tok_s[len(tok_s) // 2]    # median step; the first carries warm-up
@@ -774,7 +1122,7 @@ def phase_training(profile: bool) -> dict[str, dict[str, int]]:
             mfu = flops.mfu(tok_s, MODEL_PRESETS["124M"], 1024, BF16_FLOPS_PER_S)
             eval_loss = tracker.buffers["eval_loss"][-1]
             skipped = tracker.buffers.get("skipped_steps", [0])[-1]
-            print(f"training 124M, fused_layers {fused}: {steps} steps of "
+            print(f"training 124M, {label}: {steps} steps of "
                   f"{tracker.tokens_per_step} tokens in {wall:.1f} s (set-up included); "
                   f"median {ms_step:.1f} ms/step, {tok_s:,.0f} tok/s, MFU {100 * mfu:.2f}% "
                   f"of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; first loss {losses[0]:.4f}, "
@@ -782,30 +1130,38 @@ def phase_training(profile: bool) -> dict[str, dict[str, int]]:
                   f"skipped {skipped:.0f}; launches {got}", flush=True)
             if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
                     and math.isfinite(eval_loss)):
-                fail(f"training (fused_layers {fused}) produced a missing or non-finite loss")
+                fail(f"training ({label}) produced a missing or non-finite loss")
             if abs(losses[0] - math.log(50257)) > 0.3:
                 fail(f"first loss {losses[0]:.4f} is not near ln(50257) = 10.82")
             if not sum(losses[-5:]) / 5 < losses[0]:
-                fail(f"the training loss (fused_layers {fused}) did not fall")
+                fail(f"the training loss ({label}) did not fall")
             if skipped:
                 fail(f"{skipped} steps were skipped by the guard")
-            # K1 runs in training and eval, K2 in training; with the fused
-            # layers K4 and K6 forward run in both, at rate 0 in eval, and
-            # K5 (rate > 0 only) and every backward in training.
-            want = {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
-            for name, _ in FUSED_WRAPPERS:
-                want[name] = 0 if fused == "off" else (
-                    fwd if name in ("ln_residual_dropout_fwd", "bias_gelu_dropout_fwd")
-                    else bwd)
+            # K1 runs in training and eval, K2 in training. The forward
+            # kernels of the fused legs run in both (at rate 0 in eval), K5
+            # (rate > 0 only) and every backward in training. With the fused
+            # matmuls K7 takes every leg K4-K6 would: its bias leg (qkv) and
+            # gelu leg (fc) once a layer, its resid legs (the two
+            # out-projections) twice, and one dgrad and one wgrad a leg.
+            want = {name: 0 for name in wrappers}
+            want.update(flash_attention_fwd=fwd, flash_attention_bwd=bwd)
+            if fused_matmul == "all":
+                want.update(mm_bias_fwd=fwd, mm_gelu_fwd=fwd, mm_resid_fwd=2 * fwd,
+                            mm_dgrad=3 * bwd, mm_dgrad_gelu=bwd, mm_wgrad=3 * bwd,
+                            mm_wgrad_gelu=bwd)
+            elif fused_layers == "all":
+                for name, _ in FUSED_WRAPPERS:
+                    want[name] = fwd if name in ("ln_residual_dropout_fwd",
+                                                 "bias_gelu_dropout_fwd") else bwd
             if got != want:
-                fail(f"launch counts (fused_layers {fused}) {got} != {want}")
+                fail(f"launch counts ({label}) {got} != {want}")
     if profile:
-        for fused in ("off", "all"):
-            profile_train_step(fused)
+        for _, fused_layers, fused_matmul in TRAIN_RUNS:
+            profile_train_step(fused_layers, fused_matmul)
     return counts
 
 
-def profile_train_step(fused_layers: str) -> None:
+def profile_train_step(fused_layers: str, fused_matmul: str) -> None:
     """A torch.profiler window over one optimizer step (4 micro-batches of
     [4, 1024]) of the 124M train step, after one warm-up step."""
     from gpt_2_distributed_torch.config import MODEL_PRESETS
@@ -813,7 +1169,8 @@ def profile_train_step(fused_layers: str) -> None:
     from gpt_2_distributed_torch.parallel import train_step as ts
     from gpt_2_distributed_torch.resilience import init_guard_state
 
-    config = MODEL_PRESETS["124M"].replace(fused_layers=fused_layers)
+    config = MODEL_PRESETS["124M"].replace(fused_layers=fused_layers,
+                                           fused_matmul=fused_matmul)
     params = ts.trainable_params(gpt2.init_params(config, seed=0), torch.device("cuda"))
     step = ts.make_train_step(config, ts.make_optimizer(params, 1e-4), guard=True)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -821,7 +1178,8 @@ def profile_train_step(fused_layers: str) -> None:
     y = torch.randint(0, config.vocab_size, (4, 4, 1024), generator=gen, device="cuda")
     ones = torch.ones(4, device="cuda")
     guard = step(params, init_guard_state(), x, y, 42, 0, ones)[0]
-    profile_window(f"training step 124M (4 x [4, 1024]), fused_layers {fused_layers}",
+    profile_window(f"training step 124M (4 x [4, 1024]), fused_layers {fused_layers}, "
+                   f"fused_matmul {fused_matmul}",
                    lambda: (step(params, guard, x, y, 42, 1, ones), 1)[1])
 
 
@@ -845,7 +1203,8 @@ def main() -> None:
     from gpt_2_distributed_torch.kernels import build
 
     t0 = time.monotonic()
-    reports = build.build(["flash_fwd", "flash_bwd", "paged_decode", "fused_layer"])
+    reports = build.build(["flash_fwd", "flash_bwd", "paged_decode", "fused_layer",
+                           "fused_matmul"])
     print(f"kernels built in {time.monotonic() - t0:.1f} s", flush=True)
     for name, text in reports.items():
         for line in text.splitlines():
@@ -858,15 +1217,22 @@ def main() -> None:
     k1_row, k2_row = phase_flash_train(flush)
     k3_row = phase_paged(flush)
     fused_rows = phase_fused(flush)
+    mm_rows = phase_matmul(flush)
     del flush
-    k1_serve, k3 = phase_serving(profile)
+    serving = phase_serving(profile)
     phase_model_paths()
     counts = phase_training(profile)
+    k1_serve, k3 = serving["flash_attention_fwd"], serving["paged_attention_kernel"]
     k1_train = sum(c["flash_attention_fwd"] for c in counts.values())
     k2 = sum(c["flash_attention_bwd"] for c in counts.values())
     print(f"launches on the main paths: K1 {k1_serve} serving + {k1_train} "
           f"training, K2 {k2} training, K3 {k3} serving; fused_layers all: "
-          + ", ".join(f"{name} {counts['all'][name]}" for name, _ in FUSED_WRAPPERS),
+          + ", ".join(f"{name} {counts['fused_layers all'][name]}"
+                      for name, _ in FUSED_WRAPPERS)
+          + "; fused_matmul all: "
+          + ", ".join(f"{name} {counts['fused_matmul all'][name]}" for name, _ in MM_WRAPPERS)
+          + "; serving: " + ", ".join(f"{name} {serving[name]}"
+                                      for name, _ in MM_SERVE_WRAPPERS),
           flush=True)
 
     kernels = [
@@ -884,8 +1250,16 @@ def main() -> None:
              launches=k3, **k3_row),
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
-             replaces=replaces, launches=counts["all"][name], **fused_rows[name])
+             replaces=replaces, launches=counts["fused_layers all"][name], **fused_rows[name])
         for name, replaces in FUSED_WRAPPERS
+    ] + [
+        dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
+             replaces=replaces, launches=counts["fused_matmul all"][name], **mm_rows[name])
+        for name, replaces in MM_WRAPPERS
+    ] + [
+        dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
+             replaces=replaces, launches=serving[name], **mm_rows[name])
+        for name, replaces in MM_SERVE_WRAPPERS
     ]
     for k in kernels:
         k["kernel_ms"] = k["ms"]

@@ -7,9 +7,9 @@ can move between the two packages, but nothing here depends on JAX.
 
 Fields whose code paths are not ported yet are still fields — so a caller
 moving from the JAX package sees them — but a non-default value is refused
-at construction instead of being ignored: ``GPT2Config.remat``,
-``fused_matmul`` and ``attention_impl="ring"``, and the ``ServeConfig``
-scheduler options named in its docstring.
+at construction instead of being ignored: ``GPT2Config.remat`` and
+``attention_impl="ring"``, and the ``ServeConfig`` scheduler options named
+in its docstring.
 """
 
 from __future__ import annotations
@@ -60,8 +60,14 @@ class GPT2Config:
       the CPU): "ln" for the LN+residual+dropout junction after the
       attention and the block-closing residual+dropout, "gelu" for the
       MLP's bias+GELU+dropout, "all" for both.
-    * ``remat``, ``fused_matmul`` — activation checkpointing and the fused
-      matmul kernels; only their defaults (off) are ported.
+    * ``fused_matmul`` — "off", or the fused matmuls of
+      ``ops/fused_matmul.py`` (CUDA kernel K7, its plain versions on the
+      CPU): "mlp" for the fc leg's matmul+bias+GELU+dropout, "proj" for
+      the attention and MLP out-projections' matmul+bias+dropout+residual,
+      "all" for both and the qkv matmul+bias. A fused leg takes the place
+      of the ``fused_layers`` epilogue on the same leg.
+    * ``remat`` — activation checkpointing; only its default (off) is
+      ported.
     """
 
     vocab_size: int = 50257
@@ -115,9 +121,8 @@ class GPT2Config:
                 f"remat={self.remat!r}: expected False, True, 'block', "
                 f"'mlp', 'attn' or 'dots'"
             )
-        for field, default in (("remat", False), ("fused_matmul", "off")):
-            if getattr(self, field) != default:
-                raise _later_slice("GPT2Config", field, getattr(self, field))
+        if self.remat is not False:
+            raise _later_slice("GPT2Config", "remat", self.remat)
         if self.attention_impl == "ring":
             raise _later_slice("GPT2Config", "attention_impl", "ring")
 

@@ -8,8 +8,9 @@
 //   bits = dropout_hash_finish(dropout_hash_bh(seed, b, h)
 //                              ^ dropout_hash_row(row) ^ dropout_hash_col(col))
 // The flash kernels (K1, K2) hash (batch, head, query row, key); the layer
-// epilogues (K4-K6, csrc/fused_layer.cu) hash (0, salt, flattened row,
-// feature). A position is kept when bits >= uint32(int(rate * 2^32)).
+// epilogues (K4-K6, csrc/fused_layer.cu) and the fused matmuls (K7,
+// csrc/fused_matmul.cu) hash (0, salt, flattened row, feature) through
+// `Dropout` below. A position is kept when bits >= uint32(int(rate * 2^32)).
 #pragma once
 
 __host__ __device__ __forceinline__ unsigned dropout_hash_bh(unsigned seed,
@@ -29,4 +30,23 @@ __host__ __device__ __forceinline__ unsigned dropout_hash_finish(unsigned x) {
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   return x ^ (x >> 16);
+}
+
+// One epilogue dropout site: the (0, salt) part of the hash, the keep
+// threshold and the keep probability divided by; `on` is false at rate 0.
+struct Dropout {
+  unsigned bh, threshold;
+  float keep;
+  bool on;
+  __device__ __forceinline__ unsigned row_part(unsigned row) const {
+    return bh ^ dropout_hash_row(row);
+  }
+  __device__ __forceinline__ bool kept(unsigned hr, unsigned col) const {
+    return dropout_hash_finish(hr ^ dropout_hash_col(col)) >= threshold;
+  }
+};
+
+inline Dropout make_dropout(unsigned seed, unsigned salt, unsigned threshold,
+                            float keep) {
+  return Dropout{dropout_hash_bh(seed, 0u, salt), threshold, keep, threshold != 0u};
 }

@@ -65,20 +65,6 @@ constexpr float GELU_C0 = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float GELU_A = 0.044715f;
 constexpr float GELU_3A = 0.134145f;            // 3 * GELU_A
 
-// One dropout site: the (0, salt) part of the hash, the keep threshold and
-// the keep probability divided by; `on` is false at rate 0.
-struct Dropout {
-  unsigned bh, threshold;
-  float keep;
-  bool on;
-  __device__ __forceinline__ unsigned row_part(unsigned row) const {
-    return bh ^ dropout_hash_row(row);
-  }
-  __device__ __forceinline__ bool kept(unsigned hr, unsigned col) const {
-    return dropout_hash_finish(hr ^ dropout_hash_col(col)) >= threshold;
-  }
-};
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
@@ -424,10 +410,6 @@ __global__ void __launch_bounds__(COL_THREADS) bias_gelu_bwd_kernel(
 // ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
-
-Dropout make_dropout(unsigned seed, unsigned salt, unsigned threshold, float keep) {
-  return Dropout{dropout_hash_bh(seed, 0u, salt), threshold, keep, threshold != 0u};
-}
 
 // 16-byte rows: the width is a multiple of 8 and every base is aligned.
 bool vectorized(int width, std::initializer_list<const void*> ptrs) {

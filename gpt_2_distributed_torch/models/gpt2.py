@@ -7,6 +7,16 @@ mode on a precast weight copy; the training forward (:func:`forward`,
 :func:`hidden_states`) casts the fp32 params per call, has every dropout
 site of the JAX model, and ends in the blocked cross-entropy.
 
+The inference helpers take ``infer=True``: their unfused products go
+through K7's forward kernel with the unfused roundings
+(``ops/fused_matmul.py::linear``), their LayerNorms through K4 at rate 0
+(:func:`norm`) and the head through K7 (:func:`logits_fp32`), so on the
+card a row's logits do not depend on how many rows share a call, which is
+what keeps the serving engine's streams equal to ``generate_cached(batch=
+1)``'s. Training keeps torch's matmuls and LayerNorm for what the JAX
+package leaves to XLA. With ``fused_matmul`` set, training and inference
+both dispatch the fused legs to K7 as the JAX model does.
+
 Two dictionaries of the same structure:
 
 * **params** — the fp32 master weights, ``{"wte", "wpe", "blocks": [one
@@ -17,10 +27,9 @@ Two dictionaries of the same structure:
 * **weights** — the compute copy :func:`compute_weights` makes once per
   engine or sampler call: matmul weights, biases and embeddings cast to
   the compute dtype (bf16 on the card, as the JAX package casts them per
-  step), LayerNorm parameters left fp32 (the norm runs in fp32), plus
-  ``head``, the tied lm_head ``wte`` rounded to the compute dtype and held
-  in fp32, so logits are fp32 sums of exact bf16 x bf16 products like
-  JAX's ``preferred_element_type=float32``.
+  step), LayerNorm parameters left fp32 (the norm runs in fp32). The tied
+  head reads ``wte`` in the compute dtype, so logits are fp32 sums of
+  exact bf16 x bf16 products like JAX's ``preferred_element_type=float32``.
 
 Seeded init draws N(0, 0.02) from a ``torch.Generator`` on the CPU; it
 cannot reproduce ``jax.random``'s bits, so parity with the JAX package is
@@ -32,12 +41,15 @@ from __future__ import annotations
 import torch
 
 from gpt_2_distributed_torch.config import GPT2Config
+from gpt_2_distributed_torch.ops import fused_matmul as fm
 from gpt_2_distributed_torch.ops.activations import gelu_tanh
 from gpt_2_distributed_torch.ops.attention import select_attention_impl
 from gpt_2_distributed_torch.ops.fused_layer import (
+    as_rows,
     fused_bias_gelu_dropout,
     fused_ln_residual_dropout,
     fused_residual_dropout,
+    ln_residual_dropout_fwd,
 )
 from gpt_2_distributed_torch.ops.layers import (
     SITE_ATTN,
@@ -97,7 +109,6 @@ def compute_weights(params: dict, dtype: torch.dtype,
          for key in ("wte", "wpe", "ln_f_scale", "ln_f_bias")}
     w["blocks"] = [{key: cast(key, bp[key]) for key in BLOCK_KEYS}
                    for bp in params["blocks"]]
-    w["head"] = w["wte"].float()
     return w
 
 
@@ -111,18 +122,44 @@ def embed(w: dict, config: GPT2Config, tokens: torch.Tensor,
     return tok + pos
 
 
-def qkv_proj(config: GPT2Config, y: torch.Tensor, bp: dict):
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+           infer: bool) -> torch.Tensor:
+    """``x @ w + b`` of the unfused model: on the inference paths K7's
+    forward with the unfused roundings, in training torch's matmul."""
+    if infer:
+        return fm.linear(x, w, b)
+    return x @ w if b is None else x @ w + b
+
+
+def norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+         infer: bool) -> torch.Tensor:
+    """LayerNorm over the last axis. On the inference paths on the card it
+    is K4 at rate 0 with a zero branch: one warp a row, so a row's bits do
+    not depend on how many rows share the call, as torch's reductions'
+    split does."""
+    if not (infer and x.is_cuda):
+        return layer_norm(x, scale, bias, eps)
+    x2 = as_rows(x)
+    return ln_residual_dropout_fwd(x2, torch.zeros_like(x2), scale, bias, eps)[1].view(x.shape)
+
+
+def qkv_proj(config: GPT2Config, y: torch.Tensor, bp: dict, infer: bool = False):
     """Fused qkv projection of ``y`` [B, T, C] -> (q, k, v), each a
-    [B, T, H, D] view of one [B, T, 3C] product."""
+    [B, T, H, D] view of one [B, T, 3C] product; with ``fused_matmul="all"``
+    through K7's bias kernel."""
     b, t, _ = y.shape
-    qkv = y @ bp["attn_qkv_w"] + bp["attn_qkv_b"]
+    if config.fused_matmul == "all":
+        qkv = fm.matmul_bias(y, bp["attn_qkv_w"], bp["attn_qkv_b"])
+    else:
+        qkv = linear(y, bp["attn_qkv_w"], bp["attn_qkv_b"], infer)
     qkv = qkv.view(b, t, 3, config.n_head, config.head_dim)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def attn_out(o: torch.Tensor, bp: dict) -> torch.Tensor:
-    """Attention out-projection of ``o`` [B, T, C]."""
-    return o @ bp["attn_proj_w"] + bp["attn_proj_b"]
+def attn_out(o: torch.Tensor, bp: dict, infer: bool = False) -> torch.Tensor:
+    """Attention out-projection of ``o`` [B, T, C], unfused (the decode
+    paths keep it so under any ``fused_matmul``, as the JAX package does)."""
+    return linear(o, bp["attn_proj_w"], bp["attn_proj_b"], infer)
 
 
 def _gelu_fused(config: GPT2Config) -> bool:
@@ -133,43 +170,65 @@ def _ln_fused(config: GPT2Config) -> bool:
     return config.fused_layers in ("ln", "all")
 
 
+def _mm_fc_fused(config: GPT2Config) -> bool:
+    return config.fused_matmul in ("mlp", "all")
+
+
+def _mm_proj_fused(config: GPT2Config) -> bool:
+    return config.fused_matmul in ("proj", "all")
+
+
 def _site_seed(key: tuple[int, int] | None) -> int | None:
     """A fused kernel's int seed from its site's key words."""
     return None if key is None else attention_seed(key)
 
 
 def _mlp_core(config: GPT2Config, y: torch.Tensor, bp: dict, rate: float,
-              key: tuple[int, int] | None) -> torch.Tensor:
+              key: tuple[int, int] | None, infer: bool = False) -> torch.Tensor:
     """fc matmul -> bias -> tanh-GELU -> activation dropout ([B, T, 4C]).
 
-    With ``fused_layers`` in ("gelu", "all") the bias add, GELU and dropout
-    run as one epilogue over the matmul output (K6, ``ops/fused_layer.py``),
-    in eval mode too (at rate 0); otherwise the unfused composition."""
+    With ``fused_matmul`` in ("mlp", "all") the matmul and its epilogue are
+    one kernel (K7, ``ops/fused_matmul.py``); else with ``fused_layers`` in
+    ("gelu", "all") the bias add, GELU and dropout run as one epilogue over
+    the matmul output (K6, ``ops/fused_layer.py``); both in eval mode too
+    (at rate 0). Otherwise the unfused composition."""
+    if _mm_fc_fused(config):
+        return fm.matmul_bias_gelu_dropout(y, bp["mlp_fc_w"], bp["mlp_fc_b"], rate=rate,
+                                           seed=_site_seed(key), deterministic=rate == 0.0)
     if _gelu_fused(config):
-        return fused_bias_gelu_dropout(y @ bp["mlp_fc_w"], bp["mlp_fc_b"], rate=rate,
-                                       seed=_site_seed(key), deterministic=rate == 0.0)
-    y = gelu_tanh(y @ bp["mlp_fc_w"] + bp["mlp_fc_b"])
+        return fused_bias_gelu_dropout(linear(y, bp["mlp_fc_w"], None, infer),
+                                       bp["mlp_fc_b"], rate=rate, seed=_site_seed(key),
+                                       deterministic=rate == 0.0)
+    y = gelu_tanh(linear(y, bp["mlp_fc_w"], bp["mlp_fc_b"], infer))
     return dropout(y, rate, key, rate == 0.0)
 
 
 def mlp_sublayer(config: GPT2Config, x: torch.Tensor, bp: dict,
-                 rate: float = 0.0, keys=(None, None)) -> torch.Tensor:
+                 rate: float = 0.0, keys=(None, None), infer: bool = False) -> torch.Tensor:
     """x + dropout(proj(dropout(gelu(fc(ln2(x)))))): dropout after the
     activation and after the projection, with ``keys`` the two sites' key
-    words; eval mode (no dropout) when ``rate`` is 0."""
-    y = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], config.layer_norm_eps)
-    y = _mlp_core(config, y, bp, rate, keys[0])
-    y = y @ bp["mlp_proj_w"] + bp["mlp_proj_b"]
+    words; eval mode (no dropout) when ``rate`` is 0. With ``fused_matmul``
+    in ("proj", "all") the projection, its dropout and the residual add are
+    K7's resid kernel."""
+    y = norm(x, bp["ln2_scale"], bp["ln2_bias"], config.layer_norm_eps, infer)
+    y = _mlp_core(config, y, bp, rate, keys[0], infer)
+    if _mm_proj_fused(config):
+        return fm.matmul_bias_residual_dropout(
+            y, bp["mlp_proj_w"], bp["mlp_proj_b"], x, rate=rate, seed=_site_seed(keys[1]),
+            deterministic=rate == 0.0, salt=fm.SALT_MM_MLP_PROJ)
+    y = linear(y, bp["mlp_proj_w"], bp["mlp_proj_b"], infer)
     return x + dropout(y, rate, keys[1], rate == 0.0)
 
 
 def final_norm(w: dict, config: GPT2Config, x: torch.Tensor) -> torch.Tensor:
-    return layer_norm(x, w["ln_f_scale"], w["ln_f_bias"], config.layer_norm_eps)
+    """The inference paths' final LayerNorm."""
+    return norm(x, w["ln_f_scale"], w["ln_f_bias"], config.layer_norm_eps, infer=True)
 
 
 def logits_fp32(w: dict, h: torch.Tensor) -> torch.Tensor:
-    """Tied-head logits in fp32 from hidden states ``h`` [..., C]."""
-    return h.float() @ w["head"].t()
+    """Tied-head logits in fp32 from hidden states ``h`` [..., C] (K7's
+    forward on the card)."""
+    return fm.head_logits(h, w["wte"])
 
 
 # --- training forward -------------------------------------------------------
@@ -184,14 +243,14 @@ def _cast_block(bp: dict, dtype: torch.dtype) -> dict:
 
 def _attention(config: GPT2Config, x: torch.Tensor, bp: dict, rate: float,
                key: tuple[int, int] | None) -> torch.Tensor:
-    """proj(attn(ln1(x))), the attention sublayer before its dropout and
-    residual; ``rate`` is the attention-probability dropout."""
+    """attn(ln1(x)) [B, T, C], the attention sublayer before its
+    out-projection; ``rate`` is the attention-probability dropout."""
     b, t, c = x.shape
     y = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], config.layer_norm_eps)
     q, k, v = qkv_proj(config, y, bp)
     attn_fn = select_attention_impl(config.attention_impl, x.device)
     seed = attention_seed(key) if rate > 0.0 else None
-    return attn_out(attn_fn(q, k, v, rate, seed).reshape(b, t, c), bp)
+    return attn_fn(q, k, v, rate, seed).reshape(b, t, c)
 
 
 def _mlp_half_fused(config: GPT2Config, x: torch.Tensor, y2: torch.Tensor, bp: dict,
@@ -210,26 +269,34 @@ def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
     """One pre-LN block, x + attn(ln1(x)); x + mlp(ln2(x)), with the JAX
     model's dropout sites: attention probabilities (inside the attention),
     attention out-projection, MLP activation, MLP out-projection. With
-    ``fused_layers`` in ("ln", "all") the attention half ends in the fused
-    LN+residual+dropout junction (K4), which hands ``(r, ln2(r))`` to the
-    MLP half."""
+    ``fused_matmul`` in ("proj", "all") the attention out-projection, its
+    dropout and the residual add are K7's resid kernel (salt 5), and the
+    LayerNorm after it runs unfused whatever ``fused_layers`` says; else
+    with ``fused_layers`` in ("ln", "all") the attention half ends in the
+    fused LN+residual+dropout junction (K4), which hands ``(r, ln2(r))`` to
+    the MLP half."""
     train = not deterministic
 
     def key(site):
         return site_key(*rng, layer, site) if train else None
 
     resid_rate = config.resid_dropout if train else 0.0
+    mlp_keys = (key(SITE_MLP_ACT), key(SITE_MLP_RESID))
     o = _attention(config, x, bp, config.attn_dropout if train else 0.0, key(SITE_ATTN))
-    if _ln_fused(config):
+    if _mm_proj_fused(config):
+        x = fm.matmul_bias_residual_dropout(
+            o, bp["attn_proj_w"], bp["attn_proj_b"], x, rate=resid_rate,
+            seed=_site_seed(key(SITE_ATTN_RESID)), deterministic=not train,
+            salt=fm.SALT_MM_ATTN_PROJ)
+    elif _ln_fused(config):
         x, y2 = fused_ln_residual_dropout(
-            x, o, bp["ln2_scale"], bp["ln2_bias"], eps=config.layer_norm_eps,
+            x, attn_out(o, bp), bp["ln2_scale"], bp["ln2_bias"], eps=config.layer_norm_eps,
             rate=resid_rate, seed=_site_seed(key(SITE_ATTN_RESID)),
             deterministic=not train)
-        return _mlp_half_fused(config, x, y2, bp, resid_rate,
-                               (key(SITE_MLP_ACT), key(SITE_MLP_RESID)))
-    x = x + dropout(o, resid_rate, key(SITE_ATTN_RESID), resid_rate == 0.0)
-    return mlp_sublayer(config, x, bp, resid_rate,
-                        (key(SITE_MLP_ACT), key(SITE_MLP_RESID)))
+        return _mlp_half_fused(config, x, y2, bp, resid_rate, mlp_keys)
+    else:
+        x = x + dropout(attn_out(o, bp), resid_rate, key(SITE_ATTN_RESID), resid_rate == 0.0)
+    return mlp_sublayer(config, x, bp, resid_rate, mlp_keys)
 
 
 def hidden_states(

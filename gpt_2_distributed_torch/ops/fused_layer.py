@@ -98,7 +98,7 @@ def _round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return v.to(dtype).float()
 
 
-def _dropped(v, rate, seed, salt, kp):
+def dropped(v, rate, seed, salt, kp):
     """fp32 ``keep * v / kp`` of a site's mask."""
     keep = epilogue_dropout_mask(seed, salt, tuple(v.shape), rate, v.device)
     return torch.where(keep, _divide(v, kp), 0.0)
@@ -114,7 +114,7 @@ def ln_residual_dropout_plain(x, o, scale, bias, eps=1e-5, rate=0.0, seed=None,
     dtype = dtype or x.dtype
     od = o.float()
     if rate > 0.0:
-        od = _round(_dropped(od, rate, seed, salt, _keep_prob(rate, dtype)), dtype)
+        od = _round(dropped(od, rate, seed, salt, _keep_prob(rate, dtype)), dtype)
     r = _round(x.float() + od, dtype)
     mean = r.mean(dim=-1, keepdim=True)
     cent = r - mean
@@ -134,7 +134,7 @@ def ln_residual_dropout_bwd_plain(r, mean, rstd, scale, dr, dy, rate=0.0, seed=N
     m1 = g.mean(dim=-1, keepdim=True)
     m2 = (g * rhat).mean(dim=-1, keepdim=True)
     dr_tot = dr.float() + rstd * (g - m1 - rhat * m2)
-    do = _dropped(dr_tot, rate, seed, salt, _keep_prob(rate, torch.float32)) \
+    do = dropped(dr_tot, rate, seed, salt, _keep_prob(rate, torch.float32)) \
         if rate > 0.0 else dr_tot
     return (dr_tot.to(r.dtype), do.to(r.dtype), (dyf * rhat).sum(dim=0),
             dyf.sum(dim=0))
@@ -143,29 +143,35 @@ def ln_residual_dropout_bwd_plain(r, mean, rstd, scale, dr, dy, rate=0.0, seed=N
 def residual_dropout_plain(x, o, rate, seed, salt=SALT_RESID, dtype=None):
     """K5's forward: ``x + dropout(o)`` in x's dtype."""
     dtype = dtype or x.dtype
-    od = _round(_dropped(o.float(), rate, seed, salt, _keep_prob(rate, dtype)), dtype)
+    od = _round(dropped(o.float(), rate, seed, salt, _keep_prob(rate, dtype)), dtype)
     return (x.float() + od).to(x.dtype)
 
 
 def dropout_scale_plain(dr, rate, seed, salt=SALT_RESID, dtype=None):
     """K5's backward rescale: ``keep * dr / kp`` with kp in ``dtype``."""
     dtype = dtype or dr.dtype
-    return _dropped(dr.float(), rate, seed, salt, _keep_prob(rate, dtype)).to(dr.dtype)
+    return dropped(dr.float(), rate, seed, salt, _keep_prob(rate, dtype)).to(dr.dtype)
 
 
-def _gelu_core(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def gelu_core(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """tanh-GELU of fp32 ``u``: ``(g, t)`` with t the tanh."""
     t = torch.tanh(GELU_C0 * (u + GELU_A * u * u * u))
     return 0.5 * u * (1.0 + t), t
+
+
+def gelu_grad(u: torch.Tensor) -> torch.Tensor:
+    """d/du of the tanh-GELU of fp32 ``u``, as the JAX kernels spell it."""
+    _, t = gelu_core(u)
+    return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * GELU_C0 * (1.0 + 3.0 * GELU_A * u * u)
 
 
 def bias_gelu_dropout_plain(h, b, rate=0.0, seed=None, salt=SALT_GELU, dtype=None):
     """K6's forward over ``[N, F]``: ``dropout(gelu_tanh(h + b))`` in h's
     dtype."""
     dtype = dtype or h.dtype
-    g, _ = _gelu_core(_round(h.float() + b.float(), dtype))
+    g, _ = gelu_core(_round(h.float() + b.float(), dtype))
     if rate > 0.0:
-        g = _dropped(g, rate, seed, salt, _keep_prob(rate, torch.float32))
+        g = dropped(g, rate, seed, salt, _keep_prob(rate, torch.float32))
     return g.to(h.dtype)
 
 
@@ -174,12 +180,10 @@ def bias_gelu_dropout_bwd_plain(h, b, dout, rate=0.0, seed=None, salt=SALT_GELU,
     """K6's backward: ``(dh, db)``, dh in h's dtype, db (the fp32 column sum
     of dh) in b's dtype."""
     dtype = dtype or h.dtype
-    u = _round(h.float() + b.float(), dtype)
-    _, t = _gelu_core(u)
-    gp = 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * GELU_C0 * (1.0 + 3.0 * GELU_A * u * u)
+    gp = gelu_grad(_round(h.float() + b.float(), dtype))
     dg = dout.float()
     if rate > 0.0:
-        dg = _dropped(dg, rate, seed, salt, _keep_prob(rate, torch.float32))
+        dg = dropped(dg, rate, seed, salt, _keep_prob(rate, torch.float32))
     du = dg * gp
     return du.to(h.dtype), du.sum(dim=0).to(b.dtype)
 
@@ -187,15 +191,18 @@ def bias_gelu_dropout_bwd_plain(h, b, dout, rate=0.0, seed=None, salt=SALT_GELU,
 # --- kernel wrappers --------------------------------------------------------
 
 
-def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
+def check_operand(name: str, x: torch.Tensor, shape, dtype, device,
+                  kernel: str = "fused_layer") -> None:
+    """Raise unless ``x`` is a contiguous ``shape`` tensor of ``dtype`` on
+    ``device``: what a kernel of ``csrc/<kernel>.cu`` takes."""
     if x.dtype != dtype:
-        raise TypeError(f"fused_layer kernel: {name} must be {str(dtype)[6:]}, got {x.dtype}")
+        raise TypeError(f"{kernel} kernel: {name} must be {str(dtype)[6:]}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"fused_layer kernel: {name} shape {tuple(x.shape)} != {tuple(shape)}")
+        raise ValueError(f"{kernel} kernel: {name} shape {tuple(x.shape)} != {tuple(shape)}")
     if not x.is_contiguous():
-        raise ValueError(f"fused_layer kernel: {name} must be contiguous")
+        raise ValueError(f"{kernel} kernel: {name} must be contiguous")
     if x.device != device:
-        raise ValueError(f"fused_layer kernel: {name} on {x.device}, not {device}")
+        raise ValueError(f"{kernel} kernel: {name} on {x.device}, not {device}")
 
 
 def _dropout_words(rate: float, seed: int | None, salt: int, kp: float):
@@ -227,7 +234,7 @@ def ln_residual_dropout_fwd(x, o, scale, bias, eps=1e-5, rate=0.0, seed=None,
                                   ("o", o, (n, c), torch.bfloat16),
                                   ("scale", scale, (c,), torch.float32),
                                   ("bias", bias, (c,), torch.float32)):
-        _check(name, t, shape, dtype, x.device)
+        check_operand(name, t, shape, dtype, x.device)
     r, y = torch.empty_like(x), torch.empty_like(x)
     mean = torch.empty(n, dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
@@ -259,7 +266,7 @@ def ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate=0.0, seed=None,
                                   ("scale", scale, (c,), torch.float32),
                                   ("dr", dr, (n, c), torch.bfloat16),
                                   ("dy", dy, (n, c), torch.bfloat16)):
-        _check(name, t, shape, dtype, r.device)
+        check_operand(name, t, shape, dtype, r.device)
     dx, do = torch.empty_like(r), torch.empty_like(r)
     blocks = -(-n // LN_BWD_ROWS_PER_BLOCK)
     partial = torch.empty((blocks, 2 * c), dtype=torch.float32, device=r.device)
@@ -284,7 +291,7 @@ def _elementwise(fn: str, wrapper, out_like, operands: dict, rate, seed, salt, k
     first = next(iter(operands.values()))
     n, w = first.shape
     for name, t in operands.items():
-        _check(name, t, (w,) if name == "b" else (n, w), torch.bfloat16, first.device)
+        check_operand(name, t, (w,) if name == "b" else (n, w), torch.bfloat16, first.device)
     out = torch.empty_like(out_like)
     with torch.cuda.device(first.device):
         _launch(fn, *(t.data_ptr() for t in operands.values()), out.data_ptr(), n, w,
@@ -336,7 +343,7 @@ def bias_gelu_dropout_bwd(h, b, dout, rate=0.0, seed=None, salt=SALT_GELU):
         return bias_gelu_dropout_bwd_plain(h, b, dout, rate, seed, salt)
     n, f = h.shape
     for name, t, shape in (("h", h, (n, f)), ("b", b, (f,)), ("dout", dout, (n, f))):
-        _check(name, t, shape, torch.bfloat16, h.device)
+        check_operand(name, t, shape, torch.bfloat16, h.device)
     dh = torch.empty_like(h)
     db = torch.empty_like(b)
     tiles = -(-n // GELU_BWD_ROWS_PER_TILE)
@@ -356,7 +363,7 @@ bias_gelu_dropout_bwd.launches = 0
 # --- autograd functions and entry points ------------------------------------
 
 
-def _rows(t: torch.Tensor) -> torch.Tensor:
+def as_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` as contiguous ``[N, width]`` rows."""
     return t.reshape(-1, t.shape[-1]).contiguous()
 
@@ -364,7 +371,7 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 class _LnResidualDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, o, scale, bias, eps, rate, seed, salt):
-        r, y, mean, rstd = ln_residual_dropout_fwd(_rows(x), _rows(o), scale, bias,
+        r, y, mean, rstd = ln_residual_dropout_fwd(as_rows(x), as_rows(o), scale, bias,
                                                    eps, rate, seed, salt)
         ctx.save_for_backward(r, mean, rstd, scale)
         ctx.dropout = (rate, seed, salt)
@@ -375,7 +382,7 @@ class _LnResidualDropout(torch.autograd.Function):
     def backward(ctx, dr, dy):
         r, mean, rstd, scale = ctx.saved_tensors
         dx, do, dscale, dbias = ln_residual_dropout_bwd(
-            r, mean, rstd, scale, _rows(dr), _rows(dy), *ctx.dropout)
+            r, mean, rstd, scale, as_rows(dr), as_rows(dy), *ctx.dropout)
         return (dx.view(dr.shape), do.view(dr.shape), dscale.to(scale.dtype),
                 dbias.to(ctx.bias_dtype), None, None, None, None)
 
@@ -384,18 +391,18 @@ class _ResidualDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, o, rate, seed, salt):
         ctx.dropout = (rate, seed, salt)
-        return residual_dropout_fwd(_rows(x), _rows(o), rate, seed, salt).view(x.shape)
+        return residual_dropout_fwd(as_rows(x), as_rows(o), rate, seed, salt).view(x.shape)
 
     @staticmethod
     def backward(ctx, dr):
-        do = dropout_scale(_rows(dr), *ctx.dropout).view(dr.shape)
+        do = dropout_scale(as_rows(dr), *ctx.dropout).view(dr.shape)
         return dr, do, None, None, None
 
 
 class _BiasGeluDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, b, rate, seed, salt):
-        h2 = _rows(h)
+        h2 = as_rows(h)
         ctx.save_for_backward(h2, b)
         ctx.dropout = (rate, seed, salt)
         return bias_gelu_dropout_fwd(h2, b, rate, seed, salt).view(h.shape)
@@ -403,11 +410,12 @@ class _BiasGeluDropout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         h, b = ctx.saved_tensors
-        dh, db = bias_gelu_dropout_bwd(h, b, _rows(dout), *ctx.dropout)
+        dh, db = bias_gelu_dropout_bwd(h, b, as_rows(dout), *ctx.dropout)
         return dh.view(dout.shape), db, None, None, None
 
 
-def _effective(rate: float, seed: int | None, deterministic: bool) -> tuple[float, int | None]:
+def effective_dropout(rate: float, seed: int | None,
+                      deterministic: bool) -> tuple[float, int | None]:
     """The rate that applies (0 unless training with a seed) and its seed."""
     if deterministic or seed is None or rate <= 0.0:
         return 0.0, None
@@ -421,7 +429,7 @@ def fused_ln_residual_dropout(x, o, scale, bias, *, eps: float = 1e-5,
     """``r = x + dropout(o); y = layer_norm(r, scale, bias)`` over ``[..., C]``
     in one pass; returns ``(r, y)``. ``seed`` is the site's int seed (the
     JAX entry point draws it from a key)."""
-    rate, seed = _effective(rate, seed, deterministic)
+    rate, seed = effective_dropout(rate, seed, deterministic)
     return _LnResidualDropout.apply(x, o, scale, bias, float(eps), rate, seed, salt)
 
 
@@ -429,7 +437,7 @@ def fused_residual_dropout(x, o, *, rate: float = 0.0, seed: int | None = None,
                            deterministic: bool = True, salt: int = SALT_RESID):
     """``x + dropout(o)`` over ``[..., C]`` with the in-kernel mask; the bare
     ``x + o`` when dropout is inactive."""
-    rate, seed = _effective(rate, seed, deterministic)
+    rate, seed = effective_dropout(rate, seed, deterministic)
     if rate == 0.0:
         return x + o
     return _ResidualDropout.apply(x, o, rate, seed, salt)
@@ -439,5 +447,5 @@ def fused_bias_gelu_dropout(h, b, *, rate: float = 0.0, seed: int | None = None,
                             deterministic: bool = True, salt: int = SALT_GELU):
     """``dropout(gelu_tanh(h + b))`` over ``[..., F]``, the MLP activation
     epilogue; the GELU runs in fp32."""
-    rate, seed = _effective(rate, seed, deterministic)
+    rate, seed = effective_dropout(rate, seed, deterministic)
     return _BiasGeluDropout.apply(h, b, rate, seed, salt)

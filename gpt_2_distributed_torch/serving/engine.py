@@ -26,9 +26,12 @@
 Sampling: each request owns a ``torch.Generator`` seeded from its seed, on
 the engine's device, drawn once per sampled token in the same order as
 ``generate_cached(batch=1)``, and each row is sampled on its own — so a
-request's stream never depends on which requests share its batch. On the
-CPU the engine's streams equal ``generate_cached(batch=1)``'s token for
-token (``tests/test_torch_serving.py``).
+request's stream never depends on which requests share its batch. The
+engine's streams equal ``generate_cached(batch=1)``'s token for token, on
+the CPU (``tests/test_torch_serving.py``) and on the card: there every
+product, LayerNorm and the head run kernels whose result for a row does
+not depend on the rows beside it (``models/gpt2.py``), and both sides
+decode through the paged kernel (``models/decode.py``).
 
 Not ported yet (refused by ``ServeConfig``): chunked prefill, the prefix
 cache, watermark admission with preemption, serving meshes and
@@ -52,8 +55,6 @@ from gpt_2_distributed_torch.models.generate import (
     check_generation_args,
     sample_token,
 )
-from gpt_2_distributed_torch.ops.layers import layer_norm
-from gpt_2_distributed_torch.ops.paged_attention import paged_attention
 from gpt_2_distributed_torch.serving.paged_cache import (
     BlockAllocator,
     init_pools,
@@ -113,7 +114,8 @@ class ServingEngine:
         print(h.generated)
 
     ``params`` are the fp32 master weights (``models/gpt2.py``); the engine
-    keeps its own compute-dtype copy on ``device``, which defaults to CUDA.
+    keeps its own compute-dtype copy on ``device``, which defaults to CUDA
+    (there the compute dtype is bf16, the kernels' type).
     """
 
     def __init__(
@@ -140,10 +142,10 @@ class ServingEngine:
         self.temperature = float(temperature)
         self.top_k = top_k
         self.w = gpt2.compute_weights(params, compute_dtype, self.device)
-        if self.device.type == "cuda" and serve.attn_impl != "plain":
+        if self.device.type == "cuda":
             # Build the kernels now (parallel nvcc, skipped once built) so
             # the first request's TTFT never includes a compile.
-            build.build(["flash_fwd", "paged_decode"])
+            build.build(["flash_fwd", "paged_decode", "fused_matmul", "fused_layer"])
 
         self._m = serve.max_blocks_per_seq(config.n_positions)
         self.k_pool, self.v_pool = init_pools(config, serve, compute_dtype,
@@ -343,33 +345,15 @@ class ServingEngine:
         ``ServeConfig.attn_impl`` (to hold the kernel path against the
         plain one on the same pool state)."""
         impl = self.serve.attn_impl if attn_impl is None else attn_impl
-        cfg, w, dev = self.config, self.w, self.device
-        bsz = self.serve.max_batch
-        bs = self.serve.block_size
+        dev = self.device
+        # Idle rows hold position 0 and a zeroed table row: they write to
+        # the null block 0 and attend to nothing (length 0).
         lengths = np.where(self.active, self.pos + 1, 0).astype(np.int32)
-        blk = self.block_table[np.arange(bsz), self.pos // bs]
-        blk = np.where(self.active, blk, 0)    # idle rows scribble on block 0
-        off = self.pos % bs
-        pos_d = torch.from_numpy(self.pos).to(dev)
-        blk_d = torch.from_numpy(blk.astype(np.int64)).to(dev)
-        off_d = torch.from_numpy(off).to(dev)
-        table_d = torch.from_numpy(self.block_table).to(dev)
-        lengths_d = torch.from_numpy(lengths).to(dev)
-
-        x = gpt2.embed(w, cfg, torch.from_numpy(self.tokens).to(dev)[:, None],
-                       pos_d[:, None])                        # [B, 1, C]
-        for layer, bp in enumerate(w["blocks"]):
-            y = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.layer_norm_eps)
-            q, k, v = gpt2.qkv_proj(cfg, y, bp)               # [B, 1, H, D]
-            kp, vp = self.k_pool[layer], self.v_pool[layer]   # [N, H, bs, D]
-            kp[blk_d, :, off_d] = k[:, 0]
-            vp[blk_d, :, off_d] = v[:, 0]
-            o = paged_attention(q[:, 0], kp, vp, table_d, lengths_d,
-                                impl=impl)                    # [B, H, D]
-            x = x + gpt2.attn_out(o.reshape(bsz, 1, cfg.n_embd), bp)
-            x = gpt2.mlp_sublayer(cfg, x, bp)
-        x = gpt2.final_norm(w, cfg, x)
-        return gpt2.logits_fp32(w, x[:, 0])
+        return decode.paged_decode_step(
+            self.w, self.config, torch.from_numpy(self.tokens).to(dev),
+            torch.from_numpy(self.pos).to(dev), self.k_pool, self.v_pool,
+            torch.from_numpy(self.block_table).to(dev), torch.from_numpy(lengths).to(dev),
+            impl)
 
     @torch.no_grad()
     def step(self) -> int:

@@ -7,19 +7,22 @@ The flag surface is the JAX CLI's. What this slice runs: the model and data
 flags, batch / grad-accum / epochs, the learning-rate schedule, AdamW
 weight decay, periodic eval, the non-finite step guard with its per-layer
 clip fallback and ``--inject_nan_at``, ``--dropout``, ``--attention_impl``,
-``--fused_layers``, ``--device_prefetch`` (pinned host batches copied with
-``non_blocking=True`` one optimizer step ahead) and ``--device``. Every
+``--fused_layers``, ``--fused_matmul``, ``--device_prefetch`` (pinned host
+batches copied with ``non_blocking=True`` one optimizer step ahead) and
+``--device``. Every
 flag whose plane is not ported yet (DDP/FSDP meshes, checkpoints and
 resume, the spike monitor's rollback, TensorBoard and tracing, the
 multi-host control plane, the other fault injections, bf16 grad
-accumulation, remat, the fused matmuls) is refused with a "later slice"
+accumulation, remat) is refused with a "later slice"
 error instead of being ignored.
 
 Runs on CUDA unless ``--device cpu`` is given; without a visible GPU it
 exits with the "no CUDA device" message. On CUDA the attention runs
 through the hand-written kernels K1 (forward, with in-kernel dropout) and
 K2 (backward); ``--fused_layers`` runs the layer epilogues through K4
-(LN+residual+dropout), K5 (residual+dropout) and K6 (bias+GELU+dropout).
+(LN+residual+dropout), K5 (residual+dropout) and K6 (bias+GELU+dropout);
+``--fused_matmul`` runs the matmul legs with their epilogues through K7
+(forward, dgrad and wgrad), in place of K4-K6 on the legs it covers.
 Prints the JAX CLI's ``step N | loss: ...`` lines and
 ``training done: N optimizer steps``.
 """

@@ -20,6 +20,7 @@ from gpt_2_distributed_torch.models import gpt2
 from gpt_2_distributed_torch.models.decode import generate_cached
 from gpt_2_distributed_torch.ops import flash_attention as flash
 from gpt_2_distributed_torch.ops import fused_layer as fl
+from gpt_2_distributed_torch.ops import fused_matmul as fm
 from gpt_2_distributed_torch.ops import paged_attention as paged
 from gpt_2_distributed_torch.serving import ServingEngine
 
@@ -279,3 +280,111 @@ def test_engine_runs_its_main_path_through_both_kernels(cuda):
     ids = generate_cached(params, cfg, [prompts[1]], max_new_tokens=4)
     assert ids.shape == (1, len(prompts[1]) + 4)
     assert flash.flash_attention_fwd.launches - k1 == cfg.n_layer
+
+
+def _mm_close(got, ref, terms, extra=0.0):
+    """K7 against its plain version in fp32: one rounding of the output
+    (2^-8) plus the two fp32 sums' orders (2^-10 of the sum of |terms| for
+    depths up to 8192, times 1.25 / 0.9 for the GELU's slope and the
+    dropout scale)."""
+    rel = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
+    tol = rel * ref.abs() + 2.0 ** -16 + 2.0 ** -10 * 1.4 * terms + extra
+    return bool(((got.float() - ref).abs() <= tol).all())
+
+
+# 16-byte rows; element loads
+@pytest.mark.parametrize("n, k, m", [(333, 200, 264), (77, 100, 90)])
+def test_fused_matmul_kernels_match_plain(cuda, n, k, m):
+    rng = np.random.default_rng(n)
+    x, r, g = _bf16(rng, n, k, device=cuda), _bf16(rng, n, m, device=cuda), _bf16(
+        rng, n, m, device=cuda)
+    w = _bf16(rng, k, m, device=cuda) * k ** -0.5
+    b = _bf16(rng, m, device=cuda) * 0.1
+    seed, bf = 0x9E3779B9, torch.bfloat16
+    xf, wf, bfl, rf, gf = (t.float() for t in (x, w, b, r, g))
+    terms = xf.abs() @ wf.abs() + bfl.abs()
+    assert _mm_close(fm.mm_bias_fwd(x, w, b), fm.matmul_fwd_plain("bias", xf, wf, bfl), terms)
+    for rate in (0.0, 0.1):
+        y, u = fm.mm_gelu_fwd(x, w, b, rate, seed)
+        y_p, u_p = fm.matmul_fwd_plain("gelu", xf, wf, bfl, None, rate, seed, fm.SALT_MM_GELU)
+        assert _mm_close(y, y_p, terms) and _mm_close(u, u_p, terms)
+        y = fm.mm_resid_fwd(x, w, b, r, rate, seed)
+        assert _mm_close(y, fm.matmul_fwd_plain("resid", xf, wf, bfl, rf, rate, seed,
+                                                fm.SALT_MM_ATTN_PROJ), terms)
+        for uu in (None, u):
+            du = fm.du_plain(gf, None if uu is None else uu.float(), rate, seed, 4, bf)
+            if uu is None:
+                dx, dx2 = fm.mm_dgrad(g, w, rate, seed, 4), fm.mm_dgrad(g, w, rate, seed, 4)
+                (dw, db), (dw2, db2) = (fm.mm_wgrad(x, g, rate, seed, 4) for _ in range(2))
+            else:
+                dx, dx2 = (fm.mm_dgrad_gelu(g, uu, w, rate, seed, 4) for _ in range(2))
+                (dw, db), (dw2, db2) = (fm.mm_wgrad_gelu(x, g, uu, rate, seed, 4)
+                                        for _ in range(2))
+            assert torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(db, db2)
+            assert _mm_close(dx, du @ wf.t(), du.abs() @ wf.abs().t())
+            assert _mm_close(dw, xf.t() @ du, xf.abs().t() @ du.abs())
+            assert _mm_close(db, du.sum(0), du.abs().sum(0))
+    # Another seed draws another mask; a zeroed contraction tile is seen.
+    assert not _mm_close(fm.mm_resid_fwd(x, w, b, r, 0.1, seed + 1),
+                         fm.matmul_fwd_plain("resid", xf, wf, bfl, rf, 0.1, seed,
+                                             fm.SALT_MM_ATTN_PROJ), terms)
+    x_bad = x.clone()
+    x_bad[:, 32:64] = 0
+    assert not _mm_close(fm.mm_bias_fwd(x_bad, w, b), fm.matmul_fwd_plain("bias", xf, wf, bfl),
+                         terms)
+
+
+def test_inference_products_are_row_invariant(cuda):
+    """A row's bits from the inference products (unfused linear, bias
+    forward, tied head) and K4's LayerNorm alone, in a batch of 8 and
+    inside 960 rows, where it sits at another place of its tile."""
+    rng = np.random.default_rng(3)
+    h = _bf16(rng, 960, 256, device=cuda)
+    w = _bf16(rng, 256, 640, device=cuda) * 0.0625
+    b = _bf16(rng, 640, device=cuda) * 0.1
+    wte = _bf16(rng, 1001, 256, device=cuda) * 0.02
+    scale = torch.ones(256, device=cuda)
+    for fn in (lambda t: fm.linear(t, w, b), lambda t: fm.mm_bias_fwd(t, w, b),
+               lambda t: fm.head_logits(t, wte),
+               lambda t: gpt2.norm(t, scale, scale - 1, 1e-5, True)):
+        full = fn(h)
+        assert torch.equal(fn(h[:8]), full[:8])
+        for i in (0, 5, 130, 959):
+            assert torch.equal(fn(h[i:i + 1])[0], full[i])
+
+
+def test_model_trains_through_k7(cuda):
+    from gpt_2_distributed_torch.parallel import train_step as ts
+    from gpt_2_distributed_torch.resilience import init_guard_state
+
+    cfg = GPT2Config(vocab_size=257, n_positions=128, n_embd=128, n_layer=2, n_head=2,
+                     fused_matmul="all", fused_layers="all")
+    params = ts.trainable_params(gpt2.init_params(cfg, seed=0), cuda)
+    step = ts.make_train_step(cfg, ts.make_optimizer(params, 1e-3), guard=True)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 257, (2, 2, 100))).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 257, (2, 2, 100))).to(cuda)
+    k7 = (fm.mm_bias_fwd, fm.mm_gelu_fwd, fm.mm_resid_fwd, fm.mm_dgrad, fm.mm_dgrad_gelu,
+          fm.mm_wgrad, fm.mm_wgrad_gelu)
+    k4_k6 = (fl.ln_residual_dropout_fwd, fl.residual_dropout_fwd, fl.bias_gelu_dropout_fwd)
+    before = [w.launches for w in k7 + k4_k6]
+    guard, m = step(params, init_guard_state(), x, y, 0, 0, torch.ones(2, device=cuda))
+    assert m.skip_reason == 0 and np.isfinite(m.loss.item())
+    # Two layers, two micro-batches: K7 takes every leg, K4-K6 none.
+    assert [w.launches - n for w, n in zip(k7 + k4_k6, before)] == [4, 4, 8, 12, 4, 12, 4,
+                                                                      0, 0, 0]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_engine_streams_equal_generate_cached_on_the_card(cuda, temperature):
+    cfg = GPT2Config(vocab_size=1000, n_positions=256, n_embd=128, n_layer=2, n_head=2)
+    params = gpt2.init_params(cfg, seed=0)
+    serve = ServeConfig(max_batch=4, block_size=16, num_blocks=64)
+    eng = ServingEngine(params, cfg, serve, temperature=temperature)
+    prompts = [[1, 2, 3], list(range(5, 45)), [42], list(range(100, 217))]
+    handles = [eng.submit(p, 20, seed=7 + i) for i, p in enumerate(prompts)]
+    eng.run_until_idle(max_steps=200)
+    for i, (h, p) in enumerate(zip(handles, prompts)):
+        ids = generate_cached(params, cfg, [p], seed=7 + i, max_new_tokens=20,
+                              temperature=temperature, block_size=serve.block_size)
+        assert ids[0, len(p):].tolist() == h.generated, i

@@ -123,6 +123,29 @@ def test_fused_model_loss_and_every_grad_match_jax(jax_params, tiny_config, fuse
     _assert_tree_close(grads_as_jax_tree(params, cfg.n_head), grads_j, MODEL_TOL, "grad")
 
 
+@pytest.mark.parametrize("fused_matmul, fused_layers", [
+    ("mlp", "off"), ("proj", "off"), ("all", "off"), ("all", "all")])
+def test_fused_matmul_model_loss_and_every_grad_match_jax(jax_params, tiny_config,
+                                                         fused_matmul, fused_layers):
+    """``fused_matmul`` at dropout 0, alone and over ``fused_layers="all"``
+    (where K7 takes the legs K4-K6 would): the port's K7 legs (their plain
+    versions here) against the JAX model with the same flags (its Pallas
+    kernels in interpret mode), to the bound tests/test_fused_matmul.py
+    holds JAX fused against unfused."""
+    jcfg = tiny_config.replace(fused_matmul=fused_matmul, fused_layers=fused_layers)
+    x, y = _batch(np.random.default_rng(6), jcfg.vocab_size, 2, 20)
+    loss_j, grads_j = jax.value_and_grad(
+        lambda p: jax_gpt2.forward(p, jcfg, jnp.asarray(x), jnp.asarray(y),
+                                   compute_dtype=jnp.float32)[1])(jax_params)
+    params = trainable(jax_params)
+    cfg = port_config(jcfg, fused_matmul=fused_matmul, fused_layers=fused_layers)
+    _, loss = gpt2.forward(params, cfg, torch.from_numpy(x), torch.from_numpy(y),
+                           compute_dtype=torch.float32)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(loss_j), atol=MODEL_TOL, rtol=0)
+    _assert_tree_close(grads_as_jax_tree(params, cfg.n_head), grads_j, MODEL_TOL, "grad")
+
+
 def test_fused_dropout_is_deterministic_per_seed_and_step(tiny_config):
     """``fused_layers="all"`` at dropout 0.1: the same seed and step give the
     same loss bit for bit; another step or seed draws other masks."""
@@ -261,11 +284,23 @@ def test_train_cli_on_the_cpu(shard_dir, capsys):
     assert np.isfinite(tracker.buffers["eval_loss"][-1])
 
 
+def test_train_cli_with_fused_matmul_on_the_cpu(shard_dir, capsys):
+    """``--fused_matmul all`` over ``--fused_layers all`` with dropout: two
+    steps through K7's plain versions (n_embd 32: the port needs no tile
+    multiple)."""
+    tracker = train.main(["--data_dir", shard_dir, *TINY, "--max_steps", "2",
+                          "--cli_every", "1", "--dropout", "0.1", "--fused_matmul", "all",
+                          "--fused_layers", "all", "--device", "cpu"])
+    assert "training done: 2 optimizer steps" in capsys.readouterr().out
+    losses = list(tracker.buffers["loss"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
 @pytest.mark.parametrize("flags, message", [
     ([], "no CUDA device"),
     (["--training_mode", "ddp", "--device", "cpu"], "later slice"),
     (["--save_dir", "ckpt", "--device", "cpu"], "later slice"),
-    (["--fused_matmul", "all", "--device", "cpu"], "later slice"),
+    (["--remat", "block", "--device", "cpu"], "later slice"),
 ])
 def test_train_cli_refusals(shard_dir, capsys, flags, message):
     if not flags and torch.cuda.is_available():

@@ -21,12 +21,24 @@ that does not hold:
    plain backward in fp32 on the same lse and delta, two launches
    bit-identical, a planted fault (one key tile of v swapped), times beside
    SDPA's forward and backward;
-3. K3, paged decode: the kernel against its plain version at the serving
+3. K8, the ring's block kernel (``csrc/flash_block.cu``): forward and
+   backward (with nonzero ``do`` and ``dlse``) against their plain
+   versions in fp32 on the same bf16 values, at [4, 12, 512, 64] (sp = 2)
+   and [4, 12, 256, 64] (sp = 4) below, on and above the diagonal (the
+   last exactly o = 0, lse = NEG_INF and zero grads) and a ragged
+   [208 | 160] block, dropout 0 and 0.1, backward launches bit-identical,
+   planted faults (seed + 1, col_off one tile off); times beside the plain
+   version and SDPA with the block's boolean mask; then the package's
+   ring schedule for all sp ranks in one process, through the
+   single-process exchange seam, against K1/K2 over the whole sequence
+   with the same seed ([4, 12, 1024, 64] at sp 2 and 4, [1, 12, 8192, 64]
+   at sp 8), with K8 launched sp^2 times each way per call;
+4. K3, paged decode: the kernel against its plain version at the serving
    pool shape (8 sequences, 12 heads, D 64, 513 blocks of 16) with mixed
    lengths including an idle slot, shuffled block placement, then all
    lengths 1024, plus a planted fault (one table entry swapped); times
    both versions the same way;
-4. the fused layer epilogues of ``csrc/fused_layer.cu``: K4
+5. the fused layer epilogues of ``csrc/fused_layer.cu``: K4
    (LN+residual+dropout) forward and backward, K5 (residual+dropout)
    forward and its backward mask-scale, K6 (bias+GELU+dropout) forward
    and backward, at [4096, 768] / [4096, 3072] (124M, batch 4 x 1024) and
@@ -35,7 +47,7 @@ that does not hold:
    element by element, the backward kernels twice and bit-identical, a
    planted fault per kernel (seed + 1); times at the 124M shape beside the
    plain version and the nearest PyTorch call;
-5. K7, the fused matmuls of ``csrc/fused_matmul.cu``: the forward with its
+6. K7, the fused matmuls of ``csrc/fused_matmul.cu``: the forward with its
    bias, gelu and resid epilogues, dgrad and wgrad (each with and without
    the GELU prologue) at the 124M legs (qkv [4096, 768] -> 2304, attention
    proj -> 768, fc -> 3072, MLP proj [4096, 3072] -> 768) and the ragged
@@ -47,7 +59,7 @@ that does not hold:
    epilogues (the unfused product, the tied head) the same way and a row's
    bits alone, in a batch of 8 and inside 960 rows equal; times at the
    124M legs beside the plain version and ``torch.addmm``/``matmul``;
-6. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
+7. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
    greedily, then the same 8 prompts sampled at temperature 1.0 (16 new
    tokens each), through ``ServingEngine`` at the full width of the 124M
    preset with random weights, bf16, max_batch 8, block_size 16, 513
@@ -58,12 +70,12 @@ that does not hold:
    first differing step and the logits there; then holds one prefill and
    one decode step of the kernel attention against the plain attention on
    the same pool state (fp32 logits);
-7. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
+8. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
    kernel path (K1/K2) and the plain path (dense attention), same params,
    batch and seeds, then at dropout 0 with ``fused_layers`` "all" (K4-K6)
    and with ``fused_matmul`` "all" over it (K7), each against "off": the
    loss and every grad;
-8. trains: ``train.main()`` on synthetic shards at 124M full width, seq
+9. trains: ``train.main()`` on synthetic shards at 124M full width, seq
    1024, batch 4, accum 4, dropout 0.1, 16 steps and one eval of 4
    batches, with ``--fused_layers off``, with ``all``, and with
    ``--fused_matmul all --fused_layers all``; checks finite losses, a
@@ -75,12 +87,20 @@ that does not hold:
    K4-K6, and K7's bias and gelu forward once and its resid forward twice
    a layer and batch, its dgrad and wgrad once a leg and micro-batch;
    prints each run's ms/step, tok/s and MFU;
-9. prints the ``kernels`` JSON line, then the device line last.
+10. with two or more cards, trains ``--mesh sp=2`` the same way through
+    ``torch.distributed.run`` (NCCL; two ranks of this script in
+    ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
+    launched 12 x 2 x (micro-batches + eval batches) forward and 12 x 2 x
+    micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
+    beside the local step's. On one card it prints that the NCCL ring
+    needs two GPUs and that the CPU tests hold that path over gloo;
+11. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` adds ``torch.profiler`` windows over one serving admission
 step (a 960-token prefill and one decode step), 8 decode steps at batch 8
-and one 124M optimizer step of each training run, and prints each
-window's wall time, device-busy time and its top kernels.
+and one 124M optimizer step of each training run, and over rank 0's whole
+sp=2 training run (set-up and eval included, divided by its 16 steps),
+and prints each window's wall time, device-busy time and its top kernels.
 
 Every time here is measured on the card in this run; every bound is
 computed from this run's shapes and the H100 SXM peaks (3.35 TB/s,
@@ -99,6 +119,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+LOG2E = 1.4426950408889634
 
 # Tolerances, each with its reason:
 # Each kernel is held against its plain version run on the same values in
@@ -338,6 +359,171 @@ def phase_flash_train(flush) -> tuple[dict, dict]:
                       bound_by=b_by)   # the dropout-0.1 case goes into the line
     k2_row["max_abs_err"] = max_err
     return k1_row, k2_row
+
+
+# K8's cases: (label, Tq, Tc, row_off, col_off) at [4, 12, T, 64]: the
+# blocks a rank meets in the ring at sp = 2 (T/sp = 512) and sp = 4 (256) —
+# below the diagonal (full), on it (triangular), above it (fully masked) —
+# and a ragged block whose first 48 rows attend nothing in it.
+BLOCK_CASES = tuple(
+    (f"sp={sp} {where}", tl, tl, row, col)
+    for sp, tl in ((2, 512), (4, 256))
+    for where, row, col in (("below", tl, 0), ("diagonal", tl, tl), ("above", 0, tl))
+) + (("ragged", 208, 160, 0, 48),)
+# The ring on one card against K1/K2 over the whole sequence. The ring
+# rounds each step's o_r to bf16 and combines in fp32, then rounds once
+# more; K8 rounds q * scale to bf16 where K1 keeps it in fp32; the ring's
+# dk and dv are sums of sp bf16 partial grads. So the two differ by a few
+# bf16 roundings (2^-9 relative each): the output is held to a relative L2
+# error of 2^-7 (two roundings' worth of headroom over the ~2^-8 expected)
+# and each grad to 2^-6.
+RING_O_TOL = 2.0 ** -7
+RING_GRAD_TOL = 2.0 ** -6
+RING_CASES = ((4, 1024, 2), (4, 1024, 4), (1, 8192, 8))   # (B, T, sp) at H 12, D 64
+
+
+def rel_l2(x: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def phase_flash_block(flush) -> tuple[dict, dict]:
+    """K8, the ring's block kernel, against its plain version (fp32 on the
+    same bf16 values) at BLOCK_CASES, dropout 0 and 0.1, forward and
+    backward under nonzero (do, dlse); a fully masked block exactly o = 0,
+    lse = NEG_INF and zero grads; two backward launches bit-identical;
+    planted faults (seed + 1, col_off one tile off); times at the full
+    sp = 2 block beside the plain version and SDPA with the block's boolean
+    mask (the yardstick; the port never calls it, and it gives no lse)."""
+    from gpt_2_distributed_torch.ops import flash_block as fb
+
+    b, h, d = 4, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {"flash_block_fwd": dict(max_abs_err=0.0), "flash_block_bwd": dict(max_abs_err=0.0)}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    for label, tq, tc, row, col in BLOCK_CASES:
+        q, do = randn(b, h, tq, d), randn(b, h, tq, d)
+        k, v = randn(b, h, tc, d), randn(b, h, tc, d)
+        dlse = randn(b, h, tq, dtype=torch.float32)
+        for rate in (0.0, DROPOUT):
+            kw = dict(seed=ATTN_SEED, dropout_rate=rate)
+            o, lse = fb.flash_block_fwd(q, k, v, row, col, **kw)
+            delta = ((do.float() * o.float()).sum(-1) - dlse * LOG2E).contiguous()
+            grads = fb.flash_block_bwd(q, k, v, do, lse, delta, row, col, **kw)
+            again = fb.flash_block_bwd(q, k, v, do, lse, delta, row, col, **kw)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = fb.flash_block_plain(q, k, v, row, col, **kw)
+            refs = fb.flash_block_bwd_plain(q, k, v, do, lse, delta, row, col, **kw)
+            err_o, ratio = held(o, o_ref)
+            dead = lse_ref == fb.NEG_INF
+            dead_exact = (torch.equal(lse == fb.NEG_INF, dead)
+                          and not torch.count_nonzero(o[dead.unsqueeze(-1).expand_as(o)]))
+            err_lse = (lse - lse_ref)[~dead].abs().max().item() if (~dead).any() else 0.0
+            checks = [held(g, r) for g, r in zip(grads, refs)]
+            same = all(torch.equal(g, a) for g, a in zip(grads, again))
+            print(f"K8 {label} [{b}, {h}, {tq}|{tc}, {d}] at ({row}, {col}) dropout {rate}: "
+                  f"max|o - plain| {err_o:.3e}, max err/tol {ratio:.3f}, max|lse - plain| "
+                  f"{err_lse:.3e}, {int(dead.sum())} fully masked rows exact: {dead_exact}; "
+                  f"backward max|d - plain| dq {checks[0][0]:.3e} dk {checks[1][0]:.3e} dv "
+                  f"{checks[2][0]:.3e}, max err/tol {max(c[1] for c in checks):.3f}, two "
+                  f"launches bit-identical: {same}", flush=True)
+            if not (ratio <= 1.0 and err_lse <= LSE_TOL and dead_exact and same
+                    and all(c[1] <= 1.0 for c in checks)):
+                fail(f"K8 disagrees with its plain version or with itself ({label}, "
+                     f"dropout {rate})")
+            if row < col and tq == tc and any(torch.count_nonzero(x) for x in (o, *grads)):
+                fail(f"K8's fully masked block ({label}) is not exactly zero")
+            rows["flash_block_fwd"]["max_abs_err"] = max(rows["flash_block_fwd"]["max_abs_err"],
+                                                         err_o)
+            rows["flash_block_bwd"]["max_abs_err"] = max(
+                [rows["flash_block_bwd"]["max_abs_err"]] + [c[0] for c in checks])
+            if label == "sp=2 diagonal" and rate > 0.0:
+                # Planted faults: the next seed, and the key block placed one
+                # tile later; the check must reject both, forward and backward.
+                for what, row_, col_, seed_ in (("seed + 1", row, col, ATTN_SEED + 1),
+                                                ("col_off + 64", row, col + 64, ATTN_SEED)):
+                    kw_ = dict(seed=seed_, dropout_rate=rate)
+                    bad_o = fb.flash_block_fwd(q, k, v, row_, col_, **kw_)[0]
+                    bad_g = fb.flash_block_bwd(q, k, v, do, lse, delta, row_, col_, **kw_)
+                    r_o = held(bad_o, o_ref)[1]
+                    r_g = max(held(g, r)[1] for g, r in zip(bad_g, refs))
+                    print(f"K8 planted fault ({what}): forward max err/tol {r_o:.1f}, "
+                          f"backward {r_g:.1f}", flush=True)
+                    if r_o <= 1.0 or r_g <= 1.0:
+                        fail(f"the K8 check lets a planted fault through ({what})")
+            if label == "sp=2 below" and rate > 0.0:
+                mask = torch.ones(tq, tc, dtype=torch.bool, device="cuda")
+                full = 2 * b * h * tq * tc * d     # one [Tq, Tc] x [., D] product
+                fwd_ms = time_ms(lambda: fb.flash_block_fwd(q, k, v, row, col, **kw), flush)
+                fwd_plain = time_ms(lambda: fb.flash_block_plain(q, k, v, row, col, **kw), flush)
+                fwd_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, dropout_p=rate), flush)
+                fwd_b, fwd_by = bound_ms(4 * q.numel() * 2 + lse.numel() * 4, 2 * full)
+                bwd_ms = time_ms(lambda: fb.flash_block_bwd(q, k, v, do, lse, delta, row, col,
+                                                            **kw), flush)
+                bwd_plain = time_ms(lambda: fb.flash_block_bwd_plain(
+                    q, k, v, do, lse, delta, row, col, **kw), flush)
+                qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    qg, kg, vg, attn_mask=mask, dropout_p=rate)
+                bwd_lib = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                              retain_graph=True), flush)
+                # Reads q, k, v, do, lse, delta; writes dq, dk, dv; five products.
+                bwd_b, bwd_by = bound_ms(7 * q.numel() * 2 + 2 * lse.numel() * 4, 5 * full)
+                print(f"K8 forward [{b}, {h}, {tq}|{tc}, {d}] full block, dropout {rate}: "
+                      f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, sdpa with mask "
+                      f"{fwd_lib:.4f} ms, bound {fwd_b:.5f} ms ({fwd_by}); backward: kernel "
+                      f"{bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, sdpa backward with mask "
+                      f"{bwd_lib:.4f} ms, bound {bwd_b:.5f} ms ({bwd_by})", flush=True)
+                rows["flash_block_fwd"].update(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
+                                               bound_ms=fwd_b, bound_by=fwd_by)
+                rows["flash_block_bwd"].update(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
+                                               bound_ms=bwd_b, bound_by=bwd_by)
+    return rows["flash_block_fwd"], rows["flash_block_bwd"]
+
+
+def phase_ring() -> dict[str, int]:
+    """The package's ring schedule for all sp ranks in one process, through
+    the single-process exchange seam, against K1/K2 over the whole sequence
+    with the same seed, at RING_CASES with dropout 0.1: the output and dq,
+    dk, dv. Counts K8's launches of each ring call (zeroed just before it):
+    sp^2 forward and sp^2 backward. Returns the launches over all cases."""
+    from gpt_2_distributed_torch.ops import flash_attention as fa
+    from gpt_2_distributed_torch.ops import flash_block as fb
+    from gpt_2_distributed_torch.ops.ring_attention import ring_attention_all_ranks
+
+    total = {"flash_block_fwd": 0, "flash_block_bwd": 0}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for b, t, sp in RING_CASES:
+        q, k, v, do = (torch.randn(b, t, 12, 64, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+
+        def run(attn):
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            o = attn(qg, kg, vg)
+            return (o, *torch.autograd.grad(o, (qg, kg, vg), do))
+
+        ref = run(lambda a, b_, c: fa.flash_attention_bthd(a, b_, c, DROPOUT, ATTN_SEED))
+        fb.flash_block_fwd.launches = fb.flash_block_bwd.launches = 0
+        got = run(lambda a, b_, c: ring_attention_all_ranks(
+            a, b_, c, sp=sp, dropout_rate=DROPOUT, seed=ATTN_SEED))
+        torch.cuda.synchronize()
+        launches = (fb.flash_block_fwd.launches, fb.flash_block_bwd.launches)
+        total["flash_block_fwd"] += launches[0]
+        total["flash_block_bwd"] += launches[1]
+        errs = [rel_l2(g, r) for g, r in zip(got, ref)]
+        finite = all(torch.isfinite(g).all() for g in got)
+        print(f"ring on one card [{b}, {t}, 12, 64] sp={sp} dropout {DROPOUT}: relative L2 "
+              f"against K1/K2 o {errs[0]:.3e} (tol {RING_O_TOL:.2e}), dq {errs[1]:.3e} dk "
+              f"{errs[2]:.3e} dv {errs[3]:.3e} (tol {RING_GRAD_TOL:.2e}); K8 launches "
+              f"forward {launches[0]}, backward {launches[1]} (sp^2 = {sp * sp})", flush=True)
+        if not (finite and errs[0] <= RING_O_TOL and max(errs[1:]) <= RING_GRAD_TOL):
+            fail(f"the one-card ring at sp={sp} disagrees with K1/K2")
+        if launches != (sp * sp, sp * sp):
+            fail(f"the ring at sp={sp} launched K8 {launches} times, not sp^2 each way")
+    return total
 
 
 FUSED_WRAPPERS = (
@@ -1078,9 +1264,10 @@ TRAIN_RUNS = (
 )
 
 
-def phase_training(profile: bool) -> dict[str, dict[str, int]]:
+def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, float]]:
     """``train.main()`` at 124M on synthetic shards, once for each of
-    TRAIN_RUNS; returns each run's launches by wrapper name."""
+    TRAIN_RUNS; returns each run's launches by wrapper name and its median
+    ms/step."""
     import tempfile
 
     from gpt_2_distributed_torch import train
@@ -1098,7 +1285,7 @@ def phase_training(profile: bool) -> dict[str, dict[str, int]]:
     steps, accum, eval_batches, n_layer = 16, 4, 4, MODEL_PRESETS["124M"].n_layer
     micro = steps * accum
     fwd, bwd = n_layer * (micro + eval_batches), n_layer * micro
-    counts = {}
+    counts, ms_steps = {}, {}
     with tempfile.TemporaryDirectory() as data_dir:
         write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
         for label, fused_layers, fused_matmul in TRAIN_RUNS:
@@ -1118,7 +1305,7 @@ def phase_training(profile: bool) -> dict[str, dict[str, int]]:
             losses = list(tracker.buffers["loss"])
             tok_s = sorted(tracker.buffers["tokens_per_second"])
             tok_s = tok_s[len(tok_s) // 2]    # median step; the first carries warm-up
-            ms_step = tracker.tokens_per_step / tok_s * 1e3
+            ms_step = ms_steps[label] = tracker.tokens_per_step / tok_s * 1e3
             mfu = flops.mfu(tok_s, MODEL_PRESETS["124M"], 1024, BF16_FLOPS_PER_S)
             eval_loss = tracker.buffers["eval_loss"][-1]
             skipped = tracker.buffers.get("skipped_steps", [0])[-1]
@@ -1158,7 +1345,111 @@ def phase_training(profile: bool) -> dict[str, dict[str, int]]:
     if profile:
         for _, fused_layers, fused_matmul in TRAIN_RUNS:
             profile_train_step(fused_layers, fused_matmul)
-    return counts
+    return counts, ms_steps
+
+
+SP_ARGS = ("--model", "124M", "--seq_len", "1024", "--batch", "4", "--grad_accum_steps", "4",
+           "--dropout", str(DROPOUT), "--lr", "6e-4", "--max_steps", "16", "--eval_every", "16",
+           "--eval_batches", "4", "--cli_every", "1", "--mesh", "sp=2")
+
+
+def sp_worker(data_dir: str, profile: bool) -> None:
+    """One rank of the sp=2 training run (``chip_smoke.py --sp_worker DIR``
+    under ``torch.distributed.run``): zeroes the attention kernels' counts,
+    runs ``train.main()`` with ``--mesh sp=2`` and prints one ``sp_worker``
+    JSON line with its launches, losses and step times. With ``profile``
+    rank 0 runs under a ``torch.profiler`` window (whole run, set-up and
+    eval included) and prints its breakdown."""
+    import os
+
+    from gpt_2_distributed_torch import train
+    from gpt_2_distributed_torch.ops import flash_attention as fa
+    from gpt_2_distributed_torch.ops import flash_block as fb
+
+    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "flash_block_fwd": fb.flash_block_fwd, "flash_block_bwd": fb.flash_block_bwd}
+    for w in wrappers.values():
+        w.launches = 0
+    rank = int(os.environ["RANK"])
+    run = {}
+
+    def train_run() -> int:
+        run["tracker"] = train.main(["--data_dir", data_dir, *SP_ARGS])
+        return 16
+
+    if profile and rank == 0:
+        profile_window("training 124M --mesh sp=2, rank 0, the whole run", train_run)
+    else:
+        train_run()
+    tracker = run["tracker"]
+    torch.cuda.synchronize()
+    print("sp_worker " + json.dumps({
+        "rank": rank,
+        "launches": {name: w.launches for name, w in wrappers.items()},
+        "losses": list(tracker.buffers["loss"]),
+        "eval_loss": tracker.buffers["eval_loss"][-1],
+        "tokens_per_second": list(tracker.buffers["tokens_per_second"]),
+        "tokens_per_step": tracker.tokens_per_step,
+    }), flush=True)
+
+
+def phase_sp_training(local_ms_step: float, profile: bool) -> dict[str, int] | None:
+    """``--mesh sp=2`` training at 124M on two cards (NCCL), when the
+    machine has them: ``torch.distributed.run`` starts two ranks of this
+    script in ``--sp_worker`` mode; checks finite, falling losses that agree
+    across ranks, a first loss near ln 50257, and per rank K8's exact
+    launches (12 layers x sp blocks x micro-batches (+ eval batches)) with
+    K1 = K2 = 0; prints ms/step and tok/s beside the local step of
+    ``phase_training``. Returns rank 0's launches, or None on one card."""
+    import tempfile
+
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+
+    if torch.cuda.device_count() < 2:
+        print("training --mesh sp=2: the NCCL ring needs two GPUs and this machine has "
+              f"{torch.cuda.device_count()}; the sp=2 training path is held on the CPU over "
+              "gloo by tests/test_torch_ring_train.py, and K8 on this card by the one-card "
+              "ring above", flush=True)
+        return None
+    sp, steps, accum, eval_batches, n_layer = 2, 16, 4, 4, 12
+    with tempfile.TemporaryDirectory() as data_dir:
+        write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             str(sp), __file__, "--sp_worker", data_dir] + (["--profile"] if profile else []),
+            capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"sp=2 training exited with {proc.returncode}:\n{proc.stdout[-4000:]}"
+             f"\n{proc.stderr[-4000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith(("profile ", "  ")):
+            print(line, flush=True)
+    ranks = sorted((json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+                    if line.startswith("sp_worker ")), key=lambda r: r["rank"])
+    if len(ranks) != sp:
+        fail(f"sp=2 training reported {len(ranks)} ranks:\n{proc.stdout[-4000:]}")
+    micro = steps * accum
+    want = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "flash_block_fwd": n_layer * sp * (micro + eval_batches),
+            "flash_block_bwd": n_layer * sp * micro}
+    losses = ranks[0]["losses"]
+    tok_s = sorted(ranks[0]["tokens_per_second"])[steps // 2]
+    ms_step = ranks[0]["tokens_per_step"] / tok_s * 1e3
+    print(f"training 124M --mesh sp=2 on {sp} cards: median {ms_step:.1f} ms/step "
+          f"({tok_s:,.0f} tok/s over both cards) against the local step's {local_ms_step:.1f} "
+          f"ms/step in this call; first loss {losses[0]:.4f}, last 5 mean "
+          f"{sum(losses[-5:]) / 5:.4f}, eval loss {ranks[0]['eval_loss']:.4f}; launches per "
+          f"rank {[r['launches'] for r in ranks]}", flush=True)
+    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+            and all(r["losses"] == losses for r in ranks)):
+        fail("sp=2 training produced missing, non-finite or rank-dependent losses")
+    if abs(losses[0] - math.log(50257)) > 0.3 or not sum(losses[-5:]) / 5 < losses[0]:
+        fail("sp=2 training: the first loss is not near ln(50257) or the loss did not fall")
+    for r in ranks:
+        if r["launches"] != want:
+            fail(f"sp=2 training rank {r['rank']} launches {r['launches']} != {want}")
+    return ranks[0]["launches"]
 
 
 def profile_train_step(fused_layers: str, fused_matmul: str) -> None:
@@ -1184,6 +1475,9 @@ def profile_train_step(fused_layers: str, fused_matmul: str) -> None:
 
 
 def main() -> None:
+    if "--sp_worker" in sys.argv[1:]:
+        sp_worker(sys.argv[sys.argv.index("--sp_worker") + 1], "--profile" in sys.argv)
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     smi = subprocess.run(
@@ -1204,7 +1498,7 @@ def main() -> None:
 
     t0 = time.monotonic()
     reports = build.build(["flash_fwd", "flash_bwd", "paged_decode", "fused_layer",
-                           "fused_matmul"])
+                           "fused_matmul", "flash_block"])
     print(f"kernels built in {time.monotonic() - t0:.1f} s", flush=True)
     for name, text in reports.items():
         for line in text.splitlines():
@@ -1215,13 +1509,17 @@ def main() -> None:
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
     phase_flash(flush)
     k1_row, k2_row = phase_flash_train(flush)
+    k8_rows = phase_flash_block(flush)
+    k8_ring = phase_ring()
     k3_row = phase_paged(flush)
     fused_rows = phase_fused(flush)
     mm_rows = phase_matmul(flush)
     del flush
     serving = phase_serving(profile)
     phase_model_paths()
-    counts = phase_training(profile)
+    counts, ms_steps = phase_training(profile)
+    k8_train = phase_sp_training(ms_steps["off"], profile)
+    k8 = k8_ring if k8_train is None else k8_train
     k1_serve, k3 = serving["flash_attention_fwd"], serving["paged_attention_kernel"]
     k1_train = sum(c["flash_attention_fwd"] for c in counts.values())
     k2 = sum(c["flash_attention_bwd"] for c in counts.values())
@@ -1232,7 +1530,9 @@ def main() -> None:
           + "; fused_matmul all: "
           + ", ".join(f"{name} {counts['fused_matmul all'][name]}" for name, _ in MM_WRAPPERS)
           + "; serving: " + ", ".join(f"{name} {serving[name]}"
-                                      for name, _ in MM_SERVE_WRAPPERS),
+                                      for name, _ in MM_SERVE_WRAPPERS)
+          + f"; K8 {k8['flash_block_fwd']} forward, {k8['flash_block_bwd']} backward "
+          + ("(the one-card ring)" if k8_train is None else "(sp=2 training, rank 0)"),
           flush=True)
 
     kernels = [
@@ -1260,6 +1560,12 @@ def main() -> None:
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
              replaces=replaces, launches=serving[name], **mm_rows[name])
         for name, replaces in MM_SERVE_WRAPPERS
+    ] + [
+        dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/flash_block.cu",
+             replaces=f"gpt_2_distributed_tpu/ops/flash_block.py:{line}",
+             launches=k8[name], **row)
+        for name, line, row in (("flash_block_fwd", 68, k8_rows[0]),
+                                ("flash_block_bwd", 156, k8_rows[1]))
     ]
     for k in kernels:
         k["kernel_ms"] = k["ms"]

@@ -7,9 +7,8 @@ can move between the two packages, but nothing here depends on JAX.
 
 Fields whose code paths are not ported yet are still fields — so a caller
 moving from the JAX package sees them — but a non-default value is refused
-at construction instead of being ignored: ``GPT2Config.remat`` and
-``attention_impl="ring"``, and the ``ServeConfig`` scheduler options named
-in its docstring.
+at construction instead of being ignored: ``GPT2Config.remat`` and the
+``ServeConfig`` scheduler options named in its docstring.
 """
 
 from __future__ import annotations
@@ -47,7 +46,9 @@ class GPT2Config:
       "dense" (plain PyTorch dense attention on any device), "auto" (the
       same as "flash"; the JAX package's "auto" picks dense off the TPU,
       while the port's flash wrapper already runs its plain version on
-      the CPU). "ring" needs sequence parallelism: a later slice.
+      the CPU), "ring" (ring attention over the active mesh's 'sp' axis,
+      ``ops/ring_attention.py``: K8 on the card; without an sp mesh the
+      "auto" policy). Under an sp mesh "auto" is "ring" too.
     * ``loss_impl`` — "blocked" (the logit-free chunked cross-entropy,
       ``ops/losses.py``) or "dense" (full fp32 logits).
     * ``loss_block_rows`` — row-chunk size of the blocked cross-entropy.
@@ -123,8 +124,6 @@ class GPT2Config:
             )
         if self.remat is not False:
             raise _later_slice("GPT2Config", "remat", self.remat)
-        if self.attention_impl == "ring":
-            raise _later_slice("GPT2Config", "attention_impl", "ring")
 
     @property
     def head_dim(self) -> int:

@@ -104,7 +104,7 @@ def collect_performance(tracker: "StatsTracker") -> dict[str, float]:
         "tokens_per_second": tok_s,
         "total_tokens": float(tracker.total_tokens),
         "epoch_time": now - tracker.epoch_start_time,
-        "tokens_per_second_per_chip": tok_s,   # one device
+        "tokens_per_second_per_chip": tok_s / tracker.n_chips,
     }
     if tracker.flops_per_token and tracker.peak_flops_per_chip:
         out["mfu"] = (

@@ -31,8 +31,10 @@ class StatsTracker:
 
     ``batch_size`` is the effective batch of one optimizer step
     (micro-batch x grad_accum), so ``tokens_per_step = batch_size x
-    seq_len``. ``device`` is where the memory collector reads the CUDA
-    allocator (a CPU device: host memory only)."""
+    seq_len``, counted over all ``n_chips`` devices of a mesh.
+    ``device`` is where the memory collector reads the CUDA allocator (a
+    CPU device: host memory only). ``printing=False`` (every process of a
+    mesh but the first) keeps the metrics and prints nothing."""
 
     def __init__(
         self,
@@ -42,10 +44,14 @@ class StatsTracker:
         flops_per_token: float | None = None,
         peak_flops_per_chip: float | None = None,
         device: torch.device | None = None,
+        n_chips: int = 1,
+        printing: bool = True,
     ) -> None:
         self.registry = METRIC_REGISTRY
         self.cli_every = max(1, int(cli_every))
         self.device = device
+        self.n_chips = n_chips
+        self.printing = printing
         self.tokens_per_step = int(batch_size) * int(seq_len)
         self.flops_per_token = flops_per_token
         self.peak_flops_per_chip = peak_flops_per_chip
@@ -81,7 +87,8 @@ class StatsTracker:
             for name, v in d.collector(self).items():
                 self._buffer(name, float(v))
         if step % self.cli_every == 0:
-            self._print_cli(step)
+            if self.printing:
+                self._print_cli(step)
             self.window_tokens = 0
             self.window_start_time = time.perf_counter()
 

@@ -63,6 +63,7 @@ from gpt_2_distributed_torch.ops.layers import (
     site_key,
 )
 from gpt_2_distributed_torch.ops.losses import IGNORE_INDEX, blocked_cross_entropy
+from gpt_2_distributed_torch.parallel.mesh import sp_mesh
 
 INIT_SEED = 42
 
@@ -184,7 +185,8 @@ def _site_seed(key: tuple[int, int] | None) -> int | None:
 
 
 def _mlp_core(config: GPT2Config, y: torch.Tensor, bp: dict, rate: float,
-              key: tuple[int, int] | None, infer: bool = False) -> torch.Tensor:
+              key: tuple[int, int] | None, infer: bool = False,
+              origin: tuple[int, ...] | None = None) -> torch.Tensor:
     """fc matmul -> bias -> tanh-GELU -> activation dropout ([B, T, 4C]).
 
     With ``fused_matmul`` in ("mlp", "all") the matmul and its epilogue are
@@ -200,24 +202,26 @@ def _mlp_core(config: GPT2Config, y: torch.Tensor, bp: dict, rate: float,
                                        bp["mlp_fc_b"], rate=rate, seed=_site_seed(key),
                                        deterministic=rate == 0.0)
     y = gelu_tanh(linear(y, bp["mlp_fc_w"], bp["mlp_fc_b"], infer))
-    return dropout(y, rate, key, rate == 0.0)
+    return dropout(y, rate, key, rate == 0.0, origin)
 
 
 def mlp_sublayer(config: GPT2Config, x: torch.Tensor, bp: dict,
-                 rate: float = 0.0, keys=(None, None), infer: bool = False) -> torch.Tensor:
+                 rate: float = 0.0, keys=(None, None), infer: bool = False,
+                 origin: tuple[int, ...] | None = None) -> torch.Tensor:
     """x + dropout(proj(dropout(gelu(fc(ln2(x)))))): dropout after the
     activation and after the projection, with ``keys`` the two sites' key
-    words; eval mode (no dropout) when ``rate`` is 0. With ``fused_matmul``
-    in ("proj", "all") the projection, its dropout and the residual add are
-    K7's resid kernel."""
+    words and ``origin`` x's place in the global tensor (a sequence-
+    parallel rank's block); eval mode (no dropout) when ``rate`` is 0.
+    With ``fused_matmul`` in ("proj", "all") the projection, its dropout
+    and the residual add are K7's resid kernel."""
     y = norm(x, bp["ln2_scale"], bp["ln2_bias"], config.layer_norm_eps, infer)
-    y = _mlp_core(config, y, bp, rate, keys[0], infer)
+    y = _mlp_core(config, y, bp, rate, keys[0], infer, origin)
     if _mm_proj_fused(config):
         return fm.matmul_bias_residual_dropout(
             y, bp["mlp_proj_w"], bp["mlp_proj_b"], x, rate=rate, seed=_site_seed(keys[1]),
             deterministic=rate == 0.0, salt=fm.SALT_MM_MLP_PROJ)
     y = linear(y, bp["mlp_proj_w"], bp["mlp_proj_b"], infer)
-    return x + dropout(y, rate, keys[1], rate == 0.0)
+    return x + dropout(y, rate, keys[1], rate == 0.0, origin)
 
 
 def final_norm(w: dict, config: GPT2Config, x: torch.Tensor) -> torch.Tensor:
@@ -250,7 +254,7 @@ def _attention(config: GPT2Config, x: torch.Tensor, bp: dict, rate: float,
     q, k, v = qkv_proj(config, y, bp)
     attn_fn = select_attention_impl(config.attention_impl, x.device)
     seed = attention_seed(key) if rate > 0.0 else None
-    return attn_fn(q, k, v, rate, seed).reshape(b, t, c)
+    return attn_fn(q, k, v, dropout_rate=rate, seed=seed).reshape(b, t, c)
 
 
 def _mlp_half_fused(config: GPT2Config, x: torch.Tensor, y2: torch.Tensor, bp: dict,
@@ -265,7 +269,8 @@ def _mlp_half_fused(config: GPT2Config, x: torch.Tensor, y2: torch.Tensor, bp: d
 
 
 def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
-           rng: tuple[int, int, int] | None, deterministic: bool) -> torch.Tensor:
+           rng: tuple[int, int, int] | None, deterministic: bool,
+           origin: tuple[int, int, int]) -> torch.Tensor:
     """One pre-LN block, x + attn(ln1(x)); x + mlp(ln2(x)), with the JAX
     model's dropout sites: attention probabilities (inside the attention),
     attention out-projection, MLP activation, MLP out-projection. With
@@ -274,7 +279,8 @@ def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
     LayerNorm after it runs unfused whatever ``fused_layers`` says; else
     with ``fused_layers`` in ("ln", "all") the attention half ends in the
     fused LN+residual+dropout junction (K4), which hands ``(r, ln2(r))`` to
-    the MLP half."""
+    the MLP half. ``origin`` is x's place in the global ``[B, T, C]`` (the
+    unfused dropout sites hash global coordinates)."""
     train = not deterministic
 
     def key(site):
@@ -295,8 +301,9 @@ def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
             deterministic=not train)
         return _mlp_half_fused(config, x, y2, bp, resid_rate, mlp_keys)
     else:
-        x = x + dropout(attn_out(o, bp), resid_rate, key(SITE_ATTN_RESID), resid_rate == 0.0)
-    return mlp_sublayer(config, x, bp, resid_rate, mlp_keys)
+        x = x + dropout(attn_out(o, bp), resid_rate, key(SITE_ATTN_RESID), resid_rate == 0.0,
+                        origin)
+    return mlp_sublayer(config, x, bp, resid_rate, mlp_keys, origin=origin)
 
 
 def hidden_states(
@@ -314,21 +321,37 @@ def hidden_states(
     ``rng`` is ``(run seed, optimizer step, micro-batch)``: every dropout
     site's key words come from it and the site's (layer, site) through
     :func:`ops.layers.site_key`, statelessly, so the same step redraws the
-    same masks. ``deterministic=False`` (training) needs it."""
+    same masks. ``deterministic=False`` (training) needs it.
+
+    Under an active mesh with sp > 1 (``parallel/mesh.py``) ``idx`` is this
+    process's ``[B, T/sp]`` block of the sequence, whose first position is
+    ``sp_index * T/sp``: the positions and every dropout site's bits are
+    those of that slice of the global sequence, and attention runs the ring
+    over the mesh."""
     b, t = idx.shape
-    if t > config.n_positions:
+    mesh = sp_mesh()
+    seq0, t_global = (0, t) if mesh is None else (mesh.sp_index * t, mesh.sp * t)
+    if t_global > config.n_positions:
         raise ValueError(
-            f"sequence length {t} exceeds n_positions {config.n_positions}"
+            f"sequence length {t_global} exceeds n_positions {config.n_positions}"
+        )
+    if mesh is not None and (config.fused_layers, config.fused_matmul) != ("off", "off"):
+        raise ValueError(
+            f"fused_layers={config.fused_layers!r} / fused_matmul={config.fused_matmul!r} "
+            f"under a mesh with sp={mesh.sp} is not ported to PyTorch yet (the JAX "
+            f"package falls back to its unfused ops there): it comes in a later slice "
+            f"of the port; use 'off'"
         )
     if not deterministic and rng is None:
         raise ValueError("training-mode forward (deterministic=False) needs rng")
+    origin = (0, seq0, 0)
     w = {"wte": params["wte"].to(compute_dtype), "wpe": params["wpe"].to(compute_dtype)}
-    x = embed(w, config, idx, torch.arange(t, device=idx.device)[None])
+    x = embed(w, config, idx, seq0 + torch.arange(t, device=idx.device)[None])
     if not deterministic:
-        x = dropout(x, config.embd_dropout, site_key(*rng, 0, SITE_EMBD), False)
+        x = dropout(x, config.embd_dropout, site_key(*rng, 0, SITE_EMBD), False, origin)
     for layer, bp in enumerate(params["blocks"]):
         x = _block(config, x, _cast_block(bp, compute_dtype), layer, rng,
-                   deterministic)
+                   deterministic, origin)
     return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"],
                       config.layer_norm_eps)
 

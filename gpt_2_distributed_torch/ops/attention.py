@@ -83,12 +83,39 @@ def select_attention_impl(impl: str, device: torch.device) -> Callable[..., torc
     width) and runs their plain versions on CPU tensors; ``"kernel"`` is
     the same wrapper but refuses the CPU; ``"plain"`` is the dense version
     on any device. Training names (``GPT2Config.attention_impl``):
-    ``"flash"`` is the flash wrapper, ``"dense"`` the dense version;
-    ``"ring"`` comes with sequence parallelism."""
+    ``"flash"`` is the flash wrapper, ``"dense"`` the dense version.
+
+    Under an active mesh whose 'sp' axis is > 1 (``parallel/mesh.py``),
+    ``"ring"`` and ``"auto"`` give ring attention over it
+    (``ops/ring_attention.py``: q/k/v are this process's ``T/sp`` blocks);
+    the others are refused, since the JAX package all-gathers the sequence
+    for them and the port has no such path yet. With no mesh or sp = 1,
+    ``"ring"`` is the ``"auto"`` policy (a one-rank ring is local
+    attention), as in the JAX package."""
+    import functools
+
     from gpt_2_distributed_torch.ops.flash_attention import (
         flash_attention_bthd,
     )
+    from gpt_2_distributed_torch.parallel.mesh import sp_mesh
 
+    known = ("auto", "kernel", "plain", "flash", "dense", "ring")
+    if impl not in known:
+        raise ValueError(
+            f"unknown attention impl {impl!r}; expected {'|'.join(known)}"
+        )
+    mesh = sp_mesh()
+    if mesh is not None:
+        if impl in ("ring", "auto"):
+            from gpt_2_distributed_torch.ops.ring_attention import ring_attention_bthd
+
+            return functools.partial(ring_attention_bthd, mesh=mesh)
+        raise ValueError(
+            f"attention impl {impl!r} under a mesh with sp={mesh.sp} is not "
+            f"ported to PyTorch yet (the JAX package all-gathers the "
+            f"sequence for it): it comes in a later slice of the port; use "
+            f"'ring' or 'auto'"
+        )
     if impl in ("plain", "dense"):
         return causal_attention_bthd
     if impl == "kernel" and device.type != "cuda":
@@ -96,14 +123,4 @@ def select_attention_impl(impl: str, device: torch.device) -> Callable[..., torc
             "attn_impl='kernel' needs CUDA tensors: the flash kernel has "
             "no CPU build (use 'auto' or 'plain' on the CPU)"
         )
-    if impl in ("auto", "kernel", "flash"):
-        return flash_attention_bthd
-    if impl == "ring":
-        raise ValueError(
-            "attention impl 'ring' is not ported to PyTorch yet: it comes "
-            "in a later slice of the port"
-        )
-    raise ValueError(
-        f"unknown attention impl {impl!r}; expected "
-        f"auto|kernel|plain|flash|dense"
-    )
+    return flash_attention_bthd

@@ -62,19 +62,26 @@ def attention_seed(key: tuple[int, int]) -> int:
     return key[0] & 0x7FFFFFFF
 
 
-def hash_random_bits(key: tuple[int, ...], shape, device=None) -> torch.Tensor:
+def hash_random_bits(key: tuple[int, ...], shape, device=None,
+                     origin: tuple[int, ...] | None = None) -> torch.Tensor:
     """Counter-based uint32 bits (in int64) over per-dim iotas mixed with
     the key words: ``key[0] ^ key[-1] * 0x9E3779B9``, XOR each dim's iota
     times its prime, then the murmur3 finalizer — the JAX function bit for
     bit for the same words. The per-dim products are formed on broadcast
-    vectors; only the finalizer runs at full width."""
+    vectors; only the finalizer runs at full width.
+
+    ``origin`` (default all 0) starts each dim's iota at that coordinate:
+    a process holding the slice ``[o_0:o_0 + n_0, ...]`` of a global
+    tensor draws the bits the JAX package draws for that slice of its
+    global view (a sequence-parallel rank's ``[B, T/sp, C]`` block)."""
+    origin = origin or (0,) * len(shape)
     x = int(key[0]) ^ mul32(int(key[-1]) & M32, 0x9E3779B9)
     x = torch.full((1,) * len(shape), x, dtype=torch.int64, device=device)
-    for dim, n in enumerate(shape):
+    for dim, (n, o) in enumerate(zip(shape, origin)):
         view = [1] * len(shape)
         view[dim] = n
-        iota = torch.arange(n, dtype=torch.int64, device=device).view(view)
-        x = x ^ mul32(iota, _MIX_PRIMES[dim % len(_MIX_PRIMES)])
+        iota = (o + torch.arange(n, dtype=torch.int64, device=device)).view(view)
+        x = x ^ mul32(iota & M32, _MIX_PRIMES[dim % len(_MIX_PRIMES)])
     return fmix32(x.expand(tuple(shape)))
 
 
@@ -83,17 +90,19 @@ def dropout(
     rate: float,
     key: tuple[int, int] | None,
     deterministic: bool,
+    origin: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
     """Inverted dropout. No-op when deterministic or rate == 0.
 
-    Keeps ``hash_random_bits(key, x.shape) >= uint32(int(rate * 2^32))``
-    and divides the kept values by the keep probability cast to x's dtype,
-    as JAX divides by a weakly-typed Python float."""
+    Keeps ``hash_random_bits(key, x.shape, origin=origin) >= uint32(int(
+    rate * 2^32))`` and divides the kept values by the keep probability
+    cast to x's dtype, as JAX divides by a weakly-typed Python float.
+    ``origin`` places ``x`` in the global tensor it is a slice of."""
     if deterministic or rate == 0.0:
         return x
     if key is None:
         raise ValueError("dropout requires an rng key when not deterministic")
-    keep = hash_random_bits(key, x.shape, x.device) >= int(rate * (2 ** 32))
+    keep = hash_random_bits(key, x.shape, x.device, origin) >= int(rate * (2 ** 32))
     keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))

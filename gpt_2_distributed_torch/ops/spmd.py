@@ -1,7 +1,13 @@
-"""The attention dropout stream (``gpt_2_distributed_tpu/ops/spmd.py``).
+"""The attention dropout stream and the mesh helpers the attention kernels
+share (``gpt_2_distributed_tpu/ops/spmd.py``).
 
-Only :func:`dropout_hash_bits` is carried over: the mesh helpers of the JAX
-module come with the distributed slices of the port.
+:func:`dropout_hash_bits` is the one dropout stream of the flash kernels
+(K1/K2) and of the ring's block kernel (K8); :func:`dividing_axes` and
+:func:`shard_offset` give a shard's global batch or head origin over the
+mesh axes that divide that dim, which the hash takes as absolute
+coordinates. The fused-path fallback registry of the JAX module has no
+counterpart: the port refuses the fused layers under a sequence-parallel
+mesh instead of falling back.
 
 uint32 arithmetic in torch: the values live in int64 tensors (or Python
 ints) holding uint32 values. Every product is kept exact by splitting the
@@ -16,6 +22,35 @@ from __future__ import annotations
 import torch
 
 M32 = 0xFFFFFFFF
+
+# Mesh axis names treated as batch-like (data parallel) / head-like (tensor
+# parallel) by the attention kernels, as in the JAX package.
+BATCH_AXIS_NAMES = ("data", "fsdp", "dp", "batch", "replica")
+HEAD_AXIS_NAMES = ("tp", "model", "tensor")
+
+
+def dividing_axes(mesh, names: tuple[str, ...], dim: int) -> tuple[str, ...]:
+    """Greedy prefix of ``mesh``'s axes from ``names`` whose product divides
+    ``dim`` (axes of size 1, or that do not divide, are left out). ``mesh``
+    has ``axis_names`` and a ``shape`` mapping, as ``parallel/mesh.py``'s
+    mesh and a JAX mesh do."""
+    axes: list[str] = []
+    prod = 1
+    for a in mesh.axis_names:
+        if a in names and mesh.shape[a] > 1 and dim % (prod * mesh.shape[a]) == 0:
+            axes.append(a)
+            prod *= mesh.shape[a]
+    return tuple(axes)
+
+
+def shard_offset(mesh, axes: tuple[str, ...], local_dim: int) -> int:
+    """Global element origin of this process's shard along the mesh axes
+    ``axes`` (row-major over them), for a local extent ``local_dim``: the
+    dropout hash's absolute batch or head coordinate of local index 0."""
+    off = 0
+    for a in axes:
+        off = off * mesh.shape[a] + mesh.axis_index(a)
+    return off * local_dim
 
 
 def mul32(x, c: int):
@@ -58,12 +93,23 @@ def dropout_hash_bits(seed, b, h, row, col):
     return fmix32(x)
 
 
-def causal_dropout_keep(seed: int, rate: float, b: int, h: int, t: int,
-                        device: torch.device) -> torch.Tensor:
-    """Bool ``[b, h, t, t]`` keep mask of attention dropout at ``rate``:
+def block_dropout_keep(seed: int, rate: float, shape: tuple[int, int, int, int],
+                       origin: tuple[int, int, int, int],
+                       device: torch.device) -> torch.Tensor:
+    """Bool keep mask ``[b, h, rows, cols]`` of attention dropout at ``rate``
+    for a block whose (batch, head, row, col) origin is ``origin``:
     ``bits >= uint32(int(rate * 2^32))`` on absolute coordinates, the test
     the flash kernels apply."""
-    idx = [torch.arange(n, dtype=torch.int64, device=device) for n in (b, h, t)]
-    bits = dropout_hash_bits(seed, idx[0].view(b, 1, 1, 1), idx[1].view(1, h, 1, 1),
-                             idx[2].view(1, 1, t, 1), idx[2].view(1, 1, 1, t))
-    return bits >= int(rate * (2 ** 32))
+    coords = []
+    for dim, (n, o) in enumerate(zip(shape, origin)):
+        view = [1, 1, 1, 1]
+        view[dim] = n
+        coords.append((o + torch.arange(n, dtype=torch.int64, device=device)).view(view))
+    return dropout_hash_bits(seed, *coords) >= int(rate * (2 ** 32))
+
+
+def causal_dropout_keep(seed: int, rate: float, b: int, h: int, t: int,
+                        device: torch.device) -> torch.Tensor:
+    """Bool ``[b, h, t, t]`` keep mask of attention dropout at ``rate`` over
+    a whole sequence (:func:`block_dropout_keep` at the origin)."""
+    return block_dropout_keep(seed, rate, (b, h, t, t), (0, 0, 0, 0), device)

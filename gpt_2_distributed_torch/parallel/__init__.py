@@ -1,2 +1,3 @@
-"""Training step (``gpt_2_distributed_tpu/parallel``); the mesh and
-sharding modules come with the DDP/FSDP slice."""
+"""Training step and the sequence-parallel mesh
+(``gpt_2_distributed_tpu/parallel``); the sharding modules come with the
+DDP/FSDP slice."""

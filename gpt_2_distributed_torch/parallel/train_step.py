@@ -1,5 +1,6 @@
 """The training step: loss -> grad -> accumulate -> AdamW update
-(``gpt_2_distributed_tpu/parallel/train_step.py``), eagerly on one device.
+(``gpt_2_distributed_tpu/parallel/train_step.py``), eagerly, on one device
+or as one process of a sequence-parallel mesh.
 
 As in the JAX package:
 
@@ -21,6 +22,15 @@ As in the JAX package:
 * **Dropout keys** come from ``(seed, step_idx, micro-batch)``
   (``models/gpt2.py::hidden_states``), so a resumed run at step N redraws
   step N's masks.
+* **Sequence parallelism.** Under an active mesh with sp > 1
+  (``parallel/mesh.py``) each process holds every micro-batch's ``[B,
+  T/sp]`` block and the loss stays the GLOBAL token mean, as the JAX
+  package's global view computes it: one all-reduce of the valid-label
+  counts per step makes each micro-batch's loss ``local sum / global
+  count``; after accumulation the grads are summed over the mesh in a few
+  flat buckets, and the loss too. The grad norm is taken after that, so
+  the guard decides the same on every process and the params stay
+  bit-identical across them.
 
 The guarded step (``guard=True``) reads the loss and the grad norm on the
 host to decide whether to apply the update: one device sync per optimizer
@@ -40,6 +50,8 @@ import torch
 
 from gpt_2_distributed_torch.config import GPT2Config
 from gpt_2_distributed_torch.models import gpt2
+from gpt_2_distributed_torch.ops.losses import IGNORE_INDEX
+from gpt_2_distributed_torch.parallel.mesh import sp_mesh
 from gpt_2_distributed_torch.resilience import (
     SKIP_NONFINITE_GRAD,
     SKIP_NONFINITE_LOSS,
@@ -49,6 +61,9 @@ from gpt_2_distributed_torch.resilience import (
 DEFAULT_WEIGHT_DECAY = 0.1
 DEFAULT_BETAS = (0.9, 0.95)
 DEFAULT_EPS = 1e-8
+# Elements per flat bucket of the sp gradient all-reduce (128 MB of fp32):
+# 124M's 148 grads go in 4 calls.
+GRAD_BUCKET_ELEMS = 1 << 25
 
 
 def param_leaves(params: dict) -> list[list[torch.Tensor]]:
@@ -127,25 +142,62 @@ class GuardedStepMetrics(NamedTuple):
     clipped: int        # 1 iff THIS step was clip-applied
 
 
+def _global_share(mesh, labels: torch.Tensor) -> torch.Tensor:
+    """Per leading index of ``labels``, this process's share of the valid
+    labels over the mesh (``local count / global count``, 0 where the
+    global count is 0): a local token-mean loss times it is ``local sum /
+    global count``."""
+    local = (labels != IGNORE_INDEX).flatten(1).sum(1).float()
+    total = local.clone()
+    mesh.all_reduce_([total])
+    return local / total.clamp(min=1.0)
+
+
+def _all_reduce_buckets(mesh, tensors: list[torch.Tensor]) -> None:
+    """Sum ``tensors`` in place over the mesh through flat buckets of at
+    most GRAD_BUCKET_ELEMS elements."""
+    buckets, size = [[]], 0
+    for t in tensors:
+        if buckets[-1] and size + t.numel() > GRAD_BUCKET_ELEMS:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(t)
+        size += t.numel()
+    for bucket in buckets:
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        mesh.all_reduce_([flat])
+        offset = 0
+        for t in bucket:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
 def _accumulate_grads(config, compute_dtype, params, x, y, seed, step_idx,
                       loss_scale=None):
     """Forward + backward of every micro-batch of ``x, y`` ``[accum, B,
-    T]``, summing ``g_i / accum`` into each param's ``.grad``. Returns
-    ``(mean loss, grad norm)`` as device scalars."""
+    T]`` (``T/sp`` blocks under an sp mesh), summing ``g_i / accum`` into
+    each param's ``.grad`` (then over the mesh). Returns ``(mean loss,
+    grad norm)`` as device scalars."""
+    mesh = sp_mesh()
     accum = x.shape[0]
     inv_accum = 1.0 / accum
+    share = None if mesh is None else _global_share(mesh, y)
     for p in param_list(params):
         p.grad = None
     loss_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(accum):
         _, loss = gpt2.forward(params, config, x[i], y[i], rng=(seed, step_idx, i),
                                deterministic=False, compute_dtype=compute_dtype)
+        if share is not None:
+            loss = loss * share[i]
         if loss_scale is not None:
             loss = loss * loss_scale[i]
         loss = loss * inv_accum
         loss.backward()
         loss_acc = loss_acc + loss.detach()
     grads = [p.grad for p in param_list(params)]
+    if mesh is not None:
+        _all_reduce_buckets(mesh, grads + [loss_acc.view(1)])
     grad_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
     return loss_acc, grad_norm
 
@@ -229,12 +281,18 @@ def make_train_step(
 
 def make_eval_step(config: GPT2Config,
                    compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
-    """Eval loss on a ``[B, T]`` batch (no dropout, no update)."""
+    """Eval loss on a ``[B, T]`` batch (no dropout, no update); under an sp
+    mesh ``x, y`` are this process's ``[B, T/sp]`` blocks and the loss is
+    the global token mean."""
 
     @torch.no_grad()
     def eval_step(params, x, y):
         _, loss = gpt2.forward(params, config, x, y, deterministic=True,
                                compute_dtype=compute_dtype)
+        mesh = sp_mesh()
+        if mesh is not None:
+            loss = loss * _global_share(mesh, y[None])[0]
+            mesh.all_reduce_([loss])
         return loss
 
     return eval_step

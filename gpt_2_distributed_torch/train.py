@@ -1,16 +1,19 @@
-"""Training CLI of the PyTorch port (``gpt_2_distributed_tpu/train.py``),
-local mode: one process, one device.
+"""Training CLI of the PyTorch port (``gpt_2_distributed_tpu/train.py``):
+one process on one device, or one process per device of a
+sequence-parallel mesh.
 
     python -m gpt_2_distributed_torch.train --data_dir <shards>
+    torchrun --nproc_per_node 2 -m gpt_2_distributed_torch.train \
+        --data_dir <shards> --mesh sp=2
 
 The flag surface is the JAX CLI's. What this slice runs: the model and data
 flags, batch / grad-accum / epochs, the learning-rate schedule, AdamW
 weight decay, periodic eval, the non-finite step guard with its per-layer
 clip fallback and ``--inject_nan_at``, ``--dropout``, ``--attention_impl``,
 ``--fused_layers``, ``--fused_matmul``, ``--device_prefetch`` (pinned host
-batches copied with ``non_blocking=True`` one optimizer step ahead) and
-``--device``. Every
-flag whose plane is not ported yet (DDP/FSDP meshes, checkpoints and
+batches copied with ``non_blocking=True`` one optimizer step ahead),
+``--device`` and ``--mesh sp=S``. Every
+flag whose plane is not ported yet (DDP/FSDP and tp meshes, checkpoints and
 resume, the spike monitor's rollback, TensorBoard and tracing, the
 multi-host control plane, the other fault injections, bf16 grad
 accumulation, remat) is refused with a "later slice"
@@ -25,12 +28,23 @@ K2 (backward); ``--fused_layers`` runs the layer epilogues through K4
 (forward, dgrad and wgrad), in place of K4-K6 on the legs it covers.
 Prints the JAX CLI's ``step N | loss: ...`` lines and
 ``training done: N optimizer steps``.
+
+``--mesh sp=S`` shards every sequence over S processes, one per device,
+started by ``torchrun`` (``RANK``, ``WORLD_SIZE`` = S, ``LOCAL_RANK``):
+NCCL between cards, gloo with ``--device cpu``. Every process reads the
+same global batch and trains on its ``[B, T/S]`` block; attention is ring
+attention over the mesh (K8 per ring step on the card), the loss the
+global token mean and the grads summed over the mesh
+(``parallel/train_step.py``). Only process 0 prints. Under sp > 1
+``--fused_layers``/``--fused_matmul`` other than ``off`` and
+``--attention_impl`` ``flash``/``dense`` are refused (later slices).
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 
 import numpy as np
@@ -42,13 +56,14 @@ from gpt_2_distributed_torch.data.dataloader import (
     DEFAULT_NUM_WORKERS,
     DEFAULT_PREFETCH_FACTOR,
 )
+from gpt_2_distributed_torch.parallel.mesh import validate_mesh_for_config
 
 DEFAULT_SEED = 42
 
 # Flags whose planes come with later slices of the port, with the value
 # that leaves them off; any other value is refused.
 _UNPORTED = {
-    "training_mode": "local", "mesh": None, "shard_update": "auto",
+    "training_mode": "local", "shard_update": "auto",
     "save_dir": None, "resume": False, "save_every": 1000, "async_save": "on",
     "keep_last_n": 0, "save_retries": 2, "save_retry_backoff": 0.5,
     "preempt_poll_url": None, "preempt_poll_interval": 5.0,
@@ -67,20 +82,25 @@ _UNPORTED = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gpt_2_distributed_torch.train",
-        description="GPT-2 pretraining with PyTorch on one GPU (the port of "
-        "gpt_2_distributed_tpu.train, local mode)",
+        description="GPT-2 pretraining with PyTorch on one GPU, or sequence-"
+        "parallel over several under torchrun (the port of "
+        "gpt_2_distributed_tpu.train)",
     )
     p.add_argument("--data_dir", required=True, help="directory of uint16 .bin token shards")
     p.add_argument("--split", default="train")
     p.add_argument("--training_mode", default="local",
                    choices=["local", "dp", "ddp", "fsdp"],
                    help="only 'local' is ported; the others come with DDP/FSDP")
-    p.add_argument("--mesh", default=None, help="not ported yet (DDP/FSDP slice)")
+    p.add_argument("--mesh", default=None,
+                   help="mesh shape 'sp=S': the sequence sharded over S processes "
+                   "under torchrun (ring attention); data/fsdp/tp come with later "
+                   "slices")
     p.add_argument("--attention_impl", default=None,
                    choices=["auto", "dense", "flash", "ring"],
                    help="'flash'/'auto': the CUDA kernels K1/K2 on the card, "
                    "their plain versions on the CPU; 'dense': plain PyTorch "
-                   "attention; 'ring' comes with sequence parallelism")
+                   "attention; 'ring' (and 'auto' under --mesh sp>1): ring "
+                   "attention over the sp processes, K8 on the card")
     p.add_argument("--shard_update", default="auto", choices=["off", "on", "auto"],
                    help="ZeRO-2 sharded update; one device: off")
     p.add_argument("--device_prefetch", default="on", choices=["on", "off"],
@@ -235,25 +255,13 @@ def main(argv: list[str] | None = None):
                 "fallback lives inside the guarded step)")
     if args.dropout is not None and not (0.0 <= args.dropout < 1.0):
         p.error(f"--dropout must be in [0, 1), got {args.dropout}")
+    spec = _mesh_spec(p, args)
 
     import torch
+    import torch.distributed as dist
 
-    from gpt_2_distributed_torch.data.dataloader import (
-        TokenShardDataset,
-        create_dataloader,
-        get_shard_paths,
-    )
-    from gpt_2_distributed_torch.metrics.tracker import StatsTracker
-    from gpt_2_distributed_torch.models import gpt2
-    from gpt_2_distributed_torch.parallel.train_step import (
-        make_eval_step,
-        make_optimizer,
-        make_train_step,
-        trainable_params,
-    )
-    from gpt_2_distributed_torch.resilience import SKIP_REASON_NAMES, init_guard_state
+    from gpt_2_distributed_torch.parallel.mesh import Mesh, activate_mesh
     from gpt_2_distributed_torch.utils.device import resolve_device
-    from gpt_2_distributed_torch.utils.flops import device_peak_flops, flops_per_token
 
     try:
         device = resolve_device(args.device)
@@ -283,10 +291,93 @@ def main(argv: list[str] | None = None):
             config = config.replace(embd_dropout=args.dropout,
                                     attn_dropout=args.dropout,
                                     resid_dropout=args.dropout)
+        validate_mesh_for_config(spec, config, args.model, args.seq_len)
     except ValueError as e:
         sys.exit(f"error: {e}")
 
-    # --- data --------------------------------------------------------------
+    # --- processes ----------------------------------------------------------
+    # One process per device: torchrun's RANK / WORLD_SIZE / LOCAL_RANK and
+    # MASTER_ADDR / MASTER_PORT; NCCL between cards, gloo on the CPU.
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != spec.n_devices:
+        sys.exit(f"error: --mesh {spec.to_str()} runs {spec.n_devices} process(es), one "
+                 f"per device, but WORLD_SIZE is {world}: launch it with torchrun "
+                 f"--nproc_per_node {spec.n_devices}")
+    if world == 1:
+        return _run(args, config, device, None)
+    rank = int(os.environ["RANK"])
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            rank=rank, world_size=world)
+    try:
+        mesh = Mesh(spec, rank)
+        with activate_mesh(mesh):
+            return _run(args, config, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_spec(p: argparse.ArgumentParser, args):
+    """``--mesh`` as a MeshSpec, with the combinations this slice refuses."""
+    from gpt_2_distributed_torch.parallel.mesh import MeshSpec, refuse_unported_axes
+
+    try:
+        spec = MeshSpec.parse(args.mesh) if args.mesh else MeshSpec()
+        refuse_unported_axes(spec)
+    except ValueError as e:
+        p.error(str(e))
+    if spec.sp > 1:
+        for flag in ("fused_layers", "fused_matmul"):
+            if getattr(args, flag) != "off":
+                p.error(f"--{flag} {getattr(args, flag)} under --mesh sp={spec.sp} is not "
+                        f"ported to PyTorch yet (the JAX package falls back to its "
+                        f"unfused ops there): it comes in a later slice of the port")
+        if args.attention_impl in ("flash", "dense"):
+            p.error(f"--attention_impl {args.attention_impl} under --mesh sp={spec.sp} "
+                    f"is not ported to PyTorch yet (the JAX package all-gathers the "
+                    f"sequence for it): it comes in a later slice of the port; use "
+                    f"ring or auto")
+    return spec
+
+
+def _run(args, config, device, mesh):
+    """The training loop of :func:`main` on ``device``; under an sp mesh
+    every process reads the same global batches and trains on its
+    ``[B, T/sp]`` block of each, and only the first one prints."""
+    import torch
+
+    from gpt_2_distributed_torch.data.dataloader import (
+        TokenShardDataset,
+        create_dataloader,
+        get_shard_paths,
+    )
+    from gpt_2_distributed_torch.metrics.tracker import StatsTracker
+    from gpt_2_distributed_torch.models import gpt2
+    from gpt_2_distributed_torch.parallel.mesh import is_primary
+    from gpt_2_distributed_torch.parallel.train_step import (
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+        trainable_params,
+    )
+    from gpt_2_distributed_torch.resilience import SKIP_REASON_NAMES, init_guard_state
+    from gpt_2_distributed_torch.utils.flops import device_peak_flops, flops_per_token
+
+    primary = is_primary()
+
+    def say(*a, **kw) -> None:
+        if primary:
+            print(*a, **kw)
+
+    def local_block(a: np.ndarray) -> np.ndarray:
+        """This process's ``[..., T/sp]`` block of ``[..., T]`` tokens."""
+        if mesh is None:
+            return a
+        tl = args.seq_len // mesh.sp
+        return np.ascontiguousarray(a[..., mesh.sp_index * tl:(mesh.sp_index + 1) * tl])
+
     local_batch = args.batch
     dataset = TokenShardDataset(
         get_shard_paths(args.data_dir, args.split), seq_len=args.seq_len,
@@ -295,9 +386,11 @@ def main(argv: list[str] | None = None):
     )
     steps_per_epoch = dataset.batches_per_epoch(local_batch) // args.grad_accum_steps
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU"
-    print(f"device: {device} ({name}) | model: {args.model} "
-          f"({config.num_params() / 1e6:.1f}M params) | steps/epoch: "
-          f"{steps_per_epoch}", flush=True)
+    where = "" if mesh is None else (f"mesh: data={mesh.spec.data}, fsdp={mesh.spec.fsdp}, "
+                                     f"sp={mesh.sp}, tp={mesh.spec.tp} | ")
+    say(f"device: {device} ({name}) | {where}model: {args.model} "
+        f"({config.num_params() / 1e6:.1f}M params) | steps/epoch: "
+        f"{steps_per_epoch}", flush=True)
 
     try:
         schedule = make_lr_schedule(args, steps_per_epoch)
@@ -320,6 +413,7 @@ def main(argv: list[str] | None = None):
         batch_size=args.batch * args.grad_accum_steps, seq_len=args.seq_len,
         cli_every=args.cli_every, flops_per_token=flops_per_token(config, args.seq_len),
         peak_flops_per_chip=device_peak_flops(device), device=device,
+        n_chips=1 if mesh is None else mesh.spec.n_devices, printing=primary,
     )
 
     # --- evaluation ---------------------------------------------------------
@@ -329,7 +423,7 @@ def main(argv: list[str] | None = None):
     if args.eval_every:
         val_paths = get_shard_paths(args.data_dir, "val")
         if not val_paths:
-            print(f"--eval_every: no 'val' shards in {args.data_dir}; eval disabled")
+            say(f"--eval_every: no 'val' shards in {args.data_dir}; eval disabled")
         else:
             eval_dataset = TokenShardDataset(
                 val_paths, seq_len=args.seq_len, num_workers=1,
@@ -338,8 +432,8 @@ def main(argv: list[str] | None = None):
             )
             n_eval = min(args.eval_batches, eval_dataset.batches_per_epoch(local_batch))
             if n_eval == 0:
-                print("--eval_every: val split has fewer tokens than one batch "
-                      f"({local_batch}x{args.seq_len}); eval disabled")
+                say("--eval_every: val split has fewer tokens than one batch "
+                    f"({local_batch}x{args.seq_len}); eval disabled")
             else:
                 eval_step = make_eval_step(config)
                 eval_loader = create_dataloader(eval_dataset, batch_size=local_batch,
@@ -351,8 +445,8 @@ def main(argv: list[str] | None = None):
                         if i >= n_eval:
                             break
                         losses.append(float(eval_step(
-                            params, torch.from_numpy(xb).to(device),
-                            torch.from_numpy(yb).to(device))))
+                            params, torch.from_numpy(local_block(xb)).to(device),
+                            torch.from_numpy(local_block(yb)).to(device))))
                     return float(np.mean(losses))
 
     lr_of = schedule if callable(schedule) else (lambda _s: args.lr)
@@ -360,8 +454,8 @@ def main(argv: list[str] | None = None):
     def to_device(micro):
         """One optimizer step's micro-batches as ``[accum, B, T]`` device
         tensors; from pinned host memory, without blocking, on the card."""
-        x = torch.from_numpy(np.stack([m[0] for m in micro]))
-        y = torch.from_numpy(np.stack([m[1] for m in micro]))
+        x = torch.from_numpy(local_block(np.stack([m[0] for m in micro])))
+        y = torch.from_numpy(local_block(np.stack([m[1] for m in micro])))
         if device.type == "cuda":
             return (x.pin_memory().to(device, non_blocking=True),
                     y.pin_memory().to(device, non_blocking=True))
@@ -388,18 +482,18 @@ def main(argv: list[str] | None = None):
             if m.skip_reason:
                 skipped = True
                 last_skip_reason_host = m.skip_reason
-                print(f"[guard] step {p_step} skipped "
-                      f"({SKIP_REASON_NAMES.get(m.skip_reason, m.skip_reason)}); "
-                      f"params/opt-state unchanged (total skipped: "
-                      f"{m.skipped_steps})", flush=True)
+                say(f"[guard] step {p_step} skipped "
+                    f"({SKIP_REASON_NAMES.get(m.skip_reason, m.skip_reason)}); "
+                    f"params/opt-state unchanged (total skipped: "
+                    f"{m.skipped_steps})", flush=True)
             if m.skipped_steps or last_skip_reason_host:
                 extra = {"skipped_steps": m.skipped_steps,
                          "last_skip_reason": last_skip_reason_host}
             if m.clipped:
-                print(f"[guard] step {p_step} grad norm {float(m.grad_norm):.2f} "
-                      f"exceeded --guard_max_grad_norm {args.guard_max_grad_norm:g}; "
-                      f"clipped per-layer to {args.guard_clip_norm:g} and applied "
-                      f"(total clipped: {m.clipped_steps})", flush=True)
+                say(f"[guard] step {p_step} grad norm {float(m.grad_norm):.2f} "
+                    f"exceeded --guard_max_grad_norm {args.guard_max_grad_norm:g}; "
+                    f"clipped per-layer to {args.guard_clip_norm:g} and applied "
+                    f"(total clipped: {m.clipped_steps})", flush=True)
             if m.clipped_steps:
                 extra["clipped_steps"] = m.clipped_steps
         if dataset.read_retry_count:
@@ -437,8 +531,8 @@ def main(argv: list[str] | None = None):
                 loss_scale = ones_scale
                 if args.inject_nan_at and global_step + 1 == args.inject_nan_at:
                     loss_scale = nan_scale
-                    print(f"[inject] poisoning micro-batch 0 loss with NaN at "
-                          f"step {global_step + 1}", flush=True)
+                    say(f"[inject] poisoning micro-batch 0 loss with NaN at "
+                        f"step {global_step + 1}", flush=True)
                 guard_state, m = train_step(params, guard_state, x, y, args.seed,
                                             global_step, loss_scale)
             else:
@@ -472,7 +566,7 @@ def main(argv: list[str] | None = None):
             break
 
     flush_pending()
-    print(f"training done: {global_step} optimizer steps", flush=True)
+    say(f"training done: {global_step} optimizer steps", flush=True)
     return tracker
 
 

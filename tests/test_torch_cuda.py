@@ -388,3 +388,68 @@ def test_engine_streams_equal_generate_cached_on_the_card(cuda, temperature):
         ids = generate_cached(params, cfg, [p], seed=7 + i, max_new_tokens=20,
                               temperature=temperature, block_size=serve.block_size)
         assert ids[0, len(p):].tolist() == h.generated, i
+
+
+@pytest.mark.parametrize("tq, tc, row_off, col_off", [
+    (128, 128, 128, 0), (128, 128, 128, 128), (128, 128, 0, 128), (208, 160, 0, 48)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_block_kernel_matches_plain(cuda, tq, tc, row_off, col_off, rate):
+    """K8 forward and backward (nonzero do and dlse) against their plain
+    versions in fp32 on the same bf16 values; a fully masked row exactly
+    o = 0 and lse = NEG_INF; two backward launches bit-identical."""
+    from gpt_2_distributed_torch.ops import flash_block as fb
+
+    rng = np.random.default_rng(tq + tc + row_off + col_off)
+    q, do = (_bf16(rng, 2, 4, tq, 64, device=cuda) for _ in range(2))
+    k, v = (_bf16(rng, 2, 4, tc, 64, device=cuda) for _ in range(2))
+    dlse = _bf16(rng, 2, 4, tq, device=cuda).float()
+    kw = dict(seed=1234, b_off=1, h_off=2, dropout_rate=rate)
+    before = (fb.flash_block_fwd.launches, fb.flash_block_bwd.launches)
+    o, lse = fb.flash_block_fwd(q, k, v, row_off, col_off, **kw)
+    delta = ((do.float() * o.float()).sum(-1) - dlse * 1.4426950408889634).contiguous()
+    grads = fb.flash_block_bwd(q, k, v, do, lse, delta, row_off, col_off, **kw)
+    again = fb.flash_block_bwd(q, k, v, do, lse, delta, row_off, col_off, **kw)
+    torch.cuda.synchronize()
+    assert (fb.flash_block_fwd.launches, fb.flash_block_bwd.launches) == (before[0] + 1,
+                                                                          before[1] + 2)
+    o_ref, lse_ref = fb.flash_block_plain(q, k, v, row_off, col_off, **kw)
+    assert _close(o, o_ref)
+    dead = lse_ref == fb.NEG_INF
+    assert torch.equal(lse == fb.NEG_INF, dead)
+    assert torch.count_nonzero(o[dead]) == 0
+    assert torch.allclose(lse[~dead], lse_ref[~dead], atol=1e-4, rtol=0)
+    refs = fb.flash_block_bwd_plain(q, k, v, do, lse, delta, row_off, col_off, **kw)
+    assert all(_close(g, r) for g, r in zip(grads, refs))
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
+    if row_off < col_off and tq == tc:
+        assert dead.all() and all(torch.count_nonzero(g) == 0 for g in grads)
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_one_card_ring_matches_k1_k2(cuda, sp):
+    """The ring schedule of all sp ranks in one process against K1/K2 over
+    the whole sequence with the same seed: the ring rounds each step's o to
+    bf16 and combines in fp32, K8 rounds q * scale to bf16, and dk/dv sum sp
+    bf16 partials, so they differ by a few bf16 roundings (relative L2
+    2^-7 on o, 2^-6 on the grads); K8 launches sp^2 each way."""
+    from gpt_2_distributed_torch.ops import flash_block as fb
+    from gpt_2_distributed_torch.ops.ring_attention import ring_attention_all_ranks
+
+    rng = np.random.default_rng(sp)
+    q, k, v, do = (_bf16(rng, 2, 512, 12, 64, device=cuda) for _ in range(4))
+
+    def run(attn):
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        o = attn(qg, kg, vg)
+        return (o, *torch.autograd.grad(o, (qg, kg, vg), do))
+
+    ref = run(lambda a, b, c: flash.flash_attention_bthd(a, b, c, 0.1, 77))
+    before = (fb.flash_block_fwd.launches, fb.flash_block_bwd.launches)
+    got = run(lambda a, b, c: ring_attention_all_ranks(a, b, c, sp=sp, dropout_rate=0.1,
+                                                       seed=77))
+    torch.cuda.synchronize()
+    assert (fb.flash_block_fwd.launches - before[0],
+            fb.flash_block_bwd.launches - before[1]) == (sp * sp, sp * sp)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        rel = ((g.float() - r.float()).norm() / r.float().norm()).item()
+        assert rel <= (2.0 ** -7 if i == 0 else 2.0 ** -6), (i, rel)

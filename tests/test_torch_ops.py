@@ -119,8 +119,8 @@ def test_select_attention_impl_dispatch():
     # The training names (GPT2Config.attention_impl) map onto the same two.
     assert attention.select_attention_impl("flash", cpu) is flash.flash_attention_bthd
     assert attention.select_attention_impl("dense", cpu) is attention.causal_attention_bthd
-    with pytest.raises(ValueError, match="later slice"):
-        attention.select_attention_impl("ring", cpu)
+    # "ring" without a mesh is the auto policy, as in the JAX package.
+    assert attention.select_attention_impl("ring", cpu) is flash.flash_attention_bthd
     with pytest.raises(ValueError, match="unknown attention impl"):
         attention.select_attention_impl("xla", cpu)
 

@@ -48,8 +48,10 @@ that does not hold:
    planted fault per kernel (seed + 1); times at the 124M shape beside the
    plain version and the nearest PyTorch call;
 6. K7, the fused matmuls of ``csrc/fused_matmul.cu``: the forward with its
-   bias, gelu and resid epilogues, dgrad and wgrad (each with and without
-   the GELU prologue) at the 124M legs (qkv [4096, 768] -> 2304, attention
+   bias, gelu and resid epilogues, the backward's du pass (against
+   ``du_plain``: equal, within one bf16 ulp with the GELU; db; seed + 1
+   rejected), dgrad and wgrad (each with and without the GELU) at the
+   124M legs (qkv [4096, 768] -> 2304, attention
    proj -> 768, fc -> 3072, MLP proj [4096, 3072] -> 768) and the ragged
    1.5B legs [1000, 1600] -> 6400 and [1000, 6400] -> 1600, dropout 0 and
    0.1: each against its plain version run in fp32 on the same values,
@@ -58,7 +60,9 @@ that does not hold:
    (seed + 1, one 32-deep tile of the contraction zeroed); the inference
    epilogues (the unfused product, the tied head) the same way and a row's
    bits alone, in a batch of 8 and inside 960 rows equal; times at the
-   124M legs beside the plain version and ``torch.addmm``/``matmul``;
+   124M legs beside the plain version and ``torch.addmm``/``matmul``
+   (dgrad and wgrad rows: the du pass and the product, as the TPU kernel's
+   function, with the product alone beside it; the du pass alone);
 7. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
    greedily, then the same 8 prompts sampled at temperature 1.0 (16 new
    tokens each), through ``ServingEngine`` at the full width of the 124M
@@ -85,8 +89,9 @@ that does not hold:
    forward = 12 x (micro-batches + eval batches), K4 and K6 backward, K5
    and its mask-scale = 12 x micro-batches; with the fused matmuls none of
    K4-K6, and K7's bias and gelu forward once and its resid forward twice
-   a layer and batch, its dgrad and wgrad once a leg and micro-batch;
-   prints each run's ms/step, tok/s and MFU;
+   a layer and batch, its du pass, dgrad and wgrad once a leg and
+   micro-batch; prints each run's ms/step, tok/s and MFU, and the
+   ``fused_matmul all`` step beside the ``fused_layers all`` step;
 10. with two or more cards, trains ``--mesh sp=2`` the same way through
     ``torch.distributed.run`` (NCCL; two ranks of this script in
     ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
@@ -743,6 +748,9 @@ MM_WRAPPERS = (
     ("mm_dgrad_gelu", "gpt_2_distributed_tpu/ops/fused_matmul.py:231"),
     ("mm_wgrad", "gpt_2_distributed_tpu/ops/fused_matmul.py:288"),
     ("mm_wgrad_gelu", "gpt_2_distributed_tpu/ops/fused_matmul.py:293"),
+    # The backward's du, formed once a leg here; _dgrad_tile inside the
+    # dgrad and wgrad pallas_calls there.
+    ("mm_du", "gpt_2_distributed_tpu/ops/fused_matmul.py:201"),
 )
 # The inference epilogues of K7's forward kernel (serving's unfused
 # products and the tied head): the forward of _mm_bias_fwd_kernel with
@@ -770,7 +778,7 @@ def phase_matmul(flush) -> dict[str, dict]:
     # The leg whose times go into a wrapper's row of the kernels line.
     row_leg = {"mm_bias_fwd": "qkv", "mm_gelu_fwd": "fc", "mm_resid_fwd": "mlp proj",
                "mm_dgrad": "mlp proj", "mm_dgrad_gelu": "fc", "mm_wgrad": "mlp proj",
-               "mm_wgrad_gelu": "fc"}
+               "mm_wgrad_gelu": "fc", "mm_du": "fc"}
 
     def hold(name, label, checks, same):
         err = max(c[0] for c in checks)
@@ -787,17 +795,20 @@ def phase_matmul(flush) -> dict[str, dict]:
         if ratio <= 1.0:
             fail(f"the {name} check lets a planted fault through ({what})")
 
-    def timed(name, leg, kernel, plain, library, nbytes, flops):
+    def timed(name, leg, kernel, plain, library, nbytes, flops, peak=BF16_FLOPS_PER_S,
+              extra=None):
         ms = time_ms(kernel, flush)
         plain_ms = time_ms(plain, flush)
-        lib_ms = time_ms(library, flush)
-        b_ms, b_by = bound_ms(nbytes, flops)
+        lib_ms = None if library is None else time_ms(library, flush)
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        lib_text = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        speed = f"; {flops / ms / 1e9:.1f} TFLOP/s" if peak == BF16_FLOPS_PER_S else ""
         print(f"{name} {leg}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch "
-              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); {flops / ms / 1e9:.1f} "
-              f"TFLOP/s", flush=True)
+              f"{lib_text}, bound {b_ms:.5f} ms ({b_by}){speed}", flush=True)
         if row_leg.get(name) == leg:
             rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                              bound_by=b_by)
+                              bound_by=b_by, **(extra or {}))
+        return ms
 
     for leg, kind, n, k, m, salt in MM_LEGS:
         gen = torch.Generator(device="cuda").manual_seed(n + k + m)
@@ -854,16 +865,42 @@ def phase_matmul(flush) -> dict[str, dict]:
             du = fm.du_plain(gf, uf, bwd_rate, seed, dsalt, bf)
             dg_name, wg_name = ("mm_dgrad_gelu", "mm_wgrad_gelu") if gelu else (
                 "mm_dgrad", "mm_wgrad")
+            dgrad_k, wgrad_k = getattr(fm, dg_name), getattr(fm, wg_name)
+            uu = u if gelu else None
 
+            # The leg as the autograd backward runs it: the du pass once,
+            # then each product on that du.
             def dgrad(g_, seed_=seed):
-                if gelu:
-                    return fm.mm_dgrad_gelu(g_, u, w, bwd_rate, seed_, dsalt)
-                return fm.mm_dgrad(g_, w, bwd_rate, seed_, dsalt)
+                return dgrad_k(fm.mm_du(g_, uu, bwd_rate, seed_, dsalt)[0], w)
 
             def wgrad(x_, seed_=seed):
-                if gelu:
-                    return fm.mm_wgrad_gelu(x_, g, u, bwd_rate, seed_, dsalt)
-                return fm.mm_wgrad(x_, g, bwd_rate, seed_, dsalt)
+                du_, db_ = fm.mm_du(g, uu, bwd_rate, seed_, dsalt)
+                return wgrad_k(x_, du_), db_
+
+            # The du pass: equal to du_plain, within one bf16 ulp (2^-7
+            # |du|) with the GELU, where the card's tanhf and torch's tanh
+            # may differ in the last fp32 bit across a rounding boundary;
+            # db as a column sum.
+            def held_du(got):
+                err = (got.float() - du).abs()
+                tol = 2.0 ** -7 * du.abs() if gelu else torch.zeros_like(du)
+                ratio = (err / tol).nan_to_num(0.0, float("inf"))
+                return err.max().item(), ratio.max().item(), int((err > 0).sum())
+
+            (du_k, db_k), (du_k2, db_k2) = (fm.mm_du(g, uu, bwd_rate, seed, dsalt)
+                                            for _ in range(2))
+            torch.cuda.synchronize()
+            du_err, du_ratio, du_off = held_du(du_k)
+            print(f"mm_du {label}: {du_off} of {du.numel()} elements off (one ulp allowed "
+                  f"only with the GELU)", flush=True)
+            hold("mm_du", label, [(du_err, du_ratio), held_mm(db_k, du.sum(0), du.abs().sum(0))],
+                 torch.equal(du_k, du_k2) and torch.equal(db_k, db_k2))
+            if bwd_rate > 0.0:
+                bad_err, bad_ratio, bad_off = held_du(fm.mm_du(g, uu, bwd_rate, seed + 1,
+                                                               dsalt)[0])
+                print(f"mm_du planted fault (seed + 1): {bad_off} of {du.numel()} elements "
+                      f"off", flush=True)
+                planted("mm_du", "seed + 1", [(bad_err, bad_ratio)])
 
             dx, dx2 = dgrad(g), dgrad(g)
             dx_ref = fm.matmul_dgrad_plain(gf, wf, uf, bwd_rate, seed, dsalt, bf)
@@ -901,20 +938,36 @@ def phase_matmul(flush) -> dict[str, dict]:
         timed(fwd_name, leg, kernel,
               lambda: fm.matmul_fwd_plain(kind, x, w, b, r, rate, seed, salt),
               lambda: torch.addmm(b, x, w), 2 * (n * k + k * m + m) + out, flops)
+        # The backward of the leg: the du pass alone (bytes: g, u where the
+        # leg has one, du unless it is g; ~30 fp32 and uint32 operations an
+        # element for the hash, the division and gelu'), then each TPU
+        # kernel's function, du pass and product together, its plain version
+        # dgrad/wgrad with du inside, its bound over g (and u), the weight or
+        # x and the output, and the product alone on the pass's du as
+        # product_ms.
+        uu = u if gelu else None
         u_bytes = 2 * n * m if gelu else 0
-        if gelu:
-            dkernel = lambda: fm.mm_dgrad_gelu(g, u, w, rate, seed, salt)
-            wkernel = lambda: fm.mm_wgrad_gelu(x, g, u, rate, seed, salt)
-        else:
-            dkernel = lambda: fm.mm_dgrad(g, w, rate, seed, salt)
-            wkernel = lambda: fm.mm_wgrad(x, g, rate, seed, salt)
-        timed(dg_name, leg, dkernel,
-              lambda: fm.matmul_dgrad_plain(g, w, u if gelu else None, rate, seed, salt),
-              lambda: torch.matmul(g, w.t()), 2 * (n * m + k * m + n * k) + u_bytes, flops)
-        timed(wg_name, leg, wkernel,
-              lambda: fm.matmul_wgrad_plain(x, g, u if gelu else None, rate, seed, salt),
-              lambda: torch.matmul(x.t(), g), 2 * (n * k + n * m + k * m) + 4 * m + u_bytes,
-              flops)
+        dgrad_k, wgrad_k = getattr(fm, dg_name), getattr(fm, wg_name)
+        du_k, _ = fm.mm_du(g, uu, rate, seed, salt)
+        writes = gelu or rate > 0.0
+        du_ms = timed("mm_du", leg, lambda: fm.mm_du(g, uu, rate, seed, salt),
+                      lambda: fm.du_plain(g, uu, rate, seed, salt), None,
+                      2 * n * m * (1 + gelu + writes) + 4 * m, 30 * n * m, FP32_FLOPS_PER_S)
+        dp_ms = time_ms(lambda: dgrad_k(du_k, w), flush)
+        wp_ms = time_ms(lambda: wgrad_k(x, du_k), flush)
+        d_ms = timed(dg_name, leg, lambda: dgrad_k(fm.mm_du(g, uu, rate, seed, salt)[0], w),
+                     lambda: fm.matmul_dgrad_plain(g, w, uu, rate, seed, salt),
+                     lambda: torch.matmul(g, w.t()), 2 * (n * m + k * m + n * k) + u_bytes,
+                     flops, extra={"product_ms": dp_ms})
+        w_ms = timed(wg_name, leg, lambda: wgrad_k(x, fm.mm_du(g, uu, rate, seed, salt)[0]),
+                     lambda: fm.matmul_wgrad_plain(x, g, uu, rate, seed, salt),
+                     lambda: torch.matmul(x.t(), g),
+                     2 * (n * k + n * m + k * m) + 4 * m + u_bytes, flops,
+                     extra={"product_ms": wp_ms})
+        print(f"K7 backward {leg}: du pass {du_ms:.4f} ms; dgrad product alone {dp_ms:.4f}, "
+              f"with its du pass {d_ms:.4f} ms; wgrad product alone {wp_ms:.4f}, with its du "
+              f"pass {w_ms:.4f} ms; the leg (one du pass, two products) "
+              f"{du_ms + dp_ms + wp_ms:.4f} ms", flush=True)
 
     # The inference epilogues at the serving shapes: a decode step's fc
     # product [8, 768] -> 3072 and its head [8, 768] -> 50257, held to their
@@ -1335,13 +1388,17 @@ def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, 
             if fused_matmul == "all":
                 want.update(mm_bias_fwd=fwd, mm_gelu_fwd=fwd, mm_resid_fwd=2 * fwd,
                             mm_dgrad=3 * bwd, mm_dgrad_gelu=bwd, mm_wgrad=3 * bwd,
-                            mm_wgrad_gelu=bwd)
+                            mm_wgrad_gelu=bwd, mm_du=4 * bwd)
             elif fused_layers == "all":
                 for name, _ in FUSED_WRAPPERS:
                     want[name] = fwd if name in ("ln_residual_dropout_fwd",
                                                  "bias_gelu_dropout_fwd") else bwd
             if got != want:
                 fail(f"launch counts ({label}) {got} != {want}")
+    print(f"training 124M in this call: fused_matmul all {ms_steps['fused_matmul all']:.1f} "
+          f"ms/step against fused_layers all {ms_steps['fused_layers all']:.1f} ms/step "
+          f"({ms_steps['fused_matmul all'] / ms_steps['fused_layers all']:.3f}x) and off "
+          f"{ms_steps['off']:.1f} ms/step", flush=True)
     if profile:
         for _, fused_layers, fused_matmul in TRAIN_RUNS:
             profile_train_step(fused_layers, fused_matmul)

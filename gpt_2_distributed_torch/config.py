@@ -162,10 +162,12 @@ class ServeConfig:
     * ``eos_id`` — generation stops when this token is sampled; None = run
       every request to its max_new_tokens.
 
-    ``prefill_chunk``, ``prefix_cache``, ``admission``, ``mesh`` and
-    ``spec`` mirror the JAX engine's options; only their defaults (whole-
-    prompt prefill, no prefix cache, worst-case block reservation, one
-    device, no speculation) are ported so far.
+    ``prefill_chunk``, ``prefix_cache``, ``admission``,
+    ``watermark_blocks``, ``mesh``, ``prefill_batch`` and ``spec`` mirror
+    the JAX engine's options and are validated as there; only their
+    defaults (whole-prompt prefill, no prefix cache, worst-case block
+    reservation, one device, one prefill a step, no speculation) are ported
+    so far.
     """
 
     max_batch: int = 8
@@ -176,7 +178,9 @@ class ServeConfig:
     prefill_chunk: int = 0
     prefix_cache: bool = False
     admission: str = "reserve"
+    watermark_blocks: int = 1
     mesh: str = ""
+    prefill_batch: int = 1
     spec: str = ""
 
     def __post_init__(self) -> None:
@@ -206,9 +210,18 @@ class ServeConfig:
                 f"admission={self.admission!r}: expected 'reserve' or "
                 f"'watermark'"
             )
+        if self.watermark_blocks < 0:
+            raise ValueError(
+                f"watermark_blocks={self.watermark_blocks} must be >= 0"
+            )
+        if not 1 <= self.prefill_batch <= self.max_batch:
+            raise ValueError(
+                f"prefill_batch={self.prefill_batch} must be in "
+                f"[1, max_batch={self.max_batch}]"
+            )
         for field, default in (("prefill_chunk", 0), ("prefix_cache", False),
-                               ("admission", "reserve"), ("mesh", ""),
-                               ("spec", "")):
+                               ("admission", "reserve"), ("watermark_blocks", 1),
+                               ("mesh", ""), ("prefill_batch", 1), ("spec", "")):
             value = getattr(self, field)
             if value != default:
                 raise _later_slice("ServeConfig", field, value)

@@ -1,6 +1,7 @@
-// Fused matmuls for Hopper (sm_90a): K7 of the port, a tiled bf16 GEMM on
-// the tensor cores with fp32 accumulators and the epilogues applied to the
-// accumulator before its one write-back.
+// Fused matmuls for Hopper (sm_90a): K7 of the port. The forward is a tiled
+// bf16 GEMM on the tensor cores with fp32 accumulators and the epilogues
+// applied to the accumulator before its one write-back; the backward forms
+// du once per leg and runs dgrad and wgrad as plain bf16 GEMMs on wgmma.
 //
 // Replaces, in gpt_2_distributed_tpu/ops/fused_matmul.py (one pallas_call
 // each, built by _build_matmul):
@@ -11,10 +12,10 @@
 //   dgrad    _mm_dgrad_kernel, _mm_dgrad_gelu_kernel   dx = du @ w^T
 //   wgrad    _mm_wgrad_plain_kernel, _mm_wgrad_gelu_kernel
 //                                  dw = x^T @ du, db = sum over rows of du
-// where du = keep * dy / (1 - rate) [* gelu'(u)], formed per tile in fp32
-// and rounded to bf16 before the product, as the TPU kernels do. The mask
-// is dropout_hash_bits(seed, 0, salt, row, col) >= threshold on the
-// absolute row of the flattened [N, M] output and the output column
+// where du = keep * dy / (1 - rate) [* gelu'(u)] in fp32, rounded to bf16
+// before the products, as the TPU kernels' _dgrad_tile forms it. The mask is
+// dropout_hash_bits(seed, 0, salt, row, col) >= threshold on the absolute
+// row of the flattened [N, M] output and the output column
 // (csrc/dropout_hash.cuh), so the backward rehashes the forward's mask.
 // Roundings, as there: the bias is added to the fp32 accumulator and the
 // sum rounded once; the GELU runs in fp32 on the unrounded u; the kept
@@ -28,44 +29,67 @@
 // h @ wte^T, which reads wte [V, C] as a transposed operand.
 //
 // What bounds it on the H100: operations. At 124M, batch 4 x 1024 (N =
-// 4096, C = 768) the four forward legs do 14.5 to 19.3 GFLOP on 9 to 44 MB
+// 4096, C = 768) each leg does 14.5 to 19.3 GFLOP each way on 9 to 44 MB
 // of operands: 15 to 20 us at 989 TFLOP/s against 3 to 13 us of bytes.
 // Decode rows (N = 8) are bound by the weight bytes instead.
 //
-// Design: one core for three operand layouts. A block computes a 128 x 128
-// output tile with 8 warps (2 x 4, a 64 x 32 tile each) from 32-deep
-// stages: each thread loads its 16-byte pieces of the next stage into
-// registers while the warps multiply the current one out of shared memory
-// (ldmatrix, .trans for an operand stored along its output dimension, into
-// mma.sync m16n8k16 bf16 with fp32 accumulators), then stores them into
-// the other of two shared buffers: one barrier a stage. Shared rows carry
-// 16 bytes of padding, so ldmatrix reads no bank twice. Loads are 16 bytes
-// where a matrix's rows are (width % 8 == 0 and an aligned base) and
-// element loads masked at the edge otherwise; rows and depth past the
-// matrix read zeros. So any shape is taken: the 1.5B C = 1600, any row
-// count, one-row decode and the head's V = 50257.
+// Forward: a block computes a 128 x 128 output tile with 8 warps (2 x 4, a
+// 64 x 32 tile each) from 32-deep stages: each thread loads its 16-byte
+// pieces of the next stage into registers while the warps multiply the
+// current one out of shared memory (ldmatrix, .trans for w stored along
+// its output dimension, into mma.sync m16n8k16 bf16 with fp32
+// accumulators), then stores them into the other of two shared buffers:
+// one barrier a stage. Shared rows carry 16 bytes of padding, so ldmatrix
+// reads no bank twice. Loads are 16 bytes where a matrix's rows are
+// (width % 8 == 0 and an aligned base) and element loads masked at the
+// edge otherwise; rows and depth past the matrix read zeros. So any shape
+// is taken: the 1.5B C = 1600, any row count, one-row decode and the
+// head's V = 50257.
 //   NN (forward):  x[N, K] @ w[K, M]
-//   NT (dgrad, head):  du[N, M] @ w[K, M]^T, h[R, C] @ wte[V, C]^T
-//   TN (wgrad):  x[N, K]^T @ du[N, M]
-// dgrad forms du while it stores the A stage, wgrad while it stores the B
-// stage.
+//   NT (head):     h[R, C] @ wte[V, C]^T
+// The forward sums every output element over the whole depth in one block,
+// stage by stage in order, with a tile shape that never changes: a row's
+// result does not depend on how many rows share the launch or where the
+// row sits in its tile, which is what keeps the serving engine's streams
+// equal to one-request decoding.
 //
-// Determinism and batch invariance. No atomics. The forward and dgrad sum
-// every output element over the whole depth in one block, stage by stage
-// in order, with a tile shape that never changes: a row's result does not
-// depend on how many rows share the launch or where the row sits in its
-// tile, which is what keeps the serving engine's streams equal to
-// one-request decoding. wgrad splits the rows it sums over into a fixed
-// number of slices (a function of the shape only, so the 36 output tiles of
-// a [768, 768] weight fill the card): each slice writes fp32 partials of
-// dw and db (db summed over the slice's rows, in order, by the blocks of
-// the first row tile of dw), and a second kernel adds the slices in order
-// and rounds dw once. Two launches give the same bits.
-// Faster versions (wgmma from TMA-fed stages, a persistent grid, a staged
-// epilogue with 16-byte stores) are later work.
+// Backward, in two kernels a leg. The TPU kernels rebuild du inside every
+// output tile of dgrad and of wgrad to keep it out of HBM; here that is 6
+// to 24 rebuilds of the mask hash and the tanh, while du itself is 25 MB
+// of bf16 at fc, 8 us of this card's HBM. So:
+//   du pass (du_kernel): one read of dy (and u), one write of du, and db as
+//     fp32 column sums of the bf16 du: each block sums a chunk of rows of
+//     its columns (each thread its rows in order, then the 8 threads of a
+//     column in order), and slice_sum_kernel adds the chunks' partials (8
+//     threads a column, each its chunks in order, then the 8 in order). At
+//     rate 0 without GELU du is dy itself and the pass only sums db.
+//   products (gemm_kernel): dgrad dx[N, K] = du[N, M] @ w[K, M]^T (both
+//     operands K-major) and wgrad dw[K, M] = x[N, K]^T @ du[N, M] (both
+//     MN-major, wgmma's transpose bits). A block computes a 128 x 128 tile:
+//     one producer thread keeps TMA loads (cp.async.bulk.tensor, 128-byte
+//     swizzle, zeros past the matrix) of 64-deep A and B stages in flight
+//     through a ring of 5 stages completed on mbarriers, and two consumer
+//     warpgroups issue wgmma.mma_async m64n128k16 from those stages into
+//     fp32 registers, each 64 rows; a stage is released once the next
+//     stage's products are issued and its own have completed. The result is
+//     rounded to bf16 once on store.
+// TMA takes rows whose stride is a multiple of 16 bytes at a 16-byte
+// aligned base; the wrappers give such operands (a zeroed copy with its
+// rows padded to 8 elements otherwise) and the matrix's true width, so
+// ragged shapes run the same kernel.
+//
+// Determinism. No atomics, no split-K with a race. dgrad sums each output
+// over the whole depth in one block, in order. wgrad splits the rows it
+// sums over into a number of slices that is a function of the shape only
+// (so the 36 output tiles of a [768, 768] weight fill the card): each
+// slice writes fp32 partials and slice_sum_kernel adds them in order and
+// rounds dw once; one slice writes dw directly. Two launches give the same
+// bits.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -80,7 +104,6 @@ constexpr int BN = 128;       // output columns a block
 constexpr int BK = 32;        // depth a stage
 constexpr int PAD = 8;        // bf16 padding a shared row: 16 bytes
 constexpr int THREADS = 256;  // 8 warps: 2 along the rows, 4 along the columns
-constexpr int SUM_THREADS = 256;
 constexpr float GELU_C0 = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float GELU_A = 0.044715f;
 
@@ -164,28 +187,6 @@ struct Stage {
     for (int i = 0; i < PER_THREAD; ++i)
       *reinterpret_cast<uint4*>(s + row(i) * LD + col(i)) = v[i];
   }
-  // du from dy in place: keep * dy / kp [* gelu'(u)], rounded to bf16, for
-  // the piece at (r0, c0) of the [N, M] gradient.
-  __device__ __forceinline__ void make_du(const Stage& u, bool gelu_on, int r0,
-                                          int c0, const Dropout& d) {
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) {
-      float g[8];
-      unpack8(v[i], g);
-      if (d.on) {
-        const unsigned hr = d.row_part(r0 + row(i));
-#pragma unroll
-        for (int j = 0; j < 8; ++j) g[j] = d.kept(hr, c0 + col(i) + j) ? g[j] / d.keep : 0.f;
-      }
-      if (gelu_on) {
-        float uf[8];
-        unpack8(u.v[i], uf);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) g[j] *= gelu_grad(uf[j]);
-      }
-      v[i] = pack8(g);
-    }
-  }
 };
 
 __device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
@@ -214,13 +215,13 @@ __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
 }
 
 // The warp's 64 x 32 share of one stage. A is [BM][BK] in shared memory
-// when A_KMAJOR (depth contiguous), else [BK][BM]; B is [BN][BK] when
-// B_KMAJOR, else [BK][BN]. acc[i][j] is the m16 x n8 tile (i, j) of the
-// warp's share in mma's accumulator layout.
-template <bool A_KMAJOR, bool B_KMAJOR>
+// (depth contiguous); B is [BN][BK] when B_KMAJOR, else [BK][BN]. acc[i][j]
+// is the m16 x n8 tile (i, j) of the warp's share in mma's accumulator
+// layout.
+template <bool B_KMAJOR>
 __device__ __forceinline__ void multiply(const bf16* sa, const bf16* sb,
                                          float (&acc)[4][4][4]) {
-  constexpr int LDA = (A_KMAJOR ? BK : BM) + PAD;
+  constexpr int LDA = BK + PAD;
   constexpr int LDB = (B_KMAJOR ? BK : BN) + PAD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4 * 64, wn = warp % 4 * 32;
@@ -228,14 +229,8 @@ __device__ __forceinline__ void multiply(const bf16* sa, const bf16* sb,
   for (int kk = 0; kk < BK; kk += 16) {
     unsigned a[4][4], b[4][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = wm + i * 16;
-      if (A_KMAJOR)
-        ldsm4(a[i], sa + (m + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
-      else
-        ldsm4_t(a[i], sa + (kk + (lane & 7) + (lane >> 4) * 8) * LDA + m +
-                          ((lane >> 3) & 1) * 8);
-    }
+    for (int i = 0; i < 4; ++i)
+      ldsm4(a[i], sa + (wm + i * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
 #pragma unroll
     for (int jp = 0; jp < 2; ++jp) {
       const int n = wn + jp * 16;
@@ -259,64 +254,43 @@ __device__ __forceinline__ void multiply(const bf16* sa, const bf16* sb,
 }
 
 // Shared memory of one block: two stages of A and of B.
-template <bool A_KMAJOR, bool B_KMAJOR>
+template <bool B_KMAJOR>
 struct Smem {
-  typedef Stage<A_KMAJOR ? BM : BK, A_KMAJOR ? BK : BM> SA;
+  typedef Stage<BM, BK> SA;
   typedef Stage<B_KMAJOR ? BN : BK, B_KMAJOR ? BK : BN> SB;
   bf16 a[2][SA::ELEMS];
   bf16 b[2][SB::ELEMS];
 };
 
-// acc += A[m0 : m0 + BM, k0 : k1] @ B[k0 : k1, n0 : n0 + BN], stage by
-// stage in order. A is the matrix with depth along its columns
-// (A_KMAJOR) or its rows; B the matrix with depth along its rows
-// (!B_KMAJOR) or its columns. DU names the operand that is the gradient
-// dy turned into du while it is stored (1: A, 2: B; U holds u when GELU).
-// With `colsum` every thread below BN adds column threadIdx.x of each B
-// stage (du, rows in order) into `csum`.
-template <bool A_KMAJOR, bool B_KMAJOR, int DU, bool GELU>
-__device__ __forceinline__ void mainloop(Smem<A_KMAJOR, B_KMAJOR>& sm, const Mat& A,
-                                         const Mat& B, const Mat& U, const Dropout& d,
-                                         int m0, int n0, int k0, int k1,
-                                         float (&acc)[4][4][4], bool colsum,
-                                         float& csum) {
-  typedef Smem<A_KMAJOR, B_KMAJOR> S;
-  typename S::SA sa;
-  typename S::SB sb;
-  typename S::SA ua;  // u beside an A that is du (DU == 1)
-  typename S::SB ub;  // u beside a B that is du (DU == 2)
-  constexpr bool TRANSFORM_A = DU == 1, TRANSFORM_B = DU == 2;
-  const bool transform = DU != 0 && (GELU || d.on);
-
+// acc += A[m0 : m0 + BM, :depth] @ B[:depth, n0 : n0 + BN], stage by stage
+// in order. A has its depth along its columns; B along its rows
+// (!B_KMAJOR) or its columns.
+template <bool B_KMAJOR>
+__device__ __forceinline__ void mainloop(Smem<B_KMAJOR>& sm, const Mat& A, const Mat& B,
+                                         int m0, int n0, int depth,
+                                         float (&acc)[4][4][4]) {
+  typename Smem<B_KMAJOR>::SA sa;
+  typename Smem<B_KMAJOR>::SB sb;
   auto fetch = [&](int k) {
-    sa.load(A, A_KMAJOR ? m0 : k, A_KMAJOR ? k : m0);
+    sa.load(A, m0, k);
     sb.load(B, B_KMAJOR ? n0 : k, B_KMAJOR ? k : n0);
-    if (TRANSFORM_A && GELU) ua.load(U, m0, k);
-    if (TRANSFORM_B && GELU) ub.load(U, k, n0);
   };
-  auto put = [&](int st, int k) {
-    if (TRANSFORM_A && transform) sa.make_du(ua, GELU, m0, k, d);
-    if (TRANSFORM_B && transform) sb.make_du(ub, GELU, k, n0, d);
+  auto put = [&](int st) {
     sa.store(sm.a[st]);
     sb.store(sm.b[st]);
   };
 
-  const int stages = k1 > k0 ? (k1 - k0 + BK - 1) / BK : 0;
+  const int stages = (depth + BK - 1) / BK;
   if (stages == 0) return;
-  fetch(k0);
-  put(0, k0);
+  fetch(0);
+  put(0);
   __syncthreads();
   for (int t = 0; t < stages; ++t) {
     const int st = t & 1;
     const bool more = t + 1 < stages;
-    if (more) fetch(k0 + (t + 1) * BK);
-    if (colsum && threadIdx.x < BN) {
-#pragma unroll 8
-      for (int r = 0; r < BK; ++r)
-        csum += __bfloat162float(sm.b[st][r * S::SB::LD + threadIdx.x]);
-    }
-    multiply<A_KMAJOR, B_KMAJOR>(sm.a[st], sm.b[st], acc);
-    if (more) put(st ^ 1, k0 + (t + 1) * BK);
+    if (more) fetch((t + 1) * BK);
+    multiply<B_KMAJOR>(sm.a[st], sm.b[st], acc);
+    if (more) put(st ^ 1);
     __syncthreads();
   }
 }
@@ -365,7 +339,7 @@ template <bool B_KMAJOR, int EPI>
 __global__ void __launch_bounds__(THREADS) mm_fwd_kernel(
     Mat X, Mat W, const bf16* __restrict__ bias, const bf16* __restrict__ resid,
     void* __restrict__ out, bf16* __restrict__ u_out, int N, int M, Dropout d) {
-  __shared__ __align__(16) Smem<true, B_KMAJOR> sm;
+  __shared__ __align__(16) Smem<B_KMAJOR> sm;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   float acc[4][4][4];
 #pragma unroll
@@ -374,9 +348,7 @@ __global__ void __launch_bounds__(THREADS) mm_fwd_kernel(
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  float unused = 0.f;
-  mainloop<true, B_KMAJOR, 0, false>(sm, X, W, X, d, m0, n0, 0, X.cols, acc, false,
-                                     unused);
+  mainloop<B_KMAJOR>(sm, X, W, m0, n0, X.cols, acc);
 
   for_each_pair(acc, m0, n0, N, M, [&](int row, int col, float a0, float a1) {
     const float acc2[2] = {a0, a1};
@@ -413,79 +385,335 @@ __global__ void __launch_bounds__(THREADS) mm_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// dgrad: dx[N, K] = du[N, M] @ w[K, M]^T (NT), du formed from g while each
-// A stage is stored. Grid (column tiles of K, row tiles).
+// du pass: du[N, M] = bf16(keep * g / kp [* gelu'(u)]) (written unless
+// !WRITE, where du is g) and partial[chunk][M], the fp32 column sums of the
+// bf16 du over each chunk of `chunk_rows` rows. Block (DU_TX, DU_TY): thread
+// (tx, ty) takes 8 columns and the rows ty, ty + DU_TY, ... of the chunk.
+// Grid (column strips of DU_TX * 8, chunks).
 // ---------------------------------------------------------------------------
 
-template <bool GELU>
-__global__ void __launch_bounds__(THREADS) mm_dgrad_kernel(Mat G, Mat W, Mat U,
-                                                           bf16* __restrict__ dx,
-                                                           int N, int K, Dropout d) {
-  __shared__ __align__(16) Smem<true, true> sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4][4];
+constexpr int DU_TX = 32;
+constexpr int DU_TY = 8;
+constexpr int DU_COLS = DU_TX * 8;  // columns a block
+
+template <bool WRITE, bool GELU>
+__global__ void __launch_bounds__(DU_TX* DU_TY) du_kernel(Mat G, Mat U, bf16* __restrict__ du,
+                                                         long long ld_du,
+                                                         float* __restrict__ partial,
+                                                         int chunk_rows, Dropout d) {
+  __shared__ float red[DU_TY][DU_COLS];
+  const int N = G.rows, M = G.cols;
+  const int c0 = blockIdx.x * DU_COLS + threadIdx.x * 8;
+  const int r0 = blockIdx.y * chunk_rows, r1 = min(N, r0 + chunk_rows);
+  const bool vec_out = ld_du % 8 == 0 && reinterpret_cast<uintptr_t>(du) % 16 == 0;
+  float s[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 8; ++j) s[j] = 0.f;
+  if (c0 < M) {
+    for (int r = r0 + threadIdx.y; r < r1; r += DU_TY) {
+      float g[8];
+      unpack8(load8(G, r, c0), g);
+      if (WRITE) {
+        if (d.on) {
+          const unsigned hr = d.row_part(r);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < 8; ++j) g[j] = d.kept(hr, c0 + j) ? g[j] / d.keep : 0.f;
+        }
+        if (GELU) {
+          float uf[8];
+          unpack8(load8(U, r, c0), uf);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  float unused = 0.f;
-  mainloop<true, true, 1, GELU>(sm, G, W, U, d, m0, n0, 0, G.cols, acc, false, unused);
-  for_each_pair(acc, m0, n0, N, K, [&](int row, int col, float a0, float a1) {
-    store2(dx, row, col, K, a0, a1);
-  });
+          for (int j = 0; j < 8; ++j) g[j] *= gelu_grad(uf[j]);
+        }
+        const uint4 v = pack8(g);
+        unpack8(v, g);  // the bf16 du, summed into db as the products see it
+        bf16* o = du + (long long)r * ld_du + c0;
+        if (vec_out && c0 + 8 <= M) {
+          *reinterpret_cast<uint4*>(o) = v;
+        } else {
+          const bf16* h = reinterpret_cast<const bf16*>(&v);
+          for (int j = 0; j < 8 && c0 + j < M; ++j) o[j] = h[j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j] += g[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) red[threadIdx.y][threadIdx.x * 8 + j] = s[j];
+  __syncthreads();
+  const int t = threadIdx.y * DU_TX + threadIdx.x;  // this thread's column of the strip
+  const int col = blockIdx.x * DU_COLS + t;
+  if (col < M) {
+    float sum = 0.f;
+#pragma unroll
+    for (int y = 0; y < DU_TY; ++y) sum += red[y][t];
+    partial[(long long)blockIdx.y * M + col] = sum;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// wgrad: slice z of the rows, partial[z] = (x[rows, K]^T @ du[rows, M] as
-// [K, M], then db's [M] column sums of du over the rows), fp32. Grid
-// (column tiles of M, row tiles of K, slices).
+// The backward's products on wgmma: out[rows, cols] (+)= A @ B over the
+// depth [z * per_slice, min(depth, (z + 1) * per_slice)) of slice z.
+//   !MN_MAJOR (dgrad): A = du[rows, depth], B = w[cols, depth], both with
+//     the depth contiguous (K-major); TMA boxes of 64 deep x 128 rows.
+//   MN_MAJOR (wgrad): A = x[depth, rows], B = du[depth, cols], both with
+//     the output dimension contiguous; TMA boxes of 64 wide x 64 deep.
+// F32: fp32 partials at out + z * rows * cols, else bf16 out. Grid (column
+// tiles, row tiles, slices); block: warpgroups 0 and 1 consume (rows 0-63
+// and 64-127 of the tile), warpgroup 2's first thread produces.
 // ---------------------------------------------------------------------------
 
-template <bool GELU>
-__global__ void __launch_bounds__(THREADS) mm_wgrad_kernel(Mat X, Mat G, Mat U,
-                                                           float* __restrict__ partial,
-                                                           int K, int M, int rows_per_slice,
-                                                           Dropout d) {
-  __shared__ __align__(16) Smem<false, false> sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int r0 = blockIdx.z * rows_per_slice;
-  const int r1 = min(X.rows, r0 + rows_per_slice);
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  const bool colsum = blockIdx.y == 0;
-  float csum = 0.f;
-  mainloop<false, false, 2, GELU>(sm, X, G, U, d, m0, n0, r0, r1, acc, colsum, csum);
+namespace gm {
 
-  float* part = partial + (long long)blockIdx.z * ((long long)K * M + M);
-  for_each_pair(acc, m0, n0, K, M, [&](int row, int col, float a0, float a1) {
-    float* o = part + (long long)row * M + col;
-    o[0] = a0;
-    if (col + 1 < M) o[1] = a1;
-  });
-  if (colsum && threadIdx.x < BN && n0 + threadIdx.x < M)
-    part[(long long)K * M + n0 + threadIdx.x] = csum;
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 5, CONSUMERS = 2;
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// out[i] = sum over z of partial[z][i], in order of z: dw (the first n16
-// values, rounded to bf16) and db (the next n32, fp32).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of `bar` with this parity has completed. A wait
+// of ~2^34 cycles (seconds) traps, so a stalled pipeline is a launch error
+// and not a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 34)) __trap();
+  }
+}
+
+// The box at (c0 inner, c1 outer) of `map` into dst, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand at
+// `addr`: lbo the stride between 64-element chunks of an MN-major operand's
+// output dimension, sbo the stride between groups of 8 rows (K-major) or 8
+// depth rows (MN-major), both in bytes.
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] @ B[16 x 128], fp32 accumulators; TRANS: both
+// operands MN-major.
+template <int TRANS>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS));
+}
+
+template <bool MN_MAJOR, bool F32>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                void* __restrict__ out, int rows, int cols, int depth, int per_slice) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzled tiles start on 1024-byte boundaries.
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sa = smem;                           // STAGES x A_BYTES
+  uint8_t* sb = smem + STAGES * A_BYTES;        // STAGES x B_BYTES
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k0 = blockIdx.z * per_slice, k1 = min(depth, k0 + per_slice);
+  const int nk = k1 > k0 ? (k1 - k0 + BK - 1) / BK : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // Producer: one thread keeps up to STAGES stages in flight.
+    if (threadIdx.x == CONSUMERS * 128) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % STAGES;
+        if (kb >= STAGES) mbar_wait(&empty[s], ((kb / STAGES) + 1) & 1);
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        const int k = k0 + kb * BK;
+        uint8_t* a = sa + s * A_BYTES;
+        uint8_t* b = sb + s * B_BYTES;
+        if (MN_MAJOR) {
+          tma_load(a, &ta, &full[s], m0, k);
+          tma_load(a + A_BYTES / 2, &ta, &full[s], m0 + 64, k);
+          tma_load(b, &tb, &full[s], n0, k);
+          tma_load(b + B_BYTES / 2, &tb, &full[s], n0 + 64, k);
+        } else {
+          tma_load(a, &ta, &full[s], k, m0);
+          tma_load(b, &tb, &full[s], k, n0);
+        }
+      }
+    }
+  } else {
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    fence_acc(d);
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % STAGES;
+      mbar_wait(&full[s], (kb / STAGES) & 1);
+      const uint32_t a = smem_u32(sa + s * A_BYTES), b = smem_u32(sb + s * B_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if (MN_MAJOR)  // 16 depth rows of 128 bytes a step
+          wgmma_m64n128k16<1>(d, descriptor(a + wg * (A_BYTES / 2) + kk * 2048, A_BYTES / 2, 1024),
+                              descriptor(b + kk * 2048, B_BYTES / 2, 1024));
+        else  // 16 depth elements (32 bytes) a step inside each 128-byte row
+          wgmma_m64n128k16<0>(d, descriptor(a + wg * 64 * 128 + kk * 32, 16, 1024),
+                              descriptor(b + kk * 32, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (kb > 0) mbar_arrive(&empty[(kb - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+
+    // d[j * 4 + h * 2 + e]: row w * 16 + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e
+    // of the warpgroup's 64 x 128 tile.
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
+      if (row >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + j * 8 + (lane % 4) * 2;
+        if (col >= cols) continue;
+        const float v0 = d[j * 4 + h * 2], v1 = d[j * 4 + h * 2 + 1];
+        if (F32) {
+          float* o = static_cast<float*>(out) + (long long)blockIdx.z * rows * cols +
+                     (long long)row * cols + col;
+          o[0] = v0;
+          if (col + 1 < cols) o[1] = v1;
+        } else {
+          store2(static_cast<bf16*>(out), row, col, cols, v0, v1);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace gm
+
+// out[i] = the sum over z of partial[z][i] (i < n) rounded to T, the
+// du pass's db (fp32; z the row chunks, 128 at 4096 rows) and wgrad's dw
+// (bf16; z the row slices, a few): thread (tx, ty) of a (SUM_THREADS / ty,
+// ty) block sums z = ty, ty + blockDim.y, ... of element blockIdx.x *
+// blockDim.x + tx in order, then the blockDim.y sums are added in order
+// of ty. blockDim.y is SUM_SPLIT where there are that many slices (db's
+// few columns and many chunks), else 1 (dw's many elements and few
+// slices): a function of the shape only.
+constexpr int SUM_THREADS = 256;
+constexpr int SUM_SPLIT = 8;
+
+__device__ __forceinline__ void put_sum(float* o, float v) { *o = v; }
+__device__ __forceinline__ void put_sum(bf16* o, float v) { *o = __float2bfloat16(v); }
+
+template <typename T>
 __global__ void __launch_bounds__(SUM_THREADS) slice_sum_kernel(
-    const float* __restrict__ partial, int slices, long long stride, long long n16,
-    bf16* __restrict__ out16, long long n32, float* __restrict__ out32) {
-  const long long i = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
-  if (i >= n16 + n32) return;
+    const float* __restrict__ partial, int slices, long long n, T* __restrict__ out) {
+  __shared__ float red[SUM_THREADS];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float s = 0.f;
-  for (int z = 0; z < slices; ++z) s += partial[z * stride + i];
-  if (i < n16)
-    out16[i] = __float2bfloat16(s);
-  else
-    out32[i - n16] = s;
+  if (i < n)
+    for (int z = threadIdx.y; z < slices; z += blockDim.y) s += partial[z * n + i];
+  red[threadIdx.y * blockDim.x + threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < n) {
+    float t = 0.f;
+    for (int y = 0; y < (int)blockDim.y; ++y) t += red[y * blockDim.x + threadIdx.x];
+    put_sum(out + i, t);
+  }
+}
+
+template <typename T>
+int slice_sum(const float* partial, int slices, long long n, void* out, cudaStream_t s) {
+  const int ty = slices >= SUM_SPLIT ? SUM_SPLIT : 1, tx = SUM_THREADS / ty;
+  slice_sum_kernel<T><<<(unsigned)((n + tx - 1) / tx), dim3(tx, ty), 0, s>>>(
+      partial, slices, n, static_cast<T*>(out));
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -510,13 +738,70 @@ int fwd(const void* x, const void* w, const void* b, const void* r, void* y,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled through the runtime, so the library needs no link
+// against libcuda.
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a row-major bf16 [rows, cols] matrix with row stride ld
+// elements (ld % 8 == 0, 16-byte aligned base), boxes of box_cols x
+// box_rows, 128-byte swizzle; reads past the matrix give zeros.
+bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols, long long ld,
+                int box_cols, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (!encode || ld % 8 != 0 || reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool MN_MAJOR, bool F32>
+int gemm(const CUtensorMap& ta, const CUtensorMap& tb, void* out, int rows, int cols,
+         int depth, int slices, int per_slice, cudaStream_t s) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(gm::gemm_kernel<MN_MAJOR, F32>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               gm::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const dim3 grid((cols + gm::BN - 1) / gm::BN, (rows + gm::BM - 1) / gm::BM, slices);
+  gm::gemm_kernel<MN_MAJOR, F32><<<grid, gm::THREADS, gm::SMEM_BYTES, s>>>(
+      ta, tb, out, rows, cols, depth, per_slice);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Every entry point takes contiguous row-major bf16 operands (fp32 where
-// named), the dropout site's seed and salt, its keep threshold (0: no
-// dropout) and the keep probability kept values are divided by, and
-// PyTorch's stream. It launches on that stream and returns
-// cudaGetLastError().
+// Every entry point takes row-major bf16 operands (fp32 where named) and
+// PyTorch's stream; the forward and the du pass also the dropout site's
+// seed and salt, its keep threshold (0: no dropout) and the keep
+// probability kept values are divided by. It launches on that stream and
+// returns cudaGetLastError() (cudaErrorInvalidValue for an operand TMA
+// cannot take).
 
 // Forward: y[N, M] = epilogue(x[N, K] @ w[K, M]) with epi
 //   0 bias:   round(acc + b)
@@ -550,47 +835,65 @@ extern "C" int mm_nt_f32(const void* x, const void* w, void* out, int N, int K, 
   return (int)cudaGetLastError();
 }
 
-// dgrad: dx[N, K] = du[N, M] @ w[K, M]^T, du = keep * g / kp [* gelu'(u)]
-// rounded to bf16 (u [N, M] may be null: no GELU).
-extern "C" int mm_dgrad_bf16(const void* g, const void* u, const void* w, void* dx,
-                             int N, int M, int K, unsigned seed, unsigned salt,
-                             unsigned threshold, float keep, void* stream) {
-  if (N == 0 || K == 0) return (int)cudaSuccess;
+// du pass: du[N, M] (row stride ld_du) = bf16(keep * g / kp [* gelu'(u)])
+// from g [N, M] and u [N, M] (null: no GELU), and db[M] fp32 = the column
+// sums of du through partial, fp32 scratch of ceil(N / chunk_rows) x M.
+// du may be null only with u null and threshold 0: du is g, and only db is
+// formed.
+extern "C" int mm_du_bf16(const void* g, const void* u, void* du, int ld_du, void* partial,
+                          void* db, int N, int M, int chunk_rows, unsigned seed,
+                          unsigned salt, unsigned threshold, float keep, void* stream) {
+  if (M == 0) return (int)cudaSuccess;
+  if (chunk_rows < 1 || (!du && (u || threshold))) return (int)cudaErrorInvalidValue;
   const Dropout d = make_dropout(seed, salt, threshold, keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Mat G = mat(g, N, M), W = mat(w, K, M);
-  if (u)
-    mm_dgrad_kernel<true><<<tiles(N, K), THREADS, 0, s>>>(G, W, mat(u, N, M),
-                                                        static_cast<bf16*>(dx), N, K, d);
-  else
-    mm_dgrad_kernel<false><<<tiles(N, K), THREADS, 0, s>>>(G, W, G, static_cast<bf16*>(dx),
-                                                         N, K, d);
-  return (int)cudaGetLastError();
+  const int chunks = (N + chunk_rows - 1) / chunk_rows;
+  float* part = static_cast<float*>(partial);
+  if (chunks > 0) {
+    const dim3 grid((M + DU_COLS - 1) / DU_COLS, chunks), block(DU_TX, DU_TY);
+    const Mat G = mat(g, N, M);
+    bf16* o = static_cast<bf16*>(du);
+    if (!du)
+      du_kernel<false, false><<<grid, block, 0, s>>>(G, G, o, ld_du, part, chunk_rows, d);
+    else if (u)
+      du_kernel<true, true><<<grid, block, 0, s>>>(G, mat(u, N, M), o, ld_du, part,
+                                                   chunk_rows, d);
+    else
+      du_kernel<true, false><<<grid, block, 0, s>>>(G, G, o, ld_du, part, chunk_rows, d);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return slice_sum<float>(part, chunks, M, db, s);
 }
 
-// wgrad: dw[K, M] bf16 = x[N, K]^T @ du[N, M] and db[M] fp32 = the column
-// sums of du, du as in mm_dgrad_bf16, over `slices` slices of the rows;
-// partial: fp32 scratch of slices x (K M + M).
-extern "C" int mm_wgrad_bf16(const void* x, const void* g, const void* u, void* partial,
-                             void* dw, void* db, int N, int K, int M, int slices,
-                             unsigned seed, unsigned salt, unsigned threshold, float keep,
+// dgrad: dx[N, K] = du[N, M] @ w[K, M]^T; du and w with row strides ld_du,
+// ld_w (multiples of 8 elements).
+extern "C" int mm_dgrad_bf16(const void* du, int ld_du, const void* w, int ld_w, void* dx,
+                             int N, int M, int K, void* stream) {
+  if (N == 0 || K == 0 || M == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!tensor_map(&ta, du, N, M, ld_du, gm::BK, gm::BM) ||
+      !tensor_map(&tb, w, K, M, ld_w, gm::BK, gm::BN))
+    return (int)cudaErrorInvalidValue;
+  return gemm<false, false>(ta, tb, dx, N, K, M, 1, M, static_cast<cudaStream_t>(stream));
+}
+
+// wgrad: dw[K, M] bf16 = x[N, K]^T @ du[N, M] over `slices` slices of the
+// rows (row strides ld_x, ld_du); partial: fp32 scratch of slices x K x M
+// (unused with one slice).
+extern "C" int mm_wgrad_bf16(const void* x, int ld_x, const void* du, int ld_du,
+                             void* partial, void* dw, int N, int K, int M, int slices,
                              void* stream) {
-  if (K == 0 || M == 0 || slices < 1) return (int)cudaErrorInvalidValue;
-  const Dropout d = make_dropout(seed, salt, threshold, keep);
+  if (N == 0 || K == 0 || M == 0 || slices < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!tensor_map(&ta, x, N, K, ld_x, 64, gm::BK) ||
+      !tensor_map(&tb, du, N, M, ld_du, 64, gm::BK))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows_per_slice = ((N + BK - 1) / BK + slices - 1) / slices * BK;
-  const Mat X = mat(x, N, K), G = mat(g, N, M);
+  const int per_slice = ((N + gm::BK - 1) / gm::BK + slices - 1) / slices * gm::BK;
+  if (slices == 1) return gemm<true, false>(ta, tb, dw, K, M, N, 1, per_slice, s);
   float* part = static_cast<float*>(partial);
-  if (u)
-    mm_wgrad_kernel<true><<<tiles(K, M, slices), THREADS, 0, s>>>(X, G, mat(u, N, M), part,
-                                                                K, M, rows_per_slice, d);
-  else
-    mm_wgrad_kernel<false><<<tiles(K, M, slices), THREADS, 0, s>>>(X, G, G, part, K, M,
-                                                                 rows_per_slice, d);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long n16 = (long long)K * M, n = n16 + M;
-  slice_sum_kernel<<<(unsigned)((n + SUM_THREADS - 1) / SUM_THREADS), SUM_THREADS, 0, s>>>(
-      part, slices, n, n16, static_cast<bf16*>(dw), M, static_cast<float*>(db));
-  return (int)cudaGetLastError();
+  const int e = gemm<true, true>(ta, tb, part, K, M, N, slices, per_slice, s);
+  if (e != (int)cudaSuccess) return e;
+  return slice_sum<bf16>(part, slices, (long long)K * M, dw, s);
 }

@@ -22,10 +22,13 @@ Semantics, as the JAX kernels:
   salts below, and divides the kept fp32 values by ``fp32(1 - rate)`` —
   the JAX kernels divide by the Python float — not by the bf16 keep
   probability K4-K6 use.
-* The backward forms ``du = keep * dy / (1 - rate) [* gelu'(u)]`` per tile
-  in fp32, rounds it to dy's dtype before the products, and gives ``dx = du
-  @ w^T`` and ``dw = x^T @ du`` rounded once and ``db``, the fp32 column
-  sum of du, in b's dtype.
+* The backward forms ``du = keep * dy / (1 - rate) [* gelu'(u)]`` in fp32
+  and rounds it to dy's dtype, once a leg (:func:`mm_du`, which also gives
+  ``db``, the fp32 column sum of du, returned in b's dtype), and hands it to
+  both products: ``dx = du @ w^T`` (:func:`mm_dgrad`) and ``dw = x^T @ du``
+  (:func:`mm_wgrad`), each rounded once. The JAX kernels form du inside
+  every output tile of both products (``_dgrad_tile``); the values are the
+  same.
 
 For the inference paths (``models/decode.py``, ``serving/engine.py``) the
 same forward kernel has two more epilogues: :func:`linear`, the unfused
@@ -41,7 +44,8 @@ applies (the input's by default); on fp32 copies of bf16 values with
 forward epilogues round only their outputs.
 
 Each kernel wrapper's ``launches`` counts kernel launches (never plain
-calls); the seven training wrappers are the seven JAX kernels.
+calls); the seven training wrappers are the seven JAX kernels, and
+``mm_du`` the du pass their backward kernels share.
 """
 
 from __future__ import annotations
@@ -67,8 +71,9 @@ SALT_MM_ATTN_PROJ = 5  # attention out-projection residual dropout
 SALT_MM_MLP_PROJ = 6   # MLP out-projection residual dropout
 
 TILE = 128            # output rows and columns of a kernel block
-WGRAD_BLOCKS = 264    # wgrad aims at two blocks on each of the H100's 132 SMs
+WGRAD_BLOCKS = 132    # wgrad aims at one block on each of the H100's 132 SMs
 WGRAD_MIN_ROWS = 512  # ... with at least this many rows a slice
+DU_CHUNK_ROWS = 32    # rows of du a block of the du pass sums db over
 
 _EPI = {"bias": 0, "round": 1, "gelu": 2, "resid": 3}
 
@@ -77,8 +82,9 @@ _DROP = [_U32, _U32, _U32, _F, _P]   # seed, salt, threshold, keep, stream
 _SIGNATURES = {
     "mm_fwd_bf16": [_P] * 6 + [_I] * 4 + _DROP,
     "mm_nt_f32": [_P] * 3 + [_I] * 3 + [_P],
-    "mm_dgrad_bf16": [_P] * 4 + [_I] * 3 + _DROP,
-    "mm_wgrad_bf16": [_P] * 6 + [_I] * 4 + _DROP,
+    "mm_du_bf16": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 3 + _DROP,
+    "mm_dgrad_bf16": [_P, _I, _P, _I, _P] + [_I] * 3 + [_P],
+    "mm_wgrad_bf16": [_P, _I, _P, _I, _P, _P] + [_I] * 4 + [_P],
 }
 
 
@@ -115,18 +121,29 @@ def du_plain(g, u=None, rate=0.0, seed=None, salt=0, dtype=None):
     return _round(du, dtype or g.dtype)
 
 
+def dgrad_product_plain(du, w, dtype):
+    """The dgrad product ``du @ w^T`` over ``du [N, M]``, ``w [K, M]`` in
+    fp32, rounded to ``dtype``."""
+    return (du.float() @ w.float().t()).to(dtype)
+
+
+def wgrad_product_plain(x, du):
+    """The wgrad product ``x^T @ du`` over ``x [N, K]``, ``du [N, M]`` in
+    fp32, rounded to x's dtype."""
+    return (x.float().t() @ du.float()).to(x.dtype)
+
+
 def matmul_dgrad_plain(g, w, u=None, rate=0.0, seed=None, salt=0, dtype=None):
     """K7's dgrad: ``dx = du @ w^T`` in g's dtype, du from ``g`` [N, M] (and
     ``u``, the GELU leg) rounded to ``dtype``."""
-    du = du_plain(g, u, rate, seed, salt, dtype)
-    return (du @ w.float().t()).to(g.dtype)
+    return dgrad_product_plain(du_plain(g, u, rate, seed, salt, dtype), w, g.dtype)
 
 
 def matmul_wgrad_plain(x, g, u=None, rate=0.0, seed=None, salt=0, dtype=None):
     """K7's wgrad: ``(dw, db)``, ``dw = x^T @ du`` in x's dtype and ``db``
     the fp32 column sum of du."""
     du = du_plain(g, u, rate, seed, salt, dtype)
-    return (x.float().t() @ du).to(x.dtype), du.sum(dim=0)
+    return wgrad_product_plain(x, du), du.sum(dim=0)
 
 
 def linear_plain(x, w, b=None, dtype=None):
@@ -216,83 +233,119 @@ def mm_resid_fwd(x, w, b, r, rate=0.0, seed=None, salt=SALT_MM_ATTN_PROJ):
     return y
 
 
-def _dgrad(g, w, u, rate, seed, salt):
+def _tma_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``(t, row stride)`` as the products' TMA loads take a contiguous bf16
+    matrix: rows a multiple of 16 bytes at a 16-byte aligned base. Where
+    ``t`` is not so, a zeroed copy with its rows padded to 8 elements (the
+    kernel reads only the true width)."""
+    rows, cols = t.shape
+    if cols % 8 == 0 and t.data_ptr() % 16 == 0:
+        return t, cols
+    ld = -(-cols // 8) * 8
+    padded = t.new_zeros((rows, ld))
+    padded[:, :cols] = t
+    return padded, ld
+
+
+def mm_du(g, u=None, rate=0.0, seed=None, salt=0):
+    """K7's du pass, once a leg backward: ``(du, db)`` with ``du = keep * g /
+    (1 - rate) [* gelu'(u)]`` rounded to g's dtype over ``g [N, M]`` and
+    ``db`` the fp32 column sum of du. At rate 0 without ``u`` du is ``g``
+    itself and the kernel only sums db. CUDA tensors launch the kernel,
+    CPU tensors use the plain version."""
+    if not g.is_cuda:
+        du = du_plain(g, u, rate, seed, salt)
+        return du.to(g.dtype), du.sum(dim=0)
     n, m = g.shape
-    k = w.shape[0]
-    ops = {"g": (g, (n, m)), "w": (w, (k, m))}
+    ops = {"g": (g, (n, m))}
     if u is not None:
         ops["u"] = (u, (n, m))
     _checked(ops, g.device)
-    dx = torch.empty((n, k), dtype=g.dtype, device=g.device)
+    write = u is not None or rate > 0.0
+    du = torch.empty_like(g) if write else g
+    partial = torch.empty(-(-n // DU_CHUNK_ROWS) * m, dtype=torch.float32, device=g.device)
+    db = torch.empty(m, dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
-        _launch("mm_dgrad_bf16", g.data_ptr(), _ptr(u), w.data_ptr(), dx.data_ptr(), n, m, k,
+        _launch("mm_du_bf16", g.data_ptr(), _ptr(u), du.data_ptr() if write else None, m,
+                partial.data_ptr(), db.data_ptr(), n, m, DU_CHUNK_ROWS,
                 *_dropout_words(rate, seed, salt))
+    mm_du.launches += 1
+    return du, db
+
+
+def _dgrad(du, w, counter):
+    """The dgrad product ``du [N, M] @ w [K, M]^T``: on CUDA tensors the
+    kernel (bf16), counted on ``counter``; on CPU tensors the plain
+    version."""
+    if not du.is_cuda:
+        return dgrad_product_plain(du, w, du.dtype)
+    n, m = du.shape
+    k = w.shape[0]
+    _checked({"du": (du, (n, m)), "w": (w, (k, m))}, du.device)
+    dx = torch.empty((n, k), dtype=du.dtype, device=du.device)
+    if n == 0 or k == 0 or m == 0:
+        return dx.zero_()
+    (du_t, ld_du), (w_t, ld_w) = _tma_operand(du), _tma_operand(w)
+    with torch.cuda.device(du.device):
+        _launch("mm_dgrad_bf16", du_t.data_ptr(), ld_du, w_t.data_ptr(), ld_w, dx.data_ptr(),
+                n, m, k)
+    counter.launches += 1
     return dx
 
 
-def mm_dgrad(g, w, rate=0.0, seed=None, salt=0):
-    """K7 dgrad of the bias and resid legs: ``dx = du @ w^T``, du the masked
-    dy, over ``g [N, M]`` and ``w [K, M]``."""
-    if not g.is_cuda:
-        return matmul_dgrad_plain(g, w, None, rate, seed, salt)
-    dx = _dgrad(g, w, None, rate, seed, salt)
-    mm_dgrad.launches += 1
-    return dx
+def mm_dgrad(du, w):
+    """K7 dgrad of the bias and resid legs: ``dx = du @ w^T`` over the leg's
+    ``du [N, M]`` from :func:`mm_du` and ``w [K, M]``."""
+    return _dgrad(du, w, mm_dgrad)
 
 
-def mm_dgrad_gelu(g, u, w, rate=0.0, seed=None, salt=SALT_MM_GELU):
-    """K7 dgrad of the gelu leg: du = masked dy times ``gelu'(u)``."""
-    if not g.is_cuda:
-        return matmul_dgrad_plain(g, w, u, rate, seed, salt)
-    dx = _dgrad(g, w, u, rate, seed, salt)
-    mm_dgrad_gelu.launches += 1
-    return dx
+def mm_dgrad_gelu(du, w):
+    """K7 dgrad of the gelu leg: the same product, counted apart (du carries
+    ``gelu'(u)``)."""
+    return _dgrad(du, w, mm_dgrad_gelu)
 
 
 def wgrad_slices(n: int, k: int, m: int) -> int:
     """How many row slices wgrad sums separately (then adds in order): a
     function of the shape alone, so a shape's grads are the same bits in
-    every launch. Enough slices to fill the card, each at least
-    ``WGRAD_MIN_ROWS`` rows."""
+    every launch. Enough slices that the blocks fill the card where the
+    weight's tiles do not, each at least ``WGRAD_MIN_ROWS`` rows."""
     tiles = -(-k // TILE) * -(-m // TILE)
-    return max(1, min(-(-WGRAD_BLOCKS // tiles), -(-n // WGRAD_MIN_ROWS)))
+    return max(1, min(WGRAD_BLOCKS // tiles, -(-n // WGRAD_MIN_ROWS)))
 
 
-def _wgrad(x, g, u, rate, seed, salt):
+def _wgrad(x, du, counter):
+    """The wgrad product ``x [N, K]^T @ du [N, M]``: on CUDA tensors the
+    kernel (bf16), counted on ``counter``; on CPU tensors the plain
+    version."""
+    if not x.is_cuda:
+        return wgrad_product_plain(x, du)
     n, k = x.shape
-    m = g.shape[1]
-    ops = {"x": (x, (n, k)), "g": (g, (n, m))}
-    if u is not None:
-        ops["u"] = (u, (n, m))
-    _checked(ops, x.device)
-    slices = wgrad_slices(n, k, m)
-    partial = torch.empty(slices * (k * m + m), dtype=torch.float32, device=x.device)
+    m = du.shape[1]
+    _checked({"x": (x, (n, k)), "du": (du, (n, m))}, x.device)
     dw = torch.empty((k, m), dtype=x.dtype, device=x.device)
-    db = torch.empty(m, dtype=torch.float32, device=x.device)
+    if n == 0 or k == 0 or m == 0:
+        return dw.zero_()
+    slices = wgrad_slices(n, k, m)
+    partial = torch.empty(slices * k * m if slices > 1 else 0, dtype=torch.float32,
+                          device=x.device)
+    (x_t, ld_x), (du_t, ld_du) = _tma_operand(x), _tma_operand(du)
     with torch.cuda.device(x.device):
-        _launch("mm_wgrad_bf16", x.data_ptr(), g.data_ptr(), _ptr(u), partial.data_ptr(),
-                dw.data_ptr(), db.data_ptr(), n, k, m, slices,
-                *_dropout_words(rate, seed, salt))
-    return dw, db
+        _launch("mm_wgrad_bf16", x_t.data_ptr(), ld_x, du_t.data_ptr(), ld_du,
+                partial.data_ptr(), dw.data_ptr(), n, k, m, slices)
+    counter.launches += 1
+    return dw
 
 
-def mm_wgrad(x, g, rate=0.0, seed=None, salt=0):
-    """K7 wgrad of the bias and resid legs: ``(dw, db)`` with ``dw = x^T @
-    du`` and db the fp32 column sum of du."""
-    if not x.is_cuda:
-        return matmul_wgrad_plain(x, g, None, rate, seed, salt)
-    out = _wgrad(x, g, None, rate, seed, salt)
-    mm_wgrad.launches += 1
-    return out
+def mm_wgrad(x, du):
+    """K7 wgrad of the bias and resid legs: ``dw = x^T @ du`` over ``x [N,
+    K]`` and the leg's ``du [N, M]`` (whose db :func:`mm_du` gave)."""
+    return _wgrad(x, du, mm_wgrad)
 
 
-def mm_wgrad_gelu(x, g, u, rate=0.0, seed=None, salt=SALT_MM_GELU):
-    """K7 wgrad of the gelu leg."""
-    if not x.is_cuda:
-        return matmul_wgrad_plain(x, g, u, rate, seed, salt)
-    out = _wgrad(x, g, u, rate, seed, salt)
-    mm_wgrad_gelu.launches += 1
-    return out
+def mm_wgrad_gelu(x, du):
+    """K7 wgrad of the gelu leg: the same product, counted apart."""
+    return _wgrad(x, du, mm_wgrad_gelu)
 
 
 def linear(x, w, b=None):
@@ -327,7 +380,7 @@ def head_logits(h, wte):
     return out.view(*h.shape[:-1], wte.shape[0])
 
 
-for _wrapper in (mm_bias_fwd, mm_gelu_fwd, mm_resid_fwd, mm_dgrad, mm_dgrad_gelu,
+for _wrapper in (mm_bias_fwd, mm_gelu_fwd, mm_resid_fwd, mm_du, mm_dgrad, mm_dgrad_gelu,
                  mm_wgrad, mm_wgrad_gelu, linear, head_logits):
     _wrapper.launches = 0
 
@@ -351,8 +404,9 @@ class _MatmulBias(torch.autograd.Function):
     def backward(ctx, dy):
         x2, w = ctx.saved_tensors
         g = as_rows(dy)
-        dw, db = mm_wgrad(x2, g)
-        return _out(mm_dgrad(g, w), dy), dw, db.to(ctx.bias_dtype)
+        du, db = mm_du(g)
+        dx, dw = mm_dgrad(du, w), mm_wgrad(x2, du)
+        return _out(dx, dy), dw, db.to(ctx.bias_dtype)
 
 
 class _MatmulGelu(torch.autograd.Function):
@@ -369,8 +423,8 @@ class _MatmulGelu(torch.autograd.Function):
     def backward(ctx, dy):
         x2, w, u = ctx.saved_tensors
         g = as_rows(dy)
-        dx = mm_dgrad_gelu(g, u, w, *ctx.dropout)
-        dw, db = mm_wgrad_gelu(x2, g, u, *ctx.dropout)
+        du, db = mm_du(g, u, *ctx.dropout)
+        dx, dw = mm_dgrad_gelu(du, w), mm_wgrad_gelu(x2, du)
         return _out(dx, dy), dw, db.to(ctx.bias_dtype), None, None, None, None
 
 
@@ -387,8 +441,8 @@ class _MatmulResid(torch.autograd.Function):
     def backward(ctx, dy):
         x2, w = ctx.saved_tensors
         g = as_rows(dy)
-        dx = mm_dgrad(g, w, *ctx.dropout)
-        dw, db = mm_wgrad(x2, g, *ctx.dropout)
+        du, db = mm_du(g, None, *ctx.dropout)
+        dx, dw = mm_dgrad(du, w), mm_wgrad(x2, du)
         return _out(dx, dy), dw, db.to(ctx.bias_dtype), dy, None, None, None
 
 

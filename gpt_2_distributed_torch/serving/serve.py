@@ -6,7 +6,9 @@ Requests come from a JSONL file or stdin, one object per line::
     {"prompt_ids": [464, 3616], "new": 64, "seed": 7}
 
 Per-line fields default to ``--new`` / ``--seed``; an optional
-``timeout_s`` sets that request's deadline. Output is JSONL on stdout:
+``timeout_s`` sets that request's deadline (``--request_timeout_s`` for
+lines without one: an overdue request is evicted with finish reason
+"timeout" and its KV blocks freed). Output is JSONL on stdout:
 with ``--stream`` a ``{"id", "token"}`` line per token as it is produced,
 and always a final record per request with the JAX CLI's keys
 (``id``, ``generated``, ``text``, ``finish_reason``, ``ttft_ms``,
@@ -17,6 +19,12 @@ Weights come from ``--params_npz`` (a JAX-layout tree saved with
 ``models/convert.py::save_npz``) or ``--init_random`` (seeded init). The
 engine runs on CUDA; ``--device cpu`` runs it on the CPU, and without a
 visible GPU nothing else runs.
+
+The parser takes every flag of the JAX CLI, under the same names, types
+and defaults. The scheduler options beyond the defaults, speculation,
+checkpoints, metrics and tracing sinks, replica placement and fault
+injection come with later slices of the port: any other value than the
+default of those flags is refused.
 
 Usage::
 
@@ -30,6 +38,24 @@ import argparse
 import json
 import sys
 import time
+
+# Flags of the JAX CLI whose planes come with later slices of the port,
+# with the value that leaves them off; any other value is refused.
+_UNPORTED = {
+    "ckpt": None, "prefill_chunk": 0, "prefill_batch": 1, "serve_mesh": "",
+    "prefix_cache": False, "admission": "reserve", "watermark_blocks": 1,
+    "draft_preset": None, "spec_k": None, "draft_ckpt": None,
+    "tb_dir": None, "metrics_every": 20, "trace_dir": None,
+    "trace_max_file_bytes": 64 * 1024 * 1024, "xla_profile_at": None,
+    "placement": "inprocess", "worker_max_respawns": 3,
+    "worker_respawn_backoff_s": 2.0, "worker_rpc_timeout_s": 300.0,
+    "worker_heartbeat_s": 1.0, "worker_connect_timeout_s": 120.0,
+    "worker_heartbeat_timeout_s": None, "worker_auth_token_file": None,
+    "worker_pool": None, "watchdog_timeout_s": None,
+    "inject_replica_fail_at": None, "inject_replica_hang_at": None,
+    "inject_step_exception": None,
+}
+PLACEMENTS = ("inprocess", "subprocess", "remote")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -67,7 +93,69 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu")
     p.add_argument("--stream", action="store_true",
                    help="emit a JSON line per token as it is generated")
+    p.add_argument("--request_timeout_s", type=float, default=None,
+                   help="per-request deadline from submission (queue wait "
+                        "included) for lines without 'timeout_s'; overdue "
+                        "requests are evicted with finish reason 'timeout' "
+                        "and their KV blocks freed")
+    _add_unported_flags(p)
     return p
+
+
+def _add_unported_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's flags of later slices (``_UNPORTED``), with its names,
+    types and defaults."""
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint dir (later slice; use --params_npz)")
+    p.add_argument("--prefill_chunk", type=int, default=0,
+                   help="prefill chunk width; 0 = whole-prompt prefill")
+    p.add_argument("--prefill_batch", type=int, default=1,
+                   help="chunked mode: in-progress prefills advanced per step")
+    p.add_argument("--serve_mesh", default="",
+                   help="serving mesh spec 'data:N[,tp:M]'")
+    p.add_argument("--prefix_cache", action="store_true",
+                   help="reuse KV blocks across shared prompt prefixes")
+    p.add_argument("--admission", default="reserve", choices=["reserve", "watermark"],
+                   help="block grant policy")
+    p.add_argument("--watermark_blocks", type=int, default=1,
+                   help="free-block floor for --admission watermark")
+    p.add_argument("--draft_preset", default=None,
+                   help="speculative decoding: draft-model preset")
+    p.add_argument("--spec_k", type=int, default=None,
+                   help="draft tokens per verify pass")
+    p.add_argument("--draft_ckpt", default=None, help="draft-model checkpoint dir")
+    p.add_argument("--tb_dir", default=None,
+                   help="TensorBoard dir for serving-load metrics")
+    p.add_argument("--metrics_every", type=int, default=20,
+                   help="engine steps between --tb_dir metric flushes")
+    p.add_argument("--trace_dir", default=None, help="span/event trace JSONL dir")
+    p.add_argument("--trace_max_file_bytes", type=int, default=64 * 1024 * 1024,
+                   help="rotate trace files past this size")
+    p.add_argument("--xla_profile_at", default=None, metavar="STEP[:NSTEPS]",
+                   help="profiler capture window")
+    p.add_argument("--placement", default="inprocess", choices=list(PLACEMENTS),
+                   help="replica placement")
+    p.add_argument("--worker_max_respawns", type=int, default=3)
+    p.add_argument("--worker_respawn_backoff_s", type=float, default=2.0)
+    p.add_argument("--worker_rpc_timeout_s", type=float, default=300.0)
+    p.add_argument("--worker_heartbeat_s", type=float, default=1.0)
+    p.add_argument("--worker_connect_timeout_s", type=float, default=120.0)
+    p.add_argument("--worker_heartbeat_timeout_s", type=float, default=None)
+    p.add_argument("--worker_auth_token_file", default=None)
+    p.add_argument("--worker_pool", default=None)
+    p.add_argument("--watchdog_timeout_s", type=float, default=None,
+                   help="fail a replica whose single step exceeds this")
+    p.add_argument("--inject_replica_fail_at", default=None, metavar="STEP[:REPLICA]")
+    p.add_argument("--inject_replica_hang_at", default=None, metavar="STEP[:REPLICA]")
+    p.add_argument("--inject_step_exception", type=int, default=None, metavar="STEP")
+
+
+def _refuse_unported(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    for dest, off in _UNPORTED.items():
+        value = getattr(args, dest)
+        if value != off:
+            p.error(f"--{dest} {value!r} is not ported to PyTorch yet: it comes "
+                    f"in a later slice of the port")
 
 
 def model_config_from_args(args: argparse.Namespace):
@@ -124,8 +212,11 @@ def read_requests(path: str, args: argparse.Namespace) -> list[tuple]:
 def main(argv: list[str] | None = None) -> None:
     p = build_argparser()
     args = p.parse_args(argv)
+    _refuse_unported(p, args)
     if (args.params_npz is None) == (not args.init_random):
         p.error("exactly one of --params_npz / --init_random is required")
+    if args.request_timeout_s is not None and args.request_timeout_s < 0:
+        p.error(f"--request_timeout_s={args.request_timeout_s} must be >= 0")
 
     from gpt_2_distributed_torch.models import gpt2
     from gpt_2_distributed_torch.models.convert import load_npz
@@ -154,6 +245,8 @@ def main(argv: list[str] | None = None) -> None:
     t0 = time.monotonic()
     handles = []
     for ids, new, seed, timeout_s in specs:
+        if timeout_s is None:
+            timeout_s = args.request_timeout_s
         try:
             handles.append(engine.submit(ids, new, seed=seed, on_token=on_token,
                                          timeout_s=timeout_s))

@@ -292,8 +292,19 @@ def _mm_close(got, ref, terms, extra=0.0):
     return bool(((got.float() - ref).abs() <= tol).all())
 
 
-# 16-byte rows; element loads
-@pytest.mark.parametrize("n, k, m", [(333, 200, 264), (77, 100, 90)])
+def _du_close(du, ref, gelu):
+    """The du pass against ``du_plain`` (both rounded to bf16): equal, and
+    with the GELU within one bf16 ulp (<= 2^-7 |ref|), where the card's
+    tanhf and torch's tanh differ in the last fp32 bit across a rounding
+    boundary."""
+    if not gelu:
+        return torch.equal(du.float(), ref)
+    return bool(((du.float() - ref).abs() <= 2.0 ** -7 * ref.abs()).all())
+
+
+# 16-byte rows, rows padded for TMA (77, 100, 90), the 124M fc and MLP proj
+@pytest.mark.parametrize("n, k, m", [(333, 200, 264), (77, 100, 90), (4096, 768, 3072),
+                                     (4096, 3072, 768)])
 def test_fused_matmul_kernels_match_plain(cuda, n, k, m):
     rng = np.random.default_rng(n)
     x, r, g = _bf16(rng, n, k, device=cuda), _bf16(rng, n, m, device=cuda), _bf16(
@@ -313,17 +324,23 @@ def test_fused_matmul_kernels_match_plain(cuda, n, k, m):
                                                 fm.SALT_MM_ATTN_PROJ), terms)
         for uu in (None, u):
             du = fm.du_plain(gf, None if uu is None else uu.float(), rate, seed, 4, bf)
-            if uu is None:
-                dx, dx2 = fm.mm_dgrad(g, w, rate, seed, 4), fm.mm_dgrad(g, w, rate, seed, 4)
-                (dw, db), (dw2, db2) = (fm.mm_wgrad(x, g, rate, seed, 4) for _ in range(2))
-            else:
-                dx, dx2 = (fm.mm_dgrad_gelu(g, uu, w, rate, seed, 4) for _ in range(2))
-                (dw, db), (dw2, db2) = (fm.mm_wgrad_gelu(x, g, uu, rate, seed, 4)
-                                        for _ in range(2))
-            assert torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(db, db2)
+            (du_k, db_k), (du_k2, db_k2) = (fm.mm_du(g, uu, rate, seed, 4) for _ in range(2))
+            assert _du_close(du_k, du, uu is not None)
+            assert torch.equal(du_k, du_k2) and torch.equal(db_k, db_k2)
+            assert _mm_close(db_k, du.sum(0), du.abs().sum(0))
+            if rate > 0.0:
+                assert not _du_close(fm.mm_du(g, uu, rate, seed + 1, 4)[0], du, uu is not None)
+            dgrad, wgrad = ((fm.mm_dgrad, fm.mm_wgrad) if uu is None else
+                            (fm.mm_dgrad_gelu, fm.mm_wgrad_gelu))
+            dx, dx2 = dgrad(du_k, w), dgrad(du_k, w)
+            dw, dw2 = wgrad(x, du_k), wgrad(x, du_k)
+            assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            # The products on the du pass's du, and the leg against du_plain.
+            duk = du_k.float()
+            assert _mm_close(dx, duk @ wf.t(), duk.abs() @ wf.abs().t())
+            assert _mm_close(dw, xf.t() @ duk, xf.abs().t() @ duk.abs())
             assert _mm_close(dx, du @ wf.t(), du.abs() @ wf.abs().t())
             assert _mm_close(dw, xf.t() @ du, xf.abs().t() @ du.abs())
-            assert _mm_close(db, du.sum(0), du.abs().sum(0))
     # Another seed draws another mask; a zeroed contraction tile is seen.
     assert not _mm_close(fm.mm_resid_fwd(x, w, b, r, 0.1, seed + 1),
                          fm.matmul_fwd_plain("resid", xf, wf, bfl, rf, 0.1, seed,
@@ -332,6 +349,14 @@ def test_fused_matmul_kernels_match_plain(cuda, n, k, m):
     x_bad[:, 32:64] = 0
     assert not _mm_close(fm.mm_bias_fwd(x_bad, w, b), fm.matmul_fwd_plain("bias", xf, wf, bfl),
                          terms)
+    du = fm.du_plain(gf, None, 0.1, seed, 4, bf)
+    g_bad, xr_bad = g.clone(), x.clone()
+    g_bad[:, 32:64] = 0
+    xr_bad[32:64] = 0
+    du_bad = fm.mm_du(g_bad, None, 0.1, seed, 4)[0]
+    assert not _mm_close(fm.mm_dgrad(du_bad, w), du @ wf.t(), du.abs() @ wf.abs().t())
+    du_k = fm.mm_du(g, None, 0.1, seed, 4)[0]
+    assert not _mm_close(fm.mm_wgrad(xr_bad, du_k), xf.t() @ du, xf.abs().t() @ du.abs())
 
 
 def test_inference_products_are_row_invariant(cuda):
@@ -365,13 +390,14 @@ def test_model_trains_through_k7(cuda):
     x = torch.from_numpy(rng.integers(0, 257, (2, 2, 100))).to(cuda)
     y = torch.from_numpy(rng.integers(0, 257, (2, 2, 100))).to(cuda)
     k7 = (fm.mm_bias_fwd, fm.mm_gelu_fwd, fm.mm_resid_fwd, fm.mm_dgrad, fm.mm_dgrad_gelu,
-          fm.mm_wgrad, fm.mm_wgrad_gelu)
+          fm.mm_wgrad, fm.mm_wgrad_gelu, fm.mm_du)
     k4_k6 = (fl.ln_residual_dropout_fwd, fl.residual_dropout_fwd, fl.bias_gelu_dropout_fwd)
     before = [w.launches for w in k7 + k4_k6]
     guard, m = step(params, init_guard_state(), x, y, 0, 0, torch.ones(2, device=cuda))
     assert m.skip_reason == 0 and np.isfinite(m.loss.item())
-    # Two layers, two micro-batches: K7 takes every leg, K4-K6 none.
-    assert [w.launches - n for w, n in zip(k7 + k4_k6, before)] == [4, 4, 8, 12, 4, 12, 4,
+    # Two layers, two micro-batches: K7 takes every leg (one du pass a leg
+    # backward), K4-K6 none.
+    assert [w.launches - n for w, n in zip(k7 + k4_k6, before)] == [4, 4, 8, 12, 4, 12, 4, 16,
                                                                       0, 0, 0]
 
 

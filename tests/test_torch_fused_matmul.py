@@ -186,13 +186,86 @@ def test_plain_versions_round_where_the_kernel_does(arrays):
 
 
 def test_wgrad_slices_depend_on_the_shape_only():
-    # 124M at batch 4 x 1024: the [768, 768] projection's 36 tiles take 8
-    # slices of 512 rows, the wider legs 2 or 3; one-row and small inputs 1.
-    assert fm.wgrad_slices(4096, 768, 768) == 8
-    assert fm.wgrad_slices(4096, 768, 2304) == 3
-    assert fm.wgrad_slices(4096, 768, 3072) == 2
-    assert fm.wgrad_slices(4096, 3072, 768) == 2
+    # 124M at batch 4 x 1024, one wgmma block a tile and one block an SM:
+    # the [768, 768] projection's 36 tiles take 3 slices (108 blocks), the
+    # legs with 108 or 144 tiles fill the card alone; one-row and small
+    # inputs 1.
+    assert fm.wgrad_slices(4096, 768, 768) == 3
+    assert fm.wgrad_slices(4096, 768, 2304) == 1
+    assert fm.wgrad_slices(4096, 768, 3072) == 1
+    assert fm.wgrad_slices(4096, 3072, 768) == 1
     assert fm.wgrad_slices(1, 768, 768) == 1
+
+
+def _jax_dgrad_tile(g, u, seed, rate, salt, row_off, col_off):
+    """The JAX kernels' du (``_dgrad_tile``) over a whole bf16 tile at
+    (row_off, col_off) of the [N, M] gradient, run in a ``pallas_call`` in
+    interpret mode as the JAX package's tests run its kernels on the CPU."""
+    from jax.experimental import pallas as pl
+
+    def kernel(seed_ref, g_ref, *refs):
+        u_ref = refs[0] if u is not None else None
+        refs[-1][...] = jax_fm._dgrad_tile(g_ref, seed_ref, rate, salt, row_off, col_off,
+                                           u_ref)
+
+    args = [jnp.asarray([seed], jnp.int32), jnp.asarray(g, jnp.bfloat16)]
+    if u is not None:
+        args.append(jnp.asarray(u, jnp.bfloat16))
+    out = pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct(g.shape, jnp.bfloat16),
+                         interpret=True)(*args)
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_du_matches_the_jax_dgrad_tile_bit_for_bit(arrays, rate, gelu):
+    """The du the port's backward forms once a leg (``du_plain``, the du
+    pass's plain version and reference) is the JAX kernels' per-tile du bit
+    for bit after the bf16 rounding: on the whole [N, M] gradient and on a
+    tile at an offset (absolute coordinates in the mask)."""
+    _, seed = _key_and_seed(11)
+    bf = torch.bfloat16
+    g = _t(arrays["dy"], bf)
+    u = fm.matmul_fwd_plain("gelu", _t(arrays["x"], bf), _t(arrays["w"], bf),
+                            _t(arrays["b"], bf))[1] if gelu else None
+    du = fm.du_plain(g.float(), None if u is None else u.float(), rate, seed,
+                     fm.SALT_MM_GELU, bf)
+    g_np = g.float().numpy()
+    u_np = None if u is None else u.float().numpy()
+    want = _jax_dgrad_tile(g_np, u_np, seed, rate, fm.SALT_MM_GELU, 0, 0)
+    np.testing.assert_array_equal(du.numpy(), want)
+    tile = (slice(16, 48), slice(64, 192))
+    want = _jax_dgrad_tile(g_np[tile], None if u_np is None else u_np[tile], seed, rate,
+                           fm.SALT_MM_GELU, 16, 64)
+    np.testing.assert_array_equal(du[tile].numpy(), want)
+    if rate > 0.0:
+        assert 0.05 < (du == 0).float().mean().item() < 0.15
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_is_du_once_then_the_products(arrays, dtype, gelu, rate):
+    """The decomposition the kernels use: ``mm_du`` once a leg, then dgrad
+    and wgrad on that du, gives exactly the plain dgrad and wgrad (du formed
+    inside each) and db; at rate 0 without GELU du is dy itself."""
+    _, seed = _key_and_seed(13)
+    salt = fm.SALT_MM_MLP_PROJ
+    x, w, b, g = (_t(arrays[k], dtype) for k in ("x", "w", "b", "dy"))
+    u = fm.matmul_fwd_plain("gelu", x, w, b)[1] if gelu else None
+    du, db = fm.mm_du(g, u, rate, seed, salt)
+    assert du.dtype == dtype and db.dtype == torch.float32
+    if gelu:
+        dx, dw = fm.mm_dgrad_gelu(du, w), fm.mm_wgrad_gelu(x, du)
+    else:
+        dx, dw = fm.mm_dgrad(du, w), fm.mm_wgrad(x, du)
+    assert torch.equal(dx, fm.matmul_dgrad_plain(g, w, u, rate, seed, salt))
+    dw_p, db_p = fm.matmul_wgrad_plain(x, g, u, rate, seed, salt)
+    assert torch.equal(dw, dw_p) and torch.equal(db, db_p)
+    assert torch.equal(du.float(), fm.du_plain(g, u, rate, seed, salt))
+    if rate == 0.0 and not gelu:
+        assert torch.equal(du, g)
+    assert fm.mm_du.launches == fm.mm_dgrad.launches == fm.mm_wgrad.launches == 0
 
 
 def test_greedy_generate_cached_with_fused_matmul_matches_jax(tiny_config):

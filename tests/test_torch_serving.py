@@ -114,11 +114,83 @@ def test_scatter_prefill_and_copy_block_write_in_place():
 
 @pytest.mark.parametrize("option", [
     {"prefill_chunk": 4}, {"prefix_cache": True}, {"admission": "watermark"},
-    {"mesh": "data:2"}, {"spec": "draft:124M,k:4"},
+    {"mesh": "data:2"}, {"spec": "draft:124M,k:4"}, {"watermark_blocks": 2},
+    {"prefill_batch": 2},
 ])
 def test_unported_serve_options_are_refused(option):
     with pytest.raises(ValueError, match="later slice"):
         ServeConfig(**option)
+
+
+@pytest.mark.parametrize("option", [
+    {"watermark_blocks": -1}, {"prefill_batch": 0}, {"prefill_batch": 9},
+    {"max_batch": 2, "prefill_batch": 3},
+])
+def test_serve_config_validates_as_the_jax_config(option):
+    """``watermark_blocks`` and ``prefill_batch`` default as in the JAX
+    ServeConfig and refuse an invalid value with its message."""
+    port, jax_cfg = ServeConfig(), JaxServeConfig()
+    assert (port.watermark_blocks, port.prefill_batch) == (jax_cfg.watermark_blocks,
+                                                           jax_cfg.prefill_batch) == (1, 1)
+    with pytest.raises(ValueError) as want:
+        JaxServeConfig(**option)
+    with pytest.raises(ValueError) as got:
+        ServeConfig(**option)
+    assert str(got.value) == str(want.value)
+
+
+def _jax_serve_parser():
+    from gpt_2_distributed_tpu.serving import serve as jax_serve
+
+    return jax_serve.build_argparser()
+
+
+def _flag_value(action) -> list[str]:
+    """Arguments that give ``action`` a value its type and choices take."""
+    if action.nargs == 0:
+        return [action.option_strings[0]]
+    if action.choices:
+        value = list(action.choices)[-1]
+    elif action.type in (int, float):
+        value = action.type(7)
+    else:
+        value = "x"
+    return [action.option_strings[0], str(value)]
+
+
+def test_cli_parses_every_jax_serve_flag():
+    """Every flag of the JAX serve CLI parses in the port's, one by one and
+    all together, with the JAX flag's type and default."""
+    from gpt_2_distributed_torch.serving import serve
+
+    jax_p, port_p = _jax_serve_parser(), serve.build_argparser()
+    actions = [a for a in jax_p._actions if a.option_strings and a.dest != "help"]
+    assert len(actions) == 48
+    port_actions = {a.dest: a for a in port_p._actions}
+    argv = []
+    for a in actions:
+        # A value the port takes (--attn_impl names the port's kernels).
+        one = _flag_value(port_actions.get(a.dest, a))
+        port_p.parse_args(["--requests", "r.jsonl"] + one)   # exits on an unknown flag
+        argv += one
+        if a.dest in serve._UNPORTED or a.dest == "request_timeout_s":
+            assert port_actions[a.dest].default == a.default, a.dest
+            assert port_actions[a.dest].type == a.type, a.dest
+            assert port_actions[a.dest].nargs == a.nargs, a.dest
+    port_p.parse_args(argv)
+
+
+def test_cli_refuses_each_unported_flag(capsys):
+    from gpt_2_distributed_torch.serving import serve
+
+    port_actions = {a.dest: a for a in serve.build_argparser()._actions}
+    assert len(serve._UNPORTED) == 28
+    for dest in serve._UNPORTED:
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--requests", "r.jsonl", "--init_random"]
+                       + _flag_value(port_actions[dest]))
+        assert e.value.code == 2
+        assert f"--{dest}" in capsys.readouterr().err
 
 
 def test_engine_refuses_a_missing_gpu(port):
@@ -213,3 +285,24 @@ def test_cli_serves_jsonl_on_the_cpu(tmp_path):
     assert [len(x["generated"]) for x in finals] == NEWS[:3]
     assert len(streamed) == sum(NEWS[:3])
     assert "decode steps on cpu" in out.stderr
+
+
+def test_cli_request_timeout_evicts_overdue_requests(tmp_path, capsys):
+    """``--request_timeout_s 0``: a request without its own ``timeout_s``
+    is overdue at the first step and evicted before its first token; a
+    line's own ``timeout_s`` wins and that request is served."""
+    from gpt_2_distributed_torch.serving import serve
+
+    reqs = tmp_path / "reqs.jsonl"
+    reqs.write_text(json.dumps({"prompt_ids": PROMPTS[0], "new": 5}) + "\n"
+                    + json.dumps({"prompt_ids": PROMPTS[1], "new": 4, "timeout_s": 600}))
+    serve.main(["--device", "cpu", "--init_random", "--n_layer", "1", "--n_embd", "32",
+                "--n_head", "2", "--vocab_size", "257", "--seq_len", "32",
+                "--max_batch", "2", "--block_size", "8", "--temperature", "0",
+                "--request_timeout_s", "0", "--requests", str(reqs)])
+    finals = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert finals[0]["finish_reason"] == "timeout" and finals[0]["generated"] == []
+    assert finals[0]["ttft_ms"] is None
+    assert finals[1]["finish_reason"] != "timeout" and len(finals[1]["generated"]) == 4
+    with pytest.raises(SystemExit):
+        serve.main(["--init_random", "--request_timeout_s", "-1", "--requests", str(reqs)])

@@ -11,16 +11,19 @@ that does not hold:
    source, in parallel;
 2. K1, the flash-attention forward: the kernel against its plain version
    at [1, 12, T, 64] bf16 for T in 1024, 512, 208, 16 (208 and 16 ragged),
-   element by element, plus a planted fault (one key tile swapped) that
-   the check must reject; then times the kernel, the plain version and
-   PyTorch's ``scaled_dot_product_attention`` (the yardstick; the port
-   never calls it) with CUDA events, each launch on a flushed L2;
+   element by element within a bound scaled by the sums of the products'
+   absolute terms (K1 and K2 round P, ds and pd to bf16 as the TPU kernels
+   do; ``flash_tolerance``), plus a planted fault (one key tile swapped)
+   that the check must reject, its ratio printed; then times the kernel,
+   the plain version and PyTorch's ``scaled_dot_product_attention`` (the
+   yardstick; the port never calls it) with CUDA events, each launch on a
+   flushed L2, with TFLOP/s of the causal products beside each;
    then, at the training shape [4, 12, 1024, 64], K1 with dropout 0.1
-   against its plain version with the same seed (planted fault: seed + 1)
-   and K2, the flash backward, at dropout 0 and 0.1: dq, dk, dv against the
-   plain backward in fp32 on the same lse and delta, two launches
-   bit-identical, a planted fault (one key tile of v swapped), times beside
-   SDPA's forward and backward;
+   against its plain version with the same seed, two launches
+   bit-identical (planted fault: seed + 1), and K2, the flash backward, at
+   dropout 0 and 0.1: dq, dk, dv against the plain backward in fp32 on the
+   same lse and delta, two launches bit-identical, a planted fault (one key
+   tile of v swapped), times beside SDPA's forward and backward;
 3. K8, the ring's block kernel (``csrc/flash_block.cu``): forward and
    backward (with nonzero ``do`` and ``dlse``) against their plain
    versions in fp32 on the same bf16 values, at [4, 12, 512, 64] (sp = 2)
@@ -101,7 +104,8 @@ that does not hold:
     needs two GPUs and that the CPU tests hold that path over gloo;
 11. prints the ``kernels`` JSON line, then the device line last.
 
-``--profile`` adds ``torch.profiler`` windows over one serving admission
+``--profile`` times K2's two kernels (dk/dv, dq) apart with
+``torch.profiler`` and adds profiler windows over one serving admission
 step (a 960-token prefill and one decode step), 8 decode steps at batch 8
 and one 124M optimizer step of each training run, and over rank 0's whole
 sp=2 training run (set-up and eval included, divided by its 16 steps),
@@ -140,14 +144,23 @@ LSE_TOL = 1e-4
 # Whole-model logits (std ~0.55 at this init) after 12 bf16 layers whose
 # attention differs by the roundings above.
 LOGITS_TOL = 0.1
-# K2's dq, dk and dv are held to the same per-element bound as o: the
-# kernel computes in fp32 and rounds each grad to bf16 once; the plain
-# backward runs in fp32 on the same bf16 values, the same lse and delta.
+# K1 and K2 multiply on the tensor cores and, as the TPU kernels do, round
+# the left operand of some products to bf16 where the plain versions keep
+# fp32: the dropped probabilities before P v (K1), ds before dq and dk and
+# pd before dv (K2). A bf16 rounding moves a product term by at most 2^-8
+# of itself, so on top of the bound above each element of o, dq, dk and dv
+# may move by 2^-8 times the sum of its product's absolute terms
+# (``flash_error_terms``: sum_j P[t, j] |v[j]| for o with P the normalized
+# probability after dropout, sum |ds| |k| / sqrt(D), sum |ds| |q| / sqrt(D),
+# sum |pd| |do|): ``flash_tolerance``, |x - ref| <= 2^-8 |ref| + 2^-16 +
+# 2^-8 terms, against the plain versions in fp32 on the same bf16 values,
+# lse and delta. The scores stay fp32 sums of exact bf16 products, so lse
+# keeps LSE_TOL.
 
 # Whole 124M model, one micro-batch, kernel path against plain path: the
-# plain path rounds the attention probabilities to bf16 before the product
-# with V and takes bf16 matmul outputs in its backward, where the kernels
-# keep fp32; those roundings (~2^-9 relative) move the loss (~10.8) by
+# plain path's backward takes bf16 matmul outputs, where K2 keeps fp32 up
+# to its bf16 ds and pd, and the two sum in other orders; those roundings
+# (~2^-9 relative) move the loss (~10.8) by
 # ~1e-3 and each grad tensor by ~1e-2 of its norm through 12 layers. The
 # same bounds hold fused_layers "all" against "off": K6 keeps the GELU in
 # fp32 where the unfused GELU rounds each of its bf16 steps; and
@@ -212,6 +225,16 @@ def held(o: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err.max().item(), (err / (O_REL_TOL * ref.abs() + O_ABS_TOL)).max().item()
 
 
+def held_flash(got: torch.Tensor, ref: torch.Tensor,
+               terms: torch.Tensor) -> tuple[float, float]:
+    """Max |got - ref| of a K1/K2 output and the largest ratio of an
+    element's error to its term-scaled tolerance (<= 1 passes)."""
+    from gpt_2_distributed_torch.ops.flash_attention import flash_tolerance
+
+    err = (got.float() - ref).abs()
+    return err.max().item(), (err / flash_tolerance(ref, terms)).max().item()
+
+
 def bound_ms(nbytes: float, flops: float,
              peak: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -232,6 +255,7 @@ def phase_flash(flush) -> None:
     from gpt_2_distributed_torch.ops.flash_attention import (
         flash_attention_fwd,
         flash_attention_plain,
+        flash_error_terms,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -241,7 +265,8 @@ def phase_flash(flush) -> None:
         o, lse = flash_attention_fwd(q, k, v)
         torch.cuda.synchronize()
         o_ref, lse_ref = flash_attention_plain(q.float(), k.float(), v.float())
-        err_o, ratio = held(o, o_ref)
+        (terms,) = flash_error_terms(q, k, v)
+        err_o, ratio = held_flash(o, o_ref, terms)
         err_lse = (lse - lse_ref).abs().max().item()
         print(f"K1 T={t}: max|o - plain| {err_o:.3e}, max err/tol {ratio:.3f}, "
               f"max|lse - plain| {err_lse:.3e} (tol {LSE_TOL:.0e})", flush=True)
@@ -252,7 +277,7 @@ def phase_flash(flush) -> None:
             # loaded the wrong tile would see it. The check must reject it.
             k_bad = k.clone()
             k_bad[:, :, 320:384] = k[:, :, 384:448]
-            _, ratio_bad = held(flash_attention_fwd(q, k_bad, v)[0], o_ref)
+            _, ratio_bad = held_flash(flash_attention_fwd(q, k_bad, v)[0], o_ref, terms)
             print(f"K1 planted fault (one key tile swapped): max err/tol "
                   f"{ratio_bad:.1f}", flush=True)
             if ratio_bad <= 1.0:
@@ -264,8 +289,9 @@ def phase_flash(flush) -> None:
         nbytes = 4 * q.numel() * 2 + lse.numel() * 4
         flops = 4 * 12 * 64 * t * (t + 1) / 2   # QK^T and PV on the causal half
         b_ms, b_by = bound_ms(nbytes, flops)
-        print(f"K1 T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+        print(f"K1 T={t}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
+              f"bound {b_ms:.5f} ms ({b_by})", flush=True)
 
 
 def sdpa_bwd(q, k, v, do, rate):
@@ -278,13 +304,36 @@ def sdpa_bwd(q, k, v, do, rate):
     return lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
 
 
-def phase_flash_train(flush) -> tuple[dict, dict]:
-    """K1 with dropout and K2 at the training shape [4, 12, 1024, 64]."""
+def k2_split_ms(fn, flush, iters: int = 20) -> dict[str, float]:
+    """Mean device time of each of K2's two kernels (dk/dv, dq) over
+    ``iters`` calls of ``fn``, each after an L2 flush, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "flash_bwd_" in e.key:
+            name = "dk/dv" if "dkdv" in e.key else "dq"
+            split[name] = e.self_device_time_total / e.count / 1e3
+    return split
+
+
+def phase_flash_train(flush, profile: bool) -> tuple[dict, dict]:
+    """K1 with dropout and K2 at the training shape [4, 12, 1024, 64]; with
+    ``profile`` also K2's two kernels timed apart."""
     from gpt_2_distributed_torch.ops.flash_attention import (
         flash_attention_bwd,
         flash_attention_bwd_plain,
         flash_attention_fwd,
         flash_attention_plain,
+        flash_error_terms,
     )
 
     b, h, t, d = TRAIN_SHAPE
@@ -298,14 +347,18 @@ def phase_flash_train(flush) -> tuple[dict, dict]:
     o, lse = flash_attention_fwd(q, k, v, DROPOUT, seed)
     torch.cuda.synchronize()
     o_ref, lse_ref = flash_attention_plain(q.float(), k.float(), v.float(), DROPOUT, seed)
-    err_o, ratio = held(o, o_ref)
+    (terms,) = flash_error_terms(q, k, v, DROPOUT, seed)
+    err_o, ratio = held_flash(o, o_ref, terms)
     err_lse = (lse - lse_ref).abs().max().item()
+    again = flash_attention_fwd(q, k, v, DROPOUT, seed)
+    same = torch.equal(again[0], o) and torch.equal(again[1], lse)
     print(f"K1 dropout {DROPOUT} {list(TRAIN_SHAPE)}: max|o - plain| {err_o:.3e}, "
-          f"max err/tol {ratio:.3f}, max|lse - plain| {err_lse:.3e}", flush=True)
-    if not (ratio <= 1.0 and err_lse <= LSE_TOL):
-        fail("K1 with dropout disagrees with its plain version")
+          f"max err/tol {ratio:.3f}, max|lse - plain| {err_lse:.3e}; two launches "
+          f"bit-identical: {same}", flush=True)
+    if not (ratio <= 1.0 and err_lse <= LSE_TOL and same):
+        fail("K1 with dropout disagrees with its plain version or with itself")
     # Planted fault: the next seed draws another mask.
-    _, ratio_bad = held(flash_attention_fwd(q, k, v, DROPOUT, seed + 1)[0], o_ref)
+    _, ratio_bad = held_flash(flash_attention_fwd(q, k, v, DROPOUT, seed + 1)[0], o_ref, terms)
     print(f"K1 dropout planted fault (seed + 1): max err/tol {ratio_bad:.1f}", flush=True)
     if ratio_bad <= 1.0:
         fail("the K1 dropout check lets a planted fault through")
@@ -314,8 +367,9 @@ def phase_flash_train(flush) -> tuple[dict, dict]:
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, dropout_p=DROPOUT, is_causal=True), flush)
     b_ms, b_by = bound_ms(4 * q.numel() * 2 + lse.numel() * 4, 2 * causal)
-    print(f"K1 dropout: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+    print(f"K1 dropout: kernel {ms:.4f} ms ({2 * causal / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({2 * causal / lib_ms / 1e9:.1f} "
+          f"TFLOP/s), bound {b_ms:.5f} ms ({b_by})", flush=True)
     k1_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                   bound_by=b_by, max_abs_err=err_o)
 
@@ -330,7 +384,8 @@ def phase_flash_train(flush) -> tuple[dict, dict]:
         same = all(torch.equal(g, a) for g, a in zip(grads, again))
         refs = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
                                          lse, delta, rate, seed)
-        checks = [held(g, r) for g, r in zip(grads, refs)]
+        terms = flash_error_terms(q, k, v, rate, seed, do=do, delta=delta)[1:]
+        checks = [held_flash(g, r, w) for g, r, w in zip(grads, refs, terms)]
         print(f"K2 dropout {rate}: max|d - plain| dq {checks[0][0]:.3e} dk "
               f"{checks[1][0]:.3e} dv {checks[2][0]:.3e}; max err/tol "
               f"{max(c[1] for c in checks):.3f}; two launches bit-identical: {same}",
@@ -344,7 +399,7 @@ def phase_flash_train(flush) -> tuple[dict, dict]:
         v_bad = v.clone()
         v_bad[:, :, 320:384] = v[:, :, 384:448]
         bad = flash_attention_bwd(q, k, v_bad, do, lse, delta, rate, seed)
-        ratio_bad = max(held(g, r)[1] for g, r in zip(bad, refs))
+        ratio_bad = max(held_flash(g, r, w)[1] for g, r, w in zip(bad, refs, terms))
         print(f"K2 dropout {rate} planted fault (one v tile swapped): max "
               f"err/tol {ratio_bad:.1f}", flush=True)
         if ratio_bad <= 1.0:
@@ -357,9 +412,16 @@ def phase_flash_train(flush) -> tuple[dict, dict]:
         # Reads q, k, v, do (bf16), lse, delta (fp32); writes dq, dk, dv;
         # five causal products (s, do v^T, dq, dk, dv).
         b_ms, b_by = bound_ms(7 * q.numel() * 2 + 2 * lse.numel() * 4, 5 * causal)
-        print(f"K2 dropout {rate}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa backward {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
+        print(f"K2 dropout {rate}: kernel {ms:.4f} ms ({5 * causal / ms / 1e9:.1f} TFLOP/s "
+              f"of the five products), plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms "
+              f"({5 * causal / lib_ms / 1e9:.1f} TFLOP/s), bound {b_ms:.5f} ms ({b_by})",
               flush=True)
+        if profile:
+            split = k2_split_ms(lambda: flash_attention_bwd(q, k, v, do, lse, delta, rate,
+                                                            seed), flush)
+            print(f"K2 dropout {rate} kernels apart (torch.profiler, mean of 20 launches on "
+                  f"a flushed L2): " + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items()),
+                  flush=True)
         k2_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                       bound_by=b_by)   # the dropout-0.1 case goes into the line
     k2_row["max_abs_err"] = max_err
@@ -1565,7 +1627,7 @@ def main() -> None:
     profile = "--profile" in sys.argv[1:]
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
     phase_flash(flush)
-    k1_row, k2_row = phase_flash_train(flush)
+    k1_row, k2_row = phase_flash_train(flush, profile)
     k8_rows = phase_flash_block(flush)
     k8_ring = phase_ring()
     k3_row = phase_paged(flush)

@@ -4,233 +4,230 @@
 // (the Pallas TPU kernel built in _build._raw_fwd), with its in-kernel
 // dropout. The backward is csrc/flash_bwd.cu (K2).
 //
-// Computes, for every (b, h) and every query row t < T,
-//   p[t, j] = softmax_j<=t(q[t] . k[j] / sqrt(D))
-//   o[t]    = sum_j keep[t, j] * p[t, j] / (1 - rate) * v[j]
-//   lse[t]  = log2(sum_j<=t exp2(q[t] . k[j] * log2(e) / sqrt(D)))
-// with the scale folded into q in base 2, as the TPU kernel does, so the
-// backward rebuilds the probabilities from lse. The row sum takes the
-// UNDROPPED p; keep[t, j] is dropout_hash_bits(seed, b, h, t, j) >=
-// threshold on absolute coordinates (gpt_2_distributed_torch/ops/spmd.py),
-// so the mask is the TPU kernel's bit for bit. Dropout is a template flag:
-// the no-dropout kernel that serving launches is the same code as before.
+// Computes, for every (b, h) and every query row t < T, with
+// s[t, j] = q[t] . k[j] (raw bf16 operands, fp32 sums) and
+// c = log2(e) / sqrt(D):
+//   p[t, j] = exp2(c s[t, j] - c m[t]) over j <= t, m the running row max
+//   o[t]    = sum_j bf16(keep[t, j] p[t, j] / (1 - rate)) v[j] / l[t]
+//   lse[t]  = c m[t] + log2(l[t]),  l[t] = sum_j p[t, j]  (UNDROPPED p)
+// so the backward rebuilds the normalized probabilities from the base-2
+// lse. The scale is applied to the fp32 score in the FMA that feeds exp2,
+// so the scores are as exact as fp32 sums of exact bf16 products allow; the
+// probabilities are rounded to bf16 before the product with V, where the
+// TPU kernel rounds them (p.astype(v.dtype)). keep[t, j] is
+// dropout_hash_bits(seed, b, h, t, j) >= threshold on absolute coordinates
+// (csrc/dropout_hash.cuh), so the mask is the TPU kernel's bit for bit.
+// Dropout is a template flag; threshold 0 launches the kernel without it.
 //
-// What bounds it on the H100: at the serving shapes (T <= 1024, D = 64)
-// the inputs are a few MB, read in ~2 us at 3.35 TB/s, and the causal
-// product is ~1.6 GFLOP per 12-head prefill, ~1.6 us on the bf16 tensor
-// cores. Both are tiny; what bounds THIS version is the arithmetic on the
-// fp32 CUDA cores (no tensor cores yet) and the shared-memory traffic of
-// its inner products.
+// What bounds it on the H100: at [4, 12, 1024, 64] the causal products are
+// ~6.4 GFLOP (~6.5 us on the bf16 tensor cores) and the operands ~25 MB
+// (~7.5 us at 3.35 TB/s): bytes, with the products close behind, and with
+// dropout ~25 M mask hashes of ~10 integer operations each.
 //
-// Design: the TPU kernel carries m, l and acc across a sequential grid
-// axis over k-blocks; here each thread block owns one (b, h, 64-row
-// q-tile) and loops over the k-tiles up to its diagonal itself, so nothing
-// carries between blocks. Q, K and V tiles are staged in shared memory as
-// fp32; 256 threads each own a 4x4 patch of the 64x64 score tile and a
-// 4 x D/16 patch of the output accumulator, all in fp32 registers. The
-// online-softmax row max and row sum are reduced across the 16 threads
-// that share a row with warp shuffles. Rows past T in the last q-tile and
-// keys past T in the last k-tile are masked in the kernel, so any T >= 1
-// is taken (the prefill bucket gives multiples of the block size). Every
-// causal row keeps its diagonal, so each row's running sum is positive
-// and the final divide needs no guard. Blocks are issued longest q-tile
-// first so the causal imbalance does not leave a long tail.
-// Faster versions (wgmma, TMA, a producer warp) are later work.
+// Design (FlashAttention-2's forward on mma.sync): one block of 4 warps
+// owns one (b, h, 64-row query tile), each warp 16 query rows, and loops
+// over the 64-key tiles 0 .. its diagonal in that fixed order, so nothing
+// carries between blocks. Q is copied to shared memory once; K and V
+// stream through two shared stages filled by cp.async, the next tile's
+// copy in flight while the current one is multiplied. Per key tile and warp:
+//   S = Q K^T on mma.sync m16n8k16 (ldmatrix of Q and of K rows);
+//   the online softmax on the accumulator fragments: each thread holds two
+//   rows' 16 scores, the row max is reduced over the 4 lanes of a row with
+//   shuffles, each thread keeps its partial row sums until the end;
+//   the mask hash on each fragment element's (row, col);
+//   P rounded to bf16 in registers is the A operand of O += P V (V through
+//   ldmatrix.trans).
+// The tile shape is fixed and never chosen from T or B, and the key tiles
+// are walked in a fixed order, so a row's result depends on its own
+// inputs only: the same leading rows give the same bits at any T, which
+// the serving engine's bucket-padded prefill needs. Only the diagonal tile
+// is masked (keys past a row, which covers keys past T); in it each warp
+// skips the 16-key groups wholly above its rows. Rows past T in the last
+// tile read zeros and are not written. Every causal row keeps its
+// diagonal, so each row's running sum is positive and the final divide
+// needs no guard. Blocks are issued longest query tile first, over every
+// (b, h), so the causal imbalance leaves no long tail. Every row of every
+// operand must start on a 16-byte boundary (the wrapper copies those that
+// do not).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "mma_sm80.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
+using tc::bf16;
+
+constexpr int BQ = 64;   // query rows per block, 16 a warp
 constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads: a 16 x 16 grid of 4x4 patches
+constexpr int NT = 128;  // 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D, bool DROP>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int H, int T,
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, int H, int T,
     long long qsb, long long qsh, long long qst,
     long long ksb, long long ksh, long long kst,
     long long vsb, long long vsh, long long vst,
     long long osb, long long osh, long long ost,
     unsigned seed, unsigned threshold, float keep) {
-  constexpr int DP = D + 1;   // padded rows spread column reads over banks
-  constexpr int PP = BK + 1;
-  constexpr int DC = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;           // [BQ][DP]
-  float* ks = qs + BQ * DP;   // [BK][DP]
-  float* vs = ks + BK * DP;   // [BK][DP]
-  float* ps = vs + BK * DP;   // [BQ][PP]
+  constexpr int LD = D + tc::PAD;
+  constexpr int NJ = BK / 8;  // n8 score tiles a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
+  bf16* ks = qs + BQ * LD;                         // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                     // [2][BK][LD]
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest tiles first
   const int q0 = qt * BQ;
-  const float scale = 1.4426950408889634f * rsqrtf((float)D);
-  // Row part of the dropout hash, per owned row (the column part is
-  // formed per key below).
-  unsigned hrow[4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16 + g;  // the thread's first row in the tile; the other is wr + 8
+  const float scale = LOG2E / sqrtf((float)D);
+  const float inv_keep = 1.f / keep;
+  unsigned hrow[2];
   if (DROP) {
     const unsigned hbh = dropout_hash_bh(seed, b, h);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) hrow[r] = hbh ^ dropout_hash_row(q0 + ty * 4 + r);
+    hrow[0] = hbh ^ dropout_hash_row(q0 + wr);
+    hrow[1] = hbh ^ dropout_hash_row(q0 + wr + 8);
   }
 
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
+  const bf16* qb = q + b * qsb + h * qsh;
+  const bf16* kb = k + b * ksb + h * ksh;
+  const bf16* vb = v + b * vsb + h * vsh;
+  tc::load_rows<BQ, D, NT>(qs, qb, qst, q0, T);
+  tc::load_rows<BK, D, NT>(ks, kb, kst, 0, T);
+  tc::load_rows<BK, D, NT>(vs, vb, vst, 0, T);
+  tc::cp_async_commit();
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int t = q0 + r;
-    qs[r * DP + c] = t < T ? __bfloat162float(qb[t * qst + c]) * scale : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DC];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  // BQ == BK, so q-tile qt's diagonal lies in k-tile qt.
+  // BQ == BK, so query tile qt's diagonal lies in key tile qt.
   for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's ks / vs / ps are consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const int t = k0 + r;
-      const bool in = t < T;
-      ks[r * DP + c] = in ? __bfloat162float(kb[t * kst + c]) : 0.f;
-      vs[r * DP + c] = in ? __bfloat162float(vb[t * vst + c]) : 0.f;
+    const int st = kt & 1;
+    if (kt < qt) {
+      tc::load_rows<BK, D, NT>(ks + (st ^ 1) * BK * LD, kb, kst, (kt + 1) * BK, T);
+      tc::load_rows<BK, D, NT>(vs + (st ^ 1) * BK * LD, vb, vst, (kt + 1) * BK, T);
     }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // everything but the tile just requested has landed
     __syncthreads();
 
-    float s[4][4];
+    const bool diag = kt == qt;
+    const int hi = diag ? warp + 1 : BK / 16;  // 16-key groups this warp needs
+    const bf16* kst_s = ks + st * BK * LD;
+    const bf16* vst_s = vs + st * BK * LD;
+    float s[NJ][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qr[4], kc[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qr[r] = qs[(ty * 4 + r) * DP + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kc[c] = ks[(tx * 4 + c) * DP + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qr[r], kc[c], s[r][c]);
-    }
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    tc::mma_abt<BK, D>(s, qs + warp * 16 * LD, kst_s, 0, hi);
 
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty * 4 + r;
-      float mx = -INFINITY;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = k0 + tx * 4 + c;
-        if (col > row || col >= T) s[r][c] = -INFINITY;
-        mx = fmaxf(mx, s[r][c]);
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * tq + (e & 1);
+        if (diag && col > wr + (e >> 1) * 8) s[j][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
-      // The 16 threads of a row are lanes tx = 0..15 of one half-warp.
+    float ms[2], alpha[2];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // Every row has an unmasked key in every tile it visits (column k0
-      // is <= its row), so mx is finite here.
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = exp2f(m[r] - m_new);
-      float sum = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // Column k0 <= every row of this tile, so mx is finite.
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f((m[i] - m_new) * scale);
+      m[i] = m_new;
+      ms[i] = m_new * scale;
+      l[i] *= alpha[i];
+    }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float p = exp2f(s[r][c] - m_new);
-        sum += p;
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = exp2f(fmaf(s[j][e], scale, -ms[i]));
+        l[i] += p;
         if (DROP) {
           const unsigned bits = dropout_hash_finish(
-              hrow[r] ^ dropout_hash_col(k0 + tx * 4 + c));
-          p = bits >= threshold ? p / keep : 0.f;
+              hrow[i] ^ dropout_hash_col(kt * BK + j * 8 + 2 * tq + (e & 1)));
+          p = bits >= threshold ? p * inv_keep : 0.f;
         }
-        ps[(ty * 4 + r) * PP + tx * 4 + c] = p;
+        s[j][e] = p;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
     }
-    __syncthreads();
-
-    for (int j = 0; j < BK; ++j) {
-      float vj[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vj[c] = vs[j * DP + tx * DC + c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = ps[(ty * 4 + r) * PP + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(p, vj[c], acc[r][c]);
-      }
-    }
+    unsigned pa[BK / 16][4];
+    tc::to_a<BK>(pa, s);
+    tc::mma_pb<BK, D>(acc, pa, vst_s, 0, hi);
+    __syncthreads();  // this stage is consumed before the next copy into it
   }
 
-  __nv_bfloat16* ob = o + b * osb + h * osh;
+  bf16* ob = o + b * osb + h * osh;
+  float* lb = lse + ((long long)b * H + h) * T;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = q0 + wr + i * 8;
     if (row >= T) continue;
-    const float inv = 1.f / l[r];
+    const float inv = 1.f / l[i];
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      ob[row * ost + tx * DC + c] = __float2bfloat16(acc[r][c] * inv);
-    if (tx == 0) lse[((long long)b * H + h) * T + row] = m[r] + log2f(l[r]);
+    for (int n = 0; n < D / 8; ++n)
+      tc::store2(ob + row * ost + n * 8 + 2 * tq, acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    if (tq == 0) lb[row] = m[i] * scale + log2f(l[i]);
   }
 }
 
 template <int D, bool DROP>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int T, const long long* st, unsigned seed,
-           unsigned threshold, float keep, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T,
+           const long long* st, unsigned seed, unsigned threshold, float keep,
+           cudaStream_t stream) {
+  constexpr size_t smem = sizeof(bf16) * (BQ + 4 * BK) * (D + tc::PAD);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  dim3 grid((T + BQ - 1) / BQ, H, B);
+  dim3 grid(B * H, (T + BQ - 1) / BQ);
   flash_fwd_kernel<D, DROP><<<grid, NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, T,
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), H, T,
       st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], seed, threshold, keep);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
-             int B, int H, int T, const long long* st, unsigned seed,
-             unsigned threshold, float keep, cudaStream_t stream) {
-  return threshold ? launch<D, true>(q, k, v, o, lse, B, H, T, st, seed,
-                                     threshold, keep, stream)
-                   : launch<D, false>(q, k, v, o, lse, B, H, T, st, seed,
-                                      threshold, keep, stream);
+int launch_d(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+             int T, const long long* st, unsigned seed, unsigned threshold, float keep,
+             cudaStream_t stream) {
+  return threshold ? launch<D, true>(q, k, v, o, lse, B, H, T, st, seed, threshold, keep,
+                                     stream)
+                   : launch<D, false>(q, k, v, o, lse, B, H, T, st, seed, threshold, keep,
+                                      stream);
 }
 
 }  // namespace
@@ -239,11 +236,19 @@ int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
 // `strides` as 12 int64 (q, k, v, o in that order); the d stride is 1.
 // lse: fp32 [B, H, T], contiguous. Dropout keeps hash bits >= threshold
 // and divides the kept probabilities by `keep` (1 - rate); threshold 0
-// launches the kernel without dropout. Returns cudaGetLastError().
+// launches the kernel without dropout. Every row of q, k, v and o must
+// start on a 16-byte boundary (pointers 16-byte aligned, strides multiples
+// of 8), else nothing is launched and cudaErrorInvalidValue is returned.
+// Returns cudaGetLastError().
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int T, int D,
                               const long long* strides, unsigned seed,
                               unsigned threshold, float keep, void* stream) {
+  const void* ptrs[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch_d<32>(q, k, v, o, lse, B, H, T, strides, seed, threshold, keep, s);

@@ -19,6 +19,18 @@ probabilities by ``1 - rate``. The backward recomputes ``p = exp2(s - lse)``
 ``ds = p (dp - delta)``, ``dq = ds k / sqrt(D)``, ``dk = ds^T q / sqrt(D)``,
 ``dv = pd^T do``.
 
+The kernels multiply on the tensor cores, so, as the JAX kernels do, they
+round the dropped probabilities to bf16 before ``P v``, and ``ds`` and ``pd``
+before their products; the plain versions keep them in fp32. Each such
+rounding moves one product term by at most 2^-8 of itself, so
+:func:`flash_error_terms` gives, element by element, the sums of the
+products' absolute terms that scale the checks' bound on the difference,
+:func:`flash_tolerance`.
+
+The kernels copy their tiles 16 bytes at a time, so every row of every bf16
+operand must start on a 16-byte boundary: the wrappers copy an input whose
+rows do not, and refuse such an ``o``.
+
 ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches`` count
 kernel launches (never plain calls), so a run can show that its main path
 went through the kernels.
@@ -128,6 +140,54 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_error_terms(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    dropout_rate: float = 0.0, seed: int | None = None,
+    do: torch.Tensor | None = None, delta: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """The sums of absolute product terms, in fp32, of each output element
+    of the kernels' products whose left operand K1 or K2 rounds to bf16:
+
+    - ``o``:  ``sum_j P[t, j] |v[j]|``, P the normalized probability after
+      dropout and its rescale;
+    - ``dq``: ``sum_j |ds[t, j]| |k[j]| / sqrt(D)``;
+    - ``dk``: ``sum_t |ds[t, j]| |q[t]| / sqrt(D)``;
+    - ``dv``: ``sum_t |pd[t, j]| |do[t]|``;
+
+    with p, ds and pd as in :func:`flash_attention_bwd_plain` (``delta`` the
+    same fp32 ``rowsum(do * o)`` the backward takes). Returns ``(o,)``
+    without ``do``, else ``(o, dq, dk, dv)``, each ``[B, H, T, D]``. A
+    tolerance for the checks of the kernels against the plain versions; no
+    path of the package calls it."""
+    b, h, t, d = q.shape
+    q, k, v = q.float(), k.float(), v.float()
+    p = torch.softmax(causal_scores(q, k), dim=-1)
+    o_terms = dropout_probs(p, dropout_rate, seed) @ v.abs()
+    if do is None:
+        return (o_terms,)
+    dpd = do.float() @ v.transpose(-1, -2)
+    if dropout_rate > 0.0:
+        keep = causal_dropout_keep(seed, dropout_rate, b, h, t, q.device)
+        kp = 1.0 - dropout_rate
+        pd = torch.where(keep, p / kp, 0.0)
+        dp = torch.where(keep, dpd / kp, 0.0)
+    else:
+        pd, dp = p, dpd
+    ds = (p * (dp - delta[..., None])).abs()
+    c = 1.0 / math.sqrt(d)
+    return (o_terms, (ds @ k.abs()) * c, (ds.transpose(-1, -2) @ q.abs()) * c,
+            pd.transpose(-1, -2) @ do.float().abs())
+
+
+def flash_tolerance(ref: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """The element bound that holds a K1/K2 output x against its plain
+    version ``ref`` in fp32: ``|x - ref| <= 2^-8 |ref| + 2^-16 + 2^-8 terms``,
+    ``terms`` from :func:`flash_error_terms`. 2^-8 |ref| + 2^-16 is the one
+    bf16 rounding of the output plus fp32 summation noise; 2^-8 terms is one
+    bf16 rounding of each product term (2^-9) with 2x headroom."""
+    return 2.0 ** -8 * ref.abs() + 2.0 ** -16 + 2.0 ** -8 * terms
+
+
 def _check_operand(name: str, x: torch.Tensor, shape, dtype=torch.bfloat16) -> None:
     if x.dtype != dtype:
         raise TypeError(f"flash kernel: {name} must be {str(dtype)[6:]}, got {x.dtype}")
@@ -152,6 +212,18 @@ def _check_operands(q: torch.Tensor, named: dict) -> None:
             raise ValueError(f"flash kernel: {name} on {x.device}, q on {q.device}")
 
 
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Whether every row of a [B, H, T, D] operand starts on a 16-byte
+    boundary, as the kernels' 16-byte copies need."""
+    return x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3])
+
+
+def _aligned_input(x: torch.Tensor) -> torch.Tensor:
+    """x itself, or a contiguous copy where its rows are off 16-byte
+    boundaries."""
+    return x if _rows_aligned(x) else x.clone(memory_format=torch.contiguous_format)
+
+
 def _strides(*xs: torch.Tensor) -> torch.Tensor:
     """The (b, h, t) element strides of each [B, H, T, D] operand, int64."""
     return torch.tensor([s for x in xs for s in x.stride()[:3]], dtype=torch.int64)
@@ -161,6 +233,9 @@ def _launch_fwd(q, k, v, o, dropout_rate, seed):
     """Launch K1 on [B, H, T, D] views (any b/h/t strides); returns lse."""
     b, h, t, d = q.shape
     _check_operands(q, {"q": q, "k": k, "v": v, "o": o})
+    if not _rows_aligned(o):
+        raise ValueError("flash kernel: every row of o must start on a 16-byte boundary")
+    q, k, v = (_aligned_input(x) for x in (q, k, v))
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, o)
     lib = build.load("flash_fwd", _SIGNATURES)
@@ -181,8 +256,9 @@ def flash_attention_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal attention over ``[B, H, T, D]``; returns ``(o, lse)`` with
     ``lse`` fp32 base-2 ``[B, H, T]``. CUDA tensors launch K1 (bf16, D in
-    32/64/128, any T), writing into ``o`` when given (any b/h/t strides);
-    CPU tensors use the plain version."""
+    32/64/128, any T), writing into ``o`` when given (any b/h/t strides
+    that keep its rows on 16-byte boundaries); CPU tensors use the plain
+    version."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, dropout_rate, seed)
     if o is None:
@@ -211,6 +287,7 @@ def flash_attention_bwd(
     dq, dk, dv = (buf[:, :, i].transpose(1, 2) for i in range(3))
     _check_operands(q, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                         "delta": delta, "dq": dq, "dk": dk, "dv": dv})
+    q, k, v, do = (_aligned_input(x) for x in (q, k, v, do))
     strides = _strides(q, k, v, do, dq, dk, dv)
     lib = build.load("flash_bwd", _BWD_SIGNATURES)
     code = lib.flash_bwd_bf16(

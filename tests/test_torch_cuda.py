@@ -37,6 +37,19 @@ def _close(o: torch.Tensor, ref: torch.Tensor) -> bool:
     return bool(((o.float() - ref).abs() <= 2.0 ** -8 * ref.abs() + 2.0 ** -16).all())
 
 
+# K1 and K2 round the left operand of some products to bf16, as the TPU
+# kernels do (the dropped probabilities before P v, ds and pd before their
+# products), where the plain versions keep fp32. One bf16 rounding moves a
+# product term by at most 2^-8 of itself, so each element may also move by
+# 2^-8 times the sum of its product's absolute terms
+# (``flash_error_terms``; the bound is ``flash_tolerance``):
+#   |x - ref| <= 2^-8 |ref| + 2^-16 + 2^-8 terms.
+
+
+def _flash_close(x: torch.Tensor, ref: torch.Tensor, terms: torch.Tensor) -> bool:
+    return bool(((x.float() - ref).abs() <= flash.flash_tolerance(ref, terms)).all())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -58,7 +71,7 @@ def test_flash_kernel_matches_plain(cuda, t):
     torch.cuda.synchronize()
     assert flash.flash_attention_fwd.launches == before + 1
     o_ref, lse_ref = flash.flash_attention_plain(q.float(), k.float(), v.float())
-    assert _close(o, o_ref)
+    assert _flash_close(o, o_ref, flash.flash_error_terms(q, k, v)[0])
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     # The [B, T, H, D] entry point reads and writes through strides.
     o_bthd = flash.flash_attention_bthd(q.transpose(1, 2), k.transpose(1, 2),
@@ -74,10 +87,36 @@ def test_flash_kernel_dropout_matches_plain(cuda, t):
     o, lse = flash.flash_attention_fwd(q, k, v, 0.1, seed)
     torch.cuda.synchronize()
     o_ref, lse_ref = flash.flash_attention_plain(q.float(), k.float(), v.float(), 0.1, seed)
-    assert _close(o, o_ref)
+    (terms,) = flash.flash_error_terms(q, k, v, 0.1, seed)
+    assert _flash_close(o, o_ref, terms)
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     # Another seed draws another mask: the check must see it.
-    assert not _close(flash.flash_attention_fwd(q, k, v, 0.1, seed + 1)[0], o_ref)
+    assert not _flash_close(flash.flash_attention_fwd(q, k, v, 0.1, seed + 1)[0], o_ref, terms)
+
+
+def test_flash_kernel_dropout_relaunch_is_bit_identical(cuda):
+    rng = np.random.default_rng(9)
+    q, k, v = (_bf16(rng, 2, 12, 333, 64, device=cuda) for _ in range(3))
+    o, lse = flash.flash_attention_fwd(q, k, v, 0.1, 0x7EADBEEF)
+    o2, lse2 = flash.flash_attention_fwd(q, k, v, 0.1, 0x7EADBEEF)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("t", [1, 17, 100, 208, 777])
+def test_flash_kernel_rows_do_not_depend_on_t(cuda, t):
+    # The serving engine prefills a prompt padded to its block bucket: a
+    # row's output and lse must be the same bits at T = t and at T = t
+    # rounded up to 16 and to 64, given the same leading rows.
+    rng = np.random.default_rng(t)
+    width = -(-t // 64) * 64 + 64
+    q, k, v = (_bf16(rng, 1, 12, width, 64, device=cuda) for _ in range(3))
+    o, lse = flash.flash_attention_fwd(q[:, :, :t], k[:, :, :t], v[:, :, :t])
+    for padded in (-(-t // 16) * 16, -(-t // 64) * 64, width):
+        o_p, lse_p = flash.flash_attention_fwd(q[:, :, :padded], k[:, :, :padded],
+                                               v[:, :, :padded])
+        torch.cuda.synchronize()
+        assert torch.equal(o_p[:, :, :t], o) and torch.equal(lse_p[:, :, :t], lse), padded
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -95,8 +134,58 @@ def test_flash_bwd_kernel_matches_plain_and_is_deterministic(cuda, rate):
     assert all(torch.equal(g, a) for g, a in zip(grads, again))   # no atomics
     refs = flash.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
                                            lse, delta, rate, seed)
-    for g, r in zip(grads, refs):
-        assert _close(g, r)
+    terms = flash.flash_error_terms(q, k, v, rate, seed, do=do, delta=delta)[1:]
+    for g, r, w in zip(grads, refs, terms):
+        assert _flash_close(g, r, w)
+
+
+def test_flash_kernels_take_rows_off_16_byte_boundaries(cuda):
+    # Views one element into a wider buffer: no row starts on a 16-byte
+    # boundary, so the wrappers hand K1 and K2 aligned copies; an o whose
+    # rows are off those boundaries is refused.
+    rng = np.random.default_rng(6)
+    wide = [_bf16(rng, 2, 12, 100, 72, device=cuda) for _ in range(4)]
+    q, k, v, do = (x[..., 1:65] for x in wide)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash.flash_attention_fwd(q, k, v, o=torch.empty_like(wide[0])[..., 1:65])
+    o, lse = flash.flash_attention_fwd(q, k, v, 0.1, 77)
+    o_ref, lse_ref = flash.flash_attention_plain(q.float(), k.float(), v.float(), 0.1, 77)
+    assert _flash_close(o, o_ref, flash.flash_error_terms(q, k, v, 0.1, 77)[0])
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    delta = (do.float() * o.float()).sum(-1)
+    grads = flash.flash_attention_bwd(q, k, v, do, lse, delta, 0.1, 77)
+    torch.cuda.synchronize()
+    refs = flash.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                           lse, delta, 0.1, 77)
+    terms = flash.flash_error_terms(q, k, v, 0.1, 77, do=do, delta=delta)[1:]
+    for g, r, w in zip(grads, refs, terms):
+        assert _flash_close(g, r, w)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_kernels_at_the_other_head_dims(cuda, d, rate):
+    # Every preset has D = 64; K1 and K2 also take D = 32 and 128, each its
+    # own instance of the kernels (other fragment counts and shared sizes).
+    rng = np.random.default_rng(d)
+    q, k, v, do = (_bf16(rng, 2, 4, 208, d, device=cuda) for _ in range(4))
+    seed = 0x7EADBEEF
+    o, lse = flash.flash_attention_fwd(q, k, v, rate, seed)
+    o2, lse2 = flash.flash_attention_fwd(q, k, v, rate, seed)
+    delta = (do.float() * o.float()).sum(-1)
+    grads = flash.flash_attention_bwd(q, k, v, do, lse, delta, rate, seed)
+    again = flash.flash_attention_bwd(q, k, v, do, lse, delta, rate, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
+    o_ref, lse_ref = flash.flash_attention_plain(q.float(), k.float(), v.float(), rate, seed)
+    terms = flash.flash_error_terms(q, k, v, rate, seed, do=do, delta=delta)
+    assert _flash_close(o, o_ref, terms[0])
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    refs = flash.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                           lse, delta, rate, seed)
+    for g, r, w in zip(grads, refs, terms[1:]):
+        assert _flash_close(g, r, w)
 
 
 def test_model_trains_through_k1_and_k2(cuda):

@@ -1,0 +1,180 @@
+"""The element bound that holds the flash kernels K1 and K2 against their
+plain versions, checked on the CPU.
+
+The kernels multiply on the tensor cores, so they round the dropped
+probabilities (K1), ds and pd (K2) to bf16 before their products, where the
+JAX kernels round them; the plain versions keep them in fp32. The card
+checks (``chip_smoke.py``, ``tests/test_torch_cuda.py``) hold each output
+element to ``flash_tolerance``,
+
+    |x - ref| <= 2^-8 |ref| + 2^-16 + 2^-8 terms
+
+with ``terms`` from ``flash_error_terms``: one bf16 rounding moves a product
+term by at most 2^-8 of itself. Here a torch emulation of the kernels'
+roundings (P rounded key tile by key tile in the online-softmax order of
+K1's 64-key tiles, ds and pd rounded in K2) must lie within that bound
+against the fp32 plain versions, and a planted fault must not.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from gpt_2_distributed_torch.ops import flash_attention as flash
+from gpt_2_distributed_torch.ops.spmd import causal_dropout_keep
+
+BK = 64   # K1's keys per tile
+LSE_TOL = 1e-4
+SEED = 0x5EED1234
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _inputs(b, h, t, d, n, seed):
+    """n bf16-valued fp32 tensors [b, h, t, d] from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return [_bf16(torch.from_numpy(rng.normal(size=(b, h, t, d)).astype(np.float32)))
+            for _ in range(n)]
+
+
+def _ratio(got: torch.Tensor, ref: torch.Tensor, terms: torch.Tensor) -> float:
+    """Largest ratio of an element's error to its bound (<= 1 holds)."""
+    return ((got - ref).abs() / flash.flash_tolerance(ref, terms)).max().item()
+
+
+def _keep(rate, b, h, t):
+    return causal_dropout_keep(SEED, rate, b, h, t, torch.device("cpu")) if rate else None
+
+
+def emulate_k1(q, k, v, rate):
+    """K1's arithmetic in torch: raw scores, the scale in the exponent, the
+    online softmax over 64-key tiles in order, each tile's dropped
+    probabilities rounded to bf16 before the product with V; o rounded to
+    bf16 once. Returns (o, base-2 lse)."""
+    b, h, t, d = q.shape
+    scale = flash.LOG2E / math.sqrt(d)
+    keep = _keep(rate, b, h, t)
+    rows = torch.arange(t)[:, None]
+    m = torch.full((b, h, t), -math.inf)
+    l = torch.zeros(b, h, t)
+    acc = torch.zeros(b, h, t, d)
+    for k0 in range(0, t, BK):
+        k1 = min(k0 + BK, t)
+        s = q @ k[:, :, k0:k1].transpose(-1, -2)
+        s = s.masked_fill(torch.arange(k0, k1)[None, :] > rows, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * scale)
+        p = torch.exp2(s * scale - (m_new * scale)[..., None])
+        l = l * alpha + p.sum(-1)
+        if rate:
+            p = torch.where(keep[..., k0:k1], p / (1.0 - rate), 0.0)
+        acc = acc * alpha[..., None] + _bf16(p) @ v[:, :, k0:k1]
+        m = m_new
+    return _bf16(acc / l[..., None]), m * scale + torch.log2(l)
+
+
+def emulate_k2(q, k, v, do, lse, delta, rate):
+    """K2's arithmetic in torch: p from the base-2 lse, ds and pd rounded to
+    bf16 before their products, each grad rounded to bf16 once."""
+    b, h, t, d = q.shape
+    scale = flash.LOG2E / math.sqrt(d)
+    causal = torch.ones(t, t, dtype=torch.bool).tril()
+    p = torch.where(causal, torch.exp2((q @ k.transpose(-1, -2)) * scale - lse[..., None]), 0.0)
+    dpd = do @ v.transpose(-1, -2)
+    if rate:
+        keep = _keep(rate, b, h, t)
+        pd = torch.where(keep, p / (1.0 - rate), 0.0)
+        dp = torch.where(keep, dpd / (1.0 - rate), 0.0)
+    else:
+        pd, dp = p, dpd
+    ds = _bf16(p * (dp - delta[..., None]))
+    c = 1.0 / math.sqrt(d)
+    return (_bf16(ds @ k * c), _bf16(ds.transpose(-1, -2) @ q * c),
+            _bf16(_bf16(pd).transpose(-1, -2) @ do))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_error_terms_equal_a_brute_force_loop(rate):
+    b, h, t, d = 1, 2, 6, 3
+    q, k, v, do = _inputs(b, h, t, d, 4, seed=11)
+    delta = torch.from_numpy(np.random.default_rng(12).normal(size=(b, h, t))
+                             .astype(np.float32))
+    got = flash.flash_error_terms(q, k, v, rate, SEED, do=do, delta=delta)
+    keep = _keep(rate, b, h, t)
+    kp = 1.0 - rate
+    want = [np.zeros((b, h, t, d)) for _ in range(4)]
+    for bi in range(b):
+        for hi in range(h):
+            for r in range(t):
+                s = [float(q[bi, hi, r] @ k[bi, hi, j]) / math.sqrt(d) for j in range(r + 1)]
+                z = sum(math.exp(x - max(s)) for x in s)
+                for j in range(r + 1):
+                    p = math.exp(s[j] - max(s)) / z
+                    mul = 1.0 if keep is None else float(keep[bi, hi, r, j]) / kp
+                    pd = p * mul
+                    dp = float(do[bi, hi, r] @ v[bi, hi, j]) * mul
+                    ds = abs(p * (dp - float(delta[bi, hi, r])))
+                    for c in range(d):
+                        want[0][bi, hi, r, c] += pd * abs(float(v[bi, hi, j, c]))
+                        want[1][bi, hi, r, c] += ds * abs(float(k[bi, hi, j, c])) / math.sqrt(d)
+                        want[2][bi, hi, j, c] += ds * abs(float(q[bi, hi, r, c])) / math.sqrt(d)
+                        want[3][bi, hi, j, c] += pd * abs(float(do[bi, hi, r, c]))
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6)
+    (o_only,) = flash.flash_error_terms(q, k, v, rate, SEED)
+    assert torch.equal(o_only, got[0])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t", [16, 208, 1024])
+def test_kernel_roundings_lie_within_the_bound(t, rate):
+    b = 1 if t == 1024 else 2
+    q, k, v, do = _inputs(b, 2, t, 64, 4, seed=t)
+    o, lse = emulate_k1(q, k, v, rate)
+    o_ref, lse_ref = flash.flash_attention_plain(q, k, v, rate, SEED)
+    (o_terms,) = flash.flash_error_terms(q, k, v, rate, SEED)
+    assert _ratio(o, o_ref, o_terms) <= 1.0
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    # The backward on the emulated forward's lse and delta, both sides.
+    delta = (do * o).sum(-1)
+    grads = emulate_k2(q, k, v, do, lse, delta, rate)
+    refs = flash.flash_attention_bwd_plain(q, k, v, do, lse, delta, rate, SEED)
+    terms = flash.flash_error_terms(q, k, v, rate, SEED, do=do, delta=delta)[1:]
+    for g, r, w in zip(grads, refs, terms):
+        assert _ratio(g, r, w) <= 1.0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_swapped_key_tile_lies_outside_the_bound(rate):
+    t = 208
+    q, k, v, do = _inputs(2, 2, t, 64, 4, seed=3)
+    o_ref, lse_ref = flash.flash_attention_plain(q, k, v, rate, SEED)
+    (o_terms,) = flash.flash_error_terms(q, k, v, rate, SEED)
+    # Key tile 1 replaced by tile 2, as a kernel that loaded the wrong tile
+    # would see it.
+    k_bad = k.clone()
+    k_bad[:, :, 64:128] = k[:, :, 128:192]
+    assert _ratio(emulate_k1(q, k_bad, v, rate)[0], o_ref, o_terms) > 1.0
+    # The same fault in v reaches the backward through do . v^T.
+    delta = (do * o_ref).sum(-1)
+    refs = flash.flash_attention_bwd_plain(q, k, v, do, lse_ref, delta, rate, SEED)
+    terms = flash.flash_error_terms(q, k, v, rate, SEED, do=do, delta=delta)[1:]
+    v_bad = v.clone()
+    v_bad[:, :, 64:128] = v[:, :, 128:192]
+    bad = emulate_k2(q, k, v_bad, do, lse_ref, delta, rate)
+    assert max(_ratio(g, r, w) for g, r, w in zip(bad, refs, terms)) > 1.0

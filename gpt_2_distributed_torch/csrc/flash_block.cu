@@ -30,11 +30,15 @@
 //   dq = ds k / sqrt(D),  dk = ds^T bf16(q scale) / log2(e),  dv = pd^T do
 // accumulated in fp32 and rounded to bf16 once.
 //
+// ds and pd are rounded to bf16 before their products, where the TPU
+// kernel rounds them (ds.astype(q.dtype), pd.astype(do.dtype)).
+//
 // What bounds it on the H100: one full [4, 12, 512, 64] block (sp = 2 at
 // 124M) is ~3.2 GFLOP forward (~3.3 us on the bf16 tensor cores) and
-// ~12.7 MB of operands (~3.8 us at 3.35 TB/s); what bounds THIS version is
-// the fp32 arithmetic on the CUDA cores (no tensor cores yet) and the
-// shared-memory traffic of its inner products, as in K1 and K2.
+// ~12.7 MB of operands (~3.8 us at 3.35 TB/s); the backward's five
+// products ~8 GFLOP (~8 us). The forward still does its arithmetic on the
+// CUDA cores in fp32 and is bound by that and by the shared-memory traffic
+// of its inner products.
 //
 // Design: the TPU kernels carry m, l, acc (and dk, dv) across sequential
 // grid axes; on Hopper blocks run in no order, so, as K1/K2 do, a block
@@ -46,18 +50,43 @@
 // the q-tile's last global row (the TPU kernel's causal gate), and the
 // element mask is applied only on tiles that cross the diagonal or the
 // ragged edge, so any Tq, Tc >= 1 and any offsets are taken. A block whose
-// every tile is skipped still writes its rows' o = 0 and lse = NEG_INF.
-// 256 threads each own a 4x4 patch of the 64x64 score tile and a
-// 4 x D/16 patch of the accumulators. Faster versions (wgmma, TMA) are
-// later work.
+// every tile is skipped still writes its rows' o = 0 and lse = NEG_INF
+// (and zero grads).
+//
+// The forward: 256 threads each own a 4x4 patch of the 64x64 score tile
+// and a 4 x D/16 patch of the accumulators, in fp32.
+//
+// The backward is K2's design (csrc/flash_bwd.cu) on the tensor cores:
+// 4 warps a block, 16 rows each, mma.sync m16n8k16 (bf16 in, fp32
+// accumulate) through the csrc/mma_sm80.cuh helpers.
+//   * dk/dv kernel: K and V copied to shared memory once; Q, dO, lse and
+//     delta streamed through two cp.async stages over the needed query
+//     tiles. With keys as rows it forms S^T = K Q_s^T and dP^T = V dO^T,
+//     so pd^T and ds^T come out as accumulator fragments that, rounded to
+//     bf16 and packed, are the A operand of dV += pd^T dO and
+//     dK += ds^T Q_s from registers.
+//   * dq kernel: Q, dO, lse and delta copied once; K and V streamed
+//     through two stages over the needed key tiles; S = Q_s K^T and
+//     dP = dO V^T with queries as rows, dQ += ds K from registers.
+// Q_s = bf16(q * log2(e) / sqrt(D)) is formed in shared memory: each
+// thread scales the 16-byte chunks it copied in, once they have landed.
+// Each warp skips the 16-wide groups of a tile that lie wholly on the
+// masked side of the diagonal or past Tq / Tc. Every row of every bf16
+// operand of the backward must start on a 16-byte boundary (the wrapper
+// copies inputs that do not); the forward reads element by element and
+// takes any stride.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "mma_sm80.cuh"
 
 namespace {
+
+using tc::bf16;
 
 constexpr int BQ = 64;   // query rows per tile
 constexpr int BK = 64;   // keys per tile
@@ -251,213 +280,235 @@ __global__ void __launch_bounds__(NT) flash_block_fwd_kernel(
   }
 }
 
-// From the score tile s and dpd = do . v of q rows q0 + ty*4 + r and keys
-// k0 + tx*4 + c, write ds (and pd, when pds is given) into [64][PP] tiles.
-template <bool DROP>
-__device__ __forceinline__ void ds_tile(
-    const Block& p, const float s[4][4], const float dpd[4][4],
-    const float* lses, const float* deltas, float* dss, float* pds, int q0,
-    int k0, int ty, int tx, unsigned hbh) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = ty * 4 + r;
-    const int row = q0 + i;
-    const float lse_r = lses[i], delta_r = deltas[i];
-    const unsigned hr = DROP ? hbh ^ dropout_hash_row(p.row_off + row) : 0u;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = tx * 4 + c;
-      const int col = k0 + j;
-      const float pv = attends(p, row, col) ? exp2f(s[r][c] - lse_r) : 0.f;
-      float pd = pv, dp = dpd[r][c];
-      if (DROP) {
-        const bool kept = dropout_hash_finish(
-                              hr ^ dropout_hash_col(p.col_off + col)) >=
-                          p.threshold;
-        pd = kept ? pv / p.keep : 0.f;
-        dp = kept ? dp / p.keep : 0.f;
-      }
-      dss[i * PP + j] = pv * (dp - delta_r);
-      if (pds != nullptr) pds[i * PP + j] = pd;
-    }
-  }
-}
+// ---------------------------------------------------------------------------
+// The backward on the tensor cores (K2's design, csrc/flash_bwd.cu, with
+// K8's scaled q, global coordinates and masked rows).
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void load_row_stats(float* lses, float* deltas,
-                                               const float* lse,
-                                               const float* delta, int t0,
-                                               int T) {
-  if (threadIdx.x < 64) {
-    const int t = t0 + threadIdx.x;
-    lses[threadIdx.x] = t < T ? lse[t] : 0.f;
-    deltas[threadIdx.x] = t < T ? delta[t] : 0.f;
-  }
-}
+constexpr int NT_BWD = 128;  // 4 warps, 16 rows of a 64-row tile each
 
+// Three blocks an SM at D <= 64, as K2's dk/dv kernel (168 registers).
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NT) flash_block_bwd_dkdv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ d_o,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+__global__ void __launch_bounds__(NT_BWD, D <= 64 ? 3 : 1) flash_block_bwd_dkdv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ d_o, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
     Strides st, Block p) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;             // [BQ][DP] bf16(q * scale)
-  float* dos = qs + BQ * DP;    // [BQ][DP]
-  float* ks = dos + BQ * DP;    // [BK][DP]
-  float* vs = ks + BK * DP;     // [BK][DP]
-  float* pds = vs + BK * DP;    // [BQ][PP]
-  float* dss = pds + BQ * PP;   // [BQ][PP]
-  float* lses = dss + BQ * PP;  // [BQ]
-  float* deltas = lses + BQ;    // [BQ]
+  constexpr int LD = D + tc::PAD;
+  constexpr int NJ = BQ / 8;  // n8 tiles of queries a warp
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_bwd);  // [BK][LD]
+  bf16* vs = ks + BK * LD;                         // [BK][LD]
+  bf16* qs = vs + BK * LD;                         // [2][BQ][LD] bf16(q * scale)
+  bf16* dos = qs + 2 * BQ * LD;                    // [2][BQ][LD]
+  float* lses = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ]
+  float* deltas = lses + 2 * BQ;                               // [2][BQ]
 
-  const int k0 = blockIdx.x * BK;  // tile 0 meets the most q-tiles: first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const float scale = LOG2E * rsqrtf((float)D);
-  const unsigned hbh =
-      DROP ? dropout_hash_bh(p.seed, p.b_off + b, p.h_off + h) : 0u;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int k0 = blockIdx.y * BK;  // tile 0 meets the most query tiles: issued first
+  const int nq = (p.Tq + BQ - 1) / BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wk = warp * 16 + g;  // the thread's first key in the tile; the other is wk + 8
+  const float scale = LOG2E * rsqrtf((float)D);  // the forward's
+  const float inv_keep = 1.f / p.keep;
+  const unsigned hbh = DROP ? dropout_hash_bh(p.seed, p.b_off + b, p.h_off + h) : 0u;
+  unsigned hcol[2];
+  hcol[0] = dropout_hash_col(p.col_off + k0 + wk);
+  hcol[1] = dropout_hash_col(p.col_off + k0 + wk + 8);
   const long long bh = (long long)b * p.H + h;
 
-  load_tile<D>(ks, k + b * st.k[0] + h * st.k[1], st.k[2], k0, p.Tc, 0.f);
-  load_tile<D>(vs, v + b * st.v[0] + h * st.v[1], st.v[2], k0, p.Tc, 0.f);
+  // The first query tile whose last row reaches this key tile (the causal
+  // gate is monotone in the query tile); nq when none does.
+  const int lag = p.col_off + k0 - p.row_off;
+  int qt0 = lag > 0 ? lag / BQ : 0;
+  if (qt0 < nq && !tile_needed(p, qt0 * BQ, k0)) qt0 = nq;
 
-  float dka[4][DC], dva[4][DC];  // key rows ty*4 + r, columns tx*DC + c
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dka[r][c] = dva[r][c] = 0.f;
+  const bf16* qb = q + b * st.q[0] + h * st.q[1];
+  const bf16* dob = d_o + b * st.d_o[0] + h * st.d_o[1];
+  auto fetch = [&](int qt, int stage) {
+    tc::load_rows<BQ, D, NT_BWD>(qs + stage * BQ * LD, qb, st.q[2], qt * BQ, p.Tq);
+    tc::load_rows<BQ, D, NT_BWD>(dos + stage * BQ * LD, dob, st.d_o[2], qt * BQ, p.Tq);
+    tc::load_stats<BQ, NT_BWD>(lses + stage * BQ, deltas + stage * BQ, lse + bh * p.Tq,
+                               delta + bh * p.Tq, qt * BQ, p.Tq);
+  };
 
-  for (int q0 = 0; q0 < p.Tq; q0 += BQ) {
-    if (!tile_needed(p, q0, k0)) continue;  // the same for the whole block
-    __syncthreads();  // the previous tile's qs / dos / pds / dss are consumed
-    load_tile<D>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, p.Tq, scale);
-    load_tile<D>(dos, d_o + b * st.d_o[0] + h * st.d_o[1], st.d_o[2], q0, p.Tq,
-                 0.f);
-    load_row_stats(lses, deltas, lse + bh * p.Tq, delta + bh * p.Tq, q0, p.Tq);
+  float dka[D / 8][4], dva[D / 8][4];  // keys wk, wk + 8 in C fragments
+  tc::zero(dka);
+  tc::zero(dva);
+  if (qt0 < nq) {
+    tc::load_rows<BK, D, NT_BWD>(ks, k + b * st.k[0] + h * st.k[1], st.k[2], k0, p.Tc);
+    tc::load_rows<BK, D, NT_BWD>(vs, v + b * st.v[0] + h * st.v[1], st.v[2], k0, p.Tc);
+    fetch(qt0, 0);
+    tc::cp_async_commit();
+  }
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int stage = (qt - qt0) & 1;
+    if (qt + 1 < nq) fetch(qt + 1, stage ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // everything but the tile just requested has landed
+    tc::scale_own_rows<BQ, D, NT_BWD>(qs + stage * BQ * LD, scale);
     __syncthreads();
 
-    float s[4][4], dpd[4][4];
-    tile_dot<D>(qs, ks, s, ty, tx);
-    tile_dot<D>(dos, vs, dpd, ty, tx);
-    ds_tile<DROP>(p, s, dpd, lses, deltas, dss, pds, q0, k0, ty, tx, hbh);
-    __syncthreads();
+    const bf16* qss = qs + stage * BQ * LD;
+    const bf16* doss = dos + stage * BQ * LD;
+    const float* ls = lses + stage * BQ;
+    const float* dls = deltas + stage * BQ;
+    const int q0 = qt * BQ;
+    const bool masked = tile_masked(p, q0, k0);
+    // The 16-query groups [lo, hi) this warp needs: those before lo lie
+    // wholly before its first key, those from hi on past Tq; a warp whose
+    // keys all lie past Tc needs none.
+    const int reach = p.col_off + k0 + warp * 16 - p.row_off - q0 - 15;
+    const int lo = reach <= 0 ? 0 : min(BQ / 16, (reach + 15) / 16);
+    const int hi = k0 + warp * 16 >= p.Tc ? 0 : min(BQ / 16, (p.Tq - q0 + 15) / 16);
 
-    for (int i = 0; i < BQ; ++i) {
-      float dor[DC], qr[DC];
+    float s[NJ][4], dp[NJ][4];  // S^T and dP^T: keys as rows, queries as columns
+    tc::zero(s);
+    tc::zero(dp);
+    tc::mma_abt<BQ, D>(s, ks + warp * 16 * LD, qss, lo, hi);
+    tc::mma_abt<BQ, D>(dp, vs + warp * 16 * LD, doss, lo, hi);
+
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        dor[c] = dos[i * DP + tx * DC + c];
-        qr[c] = qs[i * DP + tx * DC + c];
-      }
+    for (int j = 0; j < NJ; ++j) {
+      const int c = j * 8 + 2 * tq;  // this thread's query columns c, c + 1
+      const float2 lse2 = *reinterpret_cast<const float2*>(ls + c);
+      const float2 del2 = *reinterpret_cast<const float2*>(dls + c);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float pd = pds[i * PP + ty * 4 + r];
-        const float ds = dss[i * PP + ty * 4 + r];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dva[r][c] = fmaf(pd, dor[c], dva[r][c]);
-          dka[r][c] = fmaf(ds, qr[c], dka[r][c]);
+      for (int e = 0; e < 4; ++e) {
+        const int col = c + (e & 1);
+        const bool valid = !masked || attends(p, q0 + col, k0 + wk + (e >> 1) * 8);
+        const float pv = valid ? exp2f(s[j][e] - ((e & 1) ? lse2.y : lse2.x)) : 0.f;
+        float pd = pv, dpv = dp[j][e];
+        if (DROP) {
+          const bool kept = dropout_hash_finish(hbh ^ dropout_hash_row(p.row_off + q0 + col) ^
+                                                hcol[e >> 1]) >= p.threshold;
+          pd = kept ? pv * inv_keep : 0.f;
+          dpv = kept ? dpv * inv_keep : 0.f;
         }
+        s[j][e] = pv * (dpv - ((e & 1) ? del2.y : del2.x));  // ds^T
+        dp[j][e] = pd;                                        // pd^T
       }
     }
+    unsigned fa[BQ / 16][4];
+    tc::to_a<BQ>(fa, dp);
+    tc::mma_pb<BQ, D>(dva, fa, doss, lo, hi);
+    tc::to_a<BQ>(fa, s);
+    tc::mma_pb<BQ, D>(dka, fa, qss, lo, hi);
+    __syncthreads();  // this stage is consumed before the next copy into it
   }
 
-  __nv_bfloat16* dkb = dk + b * st.dk[0] + h * st.dk[1];
-  __nv_bfloat16* dvb = dv + b * st.dv[0] + h * st.dv[1];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = k0 + ty * 4 + r;
-    if (t >= p.Tc) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      // q carried scale * log2(e), so ds^T q is log2(e) too large.
-      dkb[t * st.dk[2] + tx * DC + c] = __float2bfloat16(dka[r][c] * LN2);
-      dvb[t * st.dv[2] + tx * DC + c] = __float2bfloat16(dva[r][c]);
-    }
-  }
+  // q carried scale = log2(e) / sqrt(D), so ds^T q_s is log2(e) times dk.
+  tc::store_rows<D>(dk + b * st.dk[0] + h * st.dk[1], st.dk[2], dka, k0 + wk, p.Tc, LN2);
+  tc::store_rows<D>(dv + b * st.dv[0] + h * st.dv[1], st.dv[2], dva, k0 + wk, p.Tc, 1.f);
 }
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NT) flash_block_bwd_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ d_o,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, Strides st, Block p) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;             // [BQ][DP] bf16(q * scale)
-  float* dos = qs + BQ * DP;    // [BQ][DP]
-  float* ks = dos + BQ * DP;    // [BK][DP]
-  float* vs = ks + BK * DP;     // [BK][DP]
-  float* dss = vs + BK * DP;    // [BQ][PP]
-  float* lses = dss + BQ * PP;  // [BQ]
-  float* deltas = lses + BQ;    // [BQ]
+__global__ void __launch_bounds__(NT_BWD) flash_block_bwd_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ d_o, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, Strides st, Block p) {
+  constexpr int LD = D + tc::PAD;
+  constexpr int NJ = BK / 8;  // n8 tiles of keys a warp
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_bwd);  // [BQ][LD] bf16(q * scale)
+  bf16* dos = qs + BQ * LD;                        // [BQ][LD]
+  bf16* ks = dos + BQ * LD;                        // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                     // [2][BK][LD]
+  float* lses = reinterpret_cast<float*>(vs + 2 * BK * LD);  // [BQ]
+  float* deltas = lses + BQ;                                  // [BQ]
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest tiles first
   const int q0 = qt * BQ;
-  const float scale = LOG2E * rsqrtf((float)D);
-  const unsigned hbh =
-      DROP ? dropout_hash_bh(p.seed, p.b_off + b, p.h_off + h) : 0u;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16 + g;  // the thread's first row in the tile; the other is wr + 8
+  const float scale = LOG2E * rsqrtf((float)D);  // the forward's
+  const float inv_keep = 1.f / p.keep;
+  unsigned hrow[2];
+  if (DROP) {
+    const unsigned hbh = dropout_hash_bh(p.seed, p.b_off + b, p.h_off + h);
+    hrow[0] = hbh ^ dropout_hash_row(p.row_off + q0 + wr);
+    hrow[1] = hbh ^ dropout_hash_row(p.row_off + q0 + wr + 8);
+  }
   const long long bh = (long long)b * p.H + h;
+  // Key tiles [0, nk) pass the causal gate (it is monotone in the key tile).
+  const int r_hi = p.row_off + min(q0 + BQ, p.Tq) - 1;
+  const int nk = r_hi < p.col_off ? 0 : min((p.Tc + BK - 1) / BK, (r_hi - p.col_off) / BK + 1);
 
-  load_tile<D>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, p.Tq, scale);
-  load_tile<D>(dos, d_o + b * st.d_o[0] + h * st.d_o[1], st.d_o[2], q0, p.Tq,
-               0.f);
-  load_row_stats(lses, deltas, lse + bh * p.Tq, delta + bh * p.Tq, q0, p.Tq);
+  const bf16* kb = k + b * st.k[0] + h * st.k[1];
+  const bf16* vb = v + b * st.v[0] + h * st.v[1];
+  if (nk > 0) {
+    tc::load_rows<BQ, D, NT_BWD>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, p.Tq);
+    tc::load_rows<BQ, D, NT_BWD>(dos, d_o + b * st.d_o[0] + h * st.d_o[1], st.d_o[2], q0, p.Tq);
+    tc::load_stats<BQ, NT_BWD>(lses, deltas, lse + bh * p.Tq, delta + bh * p.Tq, q0, p.Tq);
+    tc::load_rows<BK, D, NT_BWD>(ks, kb, st.k[2], 0, p.Tc);
+    tc::load_rows<BK, D, NT_BWD>(vs, vb, st.v[2], 0, p.Tc);
+    tc::cp_async_commit();
+  }
 
-  float dqa[4][DC];  // q rows ty*4 + r, columns tx*DC + c
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dqa[r][c] = 0.f;
+  float dqa[D / 8][4];  // rows wr, wr + 8 in C fragments
+  tc::zero(dqa);
+  float lse_r[2], delta_r[2];
 
-  const __nv_bfloat16* kb = k + b * st.k[0] + h * st.k[1];
-  const __nv_bfloat16* vb = v + b * st.v[0] + h * st.v[1];
-  for (int k0 = 0; k0 < p.Tc && tile_needed(p, q0, k0); k0 += BK) {
-    __syncthreads();  // the previous tile's ks / vs / dss are consumed
-    load_tile<D>(ks, kb, st.k[2], k0, p.Tc, 0.f);
-    load_tile<D>(vs, vb, st.v[2], k0, p.Tc, 0.f);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int stage = kt & 1;
+    if (kt + 1 < nk) {
+      tc::load_rows<BK, D, NT_BWD>(ks + (stage ^ 1) * BK * LD, kb, st.k[2], (kt + 1) * BK, p.Tc);
+      tc::load_rows<BK, D, NT_BWD>(vs + (stage ^ 1) * BK * LD, vb, st.v[2], (kt + 1) * BK, p.Tc);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // everything but the tile just requested has landed
+    if (kt == 0) tc::scale_own_rows<BQ, D, NT_BWD>(qs, scale);
     __syncthreads();
-
-    float s[4][4], dpd[4][4];
-    tile_dot<D>(qs, ks, s, ty, tx);
-    tile_dot<D>(dos, vs, dpd, ty, tx);
-    ds_tile<DROP>(p, s, dpd, lses, deltas, dss, nullptr, q0, k0, ty, tx, hbh);
-    __syncthreads();
-
-    for (int j = 0; j < BK; ++j) {
-      float kr[DC];
+    if (kt == 0) {
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kr[c] = ks[j * DP + tx * DC + c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float ds = dss[(ty * 4 + r) * PP + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) dqa[r][c] = fmaf(ds, kr[c], dqa[r][c]);
+      for (int i = 0; i < 2; ++i) {
+        lse_r[i] = lses[wr + 8 * i];
+        delta_r[i] = deltas[wr + 8 * i];
       }
     }
+
+    const bf16* kss = ks + stage * BK * LD;
+    const bf16* vss = vs + stage * BK * LD;
+    const int k0 = kt * BK;
+    const bool masked = tile_masked(p, q0, k0);
+    // The 16-key groups [0, hi) this warp needs: the later ones lie wholly
+    // after its last row or past Tc.
+    const int reach = p.row_off + q0 + warp * 16 + 15 - p.col_off - k0;
+    const int hi = reach < 0 ? 0 : min(min(BK / 16, reach / 16 + 1), (p.Tc - k0 + 15) / 16);
+    float s[NJ][4], dp[NJ][4];
+    tc::zero(s);
+    tc::zero(dp);
+    tc::mma_abt<BK, D>(s, qs + warp * 16 * LD, kss, 0, hi);
+    tc::mma_abt<BK, D>(dp, dos + warp * 16 * LD, vss, 0, hi);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int col = j * 8 + 2 * tq + (e & 1);
+        const bool valid = !masked || attends(p, q0 + wr + 8 * i, k0 + col);
+        const float pv = valid ? exp2f(s[j][e] - lse_r[i]) : 0.f;
+        float dpv = dp[j][e];
+        if (DROP) {
+          const bool kept = dropout_hash_finish(hrow[i] ^
+                                                dropout_hash_col(p.col_off + k0 + col)) >=
+                            p.threshold;
+          dpv = kept ? dpv * inv_keep : 0.f;
+        }
+        s[j][e] = pv * (dpv - delta_r[i]);  // ds
+      }
+    unsigned fa[BK / 16][4];
+    tc::to_a<BK>(fa, s);
+    tc::mma_pb<BK, D>(dqa, fa, kss, 0, hi);
+    __syncthreads();  // this stage is consumed before the next copy into it
   }
 
-  __nv_bfloat16* dqb = dq + b * st.dq[0] + h * st.dq[1];
-  const float inv_sqrt_d = rsqrtf((float)D);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = q0 + ty * 4 + r;
-    if (t >= p.Tq) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      dqb[t * st.dq[2] + tx * DC + c] = __float2bfloat16(dqa[r][c] * inv_sqrt_d);
-  }
+  tc::store_rows<D>(dq + b * st.dq[0] + h * st.dq[1], st.dq[2], dqa, q0 + wr, p.Tq,
+                    1.f / sqrtf((float)D));
 }
 
 template <typename K>
@@ -490,31 +541,31 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* d_o,
                const void* lse, const void* delta, void* dq, void* dk,
                void* dv, int B, const Strides& st, const Block& p,
                cudaStream_t stream) {
-  constexpr int DP = D + 1;
-  constexpr size_t smem_dkdv =
-      sizeof(float) * (4 * 64 * DP + 2 * BQ * PP + 2 * BQ);
-  constexpr size_t smem_dq = sizeof(float) * (4 * 64 * DP + BQ * PP + 2 * BQ);
+  constexpr int LD = D + tc::PAD;
+  // dk/dv: K, V once, two stages of Q, dO, lse, delta; dq: Q, dO, lse,
+  // delta once, two stages of K, V.
+  constexpr size_t smem_dkdv = sizeof(bf16) * 6 * 64 * LD + sizeof(float) * 4 * BQ;
+  constexpr size_t smem_dq = sizeof(bf16) * 6 * 64 * LD + sizeof(float) * 2 * BQ;
   static bool conf_dkdv = false, conf_dq = false;
   cudaError_t e =
       set_smem(flash_block_bwd_dkdv_kernel<D, DROP>, smem_dkdv, conf_dkdv);
   if (e != cudaSuccess) return (int)e;
   e = set_smem(flash_block_bwd_dq_kernel<D, DROP>, smem_dq, conf_dq);
   if (e != cudaSuccess) return (int)e;
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* dop = static_cast<const __nv_bfloat16*>(d_o);
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  const auto* dop = static_cast<const bf16*>(d_o);
   const auto* lp = static_cast<const float*>(lse);
   const auto* dp = static_cast<const float*>(delta);
   flash_block_bwd_dkdv_kernel<D, DROP>
-      <<<dim3((p.Tc + BK - 1) / BK, p.H, B), NT, smem_dkdv, stream>>>(
-          qp, kp, vp, dop, lp, dp, static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), st, p);
+      <<<dim3(B * p.H, (p.Tc + BK - 1) / BK), NT_BWD, smem_dkdv, stream>>>(
+          qp, kp, vp, dop, lp, dp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), st, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_block_bwd_dq_kernel<D, DROP>
-      <<<dim3((p.Tq + BQ - 1) / BQ, p.H, B), NT, smem_dq, stream>>>(
-          qp, kp, vp, dop, lp, dp, static_cast<__nv_bfloat16*>(dq), st, p);
+      <<<dim3(B * p.H, (p.Tq + BQ - 1) / BQ), NT_BWD, smem_dq, stream>>>(
+          qp, kp, vp, dop, lp, dp, static_cast<bf16*>(dq), st, p);
   return (int)cudaGetLastError();
 }
 
@@ -563,7 +614,9 @@ extern "C" int flash_block_fwd_bf16(const void* q, const void* k,
 // `strides` as 21 int64 (in that order); the d stride is 1. lse (the
 // forward's, base 2) and delta (rowsum(do * o) - dlse * log2(e)): fp32
 // [B, H, Tq], contiguous. Offsets and dropout as in flash_block_fwd_bf16.
-// Launches the dk/dv kernel, then the dq kernel, on `stream`. Returns
+// Every row of the bf16 operands must start on a 16-byte boundary, else
+// nothing is launched and cudaErrorInvalidValue is returned. Launches the
+// dk/dv kernel, then the dq kernel, on `stream`. Returns
 // cudaGetLastError().
 extern "C" int flash_block_bwd_bf16(const void* q, const void* k,
                                     const void* v, const void* d_o,
@@ -577,7 +630,13 @@ extern "C" int flash_block_bwd_bf16(const void* q, const void* k,
   Strides st;
   long long* dst[7] = {st.q, st.k, st.v, st.d_o, st.dq, st.dk, st.dv};
   for (int i = 0; i < 7; ++i)
-    for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+    for (int j = 0; j < 3; ++j) {
+      dst[i][j] = strides[3 * i + j];
+      if (strides[3 * i + j] % 8 != 0) return (int)cudaErrorInvalidValue;
+    }
+  const void* ptrs[7] = {q, k, v, d_o, dq, dk, dv};
+  for (int i = 0; i < 7; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return (int)cudaErrorInvalidValue;
   const Block p = make_block(H, Tq, Tc, row_off, col_off, b_off, h_off, seed,
                              threshold, keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -73,30 +73,6 @@ struct Strides {  // element strides (b, h, t) of each [B, H, T, D] operand
   long long q[3], k[3], v[3], d_o[3], dq[3], dk[3], dv[3];
 };
 
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
-}
-
-// Writes rows `row` and `row + 8` (those below T) of a warp's m16 x D
-// result held in C fragments, times `mul`, as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* x, long long ld, const float (&acc)[D / 8][4],
-                                           int row, int T, float mul) {
-  const int tq = threadIdx.x % 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row + 8 * i;
-    if (r >= T) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      tc::store2(x + r * ld + n * 8 + 2 * tq, acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
-  }
-}
-
 // Three blocks an SM at D <= 64: the register cap (168) holds the kernel
 // without spills and takes 24 % off its time against two blocks at 177
 // registers. At D = 128 the accumulators alone need ~128 registers.
@@ -145,8 +121,8 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 3 : 1) flash_bwd_dkdv_kernel(
   tc::cp_async_commit();
 
   float dka[D / 8][4], dva[D / 8][4];  // keys wk, wk + 8 in C fragments
-  zero(dka);
-  zero(dva);
+  tc::zero(dka);
+  tc::zero(dva);
 
   // BQ == BK, so query tile qt reaches key tile kt iff qt >= kt.
   for (int qt = kt; qt < nq; ++qt) {
@@ -166,8 +142,8 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 3 : 1) flash_bwd_dkdv_kernel(
     const int lo = diag ? warp : 0;  // 16-query groups before lo lie before every key
 
     float s[NJ][4], dp[NJ][4];  // S^T and dP^T: keys as rows, queries as columns
-    zero(s);
-    zero(dp);
+    tc::zero(s);
+    tc::zero(dp);
     tc::mma_abt<BQ, D>(s, ks + warp * 16 * LD, qss, lo, BQ / 16);
     tc::mma_abt<BQ, D>(dp, vs + warp * 16 * LD, doss, lo, BQ / 16);
 
@@ -201,9 +177,9 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 3 : 1) flash_bwd_dkdv_kernel(
     __syncthreads();  // this stage is consumed before the next copy into it
   }
 
-  store_rows<D>(dk + b * st.dk[0] + h * st.dk[1], st.dk[2], dka, k0 + wk, T,
+  tc::store_rows<D>(dk + b * st.dk[0] + h * st.dk[1], st.dk[2], dka, k0 + wk, T,
                 1.f / sqrtf((float)D));
-  store_rows<D>(dv + b * st.dv[0] + h * st.dv[1], st.dv[2], dva, k0 + wk, T, 1.f);
+  tc::store_rows<D>(dv + b * st.dv[0] + h * st.dv[1], st.dv[2], dva, k0 + wk, T, 1.f);
 }
 
 template <int D, bool DROP>
@@ -248,7 +224,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   tc::cp_async_commit();
 
   float dqa[D / 8][4];  // rows wr, wr + 8 in C fragments
-  zero(dqa);
+  tc::zero(dqa);
   float lse_r[2], delta_r[2];
 
   for (int kt = 0; kt <= qt; ++kt) {
@@ -273,8 +249,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const bool diag = kt == qt;
     const int hi = diag ? warp + 1 : BK / 16;  // 16-key groups this warp needs
     float s[NJ][4], dp[NJ][4];
-    zero(s);
-    zero(dp);
+    tc::zero(s);
+    tc::zero(dp);
     tc::mma_abt<BK, D>(s, qs + warp * 16 * LD, kss, 0, hi);
     tc::mma_abt<BK, D>(dp, dos + warp * 16 * LD, vss, 0, hi);
 #pragma unroll
@@ -299,7 +275,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     __syncthreads();  // this stage is consumed before the next copy into it
   }
 
-  store_rows<D>(dq + b * st.dq[0] + h * st.dq[1], st.dq[2], dqa, q0 + wr, T,
+  tc::store_rows<D>(dq + b * st.dq[0] + h * st.dq[1], st.dq[2], dqa, q0 + wr, T,
                 1.f / sqrtf((float)D));
 }
 

@@ -1,7 +1,7 @@
-// Fused matmuls for Hopper (sm_90a): K7 of the port. The forward is a tiled
-// bf16 GEMM on the tensor cores with fp32 accumulators and the epilogues
-// applied to the accumulator before its one write-back; the backward forms
-// du once per leg and runs dgrad and wgrad as plain bf16 GEMMs on wgmma.
+// Fused matmuls for Hopper (sm_90a): K7 of the port. The forward is a bf16
+// GEMM on wgmma with fp32 accumulators and the epilogues applied to the
+// accumulator before its one write-back; the backward forms du once per leg
+// and runs dgrad and wgrad as plain bf16 GEMMs on the same wgmma pipeline.
 //
 // Replaces, in gpt_2_distributed_tpu/ops/fused_matmul.py (one pallas_call
 // each, built by _build_matmul):
@@ -33,25 +33,27 @@
 // of operands: 15 to 20 us at 989 TFLOP/s against 3 to 13 us of bytes.
 // Decode rows (N = 8) are bound by the weight bytes instead.
 //
-// Forward: a block computes a 128 x 128 output tile with 8 warps (2 x 4, a
-// 64 x 32 tile each) from 32-deep stages: each thread loads its 16-byte
-// pieces of the next stage into registers while the warps multiply the
-// current one out of shared memory (ldmatrix, .trans for w stored along
-// its output dimension, into mma.sync m16n8k16 bf16 with fp32
-// accumulators), then stores them into the other of two shared buffers:
-// one barrier a stage. Shared rows carry 16 bytes of padding, so ldmatrix
-// reads no bank twice. Loads are 16 bytes where a matrix's rows are
-// (width % 8 == 0 and an aligned base) and element loads masked at the
-// edge otherwise; rows and depth past the matrix read zeros. So any shape
-// is taken: the 1.5B C = 1600, any row count, one-row decode and the
-// head's V = 50257.
+// Forward (fwd_kernel): a block computes a 128 x 128 output tile from the
+// same pipeline as the backward's products below: one producer thread
+// keeps TMA loads of 64-deep stages in flight through a ring of 3 stages,
+// and two consumer warpgroups issue wgmma.mma_async m64n128k16 into fp32
+// registers, each 64 rows. x is the K-major A operand; w [K, M] the
+// MN-major B operand (wgmma's transpose bit for B alone), the head's
+// wte [V, C] a K-major one. Once both warpgroups' products have completed,
+// they stage the fp32 tile through the freed stages and apply the epilogue
+// in the tile's row order: 16 threads a row, 8 columns each, so the bias,
+// the residual, y and u move as 16-byte loads and stores (element by
+// element along the row where the width is not a multiple of 8, and for
+// the head's fp32 logits). The epilogue (tanh, the mask hash) leaves the
+// tensor cores idle, so two blocks share an SM: while one applies its
+// epilogue, the other multiplies.
 //   NN (forward):  x[N, K] @ w[K, M]
 //   NT (head):     h[R, C] @ wte[V, C]^T
 // The forward sums every output element over the whole depth in one block,
-// stage by stage in order, with a tile shape that never changes: a row's
-// result does not depend on how many rows share the launch or where the
-// row sits in its tile, which is what keeps the serving engine's streams
-// equal to one-request decoding.
+// stage by stage in order, with a tile shape and instruction that never
+// change: a row's result does not depend on how many rows share the launch
+// or where the row sits in its tile, which is what keeps the serving
+// engine's streams equal to one-request decoding.
 //
 // Backward, in two kernels a leg. The TPU kernels rebuild du inside every
 // output tile of dgrad and of wgrad to keep it out of HBM; here that is 6
@@ -76,10 +78,12 @@
 // TMA takes rows whose stride is a multiple of 16 bytes at a 16-byte
 // aligned base; the wrappers give such operands (a zeroed copy with its
 // rows padded to 8 elements otherwise) and the matrix's true width, so
-// ragged shapes run the same kernel.
+// ragged shapes (the 1.5B widths, one-row decode, the head's V = 50257)
+// run the same kernels; rows and depth past the matrix read zeros.
 //
-// Determinism. No atomics, no split-K with a race. dgrad sums each output
-// over the whole depth in one block, in order. wgrad splits the rows it
+// Determinism. No atomics, no split-K with a race. The forward and dgrad
+// sum each output over the whole depth in one block, in order. wgrad
+// splits the rows it
 // sums over into a number of slices that is a function of the shape only
 // (so the 36 output tiles of a [768, 768] weight fill the card): each
 // slice writes fp32 partials and slice_sum_kernel adds them in order and
@@ -99,11 +103,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 128;       // output rows a block
-constexpr int BN = 128;       // output columns a block
-constexpr int BK = 32;        // depth a stage
-constexpr int PAD = 8;        // bf16 padding a shared row: 16 bytes
-constexpr int THREADS = 256;  // 8 warps: 2 along the rows, 4 along the columns
 constexpr float GELU_C0 = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float GELU_A = 0.044715f;
 
@@ -162,161 +161,6 @@ __device__ __forceinline__ uint4 load8(const Mat& m, int r, int c) {
                     s[4] | (unsigned)s[5] << 16, s[6] | (unsigned)s[7] << 16);
 }
 
-// One stage of one operand: a TR x TC piece of a matrix, held in registers
-// between its load and its store to shared memory ([TR][TC + PAD]).
-template <int TR, int TC>
-struct Stage {
-  static constexpr int PER_ROW = TC / 8;
-  static constexpr int PER_THREAD = TR * PER_ROW / THREADS;
-  static constexpr int LD = TC + PAD;
-  static constexpr int ELEMS = TR * LD;
-  uint4 v[PER_THREAD];
-
-  __device__ __forceinline__ int row(int i) const {
-    return (threadIdx.x + i * THREADS) / PER_ROW;
-  }
-  __device__ __forceinline__ int col(int i) const {
-    return (threadIdx.x + i * THREADS) % PER_ROW * 8;
-  }
-  __device__ __forceinline__ void load(const Mat& m, int r0, int c0) {
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) v[i] = load8(m, r0 + row(i), c0 + col(i));
-  }
-  __device__ __forceinline__ void store(bf16* s) const {
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i)
-      *reinterpret_cast<uint4*>(s + row(i) * LD + col(i)) = v[i];
-  }
-};
-
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The warp's 64 x 32 share of one stage. A is [BM][BK] in shared memory
-// (depth contiguous); B is [BN][BK] when B_KMAJOR, else [BK][BN]. acc[i][j]
-// is the m16 x n8 tile (i, j) of the warp's share in mma's accumulator
-// layout.
-template <bool B_KMAJOR>
-__device__ __forceinline__ void multiply(const bf16* sa, const bf16* sb,
-                                         float (&acc)[4][4][4]) {
-  constexpr int LDA = BK + PAD;
-  constexpr int LDB = (B_KMAJOR ? BK : BN) + PAD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4 * 64, wn = warp % 4 * 32;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    unsigned a[4][4], b[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      ldsm4(a[i], sa + (wm + i * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int jp = 0; jp < 2; ++jp) {
-      const int n = wn + jp * 16;
-      unsigned r[4];
-      if (B_KMAJOR)
-        ldsm4(r, sb + (n + (lane & 7) + (lane >> 4) * 8) * LDB + kk +
-                     ((lane >> 3) & 1) * 8);
-      else
-        ldsm4_t(r, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + n +
-                       (lane >> 4) * 8);
-      b[2 * jp][0] = r[0];
-      b[2 * jp][1] = r[1];
-      b[2 * jp + 1][0] = r[2];
-      b[2 * jp + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma(acc[i][j], a[i], b[j][0], b[j][1]);
-  }
-}
-
-// Shared memory of one block: two stages of A and of B.
-template <bool B_KMAJOR>
-struct Smem {
-  typedef Stage<BM, BK> SA;
-  typedef Stage<B_KMAJOR ? BN : BK, B_KMAJOR ? BK : BN> SB;
-  bf16 a[2][SA::ELEMS];
-  bf16 b[2][SB::ELEMS];
-};
-
-// acc += A[m0 : m0 + BM, :depth] @ B[:depth, n0 : n0 + BN], stage by stage
-// in order. A has its depth along its columns; B along its rows
-// (!B_KMAJOR) or its columns.
-template <bool B_KMAJOR>
-__device__ __forceinline__ void mainloop(Smem<B_KMAJOR>& sm, const Mat& A, const Mat& B,
-                                         int m0, int n0, int depth,
-                                         float (&acc)[4][4][4]) {
-  typename Smem<B_KMAJOR>::SA sa;
-  typename Smem<B_KMAJOR>::SB sb;
-  auto fetch = [&](int k) {
-    sa.load(A, m0, k);
-    sb.load(B, B_KMAJOR ? n0 : k, B_KMAJOR ? k : n0);
-  };
-  auto put = [&](int st) {
-    sa.store(sm.a[st]);
-    sb.store(sm.b[st]);
-  };
-
-  const int stages = (depth + BK - 1) / BK;
-  if (stages == 0) return;
-  fetch(0);
-  put(0);
-  __syncthreads();
-  for (int t = 0; t < stages; ++t) {
-    const int st = t & 1;
-    const bool more = t + 1 < stages;
-    if (more) fetch((t + 1) * BK);
-    multiply<B_KMAJOR>(sm.a[st], sm.b[st], acc);
-    if (more) put(st ^ 1);
-    __syncthreads();
-  }
-}
-
-// Calls f(row, col, value, value of col + 1) for the pairs of adjacent
-// output columns each thread holds; rows past N are skipped, col + 1 may
-// lie past M (the caller masks it).
-template <typename F>
-__device__ __forceinline__ void for_each_pair(const float (&acc)[4][4][4], int m0,
-                                              int n0, int N, int M, F f) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4 * 64, wn = warp % 4 * 32;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm + i * 16 + (lane >> 2) + h * 8;
-      if (row >= N) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn + j * 8 + (lane & 3) * 2;
-        if (col < M) f(row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-}
-
 // Stores (v0, v1) at [row, col], [row, col + 1] of a row-major [*, M]
 // output, as one 4-byte store where both lie inside an even-width row.
 __device__ __forceinline__ void store2(bf16* out, int row, int col, int M, float v0,
@@ -328,60 +172,6 @@ __device__ __forceinline__ void store2(bf16* out, int row, int col, int M, float
     out[o] = __float2bfloat16(v0);
     if (col + 1 < M) out[o + 1] = __float2bfloat16(v1);
   }
-}
-
-// ---------------------------------------------------------------------------
-// Forward: y[N, M] = epilogue(x[N, K] @ B), B = w[K, M] (NN) or w[M, K]^T
-// (B_KMAJOR, the head). Grid (column tiles, row tiles).
-// ---------------------------------------------------------------------------
-
-template <bool B_KMAJOR, int EPI>
-__global__ void __launch_bounds__(THREADS) mm_fwd_kernel(
-    Mat X, Mat W, const bf16* __restrict__ bias, const bf16* __restrict__ resid,
-    void* __restrict__ out, bf16* __restrict__ u_out, int N, int M, Dropout d) {
-  __shared__ __align__(16) Smem<B_KMAJOR> sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  mainloop<B_KMAJOR>(sm, X, W, m0, n0, X.cols, acc);
-
-  for_each_pair(acc, m0, n0, N, M, [&](int row, int col, float a0, float a1) {
-    const float acc2[2] = {a0, a1};
-    float v[2], u[2];
-    const unsigned hr = d.row_part(row);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = min(col + e, M - 1);  // col + 1 may lie past M: computed, not stored
-      const float a = acc2[e];
-      const float b = bias ? __bfloat162float(bias[c]) : 0.f;
-      if (EPI == EPI_F32 || EPI == EPI_BIAS) {
-        v[e] = a + b;
-      } else if (EPI == EPI_ROUND) {
-        v[e] = bias ? round_bf16(a) + b : a;
-      } else if (EPI == EPI_GELU) {
-        u[e] = a + b;
-        const float g = gelu(u[e]);
-        v[e] = d.on ? (d.kept(hr, c) ? g / d.keep : 0.f) : g;
-      } else {  // EPI_RESID
-        float t = a + b;
-        if (d.on) t = d.kept(hr, c) ? t / d.keep : 0.f;
-        v[e] = __bfloat162float(resid[(long long)row * M + c]) + t;
-      }
-    }
-    if (EPI == EPI_F32) {
-      float* o = static_cast<float*>(out) + (long long)row * M + col;
-      o[0] = v[0];
-      if (col + 1 < M) o[1] = v[1];
-    } else {
-      store2(static_cast<bf16*>(out), row, col, M, v[0], v[1]);
-      if (EPI == EPI_GELU && u_out) store2(u_out, row, col, M, u[0], u[1]);
-    }
-  });
 }
 
 // ---------------------------------------------------------------------------
@@ -453,24 +243,40 @@ __global__ void __launch_bounds__(DU_TX* DU_TY) du_kernel(Mat G, Mat U, bf16* __
 }
 
 // ---------------------------------------------------------------------------
-// The backward's products on wgmma: out[rows, cols] (+)= A @ B over the
-// depth [z * per_slice, min(depth, (z + 1) * per_slice)) of slice z.
-//   !MN_MAJOR (dgrad): A = du[rows, depth], B = w[cols, depth], both with
-//     the depth contiguous (K-major); TMA boxes of 64 deep x 128 rows.
-//   MN_MAJOR (wgrad): A = x[depth, rows], B = du[depth, cols], both with
-//     the output dimension contiguous; TMA boxes of 64 wide x 64 deep.
-// F32: fp32 partials at out + z * rows * cols, else bf16 out. Grid (column
-// tiles, row tiles, slices); block: warpgroups 0 and 1 consume (rows 0-63
-// and 64-127 of the tile), warpgroup 2's first thread produces.
+// The wgmma pipeline of the forward and of the backward's products. A block
+// computes a 128 x 128 tile of out = A @ B over a run of 64-deep stages:
+// warpgroups 0 and 1 consume (rows 0-63 and 64-127 of the tile),
+// warpgroup 2's first thread produces. Each operand of a stage is either
+//   K-major: the depth contiguous; one TMA box of 64 deep x 128 rows, or
+//   MN-major: the tile's rows (A) or columns (B) contiguous; two TMA boxes
+//     of 64 wide x 64 deep,
+// with 128-byte swizzle; wgmma reads an MN-major operand through its
+// transpose bit.
 // ---------------------------------------------------------------------------
 
 namespace gm {
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 5, CONSUMERS = 2;
-constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int BM = 128, BN = 128, BK = 64, CONSUMERS = 2;
 constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + alignment
+// The backward's products: 5 stages, one block an SM, a producer
+// warpgroup (its first thread issues the loads).
+constexpr int STAGES = 5;
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+// The forward: 3 stages and a producer warp, so two blocks fit an SM (in
+// shared memory and in registers) and one block's epilogue runs beside the
+// other's products.
+constexpr int FWD_STAGES = 3;
+constexpr int FWD_THREADS = 128 * CONSUMERS + 32;
+constexpr int FWD_BLOCKS = 2;
+constexpr int smem_bytes(int stages) {
+  return stages * STAGE_BYTES + 2 * stages * 8 + 1024;  // + alignment
+}
+// The forward stages its fp32 output tile through the freed stages in rows
+// of TLD floats: the 4-float pad keeps both the fragment writes and the
+// row-order reads free of bank conflicts.
+constexpr int TLD = BN + 4;
+static_assert(BM * TLD * 4 <= FWD_STAGES * STAGE_BYTES, "the output tile fits the stages");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -547,9 +353,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x 128] += A[64 x 16] @ B[16 x 128], fp32 accumulators; TRANS: both
-// operands MN-major.
-template <int TRANS>
+// d[64 x 128] += A[64 x 16] @ B[16 x 128], fp32 accumulators; TA, TB: A, B
+// MN-major (wgmma's transpose bits), else K-major.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -560,7 +366,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %67;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -573,85 +379,122 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// The S stages and their barriers in a block's dynamic shared memory.
+template <int S>
+struct Pipe {
+  uint8_t* sa;      // S x A_BYTES
+  uint8_t* sb;      // S x B_BYTES
+  uint64_t* full;   // S: the stage's loads have landed
+  uint64_t* empty;  // S: the stage's products have completed
+};
+
+// Carves the pipe out of dynamic shared memory and initialises its
+// barriers; every thread of the block calls it.
+template <int S>
+__device__ __forceinline__ Pipe<S> make_pipe(uint8_t* smem_raw) {
+  // 128-byte swizzled tiles start on 1024-byte boundaries.
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * STAGE_BYTES);
+  const Pipe<S> p{smem, smem + S * A_BYTES, full, full + S};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&p.full[s], 1);
+      mbar_init(&p.empty[s], CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return p;
+}
+
+// The producer: keeps up to S stages of depth [k0, k0 + nk * BK) in
+// flight, A's tile at rows m0 and B's at columns n0.
+template <int S, bool A_MN, bool B_MN>
+__device__ __forceinline__ void produce(const Pipe<S>& p, const CUtensorMap* ta,
+                                        const CUtensorMap* tb, int m0, int n0, int k0,
+                                        int nk) {
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % S;
+    if (kb >= S) mbar_wait(&p.empty[s], ((kb / S) + 1) & 1);
+    mbar_expect_tx(&p.full[s], STAGE_BYTES);
+    const int k = k0 + kb * BK;
+    uint8_t* a = p.sa + s * A_BYTES;
+    uint8_t* b = p.sb + s * B_BYTES;
+    if (A_MN) {
+      tma_load(a, ta, &p.full[s], m0, k);
+      tma_load(a + A_BYTES / 2, ta, &p.full[s], m0 + 64, k);
+    } else {
+      tma_load(a, ta, &p.full[s], k, m0);
+    }
+    if (B_MN) {
+      tma_load(b, tb, &p.full[s], n0, k);
+      tma_load(b + B_BYTES / 2, tb, &p.full[s], n0 + 64, k);
+    } else {
+      tma_load(b, tb, &p.full[s], k, n0);
+    }
+  }
+}
+
+// A consumer warpgroup: d = its 64 rows of the tile summed over the nk
+// stages in order. d[j * 4 + h * 2 + e] holds row w * 16 + lane / 4 + 8 h,
+// column 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 128 tile (w its
+// warp).
+template <int S, bool A_MN, bool B_MN>
+__device__ __forceinline__ void consume(const Pipe<S>& p, float (&d)[64], int wg, int nk) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  fence_acc(d);
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % S;
+    mbar_wait(&p.full[s], (kb / S) & 1);
+    const uint32_t a = smem_u32(p.sa + s * A_BYTES), b = smem_u32(p.sb + s * B_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // MN-major: 16 depth rows of 128 bytes a step; K-major: 16 depth
+      // elements (32 bytes) a step inside each 128-byte row.
+      const uint64_t da = A_MN ? descriptor(a + wg * (A_BYTES / 2) + kk * 2048, A_BYTES / 2, 1024)
+                               : descriptor(a + wg * 64 * 128 + kk * 32, 16, 1024);
+      const uint64_t db = B_MN ? descriptor(b + kk * 2048, B_BYTES / 2, 1024)
+                               : descriptor(b + kk * 32, 16, 1024);
+      wgmma_m64n128k16<A_MN, B_MN>(d, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (kb > 0) mbar_arrive(&p.empty[(kb - 1) % S]);
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+}
+
+// The backward's products: out[rows, cols] (+)= A @ B over the depth
+// [z * per_slice, min(depth, (z + 1) * per_slice)) of slice z.
+//   !MN_MAJOR (dgrad): A = du[rows, depth], B = w[cols, depth], K-major.
+//   MN_MAJOR (wgrad): A = x[depth, rows], B = du[depth, cols], MN-major.
+// F32: fp32 partials at out + z * rows * cols, else bf16 out. Grid (column
+// tiles, row tiles, slices).
 template <bool MN_MAJOR, bool F32>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                 void* __restrict__ out, int rows, int cols, int depth, int per_slice) {
   extern __shared__ uint8_t smem_raw[];
-  // 128-byte swizzled tiles start on 1024-byte boundaries.
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* sa = smem;                           // STAGES x A_BYTES
-  uint8_t* sb = smem + STAGES * A_BYTES;        // STAGES x B_BYTES
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
-  uint64_t* empty = full + STAGES;
-
+  const Pipe<STAGES> p = make_pipe<STAGES>(smem_raw);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int k0 = blockIdx.z * per_slice, k1 = min(depth, k0 + per_slice);
   const int nk = k1 > k0 ? (k1 - k0 + BK - 1) / BK : 0;
   const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS * 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
   if (wg == CONSUMERS) {
-    // Producer: one thread keeps up to STAGES stages in flight.
-    if (threadIdx.x == CONSUMERS * 128) {
-      for (int kb = 0; kb < nk; ++kb) {
-        const int s = kb % STAGES;
-        if (kb >= STAGES) mbar_wait(&empty[s], ((kb / STAGES) + 1) & 1);
-        mbar_expect_tx(&full[s], STAGE_BYTES);
-        const int k = k0 + kb * BK;
-        uint8_t* a = sa + s * A_BYTES;
-        uint8_t* b = sb + s * B_BYTES;
-        if (MN_MAJOR) {
-          tma_load(a, &ta, &full[s], m0, k);
-          tma_load(a + A_BYTES / 2, &ta, &full[s], m0 + 64, k);
-          tma_load(b, &tb, &full[s], n0, k);
-          tma_load(b + B_BYTES / 2, &tb, &full[s], n0 + 64, k);
-        } else {
-          tma_load(a, &ta, &full[s], k, m0);
-          tma_load(b, &tb, &full[s], k, n0);
-        }
-      }
-    }
+    if (threadIdx.x == CONSUMERS * 128)
+      produce<STAGES, MN_MAJOR, MN_MAJOR>(p, &ta, &tb, m0, n0, k0, nk);
   } else {
     float d[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0.f;
-    fence_acc(d);
-    for (int kb = 0; kb < nk; ++kb) {
-      const int s = kb % STAGES;
-      mbar_wait(&full[s], (kb / STAGES) & 1);
-      const uint32_t a = smem_u32(sa + s * A_BYTES), b = smem_u32(sb + s * B_BYTES);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        if (MN_MAJOR)  // 16 depth rows of 128 bytes a step
-          wgmma_m64n128k16<1>(d, descriptor(a + wg * (A_BYTES / 2) + kk * 2048, A_BYTES / 2, 1024),
-                              descriptor(b + kk * 2048, B_BYTES / 2, 1024));
-        else  // 16 depth elements (32 bytes) a step inside each 128-byte row
-          wgmma_m64n128k16<0>(d, descriptor(a + wg * 64 * 128 + kk * 32, 16, 1024),
-                              descriptor(b + kk * 32, 16, 1024));
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's products are done: release it
-      if (kb > 0) mbar_arrive(&empty[(kb - 1) % STAGES]);
-    }
-    wgmma_wait<0>();
-    fence_acc(d);
+    consume<STAGES, MN_MAJOR, MN_MAJOR>(p, d, wg, nk);
 
-    // d[j * 4 + h * 2 + e]: row w * 16 + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e
-    // of the warpgroup's 64 x 128 tile.
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -670,6 +513,111 @@ __global__ void __launch_bounds__(THREADS, 1)
         } else {
           store2(static_cast<bf16*>(out), row, col, cols, v0, v1);
         }
+      }
+    }
+  }
+}
+
+// The forward's epilogue of one output element from its fp32 sum a, its
+// bias b (0 without one) and its residual r: the value written, and u for
+// the gelu epilogue (module comment for the roundings).
+template <int EPI>
+__device__ __forceinline__ float epilogue(float a, float b, float r, const Dropout& d,
+                                          unsigned hr, int col, float& u) {
+  if (EPI == EPI_F32 || EPI == EPI_BIAS) return a + b;
+  if (EPI == EPI_ROUND) return round_bf16(a) + b;
+  if (EPI == EPI_GELU) {
+    u = a + b;
+    const float g = gelu(u);
+    return d.on ? (d.kept(hr, col) ? g / d.keep : 0.f) : g;
+  }
+  float t = a + b;  // EPI_RESID
+  if (d.on) t = d.kept(hr, col) ? t / d.keep : 0.f;
+  return r + t;
+}
+
+// The forward: out[N, M] = epilogue(x[N, K] @ B), B = w[K, M] (B_MN) or
+// w[M, K]^T (the head), bf16 out but for EPI_F32. vec: M % 8 == 0 and every
+// bf16 vector operand on a 16-byte boundary, so each thread of the
+// epilogue moves 8 elements of a row at a time. Grid (column tiles, row
+// tiles).
+template <bool B_MN, int EPI>
+__global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS)
+    fwd_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+               const bf16* __restrict__ bias, const bf16* __restrict__ resid,
+               void* __restrict__ out, bf16* __restrict__ u_out, int N, int M, int K, bool vec,
+               Dropout d) {
+  extern __shared__ uint8_t smem_raw[];
+  const Pipe<FWD_STAGES> p = make_pipe<FWD_STAGES>(smem_raw);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    if (threadIdx.x == CONSUMERS * 128)
+      produce<FWD_STAGES, false, B_MN>(p, &ta, &tb, m0, n0, 0, (K + BK - 1) / BK);
+    return;
+  }
+  float acc[64];
+  consume<FWD_STAGES, false, B_MN>(p, acc, wg, (K + BK - 1) / BK);
+
+  // Both warpgroups' products have completed before the stages they read
+  // are overwritten with the fp32 tile [BM][TLD].
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+  float* tile = reinterpret_cast<float*>(p.sa);
+  {
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wg * 64 + warp * 16 + lane / 4 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(tile + r * TLD + j * 8 + (lane % 4) * 2) =
+            make_float2(acc[j * 4 + h * 2], acc[j * 4 + h * 2 + 1]);
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+
+  const int tid = threadIdx.x;  // 0 .. CONSUMERS * 128 - 1
+  if (vec) {
+    // 16 threads a row, 8 columns each: 16 rows a pass.
+    const int c = tid % 16 * 8, col = n0 + c;
+    if (col >= M) return;  // M % 8 == 0: the 8 columns lie all inside or all outside
+    float bv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (bias) unpack8(*reinterpret_cast<const uint4*>(bias + col), bv);
+    constexpr int PASS = CONSUMERS * 128 / 16;  // rows a pass
+#pragma unroll
+    for (int i = 0; i < BM / PASS; ++i) {
+      const int r = tid / 16 + i * PASS, row = m0 + r;
+      if (row >= N) break;
+      const long long o = (long long)row * M + col;
+      const float4 a0 = *reinterpret_cast<const float4*>(tile + r * TLD + c);
+      const float4 a1 = *reinterpret_cast<const float4*>(tile + r * TLD + c + 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float rv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (EPI == EPI_RESID) unpack8(*reinterpret_cast<const uint4*>(resid + o), rv);
+      const unsigned hr = d.row_part(row);
+      float v[8], u[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = epilogue<EPI>(av[j], bv[j], rv[j], d, hr, col + j, u[j]);
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = pack8(v);
+      if (EPI == EPI_GELU && u_out) *reinterpret_cast<uint4*>(u_out + o) = pack8(u);
+    }
+  } else {
+    // Element by element, neighbouring threads on neighbouring columns.
+    for (int i = tid; i < BM * BN; i += CONSUMERS * 128) {
+      const int r = i / BN, c = i % BN;
+      const int row = m0 + r, col = n0 + c;
+      if (row >= N) break;
+      if (col >= M) continue;
+      const long long o = (long long)row * M + col;
+      const float b = bias ? __bfloat162float(bias[col]) : 0.f;
+      const float rr = EPI == EPI_RESID ? __bfloat162float(resid[o]) : 0.f;
+      float u = 0.f;
+      const float v = epilogue<EPI>(tile[r * TLD + c], b, rr, d, d.row_part(row), col, u);
+      if (EPI == EPI_F32) {
+        static_cast<float*>(out)[o] = v;
+      } else {
+        static_cast<bf16*>(out)[o] = __float2bfloat16(v);
+        if (EPI == EPI_GELU && u_out) u_out[o] = __float2bfloat16(u);
       }
     }
   }
@@ -725,19 +673,6 @@ Mat mat(const void* p, int rows, int cols) {
   return Mat{static_cast<const bf16*>(p), rows, cols, cols, vec};
 }
 
-dim3 tiles(int rows, int cols, int slices = 1) {
-  return dim3((cols + BN - 1) / BN, (rows + BM - 1) / BM, slices);
-}
-
-template <int EPI>
-int fwd(const void* x, const void* w, const void* b, const void* r, void* y,
-        void* u, int N, int K, int M, Dropout d, cudaStream_t s) {
-  mm_fwd_kernel<false, EPI><<<tiles(N, M), THREADS, 0, s>>>(
-      mat(x, N, K), mat(w, K, M), static_cast<const bf16*>(b),
-      static_cast<const bf16*>(r), y, static_cast<bf16*>(u), N, M, d);
-  return (int)cudaGetLastError();
-}
-
 // cuTensorMapEncodeTiled through the runtime, so the library needs no link
 // against libcuda.
 PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
@@ -784,13 +719,36 @@ int gemm(const CUtensorMap& ta, const CUtensorMap& tb, void* out, int rows, int 
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(gm::gemm_kernel<MN_MAJOR, F32>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               gm::SMEM_BYTES);
+                                               gm::smem_bytes(gm::STAGES));
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   const dim3 grid((cols + gm::BN - 1) / gm::BN, (rows + gm::BM - 1) / gm::BM, slices);
-  gm::gemm_kernel<MN_MAJOR, F32><<<grid, gm::THREADS, gm::SMEM_BYTES, s>>>(
+  gm::gemm_kernel<MN_MAJOR, F32><<<grid, gm::THREADS, gm::smem_bytes(gm::STAGES), s>>>(
       ta, tb, out, rows, cols, depth, per_slice);
+  return (int)cudaGetLastError();
+}
+
+// The forward on `stream`: out = epilogue(A @ B) from the maps of x [N, K]
+// (K-major) and of w [K, M] (B_MN) or w [M, K].
+template <bool B_MN, int EPI>
+int fwd(const CUtensorMap& ta, const CUtensorMap& tb, const void* b, const void* r, void* y,
+        void* u, int N, int K, int M, Dropout d, cudaStream_t s) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(gm::fwd_kernel<B_MN, EPI>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               gm::smem_bytes(gm::FWD_STAGES));
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  const bool vec = EPI != EPI_F32 && M % 8 == 0 && aligned(y) && aligned(u) && aligned(r) &&
+                   aligned(b);
+  const dim3 grid((M + gm::BN - 1) / gm::BN, (N + gm::BM - 1) / gm::BM);
+  gm::fwd_kernel<B_MN, EPI><<<grid, gm::FWD_THREADS, gm::smem_bytes(gm::FWD_STAGES), s>>>(
+      ta, tb, static_cast<const bf16*>(b), static_cast<const bf16*>(r), y,
+      static_cast<bf16*>(u), N, M, K, vec, d);
   return (int)cudaGetLastError();
 }
 
@@ -809,30 +767,39 @@ int gemm(const CUtensorMap& ta, const CUtensorMap& tb, void* out, int rows, int 
 //   2 gelu:   round(dropout(gelu(u))), u = acc + b, written rounded to
 //             u_out unless it is null
 //   3 resid:  round(r + dropout(acc + b)), r [N, M]
-extern "C" int mm_fwd_bf16(const void* x, const void* w, const void* b, const void* r,
-                           void* y, void* u_out, int N, int K, int M, int epi,
+// x and w with row strides ld_x, ld_w (multiples of 8 elements); b, r, y
+// and u_out contiguous.
+extern "C" int mm_fwd_bf16(const void* x, int ld_x, const void* w, int ld_w, const void* b,
+                           const void* r, void* y, void* u_out, int N, int K, int M, int epi,
                            unsigned seed, unsigned salt, unsigned threshold, float keep,
                            void* stream) {
   if (N == 0 || M == 0) return (int)cudaSuccess;
+  CUtensorMap ta, tb;
+  if (K == 0 || !tensor_map(&ta, x, N, K, ld_x, gm::BK, gm::BM) ||
+      !tensor_map(&tb, w, K, M, ld_w, 64, gm::BK))
+    return (int)cudaErrorInvalidValue;
   const Dropout d = make_dropout(seed, salt, threshold, keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epi) {
-    case EPI_BIAS: return fwd<EPI_BIAS>(x, w, b, r, y, u_out, N, K, M, d, s);
-    case EPI_ROUND: return fwd<EPI_ROUND>(x, w, b, r, y, u_out, N, K, M, d, s);
-    case EPI_GELU: return fwd<EPI_GELU>(x, w, b, r, y, u_out, N, K, M, d, s);
-    case EPI_RESID: return fwd<EPI_RESID>(x, w, b, r, y, u_out, N, K, M, d, s);
+    case EPI_BIAS: return fwd<true, EPI_BIAS>(ta, tb, b, r, y, u_out, N, K, M, d, s);
+    case EPI_ROUND: return fwd<true, EPI_ROUND>(ta, tb, b, r, y, u_out, N, K, M, d, s);
+    case EPI_GELU: return fwd<true, EPI_GELU>(ta, tb, b, r, y, u_out, N, K, M, d, s);
+    case EPI_RESID: return fwd<true, EPI_RESID>(ta, tb, b, r, y, u_out, N, K, M, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The head: out[N, M] fp32 = x[N, K] @ w[M, K]^T (w the [V, C] embedding).
-extern "C" int mm_nt_f32(const void* x, const void* w, void* out, int N, int K, int M,
-                         void* stream) {
+// The head: out[N, M] fp32 = x[N, K] @ w[M, K]^T (w the [V, C] embedding),
+// row strides ld_x, ld_w (multiples of 8 elements).
+extern "C" int mm_nt_f32(const void* x, int ld_x, const void* w, int ld_w, void* out, int N,
+                         int K, int M, void* stream) {
   if (N == 0 || M == 0) return (int)cudaSuccess;
-  mm_fwd_kernel<true, EPI_F32><<<tiles(N, M), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      mat(x, N, K), mat(w, M, K), nullptr, nullptr, out, nullptr, N, M,
-      make_dropout(0u, 0u, 0u, 1.f));
-  return (int)cudaGetLastError();
+  CUtensorMap ta, tb;
+  if (K == 0 || !tensor_map(&ta, x, N, K, ld_x, gm::BK, gm::BM) ||
+      !tensor_map(&tb, w, M, K, ld_w, gm::BK, gm::BN))
+    return (int)cudaErrorInvalidValue;
+  return fwd<false, EPI_F32>(ta, tb, nullptr, nullptr, out, nullptr, N, K, M,
+                             make_dropout(0u, 0u, 0u, 1.f), static_cast<cudaStream_t>(stream));
 }
 
 // du pass: du[N, M] (row stride ld_du) = bf16(keep * g / kp [* gelu'(u)])

@@ -1,5 +1,5 @@
 // Tensor-core tile helpers of the flash kernels (K1 csrc/flash_fwd.cu, K2
-// csrc/flash_bwd.cu): mma.sync m16n8k16 (bf16 in, fp32 accumulate),
+// csrc/flash_bwd.cu, K8's backward csrc/flash_block.cu): mma.sync m16n8k16 (bf16 in, fp32 accumulate),
 // ldmatrix and cp.async. These instructions exist from sm_80 on; the port
 // builds them for sm_90a.
 //
@@ -91,18 +91,46 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Calls f(r, c) for each 16-byte chunk (row r, first column c) of rows
+// [0, R) of an [R][D + PAD] tile that thread threadIdx.x of NT owns. The
+// one place the chunks are dealt out: load_rows copies and scale_own_rows
+// rescales the same chunks in the same thread.
+template <int R, int D, int NT, class F>
+__device__ __forceinline__ void for_own_chunks(F&& f) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < R * CH; i += NT) f(i / CH, i % CH * 8);
+}
+
 // Rows [t0, t0 + R) of a bf16 [T, D] matrix x (row stride ld elements,
 // unit column stride, every row on a 16-byte boundary) into shared
 // s[R][D + PAD], zeros past T, as cp.async copies of 16 bytes that the
 // caller commits and waits for.
 template <int R, int D, int NT>
 __device__ __forceinline__ void load_rows(bf16* s, const bf16* x, long long ld, int t0, int T) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < R * CH; i += NT) {
-    const int r = i / CH, c = i % CH * 8;
+  for_own_chunks<R, D, NT>([&](int r, int c) {
     const int t = t0 + r;
     cp_async16(s + r * (D + PAD) + c, t < T ? x + t * ld + c : x, t < T);
-  }
+  });
+}
+
+// Multiplies in place, and rounds to bf16, the chunks of s[R][D + PAD]
+// that this thread copied in with load_rows<R, D, NT>: its own cp.async
+// copies are complete and visible to it after cp.async.wait_group, so no
+// barrier is needed before this, only the one that publishes the tile
+// after it.
+template <int R, int D, int NT>
+__device__ __forceinline__ void scale_own_rows(bf16* s, float scale) {
+  for_own_chunks<R, D, NT>([&](int r, int c) {
+    uint4* p = reinterpret_cast<uint4*>(s + r * (D + PAD) + c);
+    uint4 x = *p;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h2[j]);
+      h2[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    *p = x;
+  });
 }
 
 // Entries [t0, t0 + R) of two contiguous fp32 rows a and b (lse and delta)
@@ -180,6 +208,30 @@ __device__ __forceinline__ void to_a(unsigned (&p)[K / 16][4], const float (&c)[
 // Stores (v0, v1) rounded to bf16 at p[0], p[1] (p 4-byte aligned).
 __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+}
+
+// Writes rows `row` and `row + 8` (those below T) of a warp's m16 x D
+// result held in C fragments, times `mul`, as bf16.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* x, long long ld, const float (&acc)[D / 8][4],
+                                           int row, int T, float mul) {
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    if (r >= T) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(x + r * ld + n * 8 + 2 * tq, acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+  }
 }
 
 }  // namespace tc

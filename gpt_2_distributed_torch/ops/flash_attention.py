@@ -180,11 +180,15 @@ def flash_error_terms(
 
 
 def flash_tolerance(ref: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
-    """The element bound that holds a K1/K2 output x against its plain
-    version ``ref`` in fp32: ``|x - ref| <= 2^-8 |ref| + 2^-16 + 2^-8 terms``,
-    ``terms`` from :func:`flash_error_terms`. 2^-8 |ref| + 2^-16 is the one
-    bf16 rounding of the output plus fp32 summation noise; 2^-8 terms is one
-    bf16 rounding of each product term (2^-9) with 2x headroom."""
+    """The element bound that holds a K1/K2 output x (or one of K8's
+    backward, ``ops/flash_block.py``) against its plain version ``ref`` in
+    fp32: ``|x - ref| <= 2^-8 |ref| + 2^-16 + 2^-8 terms``, ``terms`` from
+    :func:`flash_error_terms` (K8: ``flash_block_error_terms``). bf16
+    keeps 8 significant bits, so rounding to it moves a value by at most
+    2^-8 of itself: 2^-8 |ref| + 2^-16 is the one rounding of the output
+    plus fp32 summation noise, 2^-8 terms one rounding of each product
+    term: the worst case of each rounding, with no headroom beyond the
+    fact that the errors of many terms seldom align."""
     return 2.0 ** -8 * ref.abs() + 2.0 ** -16 + 2.0 ** -8 * terms
 
 

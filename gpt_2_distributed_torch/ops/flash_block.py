@@ -26,8 +26,16 @@ runs the kernel on ``delta = rowsum(do * o) - dlse * log2(e)`` (the base-2
 lse cotangent in natural units folded into the flash delta), rebuilding
 ``p = exp2(s - lse)`` where (r, c) attends and exactly 0 elsewhere.
 
+K8's backward multiplies on the tensor cores and rounds ``ds`` and ``pd``
+to bf16 before their products, as the TPU kernel does; the plain version
+keeps them in fp32. :func:`flash_block_error_terms` gives the sums of those
+products' absolute terms that scale the element bound the kernel is held
+to, ``flash_attention.flash_tolerance``.
+
 CUDA tensors launch K8 (bf16, D in 32/64/128, any Tq, Tc and offsets) or
-raise; CPU tensors run the plain version. ``flash_block_fwd.launches`` and
+raise; CPU tensors run the plain version. The backward kernel copies its
+tiles 16 bytes at a time, so its wrapper copies an input whose rows are off
+16-byte boundaries. ``flash_block_fwd.launches`` and
 ``flash_block_bwd.launches`` count kernel launches, never plain calls.
 """
 
@@ -42,6 +50,7 @@ from gpt_2_distributed_torch.kernels import build
 from gpt_2_distributed_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
     LOG2E,
+    _aligned_input,
     _dropout_words,
 )
 from gpt_2_distributed_torch.ops.spmd import block_dropout_keep
@@ -121,14 +130,10 @@ def flash_block_plain(
     return o, lse[..., 0]
 
 
-def flash_block_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    lse: torch.Tensor, delta: torch.Tensor, row_off: int, col_off: int, *,
-    seed: int | None = None, b_off: int = 0, h_off: int = 0, dropout_rate: float = 0.0,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K8's backward in plain PyTorch, in fp32 (module docstring);
-    ``delta`` is the effective ``rowsum(do * o) - dlse * log2(e)``. Returns
-    fp32 ``(dq, dk, dv)``."""
+def _bwd_parts(q, k, v, do, lse, delta, row_off, col_off, seed, b_off, h_off,
+               dropout_rate):
+    """fp32 ``(qs, ds, pd)`` of K8's backward: the scaled q, ``ds = p (dp -
+    delta)`` and the dropped probability ``pd``."""
     tq, tc = q.shape[2], k.shape[2]
     s, qs = _scores(q, k)
     mask = _attends(tq, tc, row_off, col_off, q.device)
@@ -142,11 +147,47 @@ def flash_block_bwd_plain(
         dp = torch.where(keep, dpd / kp, 0.0)
     else:
         pd, dp = p, dpd
-    ds = p * (dp - delta[..., None])
+    return qs, p * (dp - delta[..., None]), pd
+
+
+def flash_block_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, row_off: int, col_off: int, *,
+    seed: int | None = None, b_off: int = 0, h_off: int = 0, dropout_rate: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's backward in plain PyTorch, in fp32 (module docstring);
+    ``delta`` is the effective ``rowsum(do * o) - dlse * log2(e)``. Returns
+    fp32 ``(dq, dk, dv)``."""
+    qs, ds, pd = _bwd_parts(q, k, v, do, lse, delta, row_off, col_off, seed, b_off, h_off,
+                            dropout_rate)
     dq = (ds @ k.float()) / math.sqrt(q.shape[-1])
     dk = (ds.transpose(-1, -2) @ qs) * (1.0 / LOG2E)
     dv = pd.transpose(-1, -2) @ do.float()
     return dq, dk, dv
+
+
+def flash_block_error_terms(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, row_off: int, col_off: int, *,
+    seed: int | None = None, b_off: int = 0, h_off: int = 0, dropout_rate: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sums of absolute product terms, in fp32, of each element of the
+    backward's products whose left operand K8 rounds to bf16:
+
+    - ``dq``: ``sum_c |ds[r, c]| |k[c]| / sqrt(D)``;
+    - ``dk``: ``sum_r |ds[r, c]| |q_s[r]| / log2(e)``, q_s the scaled q;
+    - ``dv``: ``sum_r |pd[r, c]| |do[r]|``;
+
+    with ds and pd as in :func:`flash_block_bwd_plain` on the same ``lse``
+    and ``delta``. Each scales ``flash_attention.flash_tolerance`` for the
+    checks of the kernel against the plain version; no path of the package
+    calls it."""
+    qs, ds, pd = _bwd_parts(q, k, v, do, lse, delta, row_off, col_off, seed, b_off, h_off,
+                            dropout_rate)
+    ds = ds.abs()
+    return ((ds @ k.float().abs()) / math.sqrt(q.shape[-1]),
+            (ds.transpose(-1, -2) @ qs.abs()) * (1.0 / LOG2E),
+            pd.transpose(-1, -2) @ do.float().abs())
 
 
 def _check(q: torch.Tensor, named: dict) -> None:
@@ -217,8 +258,9 @@ def flash_block_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of one block in the inputs' dtype, from the
     forward's ``lse`` and the effective ``delta``. CUDA tensors launch
-    K8's backward (its dk/dv kernel, then its dq kernel); CPU tensors run
-    the plain version."""
+    K8's backward (its dk/dv kernel, then its dq kernel; any b/h/t strides,
+    inputs whose rows are off 16-byte boundaries copied first); CPU tensors
+    run the plain version."""
     kw = dict(seed=seed, b_off=b_off, h_off=h_off, dropout_rate=dropout_rate)
     if not q.is_cuda:
         dq, dk, dv = flash_block_bwd_plain(q, k, v, do, lse, delta, row_off, col_off, **kw)
@@ -228,6 +270,7 @@ def flash_block_bwd(
                "dq": dq, "dk": dk, "dv": dv})
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("flash_block dropout requires a seed")
+    q, k, v, do = (_aligned_input(x) for x in (q, k, v, do))
     strides = _strides(q, k, v, do, dq, dk, dv)
     lib = build.load("flash_block", _SIGNATURES)
     b, h, tq, d = q.shape

@@ -80,8 +80,8 @@ _EPI = {"bias": 0, "round": 1, "gelu": 2, "resid": 3}
 _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _DROP = [_U32, _U32, _U32, _F, _P]   # seed, salt, threshold, keep, stream
 _SIGNATURES = {
-    "mm_fwd_bf16": [_P] * 6 + [_I] * 4 + _DROP,
-    "mm_nt_f32": [_P] * 3 + [_I] * 3 + [_P],
+    "mm_fwd_bf16": [_P, _I, _P, _I] + [_P] * 4 + [_I] * 4 + _DROP,
+    "mm_nt_f32": [_P, _I, _P, _I, _P] + [_I] * 3 + [_P],
     "mm_du_bf16": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 3 + _DROP,
     "mm_dgrad_bf16": [_P, _I, _P, _I, _P] + [_I] * 3 + [_P],
     "mm_wgrad_bf16": [_P, _I, _P, _I, _P, _P] + [_I] * 4 + [_P],
@@ -184,6 +184,20 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _tma_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``(t, row stride)`` as the kernels' TMA loads take a contiguous bf16
+    matrix: rows a multiple of 16 bytes at a 16-byte aligned base. Where
+    ``t`` is not so, a zeroed copy with its rows padded to 8 elements (the
+    kernel reads only the true width)."""
+    rows, cols = t.shape
+    if cols % 8 == 0 and t.data_ptr() % 16 == 0:
+        return t, cols
+    ld = -(-cols // 8) * 8
+    padded = t.new_zeros((rows, ld))
+    padded[:, :cols] = t
+    return padded, ld
+
+
 def _fwd(epi: str, x, w, b, r=None, rate=0.0, seed=None, salt=0, want_u=False):
     """Launch the forward kernel with epilogue ``epi`` on bf16 ``x [N, K]``,
     ``w [K, M]``; returns ``(y, u)``, u None unless wanted."""
@@ -197,9 +211,12 @@ def _fwd(epi: str, x, w, b, r=None, rate=0.0, seed=None, salt=0, want_u=False):
     _checked(ops, x.device)
     y = torch.empty((n, m), dtype=x.dtype, device=x.device)
     u = torch.empty_like(y) if want_u else None
+    if n == 0 or m == 0:
+        return y, u
+    (x_t, ld_x), (w_t, ld_w) = _tma_operand(x), _tma_operand(w)
     with torch.cuda.device(x.device):
-        _launch("mm_fwd_bf16", x.data_ptr(), w.data_ptr(), _ptr(b), _ptr(r), y.data_ptr(),
-                _ptr(u), n, k, m, _EPI[epi], *_dropout_words(rate, seed, salt))
+        _launch("mm_fwd_bf16", x_t.data_ptr(), ld_x, w_t.data_ptr(), ld_w, _ptr(b), _ptr(r),
+                y.data_ptr(), _ptr(u), n, k, m, _EPI[epi], *_dropout_words(rate, seed, salt))
     return y, u
 
 
@@ -231,20 +248,6 @@ def mm_resid_fwd(x, w, b, r, rate=0.0, seed=None, salt=SALT_MM_ATTN_PROJ):
     y, _ = _fwd("resid", x, w, b, r, rate, seed, salt)
     mm_resid_fwd.launches += 1
     return y
-
-
-def _tma_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``(t, row stride)`` as the products' TMA loads take a contiguous bf16
-    matrix: rows a multiple of 16 bytes at a 16-byte aligned base. Where
-    ``t`` is not so, a zeroed copy with its rows padded to 8 elements (the
-    kernel reads only the true width)."""
-    rows, cols = t.shape
-    if cols % 8 == 0 and t.data_ptr() % 16 == 0:
-        return t, cols
-    ld = -(-cols // 8) * 8
-    padded = t.new_zeros((rows, ld))
-    padded[:, :cols] = t
-    return padded, ld
 
 
 def mm_du(g, u=None, rate=0.0, seed=None, salt=0):
@@ -374,8 +377,10 @@ def head_logits(h, wte):
         v = wte.shape[0]
         _checked({"h": (h2, (n, c)), "wte": (wte, (v, c))}, h.device)
         out = torch.empty((n, v), dtype=torch.float32, device=h.device)
+        (h_t, ld_h), (wte_t, ld_wte) = _tma_operand(h2), _tma_operand(wte)
         with torch.cuda.device(h.device):
-            _launch("mm_nt_f32", h2.data_ptr(), wte.data_ptr(), out.data_ptr(), n, c, v)
+            _launch("mm_nt_f32", h_t.data_ptr(), ld_h, wte_t.data_ptr(), ld_wte,
+                    out.data_ptr(), n, c, v)
         head_logits.launches += 1
     return out.view(*h.shape[:-1], wte.shape[0])
 

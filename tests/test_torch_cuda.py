@@ -391,9 +391,12 @@ def _du_close(du, ref, gelu):
     return bool(((du.float() - ref).abs() <= 2.0 ** -7 * ref.abs()).all())
 
 
-# 16-byte rows, rows padded for TMA (77, 100, 90), the 124M fc and MLP proj
+# 16-byte rows, rows padded for TMA (77, 100, 90), the 124M legs (fc, MLP
+# proj, qkv, attention proj) and the ragged 1.5B legs; one row in
+# test_training_epilogues_are_row_invariant.
 @pytest.mark.parametrize("n, k, m", [(333, 200, 264), (77, 100, 90), (4096, 768, 3072),
-                                     (4096, 3072, 768)])
+                                     (4096, 3072, 768), (4096, 768, 2304), (4096, 768, 768),
+                                     (1000, 1600, 6400), (1000, 6400, 1600)])
 def test_fused_matmul_kernels_match_plain(cuda, n, k, m):
     rng = np.random.default_rng(n)
     x, r, g = _bf16(rng, n, k, device=cuda), _bf16(rng, n, m, device=cuda), _bf16(
@@ -403,12 +406,16 @@ def test_fused_matmul_kernels_match_plain(cuda, n, k, m):
     seed, bf = 0x9E3779B9, torch.bfloat16
     xf, wf, bfl, rf, gf = (t.float() for t in (x, w, b, r, g))
     terms = xf.abs() @ wf.abs() + bfl.abs()
-    assert _mm_close(fm.mm_bias_fwd(x, w, b), fm.matmul_fwd_plain("bias", xf, wf, bfl), terms)
+    y, y2 = fm.mm_bias_fwd(x, w, b), fm.mm_bias_fwd(x, w, b)
+    assert torch.equal(y, y2)
+    assert _mm_close(y, fm.matmul_fwd_plain("bias", xf, wf, bfl), terms)
     for rate in (0.0, 0.1):
-        y, u = fm.mm_gelu_fwd(x, w, b, rate, seed)
+        (y, u), (y2, u2) = (fm.mm_gelu_fwd(x, w, b, rate, seed) for _ in range(2))
+        assert torch.equal(y, y2) and torch.equal(u, u2)
         y_p, u_p = fm.matmul_fwd_plain("gelu", xf, wf, bfl, None, rate, seed, fm.SALT_MM_GELU)
         assert _mm_close(y, y_p, terms) and _mm_close(u, u_p, terms)
-        y = fm.mm_resid_fwd(x, w, b, r, rate, seed)
+        y, y2 = (fm.mm_resid_fwd(x, w, b, r, rate, seed) for _ in range(2))
+        assert torch.equal(y, y2)
         assert _mm_close(y, fm.matmul_fwd_plain("resid", xf, wf, bfl, rf, rate, seed,
                                                 fm.SALT_MM_ATTN_PROJ), terms)
         for uu in (None, u):
@@ -435,17 +442,44 @@ def test_fused_matmul_kernels_match_plain(cuda, n, k, m):
                          fm.matmul_fwd_plain("resid", xf, wf, bfl, rf, 0.1, seed,
                                              fm.SALT_MM_ATTN_PROJ), terms)
     x_bad = x.clone()
-    x_bad[:, 32:64] = 0
+    x_bad[:, 64:128] = 0
     assert not _mm_close(fm.mm_bias_fwd(x_bad, w, b), fm.matmul_fwd_plain("bias", xf, wf, bfl),
                          terms)
     du = fm.du_plain(gf, None, 0.1, seed, 4, bf)
     g_bad, xr_bad = g.clone(), x.clone()
-    g_bad[:, 32:64] = 0
-    xr_bad[32:64] = 0
+    g_bad[:, 64:128] = 0
+    xr_bad[64:128] = 0
     du_bad = fm.mm_du(g_bad, None, 0.1, seed, 4)[0]
     assert not _mm_close(fm.mm_dgrad(du_bad, w), du @ wf.t(), du.abs() @ wf.abs().t())
     du_k = fm.mm_du(g, None, 0.1, seed, 4)[0]
     assert not _mm_close(fm.mm_wgrad(xr_bad, du_k), xf.t() @ du, xf.abs().t() @ du.abs())
+
+
+def test_training_epilogues_are_row_invariant(cuda):
+    """A row of the training forward (bias, gelu with u, resid) computed
+    alone (N = 1, held to its plain version) equals that row inside 4096
+    rows (no dropout: the mask hashes the row's index in the launch), and
+    the first 8 rows with dropout 0.1 equal the same rows inside 4096."""
+    rng = np.random.default_rng(4)
+    x, r = _bf16(rng, 4096, 768, device=cuda), _bf16(rng, 4096, 3072, device=cuda)
+    w = _bf16(rng, 768, 3072, device=cuda) * 768 ** -0.5
+    b = _bf16(rng, 3072, device=cuda) * 0.1
+    wf, bfl = w.float(), b.float()
+    salts = {"gelu": fm.SALT_MM_GELU, "resid": fm.SALT_MM_ATTN_PROJ}
+    for rate, rows in ((0.0, [(i, i + 1) for i in (0, 5, 130, 4095)]), (0.1, [(0, 8)])):
+        for kind, fn in (("bias", lambda t, rt: (fm.mm_bias_fwd(t, w, b),)),
+                         ("gelu", lambda t, rt: fm.mm_gelu_fwd(t, w, b, rate, 11)),
+                         ("resid", lambda t, rt: (fm.mm_resid_fwd(t, w, b, rt, rate, 11),))):
+            full = fn(x, r)
+            for i, j in rows:
+                part = fn(x[i:j], r[i:j])
+                assert all(torch.equal(p, f[i:j]) for p, f in zip(part, full)), (kind, i, rate)
+                xf = x[i:j].float()
+                ref = fm.matmul_fwd_plain(kind, xf, wf, bfl, r[i:j].float(), rate, 11,
+                                          salts.get(kind, 0))
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                terms = xf.abs() @ wf.abs() + bfl.abs()
+                assert all(_mm_close(p, q, terms) for p, q in zip(part, ref)), (kind, i, rate)
 
 
 def test_inference_products_are_row_invariant(cuda):
@@ -508,15 +542,27 @@ def test_engine_streams_equal_generate_cached_on_the_card(cuda, temperature):
 @pytest.mark.parametrize("tq, tc, row_off, col_off", [
     (128, 128, 128, 0), (128, 128, 128, 128), (128, 128, 0, 128), (208, 160, 0, 48)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_flash_block_kernel_matches_plain(cuda, tq, tc, row_off, col_off, rate):
+# D = 64 (every preset), the other head dims the kernels take (each its own
+# instance: other fragment counts and shared sizes), and rows off 16-byte
+# boundaries (views one element into wider buffers, which the wrapper
+# copies for the backward).
+@pytest.mark.parametrize("d, offset_rows", [(64, False), (32, False), (128, False), (64, True)])
+def test_flash_block_kernel_matches_plain(cuda, tq, tc, row_off, col_off, rate, d, offset_rows):
     """K8 forward and backward (nonzero do and dlse) against their plain
-    versions in fp32 on the same bf16 values; a fully masked row exactly
-    o = 0 and lse = NEG_INF; two backward launches bit-identical."""
+    versions in fp32 on the same bf16 values, the backward within the
+    term-scaled bound; a fully masked row exactly o = 0 and lse = NEG_INF;
+    two backward launches bit-identical."""
     from gpt_2_distributed_torch.ops import flash_block as fb
 
-    rng = np.random.default_rng(tq + tc + row_off + col_off)
-    q, do = (_bf16(rng, 2, 4, tq, 64, device=cuda) for _ in range(2))
-    k, v = (_bf16(rng, 2, 4, tc, 64, device=cuda) for _ in range(2))
+    rng = np.random.default_rng(tq + tc + row_off + col_off + d)
+
+    def operand(t):
+        if offset_rows:
+            return _bf16(rng, 2, 4, t, d + 8, device=cuda)[..., 1:d + 1]
+        return _bf16(rng, 2, 4, t, d, device=cuda)
+
+    q, do = operand(tq), operand(tq)
+    k, v = operand(tc), operand(tc)
     dlse = _bf16(rng, 2, 4, tq, device=cuda).float()
     kw = dict(seed=1234, b_off=1, h_off=2, dropout_rate=rate)
     before = (fb.flash_block_fwd.launches, fb.flash_block_bwd.launches)
@@ -534,7 +580,8 @@ def test_flash_block_kernel_matches_plain(cuda, tq, tc, row_off, col_off, rate):
     assert torch.count_nonzero(o[dead]) == 0
     assert torch.allclose(lse[~dead], lse_ref[~dead], atol=1e-4, rtol=0)
     refs = fb.flash_block_bwd_plain(q, k, v, do, lse, delta, row_off, col_off, **kw)
-    assert all(_close(g, r) for g, r in zip(grads, refs))
+    terms = fb.flash_block_error_terms(q, k, v, do, lse, delta, row_off, col_off, **kw)
+    assert all(_flash_close(g, r, w) for g, r, w in zip(grads, refs, terms))
     assert all(torch.equal(g, a) for g, a in zip(grads, again))
     if row_off < col_off and tq == tc:
         assert dead.all() and all(torch.count_nonzero(g) == 0 for g in grads)

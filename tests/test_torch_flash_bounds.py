@@ -1,5 +1,6 @@
-"""The element bound that holds the flash kernels K1 and K2 against their
-plain versions, checked on the CPU.
+"""The element bound that holds the flash kernels K1 and K2, and the ring's
+block kernel K8's backward, against their plain versions, checked on the
+CPU.
 
 The kernels multiply on the tensor cores, so they round the dropped
 probabilities (K1), ds and pd (K2) to bf16 before their products, where the
@@ -12,8 +13,10 @@ element to ``flash_tolerance``,
 with ``terms`` from ``flash_error_terms``: one bf16 rounding moves a product
 term by at most 2^-8 of itself. Here a torch emulation of the kernels'
 roundings (P rounded key tile by key tile in the online-softmax order of
-K1's 64-key tiles, ds and pd rounded in K2) must lie within that bound
-against the fp32 plain versions, and a planted fault must not.
+K1's 64-key tiles, ds and pd rounded in K2 and in K8's backward) must lie
+within that bound against the fp32 plain versions, and a planted fault must
+not. K8's terms (``flash_block_error_terms``) follow its scaled q and its
+mask at global offsets.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import pytest
 import torch
 
 from gpt_2_distributed_torch.ops import flash_attention as flash
-from gpt_2_distributed_torch.ops.spmd import causal_dropout_keep
+from gpt_2_distributed_torch.ops import flash_block as fb
+from gpt_2_distributed_torch.ops.spmd import block_dropout_keep, causal_dropout_keep
 
 BK = 64   # K1's keys per tile
 LSE_TOL = 1e-4
@@ -177,4 +181,138 @@ def test_swapped_key_tile_lies_outside_the_bound(rate):
     v_bad = v.clone()
     v_bad[:, :, 64:128] = v[:, :, 128:192]
     bad = emulate_k2(q, k, v_bad, do, lse_ref, delta, rate)
+    assert max(_ratio(g, r, w) for g, r, w in zip(bad, refs, terms)) > 1.0
+
+
+# K8's backward: blocks a ring rank meets (below the diagonal, on it) and a
+# ragged block whose first rows attend nothing, at small size.
+K8_CASES = [  # (b, tq, tc, row_off, col_off)
+    (2, 128, 128, 128, 0),
+    (2, 128, 128, 128, 128),
+    (1, 208, 160, 0, 48),
+]
+K8_OFFS = dict(b_off=1, h_off=2)
+
+
+def _k8_case(b, tq, tc, row_off, col_off, rate, seed, h=2):
+    """bf16 inputs of one K8 block (the plain versions round the scaled q
+    to q's dtype, as the kernels do), its forward's lse (rounded o) and the
+    effective delta under a nonzero dlse."""
+    q, do = (x.bfloat16() for x in _inputs(b, h, tq, 64, 2, seed=seed))
+    k, v = (x.bfloat16() for x in _inputs(b, h, tc, 64, 2, seed=seed + 1))
+    dlse = torch.from_numpy(np.random.default_rng(seed + 2).normal(size=(b, h, tq))
+                            .astype(np.float32))
+    kw = dict(seed=SEED, dropout_rate=rate, **K8_OFFS)
+    o, lse = fb.flash_block_plain(q, k, v, row_off, col_off, **kw)
+    delta = (do.float() * _bf16(o)).sum(-1) - dlse * flash.LOG2E
+    return (q, k, v, do, lse, delta), kw
+
+
+def emulate_k8_bwd(q, k, v, do, lse, delta, row_off, col_off, *, seed, b_off, h_off,
+                   dropout_rate):
+    """K8's backward arithmetic in torch: q scaled and rounded to bf16, p
+    from the base-2 lse where (r, c) attends and 0 elsewhere, the kept
+    values times fp32(1 / (1 - rate)), ds and pd rounded to bf16 before
+    their products, each grad rounded to bf16 once."""
+    b, h, tq, d = q.shape
+    tc = k.shape[2]
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    qs = _bf16(q * (flash.LOG2E / math.sqrt(d)))
+    rows = row_off + torch.arange(tq)[:, None]
+    cols = col_off + torch.arange(tc)[None, :]
+    p = torch.where(cols <= rows, torch.exp2(qs @ k.transpose(-1, -2) - lse[..., None]), 0.0)
+    dpd = do @ v.transpose(-1, -2)
+    if dropout_rate:
+        keep = block_dropout_keep(seed, dropout_rate, (b, h, tq, tc),
+                                  (b_off, h_off, row_off, col_off), torch.device("cpu"))
+        inv_keep = 1.0 / torch.tensor(1.0 - dropout_rate, dtype=torch.float32)
+        pd = torch.where(keep, p * inv_keep, 0.0)
+        dp = torch.where(keep, dpd * inv_keep, 0.0)
+    else:
+        pd, dp = p, dpd
+    ds = _bf16(p * (dp - delta[..., None]))
+    return (_bf16(ds @ k / math.sqrt(d)), _bf16(ds.transpose(-1, -2) @ qs / flash.LOG2E),
+            _bf16(_bf16(pd).transpose(-1, -2) @ do))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_k8_error_terms_equal_a_brute_force_loop(rate):
+    # Rows 0 and 1 attend nothing in this block (col_off 2 > row_off + r).
+    b, h, tq, tc, d, row_off, col_off = 1, 2, 6, 5, 3, 0, 2
+    q, do = (x.bfloat16() for x in _inputs(b, h, tq, d, 2, seed=21))
+    k, v = (x.bfloat16() for x in _inputs(b, h, tc, d, 2, seed=22))
+    kw = dict(seed=SEED, dropout_rate=rate, **K8_OFFS)
+    _, lse = fb.flash_block_plain(q, k, v, row_off, col_off, **kw)
+    delta = torch.from_numpy(np.random.default_rng(23).normal(size=(b, h, tq))
+                             .astype(np.float32))
+    got = fb.flash_block_error_terms(q, k, v, do, lse, delta, row_off, col_off, **kw)
+    keep = (block_dropout_keep(SEED, rate, (b, h, tq, tc), (1, 2, row_off, col_off),
+                               torch.device("cpu")) if rate else None)
+    assert (lse[..., :2] == fb.NEG_INF).all()
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    scale = flash.LOG2E / math.sqrt(d)
+    want = [np.zeros((b, h, tq, d)), np.zeros((b, h, tc, d)), np.zeros((b, h, tc, d))]
+    for bi in range(b):
+        for hi in range(h):
+            qs = _bf16(q[bi, hi] * scale)
+            for r in range(tq):
+                for c in range(tc):
+                    if col_off + c > row_off + r:
+                        continue
+                    p = 2.0 ** (float(qs[r] @ k[bi, hi, c]) - float(lse[bi, hi, r]))
+                    mul = 1.0 if keep is None else float(keep[bi, hi, r, c]) / (1.0 - rate)
+                    dp = float(do[bi, hi, r] @ v[bi, hi, c]) * mul
+                    ds = abs(p * (dp - float(delta[bi, hi, r])))
+                    for e in range(d):
+                        want[0][bi, hi, r, e] += ds * abs(float(k[bi, hi, c, e])) / math.sqrt(d)
+                        want[1][bi, hi, c, e] += ds * abs(float(qs[r, e])) / flash.LOG2E
+                        want[2][bi, hi, c, e] += p * mul * abs(float(do[bi, hi, r, e]))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("case", K8_CASES, ids=["below", "diagonal", "ragged"])
+def test_k8_bwd_roundings_lie_within_the_bound(case, rate):
+    b, tq, tc, row_off, col_off = case
+    args, kw = _k8_case(b, tq, tc, row_off, col_off, rate, seed=tq + col_off)
+    grads = emulate_k8_bwd(*args, row_off, col_off, **kw)
+    refs = fb.flash_block_bwd_plain(*args, row_off, col_off, **kw)
+    terms = fb.flash_block_error_terms(*args, row_off, col_off, **kw)
+    for g, r, w in zip(grads, refs, terms):
+        assert _ratio(g, r, w) <= 1.0
+    # The roundings are seen: the old bound without terms does not hold.
+    assert max(((g - r).abs() / (2.0 ** -8 * r.abs() + 2.0 ** -16)).max().item()
+               for g, r in zip(grads, refs)) > 1.0
+
+
+@pytest.mark.parametrize("tl", [256, 512], ids=["sp=4", "sp=2"])
+def test_k8_bwd_roundings_at_the_card_shape(tl):
+    # The diagonal blocks chip_smoke.py checks on the card, [4, 12, tl, 64]
+    # at dropout 0.1. The largest ratios sit on the elements with few
+    # terms (dq's first query rows, dk's and dv's last keys), where the
+    # rounding of ds or pd and the output's own rounding can each come
+    # near 2^-8 of the value: the bound's worst case, which it holds. One
+    # of the two roundings alone reaches at most half the bound on a
+    # one-term element; over 48 heads both together come well past that,
+    # toward the 0.85-0.96 the card reads.
+    args, kw = _k8_case(4, tl, tl, tl, tl, 0.1, seed=tl, h=12)
+    grads = emulate_k8_bwd(*args, tl, tl, **kw)
+    refs = fb.flash_block_bwd_plain(*args, tl, tl, **kw)
+    terms = fb.flash_block_error_terms(*args, tl, tl, **kw)
+    ratios = [_ratio(g, r, w) for g, r, w in zip(grads, refs, terms)]
+    assert max(ratios) <= 1.0
+    assert max(ratios) > 0.75
+
+
+@pytest.mark.parametrize("fault", ["col_off + 64", "seed + 1"])
+def test_k8_planted_faults_lie_outside_the_bound(fault):
+    row_off = col_off = 128
+    args, kw = _k8_case(2, 128, 128, row_off, col_off, 0.1, seed=7)
+    refs = fb.flash_block_bwd_plain(*args, row_off, col_off, **kw)
+    terms = fb.flash_block_error_terms(*args, row_off, col_off, **kw)
+    if fault == "seed + 1":
+        bad = emulate_k8_bwd(*args, row_off, col_off, **{**kw, "seed": SEED + 1})
+    else:
+        bad = emulate_k8_bwd(*args, row_off, col_off + 64, **kw)
     assert max(_ratio(g, r, w) for g, r, w in zip(bad, refs, terms)) > 1.0

@@ -26,14 +26,13 @@ that does not hold:
    tile of v swapped), times beside SDPA's forward and backward;
 3. K8, the ring's block kernel (``csrc/flash_block.cu``): forward and
    backward (with nonzero ``do`` and ``dlse``) against their plain
-   versions in fp32 on the same bf16 values (the backward, on the tensor
-   cores and rounding ds and pd to bf16 as the TPU kernel does,
-   within K1/K2's term-scaled bound with K8's terms,
-   ``flash_block_error_terms``, each check's ratio printed), at
-   [4, 12, 512, 64] (sp = 2)
+   versions in fp32 on the same bf16 values (both on the tensor cores,
+   rounding P, ds and pd to bf16 as the TPU kernel does, within K1/K2's
+   term-scaled bound with K8's terms, ``flash_block_error_terms``, each
+   check's ratio printed), at [4, 12, 512, 64] (sp = 2)
    and [4, 12, 256, 64] (sp = 4) below, on and above the diagonal (the
    last exactly o = 0, lse = NEG_INF and zero grads) and a ragged
-   [208 | 160] block, dropout 0 and 0.1, backward launches bit-identical,
+   [208 | 160] block, dropout 0 and 0.1, launches bit-identical,
    planted faults (seed + 1, col_off one tile off); times beside the plain
    version and SDPA with the block's boolean mask; then the package's
    ring schedule for all sp ranks in one process, through the
@@ -53,7 +52,8 @@ that does not hold:
    0.1: each against its plain version run in fp32 on the same values,
    element by element, the backward kernels twice and bit-identical, a
    planted fault per kernel (seed + 1); times at the 124M shape beside the
-   plain version and the nearest PyTorch call;
+   plain version and the nearest PyTorch call, and K4 backward's two
+   passes (the rows, the column sums) apart with ``torch.profiler``;
 6. K7, the fused matmuls of ``csrc/fused_matmul.cu``: the forward (on
    ``wgmma`` from TMA-fed stages) with its bias, gelu and resid
    epilogues, the backward's du pass (against
@@ -160,10 +160,10 @@ LOGITS_TOL = 0.1
 # sum |pd| |do|): ``flash_tolerance``, |x - ref| <= 2^-8 |ref| + 2^-16 +
 # 2^-8 terms, against the plain versions in fp32 on the same bf16 values,
 # lse and delta. The scores stay fp32 sums of exact bf16 products, so lse
-# keeps LSE_TOL. K8's backward rounds ds and pd the same way
-# and is held to the same bound with its own terms
-# (``flash_block_error_terms``: sum |ds| |k| / sqrt(D), sum |ds| |q_s| /
-# log2(e) with q_s the scaled q, sum |pd| |do|).
+# keeps LSE_TOL. K8 rounds P, ds and pd the same way and is held to the
+# same bound with its own terms (``flash_block_error_terms``: sum_c P[r, c]
+# |v[c]|, sum |ds| |k| / sqrt(D), sum |ds| |q_s| / log2(e) with q_s the
+# scaled q, sum |pd| |do|).
 
 # Whole 124M model, one micro-batch, kernel path against plain path: the
 # plain path's backward takes bf16 matmul outputs, where K2 keeps fp32 up
@@ -312,9 +312,11 @@ def sdpa_bwd(q, k, v, do, rate):
     return lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
 
 
-def k2_split_ms(fn, flush, iters: int = 20) -> dict[str, float]:
-    """Mean device time of each of K2's two kernels (dk/dv, dq) over
-    ``iters`` calls of ``fn``, each after an L2 flush, from torch.profiler."""
+def kernels_apart_ms(fn, flush, parts: dict[str, str], iters: int = 20) -> dict[str, float]:
+    """Mean device time of each kernel that ``fn`` launches over ``iters``
+    calls, each after an L2 flush, from torch.profiler: ``parts`` maps a
+    label to a piece of the kernel's name (K2's dk/dv and dq kernels, K4
+    backward's two passes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -327,9 +329,9 @@ def k2_split_ms(fn, flush, iters: int = 20) -> dict[str, float]:
         torch.cuda.synchronize()
     split = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and "flash_bwd_" in e.key:
-            name = "dk/dv" if "dkdv" in e.key else "dq"
-            split[name] = e.self_device_time_total / e.count / 1e3
+        for label, piece in parts.items():
+            if e.device_type == DeviceType.CUDA and piece in e.key:
+                split[label] = e.self_device_time_total / e.count / 1e3
     return split
 
 
@@ -425,8 +427,9 @@ def phase_flash_train(flush, profile: bool) -> tuple[dict, dict]:
               f"({5 * causal / lib_ms / 1e9:.1f} TFLOP/s), bound {b_ms:.5f} ms ({b_by})",
               flush=True)
         if profile:
-            split = k2_split_ms(lambda: flash_attention_bwd(q, k, v, do, lse, delta, rate,
-                                                            seed), flush)
+            split = kernels_apart_ms(
+                lambda: flash_attention_bwd(q, k, v, do, lse, delta, rate, seed), flush,
+                {"dk/dv": "flash_bwd_dkdv", "dq": "flash_bwd_dq"})
             print(f"K2 dropout {rate} kernels apart (torch.profiler, mean of 20 launches on "
                   f"a flushed L2): " + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items()),
                   flush=True)
@@ -464,9 +467,9 @@ def rel_l2(x: torch.Tensor, ref: torch.Tensor) -> float:
 def phase_flash_block(flush) -> tuple[dict, dict]:
     """K8, the ring's block kernel, against its plain version (fp32 on the
     same bf16 values) at BLOCK_CASES, dropout 0 and 0.1, forward and
-    backward under nonzero (do, dlse), the backward within the term-scaled
-    bound (``held_flash``); a fully masked block exactly o = 0,
-    lse = NEG_INF and zero grads; two backward launches bit-identical;
+    backward under nonzero (do, dlse), both within the term-scaled bound
+    (``held_flash``); a fully masked block exactly o = 0, lse = NEG_INF and
+    zero grads; two launches of each bit-identical;
     planted faults (seed + 1, col_off one tile off); times at the full
     sp = 2 block beside the plain version and SDPA with the block's boolean
     mask (the yardstick; the port never calls it, and it gives no lse)."""
@@ -486,27 +489,31 @@ def phase_flash_block(flush) -> tuple[dict, dict]:
         for rate in (0.0, DROPOUT):
             kw = dict(seed=ATTN_SEED, dropout_rate=rate)
             o, lse = fb.flash_block_fwd(q, k, v, row, col, **kw)
+            o2, lse2 = fb.flash_block_fwd(q, k, v, row, col, **kw)
             delta = ((do.float() * o.float()).sum(-1) - dlse * LOG2E).contiguous()
             grads = fb.flash_block_bwd(q, k, v, do, lse, delta, row, col, **kw)
             again = fb.flash_block_bwd(q, k, v, do, lse, delta, row, col, **kw)
             torch.cuda.synchronize()
             o_ref, lse_ref = fb.flash_block_plain(q, k, v, row, col, **kw)
             refs = fb.flash_block_bwd_plain(q, k, v, do, lse, delta, row, col, **kw)
-            terms = fb.flash_block_error_terms(q, k, v, do, lse, delta, row, col, **kw)
-            err_o, ratio = held(o, o_ref)
+            o_terms, *terms = fb.flash_block_error_terms(q, k, v, row, col, do=do, lse=lse,
+                                                         delta=delta, **kw)
+            err_o, ratio = held_flash(o, o_ref, o_terms)
             dead = lse_ref == fb.NEG_INF
             dead_exact = (torch.equal(lse == fb.NEG_INF, dead)
                           and not torch.count_nonzero(o[dead.unsqueeze(-1).expand_as(o)]))
             err_lse = (lse - lse_ref)[~dead].abs().max().item() if (~dead).any() else 0.0
             checks = [held_flash(g, r, w) for g, r, w in zip(grads, refs, terms)]
+            same_fwd = torch.equal(o, o2) and torch.equal(lse, lse2)
             same = all(torch.equal(g, a) for g, a in zip(grads, again))
             print(f"K8 {label} [{b}, {h}, {tq}|{tc}, {d}] at ({row}, {col}) dropout {rate}: "
                   f"max|o - plain| {err_o:.3e}, max err/tol {ratio:.3f}, max|lse - plain| "
-                  f"{err_lse:.3e}, {int(dead.sum())} fully masked rows exact: {dead_exact}; "
+                  f"{err_lse:.3e}, {int(dead.sum())} fully masked rows exact: {dead_exact}, "
+                  f"two launches bit-identical: {same_fwd}; "
                   f"backward max|d - plain| dq {checks[0][0]:.3e} dk {checks[1][0]:.3e} dv "
                   f"{checks[2][0]:.3e}, err/tol dq {checks[0][1]:.3f} dk {checks[1][1]:.3f} dv "
                   f"{checks[2][1]:.3f}, two launches bit-identical: {same}", flush=True)
-            if not (ratio <= 1.0 and err_lse <= LSE_TOL and dead_exact and same
+            if not (ratio <= 1.0 and err_lse <= LSE_TOL and dead_exact and same_fwd and same
                     and all(c[1] <= 1.0 for c in checks)):
                 fail(f"K8 disagrees with its plain version or with itself ({label}, "
                      f"dropout {rate})")
@@ -524,7 +531,7 @@ def phase_flash_block(flush) -> tuple[dict, dict]:
                     kw_ = dict(seed=seed_, dropout_rate=rate)
                     bad_o = fb.flash_block_fwd(q, k, v, row_, col_, **kw_)[0]
                     bad_g = fb.flash_block_bwd(q, k, v, do, lse, delta, row_, col_, **kw_)
-                    r_o = held(bad_o, o_ref)[1]
+                    r_o = held_flash(bad_o, o_ref, o_terms)[1]
                     r_g = max(held_flash(g, r, w)[1] for g, r, w in zip(bad_g, refs, terms))
                     print(f"K8 planted fault ({what}): forward max err/tol {r_o:.1f}, "
                           f"backward {r_g:.1f}", flush=True)
@@ -768,6 +775,13 @@ def phase_fused(flush) -> dict[str, dict]:
                   flush=True)
             rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                               bound_by=b_by)
+            if name == "ln_residual_dropout_bwd":
+                passes = kernels_apart_ms(kernel, flush, {"rows": "ln_res_bwd",
+                                                          "column sums": "column_sum"})
+                print(f"{name} [{n}, {c}] passes apart (torch.profiler, mean of 20 launches on "
+                      f"a flushed L2): " + ", ".join(f"{k} {t:.4f} ms" for k, t in passes.items()),
+                      flush=True)
+                rows[name]["passes_ms"] = passes
     for name, row in rows.items():
         row["max_abs_err"] = max_err[name]
     return rows

@@ -12,11 +12,14 @@
 // (the scaled q rounded to bf16 before the product, as the TPU kernel
 // rounds it) the forward writes, per row,
 //   lse = m + log2(l),  l = sum_c exp2(s - m) over the UNDROPPED p
-//   o   = sum_c keep * exp2(s - m) / (1 - rate) * v / l
-// o normalised over this block only, and the base-2 lse [B, H, Tq] in
-// fp32, which is what the ring's block-level combine needs. A row with no
-// attended column (a block wholly in the row's future) writes o = 0 and
-// lse = NEG_INF (-1e30) exactly. keep is dropout_hash_bits(seed,
+//   o   = sum_c bf16(keep * exp2(s - m) / (1 - rate)) * v / l
+// (the kept p rounded to bf16 before the product, as the TPU kernel rounds
+// it; m the running row max of the online softmax; the kernel multiplies
+// by fp32(1 / (1 - rate)) where the TPU kernel divides), o normalised over
+// this block only, and the base-2 lse [B, H, Tq] in fp32, which is what
+// the ring's block-level combine needs. A row with no attended column (a
+// block wholly in the row's future) writes o = 0 and lse = NEG_INF (-1e30)
+// exactly. keep is dropout_hash_bits(seed,
 // b_off + b, h_off + h, row_off + r, col_off + c) >= threshold on GLOBAL
 // coordinates, so with the same seed the ring draws K1's masks over the
 // whole sequence, whatever the sp degree.
@@ -35,10 +38,11 @@
 //
 // What bounds it on the H100: one full [4, 12, 512, 64] block (sp = 2 at
 // 124M) is ~3.2 GFLOP forward (~3.3 us on the bf16 tensor cores) and
-// ~12.7 MB of operands (~3.8 us at 3.35 TB/s); the backward's five
-// products ~8 GFLOP (~8 us). The forward still does its arithmetic on the
-// CUDA cores in fp32 and is bound by that and by the shared-memory traffic
-// of its inner products.
+// ~12.7 MB of operands (~3.8 us at 3.35 TB/s), with dropout ~12.6 M mask
+// hashes of ~10 integer operations each: bytes, the products close
+// behind. The backward's five products are ~8 GFLOP (~8.1 us): operations.
+// So every product runs on the tensor cores, each operand tile is copied
+// to shared memory once, and the copies overlap the products.
 //
 // Design: the TPU kernels carry m, l, acc (and dk, dv) across sequential
 // grid axes; on Hopper blocks run in no order, so, as K1/K2 do, a block
@@ -53,12 +57,22 @@
 // every tile is skipped still writes its rows' o = 0 and lse = NEG_INF
 // (and zero grads).
 //
-// The forward: 256 threads each own a 4x4 patch of the 64x64 score tile
-// and a 4 x D/16 patch of the accumulators, in fp32.
-//
-// The backward is K2's design (csrc/flash_bwd.cu) on the tensor cores:
-// 4 warps a block, 16 rows each, mma.sync m16n8k16 (bf16 in, fp32
-// accumulate) through the csrc/mma_sm80.cuh helpers.
+// All three kernels are K1/K2's design (csrc/flash_fwd.cu,
+// csrc/flash_bwd.cu) on the tensor cores: 4 warps a block, 16 rows each,
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate) through the
+// csrc/mma_sm80.cuh helpers.
+//   * forward: Q copied once; K and V streamed through two cp.async stages
+//     over the needed key tiles, the next tile's copy in flight while the
+//     current one is multiplied. S = Q_s K^T; the online softmax on the
+//     accumulator fragments (each thread holds two rows' 16 scores, the row
+//     max reduced over the row's 4 lanes with shuffles, the row sums kept
+//     per thread until the end); the mask hash per fragment element on
+//     global coordinates; the dropped, rescaled p rounded to bf16 in
+//     registers is the A operand of O += P V, where the TPU kernel rounds
+//     it (p.astype(v.dtype)). A row with no attended key so far keeps
+//     m = -inf, l = 0 and acc = 0 (alpha 1, p exactly 0: never
+//     exp2(-inf - -inf)), so a row with none at all writes exactly o = 0
+//     and lse = NEG_INF.
 //   * dk/dv kernel: K and V copied to shared memory once; Q, dO, lse and
 //     delta streamed through two cp.async stages over the needed query
 //     tiles. With keys as rows it forms S^T = K Q_s^T and dP^T = V dO^T,
@@ -72,9 +86,8 @@
 // thread scales the 16-byte chunks it copied in, once they have landed.
 // Each warp skips the 16-wide groups of a tile that lie wholly on the
 // masked side of the diagonal or past Tq / Tc. Every row of every bf16
-// operand of the backward must start on a 16-byte boundary (the wrapper
-// copies inputs that do not); the forward reads element by element and
-// takes any stride.
+// operand must start on a 16-byte boundary (the wrappers copy inputs that
+// do not).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,10 +101,9 @@ namespace {
 
 using tc::bf16;
 
-constexpr int BQ = 64;   // query rows per tile
+constexpr int BQ = 64;   // query rows per tile, 16 a warp
 constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads: a 16 x 16 grid of 4x4 patches
-constexpr int PP = BK + 1;
+constexpr int NT = 128;  // 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;  // 1 / log2(e)
 constexpr float NEG_INF = -1e30f;           // the TPU kernel's masked fill
@@ -105,47 +117,6 @@ struct Block {  // where the block sits in the global problem
   unsigned seed, threshold;
   float keep;
 };
-
-__device__ __forceinline__ float scaled_q(float x, float scale) {
-  return __bfloat162float(__float2bfloat16(x * scale));
-}
-
-// Load rows [t0, t0 + 64) of one (b, h) slice of x into xs[64][D + 1] as
-// fp32, zeros past T; with `q_scale` > 0 each value is bf16(x * q_scale).
-template <int D>
-__device__ __forceinline__ void load_tile(float* xs, const __nv_bfloat16* x,
-                                          long long st, int t0, int T,
-                                          float q_scale) {
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int t = t0 + r;
-    float val = t < T ? __bfloat162float(x[t * st + c]) : 0.f;
-    if (q_scale > 0.f) val = scaled_q(val, q_scale);
-    xs[r * (D + 1) + c] = val;
-  }
-}
-
-// s[r][c] = a[ty*4 + r] . b[tx*4 + c] over the D columns of two staged tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         float s[4][4], int ty, int tx) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float ar[4], bc[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) ar[r] = a[(ty * 4 + r) * DP + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) bc[c] = b[(tx * 4 + c) * DP + d];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = fmaf(ar[r], bc[c], s[r][c]);
-  }
-}
 
 // The causal gate of the (q-tile q0, key tile k0) pair in local indices:
 // needed iff its first global column is at or before the q-tile's last
@@ -163,133 +134,162 @@ __device__ __forceinline__ bool attends(const Block& p, int row, int col) {
   return row < p.Tq && col < p.Tc && p.col_off + col <= p.row_off + row;
 }
 
+// Key tiles [0, n) pass the causal gate of the q-tile at q0 (the gate is
+// monotone in the key tile).
+__device__ __forceinline__ int needed_key_tiles(const Block& p, int q0) {
+  const int r_hi = p.row_off + min(q0 + BQ, p.Tq) - 1;
+  return r_hi < p.col_off ? 0 : min((p.Tc + BK - 1) / BK, (r_hi - p.col_off) / BK + 1);
+}
+
+// The 16-key groups [0, hi) of the key tile at k0 that the warp whose 16
+// rows start at local row r0 needs: the later ones lie wholly after its
+// last row or past Tc. A tile where hi < BK / 16 is a masked tile.
+__device__ __forceinline__ int needed_key_groups(const Block& p, int r0, int k0) {
+  const int reach = p.row_off + r0 + 15 - p.col_off - k0;
+  return reach < 0 ? 0 : min(min(BK / 16, reach / 16 + 1), (p.Tc - k0 + 15) / 16);
+}
+
 template <int D, bool DROP>
 __global__ void __launch_bounds__(NT) flash_block_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, Strides st, Block p) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;           // [BQ][DP] bf16(q * scale)
-  float* ks = qs + BQ * DP;   // [BK][DP]
-  float* vs = ks + BK * DP;   // [BK][DP]
-  float* ps = vs + BK * DP;   // [BQ][PP]
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, Strides st, Block p) {
+  constexpr int LD = D + tc::PAD;
+  constexpr int NJ = BK / 8;  // n8 score tiles a warp
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_fwd);  // [BQ][LD] bf16(q * scale)
+  bf16* ks = qs + BQ * LD;                         // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                     // [2][BK][LD]
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest tiles first
   const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16 + g;  // the thread's first row in the tile; the other is wr + 8
   const float scale = LOG2E * rsqrtf((float)D);
-  unsigned hrow[4];
+  const float inv_keep = 1.f / p.keep;
+  unsigned hrow[2];
   if (DROP) {
     const unsigned hbh = dropout_hash_bh(p.seed, p.b_off + b, p.h_off + h);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      hrow[r] = hbh ^ dropout_hash_row(p.row_off + q0 + ty * 4 + r);
+    hrow[0] = hbh ^ dropout_hash_row(p.row_off + q0 + wr);
+    hrow[1] = hbh ^ dropout_hash_row(p.row_off + q0 + wr + 8);
+  }
+  const int nk = needed_key_tiles(p, q0);
+
+  const bf16* kb = k + b * st.k[0] + h * st.k[1];
+  const bf16* vb = v + b * st.v[0] + h * st.v[1];
+  if (nk > 0) {
+    tc::load_rows<BQ, D, NT>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, p.Tq);
+    tc::load_rows<BK, D, NT>(ks, kb, st.k[2], 0, p.Tc);
+    tc::load_rows<BK, D, NT>(vs, vb, st.v[2], 0, p.Tc);
+    tc::cp_async_commit();
   }
 
-  load_tile<D>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, p.Tq, scale);
-  const __nv_bfloat16* kb = k + b * st.k[0] + h * st.k[1];
-  const __nv_bfloat16* vb = v + b * st.v[0] + h * st.v[1];
+  // Rows wr, wr + 8: the running max (base 2), this thread's share of the
+  // running sum, and o's accumulator in C fragments.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+  tc::zero(acc);
 
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int stage = kt & 1;
+    if (kt + 1 < nk) {
+      tc::load_rows<BK, D, NT>(ks + (stage ^ 1) * BK * LD, kb, st.k[2], (kt + 1) * BK, p.Tc);
+      tc::load_rows<BK, D, NT>(vs + (stage ^ 1) * BK * LD, vb, st.v[2], (kt + 1) * BK, p.Tc);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // everything but the tile just requested has landed
+    if (kt == 0) tc::scale_own_rows<BQ, D, NT>(qs, scale);
+    __syncthreads();
 
-  for (int k0 = 0; k0 < p.Tc && tile_needed(p, q0, k0); k0 += BK) {
+    const bf16* kss = ks + stage * BK * LD;
+    const bf16* vss = vs + stage * BK * LD;
+    const int k0 = kt * BK;
     const bool masked = tile_masked(p, q0, k0);
-    __syncthreads();  // the previous tile's ks / vs / ps are consumed
-    load_tile<D>(ks, kb, st.k[2], k0, p.Tc, 0.f);
-    load_tile<D>(vs, vb, st.v[2], k0, p.Tc, 0.f);
-    __syncthreads();
+    const int hi = needed_key_groups(p, q0 + warp * 16, k0);
+    float s[NJ][4];
+    tc::zero(s);
+    tc::mma_abt<BK, D>(s, qs + warp * 16 * LD, kss, 0, hi);
 
-    float s[4][4];
-    tile_dot<D>(qs, ks, s, ty, tx);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty * 4 + r;
-      float mx = -INFINITY;
+    for (int j = 0; j < NJ; ++j) {
+      if (j / 2 >= hi) continue;  // never formed, never read
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (masked && !attends(p, row, k0 + tx * 4 + c)) s[r][c] = -INFINITY;
-        mx = fmaxf(mx, s[r][c]);
+      for (int e = 0; e < 4; ++e) {
+        if (masked && !attends(p, q0 + wr + (e >> 1) * 8, k0 + j * 8 + 2 * tq + (e & 1)))
+          s[j][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
-      // The 16 threads of a row are lanes tx = 0..15 of one half-warp.
+    }
+    float alpha[2];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // A row may have no attended key yet (m_new = -inf): its l and acc
-      // are still 0, and its masked p are forced to 0, never exp2(NaN).
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = m_new == -INFINITY ? 1.f : exp2f(m[r] - m_new);
-      float sum = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // A row with no attended key yet keeps m = -inf (alpha 1 over its
+      // zero l and acc); its masked p below are exactly 0.
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = m_new == -INFINITY ? 1.f : exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float pv = s[r][c] == -INFINITY ? 0.f : exp2f(s[r][c] - m_new);
-        sum += pv;
+    for (int j = 0; j < NJ; ++j) {
+      if (j / 2 >= hi) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float pv = s[j][e] == -INFINITY ? 0.f : exp2f(s[j][e] - m[i]);
+        l[i] += pv;  // the undropped p
         if (DROP) {
-          const unsigned bits = dropout_hash_finish(
-              hrow[r] ^ dropout_hash_col(p.col_off + k0 + tx * 4 + c));
-          pv = bits >= p.threshold ? pv / p.keep : 0.f;
+          const bool kept = dropout_hash_finish(
+              hrow[i] ^ dropout_hash_col(p.col_off + k0 + j * 8 + 2 * tq + (e & 1))) >=
+              p.threshold;
+          pv = kept ? pv * inv_keep : 0.f;
         }
-        ps[(ty * 4 + r) * PP + tx * 4 + c] = pv;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < BK; ++j) {
-      float vj[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vj[c] = vs[j * DP + tx * DC + c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float pv = ps[(ty * 4 + r) * PP + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pv, vj[c], acc[r][c]);
+        s[j][e] = pv;
       }
     }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    unsigned pa[BK / 16][4];
+    tc::to_a<BK>(pa, s);  // p rounded to bf16, as the TPU kernel rounds it
+    tc::mma_pb<BK, D>(acc, pa, vss, 0, hi);
+    __syncthreads();  // this stage is consumed before the next copy into it
   }
 
-  __nv_bfloat16* ob = o + b * st.o[0] + h * st.o[1];
+  bf16* ob = o + b * st.o[0] + h * st.o[1];
   float* lb = lse + ((long long)b * p.H + h) * p.Tq;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = q0 + wr + i * 8;
     if (row >= p.Tq) continue;
-    const bool has = l[r] > 0.f;
-    const float inv = has ? 1.f / l[r] : 0.f;
+    const bool has = l[i] > 0.f;
+    const float inv = has ? 1.f / l[i] : 0.f;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      ob[row * st.o[2] + tx * DC + c] = __float2bfloat16(acc[r][c] * inv);
-    if (tx == 0) lb[row] = has ? m[r] + log2f(l[r]) : NEG_INF;
+    for (int n = 0; n < D / 8; ++n)
+      tc::store2(ob + row * st.o[2] + n * 8 + 2 * tq, acc[n][2 * i] * inv,
+                 acc[n][2 * i + 1] * inv);
+    if (tq == 0) lb[row] = has ? m[i] + log2f(l[i]) : NEG_INF;
   }
 }
 
 // ---------------------------------------------------------------------------
-// The backward on the tensor cores (K2's design, csrc/flash_bwd.cu, with
-// K8's scaled q, global coordinates and masked rows).
+// The backward (K2's design, csrc/flash_bwd.cu, with K8's scaled q, global
+// coordinates and masked rows).
 // ---------------------------------------------------------------------------
-
-constexpr int NT_BWD = 128;  // 4 warps, 16 rows of a 64-row tile each
 
 // Three blocks an SM at D <= 64, as K2's dk/dv kernel (168 registers).
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NT_BWD, D <= 64 ? 3 : 1) flash_block_bwd_dkdv_kernel(
+__global__ void __launch_bounds__(NT, D <= 64 ? 3 : 1) flash_block_bwd_dkdv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ d_o, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
@@ -327,9 +327,9 @@ __global__ void __launch_bounds__(NT_BWD, D <= 64 ? 3 : 1) flash_block_bwd_dkdv_
   const bf16* qb = q + b * st.q[0] + h * st.q[1];
   const bf16* dob = d_o + b * st.d_o[0] + h * st.d_o[1];
   auto fetch = [&](int qt, int stage) {
-    tc::load_rows<BQ, D, NT_BWD>(qs + stage * BQ * LD, qb, st.q[2], qt * BQ, p.Tq);
-    tc::load_rows<BQ, D, NT_BWD>(dos + stage * BQ * LD, dob, st.d_o[2], qt * BQ, p.Tq);
-    tc::load_stats<BQ, NT_BWD>(lses + stage * BQ, deltas + stage * BQ, lse + bh * p.Tq,
+    tc::load_rows<BQ, D, NT>(qs + stage * BQ * LD, qb, st.q[2], qt * BQ, p.Tq);
+    tc::load_rows<BQ, D, NT>(dos + stage * BQ * LD, dob, st.d_o[2], qt * BQ, p.Tq);
+    tc::load_stats<BQ, NT>(lses + stage * BQ, deltas + stage * BQ, lse + bh * p.Tq,
                                delta + bh * p.Tq, qt * BQ, p.Tq);
   };
 
@@ -337,8 +337,8 @@ __global__ void __launch_bounds__(NT_BWD, D <= 64 ? 3 : 1) flash_block_bwd_dkdv_
   tc::zero(dka);
   tc::zero(dva);
   if (qt0 < nq) {
-    tc::load_rows<BK, D, NT_BWD>(ks, k + b * st.k[0] + h * st.k[1], st.k[2], k0, p.Tc);
-    tc::load_rows<BK, D, NT_BWD>(vs, v + b * st.v[0] + h * st.v[1], st.v[2], k0, p.Tc);
+    tc::load_rows<BK, D, NT>(ks, k + b * st.k[0] + h * st.k[1], st.k[2], k0, p.Tc);
+    tc::load_rows<BK, D, NT>(vs, v + b * st.v[0] + h * st.v[1], st.v[2], k0, p.Tc);
     fetch(qt0, 0);
     tc::cp_async_commit();
   }
@@ -348,7 +348,7 @@ __global__ void __launch_bounds__(NT_BWD, D <= 64 ? 3 : 1) flash_block_bwd_dkdv_
     if (qt + 1 < nq) fetch(qt + 1, stage ^ 1);
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // everything but the tile just requested has landed
-    tc::scale_own_rows<BQ, D, NT_BWD>(qs + stage * BQ * LD, scale);
+    tc::scale_own_rows<BQ, D, NT>(qs + stage * BQ * LD, scale);
     __syncthreads();
 
     const bf16* qss = qs + stage * BQ * LD;
@@ -405,7 +405,7 @@ __global__ void __launch_bounds__(NT_BWD, D <= 64 ? 3 : 1) flash_block_bwd_dkdv_
 }
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NT_BWD) flash_block_bwd_dq_kernel(
+__global__ void __launch_bounds__(NT) flash_block_bwd_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ d_o, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dq, Strides st, Block p) {
@@ -434,18 +434,16 @@ __global__ void __launch_bounds__(NT_BWD) flash_block_bwd_dq_kernel(
     hrow[1] = hbh ^ dropout_hash_row(p.row_off + q0 + wr + 8);
   }
   const long long bh = (long long)b * p.H + h;
-  // Key tiles [0, nk) pass the causal gate (it is monotone in the key tile).
-  const int r_hi = p.row_off + min(q0 + BQ, p.Tq) - 1;
-  const int nk = r_hi < p.col_off ? 0 : min((p.Tc + BK - 1) / BK, (r_hi - p.col_off) / BK + 1);
+  const int nk = needed_key_tiles(p, q0);
 
   const bf16* kb = k + b * st.k[0] + h * st.k[1];
   const bf16* vb = v + b * st.v[0] + h * st.v[1];
   if (nk > 0) {
-    tc::load_rows<BQ, D, NT_BWD>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, p.Tq);
-    tc::load_rows<BQ, D, NT_BWD>(dos, d_o + b * st.d_o[0] + h * st.d_o[1], st.d_o[2], q0, p.Tq);
-    tc::load_stats<BQ, NT_BWD>(lses, deltas, lse + bh * p.Tq, delta + bh * p.Tq, q0, p.Tq);
-    tc::load_rows<BK, D, NT_BWD>(ks, kb, st.k[2], 0, p.Tc);
-    tc::load_rows<BK, D, NT_BWD>(vs, vb, st.v[2], 0, p.Tc);
+    tc::load_rows<BQ, D, NT>(qs, q + b * st.q[0] + h * st.q[1], st.q[2], q0, p.Tq);
+    tc::load_rows<BQ, D, NT>(dos, d_o + b * st.d_o[0] + h * st.d_o[1], st.d_o[2], q0, p.Tq);
+    tc::load_stats<BQ, NT>(lses, deltas, lse + bh * p.Tq, delta + bh * p.Tq, q0, p.Tq);
+    tc::load_rows<BK, D, NT>(ks, kb, st.k[2], 0, p.Tc);
+    tc::load_rows<BK, D, NT>(vs, vb, st.v[2], 0, p.Tc);
     tc::cp_async_commit();
   }
 
@@ -456,12 +454,12 @@ __global__ void __launch_bounds__(NT_BWD) flash_block_bwd_dq_kernel(
   for (int kt = 0; kt < nk; ++kt) {
     const int stage = kt & 1;
     if (kt + 1 < nk) {
-      tc::load_rows<BK, D, NT_BWD>(ks + (stage ^ 1) * BK * LD, kb, st.k[2], (kt + 1) * BK, p.Tc);
-      tc::load_rows<BK, D, NT_BWD>(vs + (stage ^ 1) * BK * LD, vb, st.v[2], (kt + 1) * BK, p.Tc);
+      tc::load_rows<BK, D, NT>(ks + (stage ^ 1) * BK * LD, kb, st.k[2], (kt + 1) * BK, p.Tc);
+      tc::load_rows<BK, D, NT>(vs + (stage ^ 1) * BK * LD, vb, st.v[2], (kt + 1) * BK, p.Tc);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // everything but the tile just requested has landed
-    if (kt == 0) tc::scale_own_rows<BQ, D, NT_BWD>(qs, scale);
+    if (kt == 0) tc::scale_own_rows<BQ, D, NT>(qs, scale);
     __syncthreads();
     if (kt == 0) {
 #pragma unroll
@@ -475,10 +473,7 @@ __global__ void __launch_bounds__(NT_BWD) flash_block_bwd_dq_kernel(
     const bf16* vss = vs + stage * BK * LD;
     const int k0 = kt * BK;
     const bool masked = tile_masked(p, q0, k0);
-    // The 16-key groups [0, hi) this warp needs: the later ones lie wholly
-    // after its last row or past Tc.
-    const int reach = p.row_off + q0 + warp * 16 + 15 - p.col_off - k0;
-    const int hi = reach < 0 ? 0 : min(min(BK / 16, reach / 16 + 1), (p.Tc - k0 + 15) / 16);
+    const int hi = needed_key_groups(p, q0 + warp * 16, k0);
     float s[NJ][4], dp[NJ][4];
     tc::zero(s);
     tc::zero(dp);
@@ -524,15 +519,15 @@ template <int D, bool DROP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, const Strides& st, const Block& p,
                cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * ((BQ + 2 * BK) * (D + 1) + BQ * PP);
+  // Q once, two stages of K and V.
+  constexpr size_t smem = sizeof(bf16) * (BQ + 4 * BK) * (D + tc::PAD);
   static bool configured = false;
   cudaError_t e = set_smem(flash_block_fwd_kernel<D, DROP>, smem, configured);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((p.Tq + BQ - 1) / BQ, p.H, B);
-  flash_block_fwd_kernel<D, DROP><<<grid, NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), st, p);
+  flash_block_fwd_kernel<D, DROP>
+      <<<dim3(B * p.H, (p.Tq + BQ - 1) / BQ), NT, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse), st, p);
   return (int)cudaGetLastError();
 }
 
@@ -559,12 +554,12 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* d_o,
   const auto* lp = static_cast<const float*>(lse);
   const auto* dp = static_cast<const float*>(delta);
   flash_block_bwd_dkdv_kernel<D, DROP>
-      <<<dim3(B * p.H, (p.Tc + BK - 1) / BK), NT_BWD, smem_dkdv, stream>>>(
+      <<<dim3(B * p.H, (p.Tc + BK - 1) / BK), NT, smem_dkdv, stream>>>(
           qp, kp, vp, dop, lp, dp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), st, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_block_bwd_dq_kernel<D, DROP>
-      <<<dim3(B * p.H, (p.Tq + BQ - 1) / BQ), NT_BWD, smem_dq, stream>>>(
+      <<<dim3(B * p.H, (p.Tq + BQ - 1) / BQ), NT, smem_dq, stream>>>(
           qp, kp, vp, dop, lp, dp, static_cast<bf16*>(dq), st, p);
   return (int)cudaGetLastError();
 }
@@ -572,6 +567,18 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* d_o,
 Block make_block(int H, int Tq, int Tc, int row_off, int col_off, int b_off,
                  int h_off, unsigned seed, unsigned threshold, float keep) {
   return Block{H, Tq, Tc, row_off, col_off, b_off, h_off, seed, threshold, keep};
+}
+
+// Whether every row of each of the n bf16 operands starts on a 16-byte
+// boundary: 16-byte aligned pointers, (b, h, t) strides in `strides` (3 a
+// operand) multiples of 8 elements.
+bool rows_aligned(const void* const* ptrs, const long long* strides, int n) {
+  for (int i = 0; i < n; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+    for (int j = 0; j < 3; ++j)
+      if (strides[3 * i + j] % 8 != 0) return false;
+  }
+  return true;
 }
 
 }  // namespace
@@ -582,8 +589,9 @@ Block make_block(int H, int Tq, int Tc, int row_off, int col_off, int b_off,
 // positions of q's first row and k's first column, b_off / h_off the
 // global batch and head origins of the dropout hash. Dropout keeps hash
 // bits >= threshold and divides the kept probabilities by `keep`;
-// threshold 0 launches the kernel without dropout. Returns
-// cudaGetLastError().
+// threshold 0 launches the kernel without dropout. Every row of q, k, v
+// and o must start on a 16-byte boundary, else nothing is launched and
+// cudaErrorInvalidValue is returned. Returns cudaGetLastError().
 extern "C" int flash_block_fwd_bf16(const void* q, const void* k,
                                     const void* v, void* o, void* lse, int B,
                                     int H, int Tq, int Tc, int D,
@@ -591,6 +599,8 @@ extern "C" int flash_block_fwd_bf16(const void* q, const void* k,
                                     int col_off, int b_off, int h_off,
                                     unsigned seed, unsigned threshold,
                                     float keep, void* stream) {
+  const void* ptrs[4] = {q, k, v, o};
+  if (!rows_aligned(ptrs, strides, 4)) return (int)cudaErrorInvalidValue;
   Strides st;
   long long* dst[4] = {st.q, st.k, st.v, st.o};
   for (int i = 0; i < 4; ++i)
@@ -627,16 +637,12 @@ extern "C" int flash_block_bwd_bf16(const void* q, const void* k,
                                     int col_off, int b_off, int h_off,
                                     unsigned seed, unsigned threshold,
                                     float keep, void* stream) {
+  const void* ptrs[7] = {q, k, v, d_o, dq, dk, dv};
+  if (!rows_aligned(ptrs, strides, 7)) return (int)cudaErrorInvalidValue;
   Strides st;
   long long* dst[7] = {st.q, st.k, st.v, st.d_o, st.dq, st.dk, st.dv};
   for (int i = 0; i < 7; ++i)
-    for (int j = 0; j < 3; ++j) {
-      dst[i][j] = strides[3 * i + j];
-      if (strides[3 * i + j] % 8 != 0) return (int)cudaErrorInvalidValue;
-    }
-  const void* ptrs[7] = {q, k, v, d_o, dq, dk, dv};
-  for (int i = 0; i < 7; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
   const Block p = make_block(H, Tq, Tc, row_off, col_off, b_off, h_off, seed,
                              threshold, keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -36,14 +36,21 @@
 //   * K4 runs one warp per row: the row (C <= 2048) sits in the warp's
 //     registers, eight features a lane per 256-feature stride, and the
 //     row sums are __shfl_xor reductions.
+//   * K4's backward spreads the rows over at most one 8-warp block an SM
+//     (the wrapper's rows_per_block, a function of N only): each block a
+//     contiguous strip, each warp two rows at a time (C <= 1024) with the
+//     loads of r, dy and dr of both in flight together; its column sums
+//     and scale sit in shared memory, so the registers hold the rows.
 //   * K5, its rescale and K6's forward run one thread per eight features
 //     of a row.
 //   * dscale, dbias (K4) and db (K6) are sums over every row. The TPU
 //     kernels accumulate them across a sequential grid; Hopper blocks run
 //     in no order, so each block writes fp32 partial sums of its rows and
-//     a second kernel adds the partials in a fixed order, one thread per
-//     column. No atomics: two launches give bit-identical grads.
-// Faster versions (fewer column partials, a wider K4 block) are later work.
+//     a second kernel adds the partials in a fixed order. K4 adds its
+//     warps' sums as a tree in shared memory, and its second pass gives
+//     each 32 columns 8 warps, each summing a fixed share of the partials,
+//     then a fixed-order tree; K6's second pass runs one thread a column.
+//     No atomics: two launches give bit-identical grads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,6 +130,39 @@ __device__ __forceinline__ void store8(bf16* p, int c, int n, bool vec,
   }
 }
 
+// Elements [c, c + 8) of a bf16 row of width n, packed as they lie in
+// memory, zeros at and past n; c < n.
+__device__ __forceinline__ uint4 load8_raw(const bf16* p, int c, int n, bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(p + c);
+  uint4 u;
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) h[j] = c + j < n ? p[c + j] : __float2bfloat16(0.f);
+  return u;
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// A lane's 8 floats as two float4 32 apart in shared memory (t[0], t[32]),
+// so a warp's stores and loads of either half are contiguous; and back.
+__device__ __forceinline__ void put8(float4* t, const float* v) {
+  t[0] = make_float4(v[0], v[1], v[2], v[3]);
+  t[32] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void get8(float* v, const float4* t) {
+  const float4 a = t[0], b = t[32];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
 // ---------------------------------------------------------------------------
 // K4: r = x + dropout(o); y = LayerNorm(r) * scale + bias. One warp a row.
 // ---------------------------------------------------------------------------
@@ -190,91 +230,187 @@ __global__ void __launch_bounds__(WARPS * 32) ln_res_fwd_kernel(
 //   dr_tot = dr + rstd (g - mean_C(g) - rhat mean_C(g rhat)),
 //   dx = dr_tot, do = keep * dr_tot / kp;
 // and this block's fp32 partial sums of dy * rhat and dy over its rows,
-// into partial[blockIdx.x][2][C]. Each warp sums its rows in registers; the
-// warps' sums are added in shared memory in warp order.
+// into partial[blockIdx.x][2][C].
+//
+// Block blockIdx.x takes the contiguous strip of rows_per_block rows from
+// blockIdx.x * rows_per_block; its warp w takes RIF rows at a time, rows
+// w * RIF + k * WARPS * RIF + [0, RIF) of the strip, and issues the loads of
+// r, dy and dr of all RIF rows at once (dr does not wait for the row sums),
+// so RIF rows' loads are in flight a warp. Registers go to those rows:
+// scale is copied to shared memory once a block, and each warp adds its
+// rows' dy * rhat and dy into its own slot of shared memory, a lane to its
+// own columns (no two threads touch one word), in row order. The slots are
+// then added as a fixed-order tree by all threads (the upper half of the
+// live slots into the lower half, 8 -> 4 -> 2 -> 1), and the block writes
+// slot 0 as its partial. Shared memory is laid out [VPL][2 halves][32 lanes]
+// of float4, a lane's 8 columns of a vector as two float4 32 apart, so a
+// warp's accesses to either half are contiguous.
 template <int VPL>
-__global__ void __launch_bounds__(WARPS * 32) ln_res_bwd_kernel(
+struct LnBwdSmem {
+  static constexpr int SLOT = 2 * VPL * 64;  // float4 of a warp's sums
+  static constexpr int SCALE = VPL * 64;     // float4 of scale
+  static constexpr int BYTES = (WARPS * SLOT + SCALE) * 16;
+};
+
+// The column of element e (0..3) of float4 index f of a [VPL][2][32] layout.
+__device__ __forceinline__ int layout_col(int f, int e) {
+  const int i = f / 64, half = (f / 32) % 2, lane = f % 32;
+  return (lane + 32 * i) * 8 + half * 4 + e;
+}
+
+template <int VPL, int RIF>
+__global__ void __launch_bounds__(WARPS * 32, 1) ln_res_bwd_kernel(
     const bf16* __restrict__ r, const float* __restrict__ mean,
     const float* __restrict__ rstd, const float* __restrict__ scale,
     const bf16* __restrict__ dr, const bf16* __restrict__ dy,
     bf16* __restrict__ dx, bf16* __restrict__ d_o, float* __restrict__ partial,
     int N, int C, int rows_per_block, Dropout drop, bool vec) {
-  extern __shared__ float red[];  // [2][C]
+  using L = LnBwdSmem<VPL>;
+  extern __shared__ float4 smem4[];  // [WARPS] slots of dscale, dbias sums; scale
+  float4* sc4 = smem4 + WARPS * L::SLOT;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  float ds[VPL][8], db[VPL][8];
+  float4* mine = smem4 + warp * L::SLOT + lane;  // this lane's columns of its warp's slot
+  for (int f = threadIdx.x; f < L::SCALE; f += WARPS * 32) {
+    float v[4];
 #pragma unroll
-  for (int i = 0; i < VPL; ++i)
+    for (int e = 0; e < 4; ++e) {
+      const int c = layout_col(f, e);
+      v[e] = c < C ? scale[c] : 0.f;
+    }
+    sc4[f] = make_float4(v[0], v[1], v[2], v[3]);
+  }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) ds[i][j] = db[i][j] = 0.f;
+  for (int i = 0; i < 2 * VPL; ++i) mine[i * 64] = mine[i * 64 + 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
 
   const int row0 = blockIdx.x * rows_per_block;
   const int row_end = min(row0 + rows_per_block, N);
-  for (int row = row0 + warp; row < row_end; row += WARPS) {
-    const size_t base = (size_t)row * C;
-    const float mu = mean[row];
-    const float rs = rstd[row];
-    float rh[VPL][8], g[VPL][8];
-    float m1 = 0.f, m2 = 0.f;
+  for (int rk = row0 + warp * RIF; rk < row_end; rk += WARPS * RIF) {
+    uint4 rv[RIF][VPL], dyv[RIF][VPL], drv[RIF][VPL];
+    float mu[RIF], rs[RIF];
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      const int c = (lane + 32 * i) * 8;
-      if (c >= C) continue;
-      float rv[8], dyv[8], sc[8];
-      load8(r + base, c, C, vec, rv);
-      load8(dy + base, c, C, vec, dyv);
-      load8(scale, c, C, vec, sc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bool in = c + j < C;
-        rh[i][j] = in ? (rv[j] - mu) * rs : 0.f;
-        g[i][j] = dyv[j] * sc[j];  // zero past C
-        m1 += g[i][j];
-        m2 += g[i][j] * rh[i][j];
-        ds[i][j] += dyv[j] * rh[i][j];
-        db[i][j] += dyv[j];
-      }
-    }
-    m1 = warp_sum(m1) / (float)C;
-    m2 = warp_sum(m2) / (float)C;
-    const unsigned hr = drop.row_part(row);
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      const int c = (lane + 32 * i) * 8;
-      if (c >= C) continue;
-      float drv[8], dov[8];
-      load8(dr + base, c, C, vec, drv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float t = drv[j] + rs * (g[i][j] - m1 - rh[i][j] * m2);
-        drv[j] = t;
-        dov[j] = drop.on ? (drop.kept(hr, c + j) ? t / drop.keep : 0.f) : t;
-      }
-      store8(dx + base, c, C, vec, drv);
-      store8(d_o + base, c, C, vec, dov);
-    }
-  }
-
-  for (int w = 0; w < WARPS; ++w) {
-    if (warp == w) {
+    for (int k = 0; k < RIF; ++k) {
+      if (rk + k >= row_end) continue;
+      const size_t base = (size_t)(rk + k) * C;
+      mu[k] = mean[rk + k];
+      rs[k] = rstd[rk + k];
 #pragma unroll
       for (int i = 0; i < VPL; ++i) {
         const int c = (lane + 32 * i) * 8;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (c + j >= C) continue;
-          red[c + j] = w ? red[c + j] + ds[i][j] : ds[i][j];
-          red[C + c + j] = w ? red[C + c + j] + db[i][j] : db[i][j];
-        }
+        if (c >= C) continue;
+        rv[k][i] = load8_raw(r + base, c, C, vec);
+        dyv[k][i] = load8_raw(dy + base, c, C, vec);
+        drv[k][i] = load8_raw(dr + base, c, C, vec);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < RIF; ++k) {
+      const int row = rk + k;
+      if (row >= row_end) continue;
+      float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int c = (lane + 32 * i) * 8;
+        if (c >= C) continue;
+        float rf[8], dyf[8], sc[8], dsv[8], dbv[8];
+        unpack8(rv[k][i], rf);
+        unpack8(dyv[k][i], dyf);
+        get8(sc, sc4 + i * 64 + lane);
+        get8(dsv, mine + i * 64);
+        get8(dbv, mine + (VPL + i) * 64);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float rh = c + j < C ? (rf[j] - mu[k]) * rs[k] : 0.f;
+          const float g = dyf[j] * sc[j];  // zero past C
+          m1 += g;
+          m2 += g * rh;
+          dsv[j] += dyf[j] * rh;
+          dbv[j] += dyf[j];
+        }
+        put8(mine + i * 64, dsv);
+        put8(mine + (VPL + i) * 64, dbv);
+      }
+      m1 = warp_sum(m1) / (float)C;
+      m2 = warp_sum(m2) / (float)C;
+      const unsigned hr = drop.row_part(row);
+      const size_t base = (size_t)row * C;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int c = (lane + 32 * i) * 8;
+        if (c >= C) continue;
+        float rf[8], dyf[8], sc[8], t[8], dov[8];
+        unpack8(rv[k][i], rf);
+        unpack8(dyv[k][i], dyf);
+        unpack8(drv[k][i], t);
+        get8(sc, sc4 + i * 64 + lane);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float rh = c + j < C ? (rf[j] - mu[k]) * rs[k] : 0.f;
+          t[j] = t[j] + rs[k] * (dyf[j] * sc[j] - m1 - rh * m2);
+          dov[j] = drop.on ? (drop.kept(hr, c + j) ? t[j] / drop.keep : 0.f) : t[j];
+        }
+        store8(dx + base, c, C, vec, t);
+        store8(d_o + base, c, C, vec, dov);
+      }
+    }
   }
+
+  // The slots as a fixed-order tree, every thread adding float4s.
+#pragma unroll
+  for (int half = WARPS / 2; half > 0; half /= 2) {
+    __syncthreads();
+    for (int f = threadIdx.x; f < half * L::SLOT; f += WARPS * 32) {
+      const float4 a = smem4[f], b = smem4[f + half * L::SLOT];
+      smem4[f] = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+    }
+  }
+  __syncthreads();
   float* out = partial + (size_t)blockIdx.x * 2 * C;
-  for (int k = threadIdx.x; k < 2 * C; k += blockDim.x) out[k] = red[k];
+  for (int f = threadIdx.x; f < L::SLOT; f += WARPS * 32) {
+    const int which = f / (VPL * 64);  // 0: dscale, 1: dbias
+    const float4 a = smem4[f];
+    const float v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = layout_col(f % (VPL * 64), e);
+      if (c < C) out[which * C + c] = v[e];
+    }
+  }
 }
 
-// The second pass of every column sum: out[c] = sum over p of
+// The second pass of K4's column sums: out[c] = the sum over p of
+// partial[p][c]. A block takes 32 columns, a lane each; its SHARES warps
+// each sum a fixed share of the partial rows (p = w, w + SHARES, ...), in
+// order, with the loads of several rows in flight; the shares are then
+// added as a fixed-order tree. So W / 32 blocks of SHARES warps run at once.
+constexpr int SHARES = 8;
+
+__global__ void __launch_bounds__(SHARES * 32) ln_column_sum_kernel(
+    const float* __restrict__ partial, int P, int W, float* __restrict__ out) {
+  __shared__ float share[SHARES][32];
+  const int lane = threadIdx.x % 32;
+  const int w = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < W) {
+#pragma unroll 4
+    for (int p = w; p < P; p += SHARES) s += partial[(size_t)p * W + c];
+  }
+  share[w][lane] = s;
+  __syncthreads();
+  if (w != 0 || c >= W) return;
+  float t[SHARES];
+#pragma unroll
+  for (int k = 0; k < SHARES; ++k) t[k] = share[k][lane];
+#pragma unroll
+  for (int half = SHARES / 2; half > 0; half /= 2)
+#pragma unroll
+    for (int k = 0; k < half; ++k) t[k] += t[k + half];
+  out[c] = t[0];
+}
+
+// The second pass of K6's column sum: out[c] = sum over p of
 // partial[p][c], p in order, one thread a column; fp32 or bf16 out.
 __global__ void column_sum_kernel(const float* __restrict__ partial, int P,
                                   int W, float* __restrict__ out32,
@@ -436,18 +572,36 @@ void ln_fwd(const void* x, const void* o, const void* scale, const void* bias,
       static_cast<float*>(rstd), N, C, eps, d, vec);
 }
 
+// Rows a warp keeps in flight: two up to C = 1024, where their registers
+// fit, else one.
+constexpr int rows_in_flight(int vpl) { return vpl <= 4 ? 2 : 1; }
+
 template <int VPL>
-void ln_bwd(const void* r, const void* mean, const void* rstd,
-            const void* scale, const void* dr, const void* dy, void* dx,
-            void* d_o, void* partial, int N, int C, int rows_per_block,
-            Dropout d, bool vec, cudaStream_t s) {
-  ln_res_bwd_kernel<VPL><<<grid_1d(N, rows_per_block), WARPS * 32,
-                           2 * C * sizeof(float), s>>>(
+int ln_bwd(const void* r, const void* mean, const void* rstd, const void* scale,
+           const void* dr, const void* dy, void* dx, void* d_o, void* partial,
+           void* sums, int N, int C, int rows_per_block, Dropout d, bool vec,
+           cudaStream_t s) {
+  constexpr int RIF = rows_in_flight(VPL);
+  constexpr int smem = LnBwdSmem<VPL>::BYTES;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ln_res_bwd_kernel<VPL, RIF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int blocks = grid_1d(N, rows_per_block);
+  ln_res_bwd_kernel<VPL, RIF><<<blocks, WARPS * 32, smem, s>>>(
       static_cast<const bf16*>(r), static_cast<const float*>(mean),
       static_cast<const float*>(rstd), static_cast<const float*>(scale),
       static_cast<const bf16*>(dr), static_cast<const bf16*>(dy),
       static_cast<bf16*>(dx), static_cast<bf16*>(d_o),
       static_cast<float*>(partial), N, C, rows_per_block, d, vec);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ln_column_sum_kernel<<<grid_1d(2 * C, 32), SHARES * 32, 0, s>>>(
+      static_cast<const float*>(partial), blocks, 2 * C, static_cast<float*>(sums));
+  return (int)cudaGetLastError();
 }
 
 #define DISPATCH_VPL(vpl, call)                      \
@@ -500,16 +654,12 @@ extern "C" int ln_res_bwd_bf16(const void* r, const void* mean,
   const Dropout d = make_dropout(seed, salt, threshold, keep);
   const bool vec = vectorized(C, {r, scale, dr, dy, dx, d_o});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LN_BWD(V) ln_bwd<V>(r, mean, rstd, scale, dr, dy, dx, d_o, partial, N, C, \
-                            rows_per_block, d, vec, s)
+  int code = (int)cudaSuccess;
+#define LN_BWD(V) code = ln_bwd<V>(r, mean, rstd, scale, dr, dy, dx, d_o, partial, \
+                                   dscale_dbias, N, C, rows_per_block, d, vec, s)
   DISPATCH_VPL(vectors_a_lane(C), LN_BWD)
 #undef LN_BWD
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  column_sum_kernel<<<grid_1d(2 * C, COL_THREADS), COL_THREADS, 0, s>>>(
-      static_cast<const float*>(partial), grid_1d(N, rows_per_block), 2 * C,
-      static_cast<float*>(dscale_dbias), nullptr);
-  return (int)cudaGetLastError();
+  return code;
 }
 
 // K5 forward: r [N, C] bf16.

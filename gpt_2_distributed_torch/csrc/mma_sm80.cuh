@@ -1,5 +1,6 @@
 // Tensor-core tile helpers of the flash kernels (K1 csrc/flash_fwd.cu, K2
-// csrc/flash_bwd.cu, K8's backward csrc/flash_block.cu): mma.sync m16n8k16 (bf16 in, fp32 accumulate),
+// csrc/flash_bwd.cu, K8 csrc/flash_block.cu): mma.sync m16n8k16 (bf16 in,
+// fp32 accumulate),
 // ldmatrix and cp.async. These instructions exist from sm_80 on; the port
 // builds them for sm_90a.
 //

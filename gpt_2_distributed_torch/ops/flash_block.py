@@ -26,17 +26,19 @@ runs the kernel on ``delta = rowsum(do * o) - dlse * log2(e)`` (the base-2
 lse cotangent in natural units folded into the flash delta), rebuilding
 ``p = exp2(s - lse)`` where (r, c) attends and exactly 0 elsewhere.
 
-K8's backward multiplies on the tensor cores and rounds ``ds`` and ``pd``
-to bf16 before their products, as the TPU kernel does; the plain version
-keeps them in fp32. :func:`flash_block_error_terms` gives the sums of those
-products' absolute terms that scale the element bound the kernel is held
-to, ``flash_attention.flash_tolerance``.
+K8 multiplies on the tensor cores and, as the TPU kernel does, rounds the
+left operand of some products to bf16: the dropped probabilities before
+``P·V`` (forward), ``ds`` and ``pd`` before theirs (backward); the plain
+versions keep them in fp32. :func:`flash_block_error_terms` gives the sums
+of those products' absolute terms that scale the element bound the kernel
+is held to, ``flash_attention.flash_tolerance``.
 
 CUDA tensors launch K8 (bf16, D in 32/64/128, any Tq, Tc and offsets) or
-raise; CPU tensors run the plain version. The backward kernel copies its
-tiles 16 bytes at a time, so its wrapper copies an input whose rows are off
-16-byte boundaries. ``flash_block_fwd.launches`` and
-``flash_block_bwd.launches`` count kernel launches, never plain calls.
+raise; CPU tensors run the plain version. The kernels copy their tiles 16
+bytes at a time, so the wrappers copy an input whose rows are off 16-byte
+boundaries (the ring's ``transpose(1, 2)`` views are on them).
+``flash_block_fwd.launches`` and ``flash_block_bwd.launches`` count kernel
+launches, never plain calls.
 """
 
 from __future__ import annotations
@@ -112,22 +114,30 @@ def flash_block_plain(
     scaled value rounded to q's dtype, as the kernel rounds it); returns
     fp32 ``(o [B, H, Tq, D], lse [B, H, Tq])`` — the reference the kernel
     is held against. Any device."""
-    tq, tc = q.shape[2], k.shape[2]
+    m, p, l = _probs(q, k, row_off, col_off, seed, b_off, h_off, dropout_rate)
+    has = l > 0.0
+    o = torch.where(has, (p @ v.float()) / l.clamp(min=1e-37), 0.0)
+    lse = torch.where(has, m + torch.log2(l.clamp(min=1e-37)), NEG_INF)
+    return o, lse[..., 0]
+
+
+def _probs(q, k, row_off, col_off, seed, b_off, h_off, dropout_rate):
+    """fp32 ``(m, p, l)`` of K8's forward: each row's max m of the base-2
+    scores where (r, c) attends (NEG_INF where none does), the dropped and
+    rescaled ``p = exp2(s - m)`` (exactly 0 where (r, c) does not attend)
+    and each row's sum l of the undropped p."""
     s, _ = _scores(q, k)
-    mask = _attends(tq, tc, row_off, col_off, q.device)
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    # Rows with no attended column have m == NEG_INF: exp2(s - m) would be
-    # exp2(0) = 1 there, so masked entries are forced to 0.
+    tc = k.shape[2]
+    mask = _attends(q.shape[2], tc, row_off, col_off, q.device)
+    m = torch.where(mask, s, NEG_INF).amax(dim=-1, keepdim=True)
+    # Rows with no attended column have m == NEG_INF: exp2(s - m) there
+    # would not be 0, so masked entries are forced to 0.
     p = torch.where(mask, torch.exp2(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
         keep = _keep(seed, dropout_rate, q, tc, b_off, h_off, row_off, col_off)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
-    has = l > 0.0
-    o = torch.where(has, (p @ v.float()) / l.clamp(min=1e-37), 0.0)
-    lse = torch.where(has, m + torch.log2(l.clamp(min=1e-37)), NEG_INF)
-    return o, lse[..., 0]
+    return m, p, l
 
 
 def _bwd_parts(q, k, v, do, lse, delta, row_off, col_off, seed, b_off, h_off,
@@ -167,25 +177,34 @@ def flash_block_bwd_plain(
 
 
 def flash_block_error_terms(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    lse: torch.Tensor, delta: torch.Tensor, row_off: int, col_off: int, *,
-    seed: int | None = None, b_off: int = 0, h_off: int = 0, dropout_rate: float = 0.0,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The sums of absolute product terms, in fp32, of each element of the
-    backward's products whose left operand K8 rounds to bf16:
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, row_off: int, col_off: int, *,
+    do: torch.Tensor | None = None, lse: torch.Tensor | None = None,
+    delta: torch.Tensor | None = None, seed: int | None = None, b_off: int = 0,
+    h_off: int = 0, dropout_rate: float = 0.0,
+) -> tuple[torch.Tensor, ...]:
+    """The sums of absolute product terms, in fp32, of each element of K8's
+    products whose left operand the kernel rounds to bf16:
 
+    - ``o``:  ``sum_c P[r, c] |v[c]|``, P the normalised probability after
+      dropout and its rescale;
     - ``dq``: ``sum_c |ds[r, c]| |k[c]| / sqrt(D)``;
     - ``dk``: ``sum_r |ds[r, c]| |q_s[r]| / log2(e)``, q_s the scaled q;
     - ``dv``: ``sum_r |pd[r, c]| |do[r]|``;
 
-    with ds and pd as in :func:`flash_block_bwd_plain` on the same ``lse``
-    and ``delta``. Each scales ``flash_attention.flash_tolerance`` for the
-    checks of the kernel against the plain version; no path of the package
-    calls it."""
+    with P as in :func:`flash_block_plain` and ds and pd as in
+    :func:`flash_block_bwd_plain` on the given ``lse`` and ``delta``.
+    Returns ``(o,)`` without ``do``, else ``(o, dq, dk, dv)``. Each scales
+    ``flash_attention.flash_tolerance`` for the checks of the kernel
+    against the plain version; no path of the package calls it."""
+    _, p, l = _probs(q, k, row_off, col_off, seed, b_off, h_off, dropout_rate)
+    o_terms = (p / l.clamp(min=1e-37)) @ v.float().abs()
+    if do is None:
+        return (o_terms,)
     qs, ds, pd = _bwd_parts(q, k, v, do, lse, delta, row_off, col_off, seed, b_off, h_off,
                             dropout_rate)
     ds = ds.abs()
-    return ((ds @ k.float().abs()) / math.sqrt(q.shape[-1]),
+    return (o_terms,
+            (ds @ k.float().abs()) / math.sqrt(q.shape[-1]),
             (ds.transpose(-1, -2) @ qs.abs()) * (1.0 / LOG2E),
             pd.transpose(-1, -2) @ do.float().abs())
 
@@ -224,7 +243,8 @@ def flash_block_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` of one block (module docstring): ``o`` in q's dtype,
     ``lse`` fp32 ``[B, H, Tq]``. CUDA tensors launch K8's forward (any
-    b/h/t strides); CPU tensors run the plain version."""
+    b/h/t strides, inputs whose rows are off 16-byte boundaries copied
+    first); CPU tensors run the plain version."""
     if not q.is_cuda:
         o, lse = flash_block_plain(q, k, v, row_off, col_off, seed=seed, b_off=b_off,
                                    h_off=h_off, dropout_rate=dropout_rate)
@@ -235,6 +255,7 @@ def flash_block_fwd(
     _check(q, {"q": q, "k": k, "v": v, "o": o})
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("flash_block dropout requires a seed")
+    q, k, v = (_aligned_input(x) for x in (q, k, v))
     strides = _strides(q, k, v, o)
     lib = build.load("flash_block", _SIGNATURES)
     code = lib.flash_block_fwd_bf16(

@@ -56,7 +56,11 @@ GELU_C0 = 0.7978845608028654
 GELU_A = 0.044715
 
 LN_MAX_WIDTH = 2048          # K4 holds a row in one warp's registers
-LN_BWD_ROWS_PER_BLOCK = 16   # K4 backward: rows a block sums dscale/dbias over
+# K4 backward: at most one block an SM of the H100 (132), each a strip of at
+# least two rows a warp (8 warps); the strip is a function of N only, so the
+# column sums' order, and their bits, do not depend on the card.
+LN_BWD_MAX_BLOCKS = 132
+LN_BWD_MIN_ROWS = 16
 GELU_BWD_ROWS_PER_TILE = 32  # K6 backward: rows a block sums db over
 
 _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -268,14 +272,14 @@ def ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate=0.0, seed=None,
                                   ("dy", dy, (n, c), torch.bfloat16)):
         check_operand(name, t, shape, dtype, r.device)
     dx, do = torch.empty_like(r), torch.empty_like(r)
-    blocks = -(-n // LN_BWD_ROWS_PER_BLOCK)
+    rows = max(LN_BWD_MIN_ROWS, -(-n // LN_BWD_MAX_BLOCKS))   # a strip a block
+    blocks = -(-n // rows)
     partial = torch.empty((blocks, 2 * c), dtype=torch.float32, device=r.device)
     sums = torch.empty(2 * c, dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         _launch("ln_res_bwd_bf16", r.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                 scale.data_ptr(), dr.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                do.data_ptr(), partial.data_ptr(), sums.data_ptr(), n, c,
-                LN_BWD_ROWS_PER_BLOCK,
+                do.data_ptr(), partial.data_ptr(), sums.data_ptr(), n, c, rows,
                 *_dropout_words(rate, seed, salt, _keep_prob(rate, torch.float32)))
     ln_residual_dropout_bwd.launches += 1
     return dx, do, sums[:c], sums[c:]

@@ -549,9 +549,9 @@ def test_engine_streams_equal_generate_cached_on_the_card(cuda, temperature):
 @pytest.mark.parametrize("d, offset_rows", [(64, False), (32, False), (128, False), (64, True)])
 def test_flash_block_kernel_matches_plain(cuda, tq, tc, row_off, col_off, rate, d, offset_rows):
     """K8 forward and backward (nonzero do and dlse) against their plain
-    versions in fp32 on the same bf16 values, the backward within the
-    term-scaled bound; a fully masked row exactly o = 0 and lse = NEG_INF;
-    two backward launches bit-identical."""
+    versions in fp32 on the same bf16 values, both within the term-scaled
+    bound; a fully masked row exactly o = 0 and lse = NEG_INF; two backward
+    launches bit-identical."""
     from gpt_2_distributed_torch.ops import flash_block as fb
 
     rng = np.random.default_rng(tq + tc + row_off + col_off + d)
@@ -574,17 +574,71 @@ def test_flash_block_kernel_matches_plain(cuda, tq, tc, row_off, col_off, rate, 
     assert (fb.flash_block_fwd.launches, fb.flash_block_bwd.launches) == (before[0] + 1,
                                                                           before[1] + 2)
     o_ref, lse_ref = fb.flash_block_plain(q, k, v, row_off, col_off, **kw)
-    assert _close(o, o_ref)
+    o_terms, *terms = fb.flash_block_error_terms(q, k, v, row_off, col_off, do=do, lse=lse,
+                                                 delta=delta, **kw)
+    assert _flash_close(o, o_ref, o_terms)
     dead = lse_ref == fb.NEG_INF
     assert torch.equal(lse == fb.NEG_INF, dead)
     assert torch.count_nonzero(o[dead]) == 0
     assert torch.allclose(lse[~dead], lse_ref[~dead], atol=1e-4, rtol=0)
     refs = fb.flash_block_bwd_plain(q, k, v, do, lse, delta, row_off, col_off, **kw)
-    terms = fb.flash_block_error_terms(q, k, v, do, lse, delta, row_off, col_off, **kw)
     assert all(_flash_close(g, r, w) for g, r, w in zip(grads, refs, terms))
     assert all(torch.equal(g, a) for g, a in zip(grads, again))
     if row_off < col_off and tq == tc:
         assert dead.all() and all(torch.count_nonzero(g) == 0 for g in grads)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_block_fwd_relaunches_bit_identical_on_the_ring_views(cuda, rate, monkeypatch):
+    """K8's forward on the views the ring hands it (``transpose(1, 2)`` of
+    a [B, T/sp, H, D] block, rows on 128-byte boundaries): no copy is made,
+    and two launches give the same bits."""
+    from gpt_2_distributed_torch.ops import flash_block as fb
+
+    rng = np.random.default_rng(9)
+    q, k, v = (_bf16(rng, 2, 1024, 12, 64, device=cuda)[:, 512:].transpose(1, 2)
+               for _ in range(3))
+    copies = []
+
+    def aligned(x):
+        y = flash._aligned_input(x)
+        copies.append(y is not x)
+        return y
+
+    monkeypatch.setattr(fb, "_aligned_input", aligned)
+    kw = dict(seed=77, b_off=0, h_off=0, dropout_rate=rate)
+    first = fb.flash_block_fwd(q, k, v, 512, 0, **kw)
+    second = fb.flash_block_fwd(q, k, v, 512, 0, **kw)
+    torch.cuda.synchronize()
+    assert copies == [False] * 6
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("n, c", [(4096, 768), (1000, 1600)])   # 124M at 4 x 1024; 1.5B
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ln_residual_dropout_bwd_at_the_main_shapes(cuda, n, c, rate):
+    """K4's backward at the training path's shape and the ragged 1.5B
+    width: dx and do element by element, dscale and dbias within the
+    column-sum bound, two launches bit-identical, and the next seed's mask
+    rejected."""
+    rng = np.random.default_rng(n + c)
+    x, o, dr, dy = (_bf16(rng, n, c, device=cuda) for _ in range(4))
+    scale = torch.from_numpy(1 + 0.1 * rng.normal(size=c).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(0.1 * rng.normal(size=c).astype(np.float32)).to(cuda)
+    seed = 0x5EED4321
+    r, _, mean, rstd = fl.ln_residual_dropout_fwd(x, o, scale, bias, 1e-5, rate, seed)
+    grads = fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
+    again = fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
+    refs = fl.ln_residual_dropout_bwd_plain(r.float(), mean, rstd, scale, dr.float(),
+                                            dy.float(), rate, seed)
+    rhat = (r.float() - mean[:, None]) * rstd[:, None]
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))   # no atomics
+    assert _close(grads[0], refs[0]) and _close(grads[1], refs[1])
+    assert _colsum_close(grads[2], refs[2], (dy.float() * rhat).abs().sum(0))
+    assert _colsum_close(grads[3], refs[3], dy.float().abs().sum(0))
+    if rate:
+        bad = fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed + 1)
+        assert not _close(bad[1], refs[1])
 
 
 @pytest.mark.parametrize("sp", [2, 4])

@@ -1,10 +1,10 @@
 """The element bound that holds the flash kernels K1 and K2, and the ring's
-block kernel K8's backward, against their plain versions, checked on the
-CPU.
+block kernel K8, against their plain versions, checked on the CPU.
 
 The kernels multiply on the tensor cores, so they round the dropped
-probabilities (K1), ds and pd (K2) to bf16 before their products, where the
-JAX kernels round them; the plain versions keep them in fp32. The card
+probabilities (K1, K8's forward), ds and pd (K2, K8's backward) to bf16
+before their products, where the JAX kernels round them; the plain
+versions keep them in fp32. The card
 checks (``chip_smoke.py``, ``tests/test_torch_cuda.py``) hold each output
 element to ``flash_tolerance``,
 
@@ -13,14 +13,15 @@ element to ``flash_tolerance``,
 with ``terms`` from ``flash_error_terms``: one bf16 rounding moves a product
 term by at most 2^-8 of itself. Here a torch emulation of the kernels'
 roundings (P rounded key tile by key tile in the online-softmax order of
-K1's 64-key tiles, ds and pd rounded in K2 and in K8's backward) must lie
-within that bound against the fp32 plain versions, and a planted fault must
-not. K8's terms (``flash_block_error_terms``) follow its scaled q and its
-mask at global offsets.
+the 64-key tiles of K1 and K8's forward, ds and pd rounded in K2 and in
+K8's backward) must lie within that bound against the fp32 plain versions,
+and a planted fault must not. K8's terms (``flash_block_error_terms``)
+follow its scaled q and its mask at global offsets.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -194,18 +195,62 @@ K8_CASES = [  # (b, tq, tc, row_off, col_off)
 K8_OFFS = dict(b_off=1, h_off=2)
 
 
-def _k8_case(b, tq, tc, row_off, col_off, rate, seed, h=2):
+def _k8_case(b, tq, tc, row_off, col_off, rate, seed, h=2, forward=None):
     """bf16 inputs of one K8 block (the plain versions round the scaled q
     to q's dtype, as the kernels do), its forward's lse (rounded o) and the
-    effective delta under a nonzero dlse."""
+    effective delta under a nonzero dlse; the forward is the plain version
+    unless ``forward`` (``emulate_k8_fwd``) is given."""
     q, do = (x.bfloat16() for x in _inputs(b, h, tq, 64, 2, seed=seed))
     k, v = (x.bfloat16() for x in _inputs(b, h, tc, 64, 2, seed=seed + 1))
     dlse = torch.from_numpy(np.random.default_rng(seed + 2).normal(size=(b, h, tq))
                             .astype(np.float32))
     kw = dict(seed=SEED, dropout_rate=rate, **K8_OFFS)
-    o, lse = fb.flash_block_plain(q, k, v, row_off, col_off, **kw)
+    o, lse = (forward or fb.flash_block_plain)(q, k, v, row_off, col_off, **kw)
     delta = (do.float() * _bf16(o)).sum(-1) - dlse * flash.LOG2E
     return (q, k, v, do, lse, delta), kw
+
+
+def _k8_terms(q, k, v, do, lse, delta, row_off, col_off, **kw):
+    """K8's backward terms (dq, dk, dv) on the given lse and delta."""
+    return fb.flash_block_error_terms(q, k, v, row_off, col_off, do=do, lse=lse, delta=delta,
+                                      **kw)[1:]
+
+
+def emulate_k8_fwd(q, k, v, row_off, col_off, *, seed, b_off, h_off, dropout_rate):
+    """K8's forward arithmetic in torch: q scaled and rounded to bf16, the
+    online softmax over 64-key tiles in order at global offsets (a row with
+    no attended key so far keeps m = -inf, l = 0), the kept p times
+    fp32(1 / (1 - rate)) and rounded to bf16 tile by tile before P v; o
+    rounded to bf16 once. Returns (o, base-2 lse), NEG_INF and o = 0 on a
+    row that attends nothing."""
+    b, h, tq, d = q.shape
+    tc = k.shape[2]
+    q, k, v = (x.float() for x in (q, k, v))
+    qs = _bf16(q * (flash.LOG2E / math.sqrt(d)))
+    rows = row_off + torch.arange(tq)[:, None]
+    keep = (block_dropout_keep(seed, dropout_rate, (b, h, tq, tc),
+                               (b_off, h_off, row_off, col_off), torch.device("cpu"))
+            if dropout_rate else None)
+    inv_keep = 1.0 / torch.tensor(1.0 - dropout_rate, dtype=torch.float32)
+    m = torch.full((b, h, tq), -math.inf)
+    l = torch.zeros(b, h, tq)
+    acc = torch.zeros(b, h, tq, d)
+    for k0 in range(0, tc, BK):
+        k1 = min(k0 + BK, tc)
+        attend = col_off + torch.arange(k0, k1)[None, :] <= rows
+        s = (qs @ k[:, :, k0:k1].transpose(-1, -2)).masked_fill(~attend, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.where(m_new == -math.inf, 1.0, torch.exp2(m - m_new))
+        p = torch.where(attend, torch.exp2(s - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        if dropout_rate:
+            p = torch.where(keep[..., k0:k1], p * inv_keep, 0.0)
+        acc = acc * alpha[..., None] + _bf16(p) @ v[:, :, k0:k1]
+        m = m_new
+    has = l > 0.0
+    inv = torch.where(has, 1.0 / l.clamp(min=1e-37), 0.0)
+    lse = torch.where(has, m + torch.log2(l.clamp(min=1e-37)), fb.NEG_INF)
+    return _bf16(acc * inv[..., None]), lse
 
 
 def emulate_k8_bwd(q, k, v, do, lse, delta, row_off, col_off, *, seed, b_off, h_off,
@@ -245,13 +290,15 @@ def test_k8_error_terms_equal_a_brute_force_loop(rate):
     _, lse = fb.flash_block_plain(q, k, v, row_off, col_off, **kw)
     delta = torch.from_numpy(np.random.default_rng(23).normal(size=(b, h, tq))
                              .astype(np.float32))
-    got = fb.flash_block_error_terms(q, k, v, do, lse, delta, row_off, col_off, **kw)
+    got = fb.flash_block_error_terms(q, k, v, row_off, col_off, do=do, lse=lse, delta=delta,
+                                     **kw)
     keep = (block_dropout_keep(SEED, rate, (b, h, tq, tc), (1, 2, row_off, col_off),
                                torch.device("cpu")) if rate else None)
     assert (lse[..., :2] == fb.NEG_INF).all()
     q, k, v, do = (x.float() for x in (q, k, v, do))
     scale = flash.LOG2E / math.sqrt(d)
-    want = [np.zeros((b, h, tq, d)), np.zeros((b, h, tc, d)), np.zeros((b, h, tc, d))]
+    want = [np.zeros((b, h, tq, d)), np.zeros((b, h, tq, d)), np.zeros((b, h, tc, d)),
+            np.zeros((b, h, tc, d))]
     for bi in range(b):
         for hi in range(h):
             qs = _bf16(q[bi, hi] * scale)
@@ -264,11 +311,16 @@ def test_k8_error_terms_equal_a_brute_force_loop(rate):
                     dp = float(do[bi, hi, r] @ v[bi, hi, c]) * mul
                     ds = abs(p * (dp - float(delta[bi, hi, r])))
                     for e in range(d):
-                        want[0][bi, hi, r, e] += ds * abs(float(k[bi, hi, c, e])) / math.sqrt(d)
-                        want[1][bi, hi, c, e] += ds * abs(float(qs[r, e])) / flash.LOG2E
-                        want[2][bi, hi, c, e] += p * mul * abs(float(do[bi, hi, r, e]))
+                        want[0][bi, hi, r, e] += p * mul * abs(float(v[bi, hi, c, e]))
+                        want[1][bi, hi, r, e] += ds * abs(float(k[bi, hi, c, e])) / math.sqrt(d)
+                        want[2][bi, hi, c, e] += ds * abs(float(qs[r, e])) / flash.LOG2E
+                        want[3][bi, hi, c, e] += p * mul * abs(float(do[bi, hi, r, e]))
+    assert len(got) == 4
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6)
+    (o_only,) = fb.flash_block_error_terms(q.bfloat16(), k.bfloat16(), v.bfloat16(), row_off,
+                                           col_off, **kw)
+    assert torch.equal(o_only, got[0])
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -278,7 +330,7 @@ def test_k8_bwd_roundings_lie_within_the_bound(case, rate):
     args, kw = _k8_case(b, tq, tc, row_off, col_off, rate, seed=tq + col_off)
     grads = emulate_k8_bwd(*args, row_off, col_off, **kw)
     refs = fb.flash_block_bwd_plain(*args, row_off, col_off, **kw)
-    terms = fb.flash_block_error_terms(*args, row_off, col_off, **kw)
+    terms = _k8_terms(*args, row_off, col_off, **kw)
     for g, r, w in zip(grads, refs, terms):
         assert _ratio(g, r, w) <= 1.0
     # The roundings are seen: the old bound without terms does not hold.
@@ -299,7 +351,7 @@ def test_k8_bwd_roundings_at_the_card_shape(tl):
     args, kw = _k8_case(4, tl, tl, tl, tl, 0.1, seed=tl, h=12)
     grads = emulate_k8_bwd(*args, tl, tl, **kw)
     refs = fb.flash_block_bwd_plain(*args, tl, tl, **kw)
-    terms = fb.flash_block_error_terms(*args, tl, tl, **kw)
+    terms = _k8_terms(*args, tl, tl, **kw)
     ratios = [_ratio(g, r, w) for g, r, w in zip(grads, refs, terms)]
     assert max(ratios) <= 1.0
     assert max(ratios) > 0.75
@@ -310,9 +362,92 @@ def test_k8_planted_faults_lie_outside_the_bound(fault):
     row_off = col_off = 128
     args, kw = _k8_case(2, 128, 128, row_off, col_off, 0.1, seed=7)
     refs = fb.flash_block_bwd_plain(*args, row_off, col_off, **kw)
-    terms = fb.flash_block_error_terms(*args, row_off, col_off, **kw)
+    terms = _k8_terms(*args, row_off, col_off, **kw)
     if fault == "seed + 1":
         bad = emulate_k8_bwd(*args, row_off, col_off, **{**kw, "seed": SEED + 1})
     else:
         bad = emulate_k8_bwd(*args, row_off, col_off + 64, **kw)
     assert max(_ratio(g, r, w) for g, r, w in zip(bad, refs, terms)) > 1.0
+
+
+def _k8_fwd_ratio(o, q, k, v, row_off, col_off, o_ref, kw):
+    (terms,) = fb.flash_block_error_terms(q, k, v, row_off, col_off, **kw)
+    return _ratio(o, o_ref, terms)
+
+
+def _k8_fwd_holds(q, k, v, row_off, col_off, kw, o, lse):
+    """The emulated forward (o, lse) against the plain version: o within the
+    term-scaled bound, lse within LSE_TOL, a row that attends nothing
+    exactly o = 0 and lse = NEG_INF. Returns o's ratio."""
+    o_ref, lse_ref = fb.flash_block_plain(q, k, v, row_off, col_off, **kw)
+    dead = lse_ref == fb.NEG_INF
+    assert torch.equal(lse == fb.NEG_INF, dead)
+    assert torch.count_nonzero(o[dead]) == 0
+    if (~dead).any():
+        assert (lse - lse_ref)[~dead].abs().max().item() <= LSE_TOL
+    ratio = _k8_fwd_ratio(o, q, k, v, row_off, col_off, o_ref, kw)
+    assert ratio <= 1.0
+    return ratio
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("case", K8_CASES, ids=["below", "diagonal", "ragged"])
+def test_k8_fwd_roundings_lie_within_the_bound(case, rate):
+    b, tq, tc, row_off, col_off = case
+    (q, k, v, *_), kw = _k8_case(b, tq, tc, row_off, col_off, rate, seed=tq + col_off)
+    o, lse = emulate_k8_fwd(q, k, v, row_off, col_off, **kw)
+    _k8_fwd_holds(q, k, v, row_off, col_off, kw, o, lse)
+    # The rounding of P is seen: the old bound without terms does not hold.
+    o_ref, _ = fb.flash_block_plain(q, k, v, row_off, col_off, **kw)
+    assert ((o - o_ref).abs() / (2.0 ** -8 * o_ref.abs() + 2.0 ** -16)).max().item() > 1.0
+
+
+# The blocks chip_smoke.py checks on the card: [4, 12, tl, 64] below the
+# diagonal (full) and on it, at dropout 0.1. Built once for the module.
+CARD_BLOCKS = [(tl, where) for tl in (256, 512) for where in ("below", "diagonal")]
+
+
+@functools.lru_cache(maxsize=None)
+def _card_block(tl, where):
+    """(args, kw, emulated (o, lse)) of one card block; args carry the
+    emulated forward's lse and the delta from its rounded o."""
+    row_off, col_off = tl, (0 if where == "below" else tl)
+    fwd = []
+    args, kw = _k8_case(4, tl, tl, row_off, col_off, 0.1, seed=tl, h=12,
+                        forward=lambda *a, **k: fwd.append(emulate_k8_fwd(*a, **k)) or fwd[0])
+    return args, kw, fwd[0]
+
+
+@pytest.mark.parametrize("tl, where", CARD_BLOCKS,
+                         ids=[f"sp={1024 // tl} {w}" for tl, w in CARD_BLOCKS])
+def test_k8_fwd_roundings_at_the_card_shape(tl, where):
+    args, kw, (o, lse) = _card_block(tl, where)
+    ratio = _k8_fwd_holds(*args[:3], tl, 0 if where == "below" else tl, kw, o, lse)
+    print(f"K8 forward emulation [4, 12, {tl}, 64] {where}: o err/tol {ratio:.3f}")
+
+
+@pytest.mark.parametrize("tl", [256, 512], ids=["sp=4", "sp=2"])
+def test_k8_bwd_on_the_emulated_forward_at_the_card_shape(tl):
+    # What the card runs since K8's forward rounds P: both the backward
+    # kernel and its plain version take the forward kernel's lse, and delta
+    # from its rounded o. The roundings of the forward move lse and delta
+    # for both sides alike, so the bound must hold as on the plain forward.
+    args, kw, _ = _card_block(tl, "diagonal")
+    grads = emulate_k8_bwd(*args, tl, tl, **kw)
+    refs = fb.flash_block_bwd_plain(*args, tl, tl, **kw)
+    ratios = [_ratio(g, r, w) for g, r, w in zip(grads, refs, _k8_terms(*args, tl, tl, **kw))]
+    print(f"K8 backward emulation on the emulated forward [4, 12, {tl}, 64] diagonal: "
+          f"err/tol dq {ratios[0]:.3f} dk {ratios[1]:.3f} dv {ratios[2]:.3f}")
+    assert max(ratios) <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["col_off + 64", "seed + 1"])
+def test_k8_fwd_planted_faults_lie_outside_the_bound(fault):
+    row_off = col_off = 128
+    (q, k, v, *_), kw = _k8_case(2, 128, 128, row_off, col_off, 0.1, seed=7)
+    o_ref, _ = fb.flash_block_plain(q, k, v, row_off, col_off, **kw)
+    if fault == "seed + 1":
+        bad, _ = emulate_k8_fwd(q, k, v, row_off, col_off, **{**kw, "seed": SEED + 1})
+    else:
+        bad, _ = emulate_k8_fwd(q, k, v, row_off, col_off + 64, **kw)
+    assert _k8_fwd_ratio(bad, q, k, v, row_off, col_off, o_ref, kw) > 1.0

@@ -52,8 +52,13 @@ that does not hold:
    0.1: each against its plain version run in fp32 on the same values,
    element by element, the backward kernels twice and bit-identical, a
    planted fault per kernel (seed + 1); times at the 124M shape beside the
-   plain version and the nearest PyTorch call, and K4 backward's two
-   passes (the rows, the column sums) apart with ``torch.profiler``;
+   plain version and the nearest PyTorch call, and the two passes (the
+   rows, the column sums) of K4's and K6's backward apart with
+   ``torch.profiler``; then both K6 kernels on h holding every finite bf16
+   value ([64, 1024], b = 0, dout = 1) at dropout 0 and 0.1, against the
+   plain versions wherever their values are finite in bf16, with the same
+   non-finite values elsewhere, printing how many outputs differ in bits
+   from the plain (tanh) form;
 6. K7, the fused matmuls of ``csrc/fused_matmul.cu``: the forward (on
    ``wgmma`` from TMA-fed stages) with its bias, gelu and resid
    epilogues, the backward's du pass (against
@@ -250,12 +255,15 @@ def bound_ms(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def held_colsum(d: torch.Tensor, ref: torch.Tensor, terms: torch.Tensor) -> tuple[float, float]:
+def held_colsum(d: torch.Tensor, ref: torch.Tensor, terms: torch.Tensor,
+                floor: float = 0.0) -> tuple[float, float]:
     """Max |d - ref| of a column sum and the largest ratio of an element's
-    error to its tolerance, ``terms`` being the column's sum of |t|."""
+    error to its tolerance, ``terms`` being the column's sum of |t| and
+    ``floor`` an absolute part (a column of zeros, exact, has ratio 0)."""
     rel = O_REL_TOL if d.dtype == torch.bfloat16 else 0.0
     err = (d.float() - ref).abs()
-    return err.max().item(), (err / (rel * ref.abs() + COLSUM_TOL * terms)).max().item()
+    ratio = torch.where(err == 0, 0.0, err / (rel * ref.abs() + COLSUM_TOL * terms + floor))
+    return err.max().item(), ratio.max().item()
 
 
 def phase_flash(flush) -> None:
@@ -621,6 +629,13 @@ FUSED_WRAPPERS = (
 )
 
 
+# The two passes of K4's and K6's backward, by a piece of each kernel's name.
+BWD_PASSES = {
+    "ln_residual_dropout_bwd": {"rows": "ln_res_bwd", "column sums": "column_sum_kernel"},
+    "bias_gelu_dropout_bwd": {"rows": "bias_gelu_bwd", "column sums": "column_sum_kernel"},
+}
+
+
 def phase_fused(flush) -> dict[str, dict]:
     """K4 (forward, backward), K5 (forward, backward rescale) and K6
     (forward, backward) against their plain versions at FUSED_SHAPES, at
@@ -775,16 +790,77 @@ def phase_fused(flush) -> dict[str, dict]:
                   flush=True)
             rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                               bound_by=b_by)
-            if name == "ln_residual_dropout_bwd":
-                passes = kernels_apart_ms(kernel, flush, {"rows": "ln_res_bwd",
-                                                          "column sums": "column_sum"})
-                print(f"{name} [{n}, {c}] passes apart (torch.profiler, mean of 20 launches on "
-                      f"a flushed L2): " + ", ".join(f"{k} {t:.4f} ms" for k, t in passes.items()),
-                      flush=True)
+            if name in BWD_PASSES:
+                passes = kernels_apart_ms(kernel, flush, BWD_PASSES[name])
+                print(f"{name} [{n}, {f if 'gelu' in name else c}] passes apart (torch.profiler, "
+                      f"mean of 20 launches on a flushed L2): "
+                      + ", ".join(f"{k} {t:.4f} ms" for k, t in passes.items()), flush=True)
                 rows[name]["passes_ms"] = passes
     for name, row in rows.items():
         row["max_abs_err"] = max_err[name]
     return rows
+
+
+def every_finite_bf16(rows: int = 64, width: int = 1024) -> torch.Tensor:
+    """The 65,280 finite bf16 values in ascending bit order, zeros after
+    them, as a bf16 ``[rows, width]`` tensor on the card filled column by
+    column: each column holds neighbouring values, so the columns where
+    gelu' is not finite are apart from the others."""
+    u = torch.arange(2 ** 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    u = u[torch.isfinite(u.float())]
+    out = torch.zeros(rows * width, dtype=torch.bfloat16)
+    out[:u.numel()] = u
+    return out.view(width, rows).t().contiguous().cuda()
+
+
+def phase_gelu_every_bf16() -> None:
+    """K6 forward and backward on h holding every finite bf16 value, b = 0
+    and dout = 1 (so dh is gelu'(u), rescaled), at dropout 0 and 0.1: each
+    against its plain version in fp32 within the element bound wherever the
+    plain value is finite in bf16 (gelu' is 0 x inf for |u| >~ 5e19 in both
+    forms; g / kp overflows bf16 above ~3.06e38), and the kernel's value
+    non-finite, the same NaN or inf, everywhere else; db against the plain
+    column sums where those are finite, within the column-sum bound plus
+    the element bound's absolute part once a row: the tanh form rounds
+    gelu' to exactly 0 for u below ~-9 where the sigmoid form keeps its
+    tiny value, so a column of such u sums to 0 in one and not the other.
+    Prints how many outputs differ in bits from the plain (tanh) form
+    rounded to bf16."""
+    from gpt_2_distributed_torch.ops import fused_layer as fl
+
+    h = every_finite_bf16()
+    b = torch.zeros(h.shape[1], dtype=torch.bfloat16, device="cuda")
+    dout = torch.ones_like(h)
+
+    def held_finite(what, got, ref, terms=None, floor=0.0):
+        ref16 = ref.to(torch.bfloat16).float()
+        fin = torch.isfinite(ref16)
+        g = got.float()
+        same_rest = all(torch.equal(k(g[~fin]), k(ref16[~fin]))
+                        for k in (torch.isnan, torch.isposinf, torch.isneginf))
+        if terms is None:
+            err, ratio = held(got[fin], ref[fin])
+        else:
+            err, ratio = held_colsum(got[fin], ref[fin], terms[fin], floor)
+        differ = int((g[fin] != ref16[fin]).sum())
+        print(f"{what}: max|d - plain| {err:.3e}, max err/tol {ratio:.3f} over {int(fin.sum())} "
+              f"finite values, {differ} differ in bits from the tanh form; the "
+              f"{int((~fin).sum())} others non-finite alike: {same_rest}", flush=True)
+        if not (ratio <= 1.0 and same_rest):
+            fail(f"{what} disagrees with its plain version")
+
+    for rate in (0.0, DROPOUT):
+        label = f"every finite bf16 u, dropout {rate}"
+        out = fl.bias_gelu_dropout_fwd(h, b, rate, FUSED_SEED)
+        held_finite(f"bias_gelu_dropout_fwd {label}", out,
+                    fl.bias_gelu_dropout_plain(h.float(), b.float(), rate, FUSED_SEED,
+                                               dtype=torch.bfloat16))
+        dh, db = fl.bias_gelu_dropout_bwd(h, b, dout, rate, FUSED_SEED)
+        dh_p, db_p = fl.bias_gelu_dropout_bwd_plain(h.float(), b.float(), dout.float(), rate,
+                                                    FUSED_SEED, dtype=torch.bfloat16)
+        held_finite(f"bias_gelu_dropout_bwd dh {label}", dh, dh_p)
+        held_finite(f"bias_gelu_dropout_bwd db {label}", db, db_p, dh_p.abs().sum(0),
+                    h.shape[0] * O_ABS_TOL)
 
 
 MM_SEED = 0x5EED7777
@@ -1658,6 +1734,7 @@ def main() -> None:
     k8_ring = phase_ring()
     k3_row = phase_paged(flush)
     fused_rows = phase_fused(flush)
+    phase_gelu_every_bf16()
     mm_rows = phase_matmul(flush)
     del flush
     serving = phase_serving(profile)

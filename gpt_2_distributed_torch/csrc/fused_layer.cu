@@ -22,17 +22,23 @@
 // of the squared centered values); K6 adds h + b in bf16 before the fp32
 // GELU; the backward divisions and K6's forward one are fp32.
 //
-// What bounds them on the H100: bytes. Every kernel does a few tens of
-// operations per element (the hash, a LayerNorm or a tanh) against 4-6
-// bytes moved, far below the ~20 fp32 operations a byte the card can do.
-// At 124M, batch 4 x 1024 (N = 4096 rows, C = 768, F = 3072), each input
-// read once and each output written once: K4 forward 25.2 MB (7.5 us at
-// 3.35 TB/s), K4 backward 31.5 MB, K5 18.9 MB, K5's rescale 12.6 MB, K6
-// forward 50.3 MB, K6 backward 75.5 MB.
+// What bounds them on the H100: bytes, if enough loads are in flight and
+// the instructions an element costs stay under them. At 124M, batch 4 x
+// 1024 (N = 4096 rows, C = 768, F = 3072), each input read once and each
+// output written once: K4 forward 25.2 MB (7.5 us at 3.35 TB/s), K4
+// backward 31.5 MB, K5 18.9 MB, K5's rescale 12.6 MB, K6 forward 50.3 MB
+// (15.0 us), K6 backward 75.5 MB (22.5 us). K6 does the most work an
+// element (the hash, a GELU and in the backward its derivative: 25-40
+// instructions, two of them MUFU), which the 132 SMs issue in less than
+// its byte time; so its design keeps the instructions few and the loads
+// many in flight (on an H100 SXM it moves ~2.0 TB/s forward and ~2.4 in
+// the backward's rows pass, the rates of PyTorch's own elementwise GELU
+// kernels there).
 //
 // Design: every element is read and written once, with 16-byte loads and
 // stores where a row is 16-byte aligned (width % 8 == 0; otherwise element
-// loads masked at the width), so any N and any width are taken.
+// loads masked at the width), so any N and any width are taken; row and
+// column indices are 32-bit, with no division.
 //   * K4 runs one warp per row: the row (C <= 2048) sits in the warp's
 //     registers, eight features a lane per 256-feature stride, and the
 //     row sums are __shfl_xor reductions.
@@ -41,15 +47,26 @@
 //     contiguous strip, each warp two rows at a time (C <= 1024) with the
 //     loads of r, dy and dr of both in flight together; its column sums
 //     and scale sit in shared memory, so the registers hold the rows.
-//   * K5, its rescale and K6's forward run one thread per eight features
-//     of a row.
+//   * K5 and its rescale run one thread per eight features of a row.
+//   * K6 takes its GELU in sigmoid form, 0.5 (1 + tanh z) = 1 / (1 +
+//     2^(-2 z log2 e)): one ex2 and one reciprocal (MUFU, approximate, by
+//     name: the shared flags have no fast math), no 1 + t cancellation in
+//     the negative tail; it adds h + b as bf16 pairs, and divides by keep
+//     as a product with the host's fp32 1 / keep and one fma correction
+//     instead of div.rn. Its forward runs a 2-D grid (8-feature vectors in
+//     x, rows in y), each thread the same columns of GF_ROWS rows, their
+//     loads issued before the math and the bias loaded once, at 40
+//     registers (12 blocks an SM). Its backward gives each block a
+//     contiguous strip of rows (a function of N only, as K4's) and a
+//     256-feature slab, a lane 8 features, the 8 warps the strip's rows in
+//     turn with the next row's h and dout loads in flight while the current
+//     one computes; each lane keeps its column sums in registers.
 //   * dscale, dbias (K4) and db (K6) are sums over every row. The TPU
 //     kernels accumulate them across a sequential grid; Hopper blocks run
-//     in no order, so each block writes fp32 partial sums of its rows and
-//     a second kernel adds the partials in a fixed order. K4 adds its
-//     warps' sums as a tree in shared memory, and its second pass gives
-//     each 32 columns 8 warps, each summing a fixed share of the partials,
-//     then a fixed-order tree; K6's second pass runs one thread a column.
+//     in no order, so each block adds its warps' sums as a fixed-order tree
+//     in shared memory and writes one fp32 partial row, and one second pass
+//     for both, column_sum_kernel, gives each 32 columns 8 warps, each
+//     summing a fixed share of the partials, then a fixed-order tree.
 //     No atomics: two launches give bit-identical grads.
 
 #include <cuda_bf16.h>
@@ -57,6 +74,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <initializer_list>
 
 #include "dropout_hash.cuh"
@@ -65,12 +83,12 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int WARPS = 8;          // warps a block in K4's kernels
-constexpr int EW_THREADS = 256;   // threads a block in the elementwise kernels
-constexpr int COL_THREADS = 128;  // threads a block in the column kernels
-constexpr float GELU_C0 = 0.7978845608028654f;  // sqrt(2 / pi)
-constexpr float GELU_A = 0.044715f;
-constexpr float GELU_3A = 0.134145f;            // 3 * GELU_A
+constexpr int WARPS = 8;          // warps a block in K4's and K6's backward
+constexpr int EW_THREADS = 256;   // threads a block in K5's kernels
+constexpr int GF_THREADS = 128;   // threads a block in K6's forward
+constexpr int GF_ROWS = 2;        // rows a thread in K6's forward
+constexpr int GF_MIN_BLOCKS = 12; // blocks an SM K6's forward is built for (40 registers)
+constexpr int GB_MIN_BLOCKS = 3;  // blocks an SM K6's backward is built for
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -379,15 +397,20 @@ __global__ void __launch_bounds__(WARPS * 32, 1) ln_res_bwd_kernel(
   }
 }
 
-// The second pass of K4's column sums: out[c] = the sum over p of
-// partial[p][c]. A block takes 32 columns, a lane each; its SHARES warps
-// each sum a fixed share of the partial rows (p = w, w + SHARES, ...), in
-// order, with the loads of several rows in flight; the shares are then
-// added as a fixed-order tree. So W / 32 blocks of SHARES warps run at once.
+// The second pass of the column sums (K4's dscale and dbias, K6's db):
+// out[c] = the sum over p of partial[p][c]. A block takes 32 columns, a
+// lane each; its SHARES warps each sum a fixed share of the partial rows
+// (p = w, w + SHARES, ...), in order, with the loads of several rows in
+// flight; the shares are then added as a fixed-order tree. So W / 32 blocks
+// of SHARES warps run at once. fp32 out (K4) or rounded to bf16 (K6).
 constexpr int SHARES = 8;
 
-__global__ void __launch_bounds__(SHARES * 32) ln_column_sum_kernel(
-    const float* __restrict__ partial, int P, int W, float* __restrict__ out) {
+__device__ __forceinline__ void put_sum(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put_sum(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename T>
+__global__ void __launch_bounds__(SHARES * 32) column_sum_kernel(
+    const float* __restrict__ partial, int P, int W, T* __restrict__ out) {
   __shared__ float share[SHARES][32];
   const int lane = threadIdx.x % 32;
   const int w = threadIdx.x / 32;
@@ -407,22 +430,7 @@ __global__ void __launch_bounds__(SHARES * 32) ln_column_sum_kernel(
   for (int half = SHARES / 2; half > 0; half /= 2)
 #pragma unroll
     for (int k = 0; k < half; ++k) t[k] += t[k + half];
-  out[c] = t[0];
-}
-
-// The second pass of K6's column sum: out[c] = sum over p of
-// partial[p][c], p in order, one thread a column; fp32 or bf16 out.
-__global__ void column_sum_kernel(const float* __restrict__ partial, int P,
-                                  int W, float* __restrict__ out32,
-                                  bf16* __restrict__ out16) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= W) return;
-  float s = 0.f;
-  for (int p = 0; p < P; ++p) s += partial[(size_t)p * W + c];
-  if (out16)
-    out16[c] = __float2bfloat16(s);
-  else
-    out32[c] = s;
+  put_sum(out + c, t[0]);
 }
 
 // ---------------------------------------------------------------------------
@@ -474,73 +482,161 @@ __global__ void __launch_bounds__(EW_THREADS) drop_scale_kernel(
 // K6: out = dropout(gelu_tanh(u)), u = bf16(h + b), the GELU in fp32.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float gelu_tanh_inner(float u) {
-  return tanhf(GELU_C0 * (u + GELU_A * u * u * u));
+// The GELU in sigmoid form: with z = c0 (u + a u^3),
+//   s = 0.5 (1 + tanh z) = 1 / (1 + 2^(u (GELU_K + GELU_KA u^2))),
+//   gelu(u) = u s,  gelu'(u) = s + 2 c0 u s (1 - s) (1 + 3 a u^2),
+// the derivative's 3 a u u multiplied in the JAX kernel's order, so it
+// overflows where the tanh form's does.
+constexpr float GELU_K = (float)(-2.0 * 1.4426950408889634 * 0.7978845608028654);
+constexpr float GELU_KA = (float)(-2.0 * 1.4426950408889634 * 0.7978845608028654 * 0.044715);
+constexpr float GELU_2C0 = (float)(2.0 * 0.7978845608028654);
+constexpr float GELU_3A = (float)(3.0 * 0.044715);
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(EW_THREADS) bias_gelu_fwd_kernel(
-    const bf16* __restrict__ h, const bf16* __restrict__ b,
-    bf16* __restrict__ out, int N, int F, Dropout drop, bool vec) {
-  const int FV = (F + 7) / 8;
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= (long long)N * FV) return;
-  const int row = (int)(v / FV);
-  const int c = (int)(v % FV) * 8;
-  const size_t base = (size_t)row * F;
-  float hv[8], bv[8];
-  load8(h + base, c, F, vec, hv);
-  load8(b, c, F, vec, bv);
-  const unsigned hr = drop.row_part(row);
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float gelu_sigma(float u) {
+  return rcp_approx(1.f + ex2_approx(u * fmaf(GELU_KA, u * u, GELU_K)));
+}
+
+__device__ __forceinline__ float gelu_grad(float u, float s) {
+  return fmaf(GELU_2C0 * u * s * (1.f - s), fmaf(GELU_3A * u, u, 1.f), s);
+}
+
+// v / keep: the product with rkeep = fp32(1 / keep), formed on the host,
+// and one fma correction of its remainder (none where the product
+// overflows, which the remainder would turn into NaN).
+__device__ __forceinline__ float div_keep(float v, float keep, float rkeep) {
+  const float q = v * rkeep;
+  return isinf(q) ? q : fmaf(fmaf(-q, keep, v), rkeep, q);
+}
+
+// u = bf16(h + b) for the 8 packed features of h and b: one bf16x2 add a
+// pair (a single rounding of the exact sum, which the fp32 sum rounded to
+// bf16 equals: fp32 keeps more than twice bf16's bits), unpacked to fp32.
+__device__ __forceinline__ void add_unpack8(const uint4& h, const uint4& b, float* u) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&h);
+  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float u = round_bf16(hv[j] + bv[j]);
-    float g = 0.5f * u * (1.f + gelu_tanh_inner(u));
-    if (drop.on) g = drop.kept(hr, c + j) ? g / drop.keep : 0.f;
-    hv[j] = g;
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(__hadd2(h2[j], b2[j]));
+    u[2 * j] = f.x;
+    u[2 * j + 1] = f.y;
   }
-  store8(out + base, c, F, vec, hv);
 }
 
-// K6 backward over a tile of rows_per_tile rows x 8 features a thread:
-// dh = dg * gelu'(u) with dg = keep * dout / kp, and the tile's fp32 sums
-// of dh's fp32 values, into partial[blockIdx.y][F].
-__global__ void __launch_bounds__(COL_THREADS) bias_gelu_bwd_kernel(
+// Each thread the 8 features at c of GF_ROWS rows: their h loads all
+// issued before the math, the bias loaded once.
+__global__ void __launch_bounds__(GF_THREADS, GF_MIN_BLOCKS) bias_gelu_fwd_kernel(
+    const bf16* __restrict__ h, const bf16* __restrict__ b,
+    bf16* __restrict__ out, int N, int F, Dropout drop, float rkeep, bool vec) {
+  const int c = (blockIdx.x * GF_THREADS + threadIdx.x) * 8;
+  if (c >= F) return;
+  const uint4 bv = load8_raw(b, c, F, vec);
+  for (int row0 = blockIdx.y * GF_ROWS; row0 < N; row0 += gridDim.y * GF_ROWS) {
+    uint4 hv[GF_ROWS];
+#pragma unroll
+    for (int k = 0; k < GF_ROWS; ++k)
+      if (row0 + k < N) hv[k] = load8_raw(h + (size_t)(row0 + k) * F, c, F, vec);
+#pragma unroll
+    for (int k = 0; k < GF_ROWS; ++k) {
+      const int row = row0 + k;
+      if (row >= N) break;
+      float v[8];
+      add_unpack8(hv[k], bv, v);
+      const unsigned hr = drop.row_part(row);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float g = v[j] * gelu_sigma(v[j]);
+        if (drop.on) g = drop.kept(hr, c + j) ? div_keep(g, drop.keep, rkeep) : 0.f;
+        v[j] = g;
+      }
+      store8(out + (size_t)row * F, c, F, vec, v);
+    }
+  }
+}
+
+// K6 backward over a strip of rows_per_strip rows (blockIdx.y) and a slab
+// of 256 features (blockIdx.x), 8 a lane: dh = dg * gelu'(u) with dg =
+// keep * dout / kp. Warp w takes the strip's rows w, w + WARPS, ..., with
+// the next row's h and dout loads issued before the current row's math,
+// and adds its rows' fp32 dh into its lane's column sums in row order. The
+// warps' sums are then added as a fixed-order tree in shared memory
+// (8 -> 4 -> 2 -> 1) and the block writes them as partial[blockIdx.y][slab].
+__global__ void __launch_bounds__(WARPS * 32, GB_MIN_BLOCKS) bias_gelu_bwd_kernel(
     const bf16* __restrict__ h, const bf16* __restrict__ b,
     const bf16* __restrict__ dout, bf16* __restrict__ dh,
-    float* __restrict__ partial, int N, int F, int rows_per_tile,
-    Dropout drop, bool vec) {
-  const int c = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
-  if (c >= F) return;
-  const int row0 = blockIdx.y * rows_per_tile;
-  const int row_end = min(row0 + rows_per_tile, N);
-  float bv[8], acc[8];
-  load8(b, c, F, vec, bv);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-  for (int row = row0; row < row_end; ++row) {
-    const size_t base = (size_t)row * F;
-    float hv[8], dv[8];
-    load8(h + base, c, F, vec, hv);
-    load8(dout + base, c, F, vec, dv);
-    const unsigned hr = drop.row_part(row);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float u = round_bf16(hv[j] + bv[j]);
-      const float t = gelu_tanh_inner(u);
-      const float gp = 0.5f * (1.f + t)
-                       + 0.5f * u * (1.f - t * t) * GELU_C0 * (1.f + GELU_3A * u * u);
-      float dg = dv[j];
-      if (drop.on) dg = drop.kept(hr, c + j) ? dg / drop.keep : 0.f;
-      const float du = dg * gp;  // zero past F: dout is
-      hv[j] = du;
-      acc[j] += du;
+    float* __restrict__ partial, int N, int F, int rows_per_strip,
+    Dropout drop, float rkeep, bool vec) {
+  __shared__ float4 sums[WARPS][64];  // a lane's 8 sums as two float4 32 apart
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int c = (blockIdx.x * 32 + lane) * 8;
+  const int row_end = min((int)(blockIdx.y + 1) * rows_per_strip, N);
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (c < F) {
+    const uint4 bv = load8_raw(b, c, F, vec);
+    int row = (int)blockIdx.y * rows_per_strip + warp;
+    uint4 hc, dc;
+    if (row < row_end) {
+      hc = load8_raw(h + (size_t)row * F, c, F, vec);
+      dc = load8_raw(dout + (size_t)row * F, c, F, vec);
     }
-    store8(dh + base, c, F, vec, hv);
-  }
-  float* out = partial + (size_t)blockIdx.y * F;
+    for (; row < row_end; row += WARPS) {
+      uint4 hn, dn;
+      if (row + WARPS < row_end) {
+        hn = load8_raw(h + (size_t)(row + WARPS) * F, c, F, vec);
+        dn = load8_raw(dout + (size_t)(row + WARPS) * F, c, F, vec);
+      }
+      float u[8], dv[8];
+      add_unpack8(hc, bv, u);
+      unpack8(dc, dv);
+      const unsigned hr = drop.row_part(row);
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (c + j < F) out[c + j] = acc[j];
+      for (int j = 0; j < 8; ++j) {
+        const float gp = gelu_grad(u[j], gelu_sigma(u[j]));
+        float dg = dv[j];
+        if (drop.on) dg = drop.kept(hr, c + j) ? div_keep(dg, drop.keep, rkeep) : 0.f;
+        const float du = dg * gp;  // zero past F: dout is
+        dv[j] = du;
+        acc[j] += du;
+      }
+      store8(dh + (size_t)row * F, c, F, vec, dv);
+      hc = hn;
+      dc = dn;
+    }
+  }
+  put8(&sums[warp][lane], acc);
+#pragma unroll
+  for (int half = WARPS / 2; half > 0; half /= 2) {
+    __syncthreads();
+    if (warp < half) {
+      float o[8];
+      get8(o, &sums[warp + half][lane]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] += o[j];
+      if (half > 1) put8(&sums[warp][lane], acc);
+    }
+  }
+  if (warp != 0 || c >= F) return;
+  float* out = partial + (size_t)blockIdx.y * F;
+  if (vec) {
+    *reinterpret_cast<float4*>(out + c) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(out + c + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (c + j < F) out[c + j] = acc[j];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -599,7 +695,7 @@ int ln_bwd(const void* r, const void* mean, const void* rstd, const void* scale,
       static_cast<float*>(partial), N, C, rows_per_block, d, vec);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ln_column_sum_kernel<<<grid_1d(2 * C, 32), SHARES * 32, 0, s>>>(
+  column_sum_kernel<float><<<grid_1d(2 * C, 32), SHARES * 32, 0, s>>>(
       static_cast<const float*>(partial), blocks, 2 * C, static_cast<float*>(sums));
   return (int)cudaGetLastError();
 }
@@ -694,34 +790,35 @@ extern "C" int bias_gelu_fwd_bf16(const void* h, const void* b, void* out,
                                   int N, int F, unsigned seed, unsigned salt,
                                   unsigned threshold, float keep, void* stream) {
   if (N == 0) return (int)cudaSuccess;
-  const long long threads = (long long)N * ((F + 7) / 8);
-  bias_gelu_fwd_kernel<<<grid_1d(threads, EW_THREADS), EW_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(grid_1d((F + 7) / 8, GF_THREADS), std::min(grid_1d(N, GF_ROWS), 65535));
+  bias_gelu_fwd_kernel<<<grid, GF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(b),
       static_cast<bf16*>(out), N, F, make_dropout(seed, salt, threshold, keep),
-      vectorized(F, {h, b, out}));
+      1.f / keep, vectorized(F, {h, b, out}));
   return (int)cudaGetLastError();
 }
 
 // K6 backward: dh [N, F] bf16, db [F] bf16; partial: fp32 scratch of
-// ceil(N / rows_per_tile) x F.
+// ceil(N / rows_per_strip) x F.
 extern "C" int bias_gelu_bwd_bf16(const void* h, const void* b,
                                   const void* dout, void* dh, void* partial,
-                                  void* db, int N, int F, int rows_per_tile,
+                                  void* db, int N, int F, int rows_per_strip,
                                   unsigned seed, unsigned salt,
                                   unsigned threshold, float keep, void* stream) {
-  if (N == 0 || rows_per_tile < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0 || rows_per_strip < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = grid_1d(N, rows_per_tile);
-  const dim3 grid(grid_1d((F + 7) / 8, COL_THREADS), tiles);
-  bias_gelu_bwd_kernel<<<grid, COL_THREADS, 0, s>>>(
+  const int strips = grid_1d(N, rows_per_strip);
+  if (strips > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_1d(F, 256), strips);
+  bias_gelu_bwd_kernel<<<grid, WARPS * 32, 0, s>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(b),
       static_cast<const bf16*>(dout), static_cast<bf16*>(dh),
-      static_cast<float*>(partial), N, F, rows_per_tile,
-      make_dropout(seed, salt, threshold, keep), vectorized(F, {h, b, dout, dh}));
-  cudaError_t e = cudaGetLastError();
+      static_cast<float*>(partial), N, F, rows_per_strip,
+      make_dropout(seed, salt, threshold, keep), 1.f / keep,
+      vectorized(F, {h, b, dout, dh}));
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  column_sum_kernel<<<grid_1d(F, COL_THREADS), COL_THREADS, 0, s>>>(
-      static_cast<const float*>(partial), tiles, F, nullptr, static_cast<bf16*>(db));
+  column_sum_kernel<bf16><<<grid_1d(F, 32), SHARES * 32, 0, s>>>(
+      static_cast<const float*>(partial), strips, F, static_cast<bf16*>(db));
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,11 @@ Semantics, as the JAX kernels:
   dtype (K5's rescale kernel). At rate 0 it is the bare ``x + o``.
 * ``fused_bias_gelu_dropout``: ``dropout(gelu_tanh(u))`` with ``u = h + b``
   added in h's dtype and the GELU and the division in fp32. The backward
-  saves ``(h, b)``.
+  saves ``(h, b)``. The plain versions spell the GELU in the JAX kernels'
+  tanh form; K6 takes it in sigmoid form and divides by a reciprocal with
+  an fma correction (``csrc/fused_layer.cu``), which
+  ``tests/test_torch_gelu_forms.py`` holds to the tanh form over every
+  bf16 u.
 
 Each plain version takes ``dtype``, the dtype whose roundings it applies
 inside (x's or h's by default). Called on fp32 copies of bf16 values with
@@ -56,12 +60,16 @@ GELU_C0 = 0.7978845608028654
 GELU_A = 0.044715
 
 LN_MAX_WIDTH = 2048          # K4 holds a row in one warp's registers
-# K4 backward: at most one block an SM of the H100 (132), each a strip of at
-# least two rows a warp (8 warps); the strip is a function of N only, so the
-# column sums' order, and their bits, do not depend on the card.
+# The backward kernels of K4 and K6 give each block a contiguous strip of
+# rows, at least two rows for each of its 8 warps, and sum their columns
+# over the strips in a second pass. The strips are a function of N only
+# (:func:`bwd_strips`), so the column sums' order, and their bits, depend
+# on neither the card nor the width. K4: at most one block an SM of the
+# H100 (132). K6: 32 strips, each cut into 256-feature slabs, so 384 blocks
+# at [4096, 3072], all resident at three blocks an SM.
 LN_BWD_MAX_BLOCKS = 132
-LN_BWD_MIN_ROWS = 16
-GELU_BWD_ROWS_PER_TILE = 32  # K6 backward: rows a block sums db over
+GELU_BWD_MAX_STRIPS = 32
+BWD_MIN_ROWS = 16
 
 _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _DROP = [_U32, _U32, _U32, _F, _P]   # seed, salt, threshold, keep, stream
@@ -219,6 +227,13 @@ def _dropout_words(rate: float, seed: int | None, salt: int, kp: float):
     return seed & 0xFFFFFFFF, salt, int(rate * (2 ** 32)), kp
 
 
+def bwd_strips(n: int, max_strips: int) -> tuple[int, int]:
+    """(rows a strip, strips) of a backward kernel over ``n`` rows: at most
+    ``max_strips`` strips of at least ``BWD_MIN_ROWS`` rows."""
+    rows = max(BWD_MIN_ROWS, -(-n // max_strips))
+    return rows, -(-n // rows)
+
+
 def _launch(fn: str, *args) -> None:
     lib = build.load("fused_layer", _SIGNATURES)
     build.check(getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream), fn)
@@ -272,8 +287,7 @@ def ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate=0.0, seed=None,
                                   ("dy", dy, (n, c), torch.bfloat16)):
         check_operand(name, t, shape, dtype, r.device)
     dx, do = torch.empty_like(r), torch.empty_like(r)
-    rows = max(LN_BWD_MIN_ROWS, -(-n // LN_BWD_MAX_BLOCKS))   # a strip a block
-    blocks = -(-n // rows)
+    rows, blocks = bwd_strips(n, LN_BWD_MAX_BLOCKS)   # a strip a block
     partial = torch.empty((blocks, 2 * c), dtype=torch.float32, device=r.device)
     sums = torch.empty(2 * c, dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
@@ -341,8 +355,9 @@ bias_gelu_dropout_fwd.launches = 0
 
 
 def bias_gelu_dropout_bwd(h, b, dout, rate=0.0, seed=None, salt=SALT_GELU):
-    """``(dh, db)`` of K6's backward; CUDA tensors launch the kernel and its
-    fixed-order column-sum pass, CPU tensors use the plain version."""
+    """``(dh, db)`` of K6's backward; CUDA tensors launch the kernel over
+    strips of rows (:func:`bwd_strips`) and the fixed-order column-sum pass,
+    CPU tensors use the plain version."""
     if not h.is_cuda:
         return bias_gelu_dropout_bwd_plain(h, b, dout, rate, seed, salt)
     n, f = h.shape
@@ -350,12 +365,11 @@ def bias_gelu_dropout_bwd(h, b, dout, rate=0.0, seed=None, salt=SALT_GELU):
         check_operand(name, t, shape, torch.bfloat16, h.device)
     dh = torch.empty_like(h)
     db = torch.empty_like(b)
-    tiles = -(-n // GELU_BWD_ROWS_PER_TILE)
-    partial = torch.empty((tiles, f), dtype=torch.float32, device=h.device)
+    rows, strips = bwd_strips(n, GELU_BWD_MAX_STRIPS)
+    partial = torch.empty((strips, f), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         _launch("bias_gelu_bwd_bf16", h.data_ptr(), b.data_ptr(), dout.data_ptr(),
-                dh.data_ptr(), partial.data_ptr(), db.data_ptr(), n, f,
-                GELU_BWD_ROWS_PER_TILE,
+                dh.data_ptr(), partial.data_ptr(), db.data_ptr(), n, f, rows,
                 *_dropout_words(rate, seed, salt, _keep_prob(rate, torch.float32)))
     bias_gelu_dropout_bwd.launches += 1
     return dh, db

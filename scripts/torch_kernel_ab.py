@@ -1,11 +1,14 @@
-"""Device times of K8's forward and K4's backward (and, as controls, K8's
-backward and K6's backward) from two checkouts of the PyTorch/CUDA port,
-in turns, on one GPU, at chip_smoke.py's timed shapes:
+"""Device times of K6's forward and backward, K4's backward (whose column
+pass K6 now shares) and, as controls, K8's forward and backward, from two
+checkouts of the PyTorch/CUDA port, in turns, on one GPU, at
+chip_smoke.py's timed shapes:
 
+- K6 forward and backward [4096, 3072] and K4 backward [4096, 768],
+  dropout 0.1, each backward's two passes (the rows, the column sums)
+  timed apart, with PyTorch's tanh ``gelu`` and ``gelu_backward`` on the
+  same inputs beside K6;
 - K8 forward and backward: one full [4, 12, 512|512, 64] block below the
-  diagonal (sp = 2 at 124M), dropout 0.1, with nonzero do and dlse;
-- K4 backward [4096, 768] and K6 backward [4096, 3072], dropout 0.1, with
-  K4's two passes (the rows, the column sums) timed apart.
+  diagonal (sp = 2 at 124M), dropout 0.1, with nonzero do and dlse.
 
     python scripts/torch_kernel_ab.py OLD_ROOT NEW_ROOT
 
@@ -13,12 +16,15 @@ Runs OLD, NEW, NEW, OLD, each in its own process that imports
 ``gpt_2_distributed_torch`` from that root (its kernels built under that
 root's ``build/``), and prints the card (``nvidia-smi`` name and power
 limit), then one JSON line a run: each kernel's median device time over 20
-launches on a flushed L2 (chip_smoke.py's ``time_ms``). Exits nonzero
-without a GPU.
+launches on a flushed L2 (chip_smoke.py's ``time_ms``), the passes' mean
+times from torch.profiler (``kernels_apart_ms``), and a hash of K4
+backward's outputs (dx, do, dscale, dbias), equal between two trees whose
+K4 backward gives the same bits. Exits nonzero without a GPU.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -62,12 +68,27 @@ def worker(root: str) -> dict:
     def k4_bwd():
         return fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
 
+    out["k4_bwd_sha256"] = hashlib.sha256(
+        b"".join(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                 for t in k4_bwd())).hexdigest()[:16]
     out["k4_bwd_ms"] = chip_smoke.time_ms(k4_bwd, flush)
     out["k4_bwd_passes_ms"] = chip_smoke.kernels_apart_ms(
-        k4_bwd, flush, {"rows": "ln_res_bwd", "column sums": "column_sum"})
+        k4_bwd, flush, chip_smoke.BWD_PASSES["ln_residual_dropout_bwd"])
     h, dout, b = randn(n, f), randn(n, f), randn(f, scale=0.1)
-    out["k6_bwd_ms"] = chip_smoke.time_ms(
-        lambda: fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed), flush)
+    u = h + b
+
+    def k6_bwd():
+        return fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed)
+
+    out["k6_fwd_ms"] = chip_smoke.time_ms(
+        lambda: fl.bias_gelu_dropout_fwd(h, b, rate, seed), flush)
+    out["gelu_ms"] = chip_smoke.time_ms(
+        lambda: torch.nn.functional.gelu(u, approximate="tanh"), flush)
+    out["k6_bwd_ms"] = chip_smoke.time_ms(k6_bwd, flush)
+    out["k6_bwd_passes_ms"] = chip_smoke.kernels_apart_ms(
+        k6_bwd, flush, chip_smoke.BWD_PASSES["bias_gelu_dropout_bwd"])
+    out["gelu_backward_ms"] = chip_smoke.time_ms(
+        lambda: torch.ops.aten.gelu_backward(dout, u, approximate="tanh"), flush)
     return out
 
 

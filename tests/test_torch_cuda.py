@@ -641,6 +641,60 @@ def test_ln_residual_dropout_bwd_at_the_main_shapes(cuda, n, c, rate):
         assert not _close(bad[1], refs[1])
 
 
+@pytest.mark.parametrize("n, f", [(4096, 3072), (1000, 6400)])   # 124M at 4 x 1024; 1.5B
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bias_gelu_dropout_at_the_main_shapes(cuda, n, f, rate):
+    """K6 at the training path's shape and the ragged 1.5B width: the
+    forward and dh element by element, db within the column-sum bound, two
+    backward launches bit-identical, and the next seed's mask rejected."""
+    rng = np.random.default_rng(n + f)
+    h, dout = _bf16(rng, n, f, device=cuda), _bf16(rng, n, f, device=cuda)
+    b = _bf16(rng, f, device=cuda) * 0.1
+    seed, bf = 0x5EED4321, torch.bfloat16
+    out = fl.bias_gelu_dropout_fwd(h, b, rate, seed)
+    out_p = fl.bias_gelu_dropout_plain(h.float(), b.float(), rate, seed, dtype=bf)
+    dh, db = fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed)
+    dh2, db2 = fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed)
+    dh_p, db_p = fl.bias_gelu_dropout_bwd_plain(h.float(), b.float(), dout.float(), rate, seed,
+                                                dtype=bf)
+    assert torch.equal(dh, dh2) and torch.equal(db, db2)   # no atomics
+    assert _close(out, out_p) and _close(dh, dh_p)
+    assert _colsum_close(db, db_p, dh_p.abs().sum(0))
+    if rate:
+        assert not _close(fl.bias_gelu_dropout_fwd(h, b, rate, seed + 1), out_p)
+        assert not _close(fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed + 1)[0], dh_p)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bias_gelu_kernels_over_every_finite_bf16(cuda, rate):
+    """K6 on h holding every finite bf16 value (b = 0, dout = 1), against
+    the plain versions wherever their values are finite in bf16, and the
+    same NaN or inf elsewhere (gelu' is 0 x inf for |u| >~ 5e19)."""
+    u = torch.arange(2 ** 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    u = u[torch.isfinite(u.float())]
+    h = torch.zeros(64 * 1024, dtype=torch.bfloat16)
+    h[:u.numel()] = u
+    h = h.view(1024, 64).t().contiguous().to(cuda)
+    b = torch.zeros(1024, dtype=torch.bfloat16, device=cuda)
+    seed, bf = 0x5EED4321, torch.bfloat16
+    out = fl.bias_gelu_dropout_fwd(h, b, rate, seed)
+    dh, db = fl.bias_gelu_dropout_bwd(h, b, torch.ones_like(h), rate, seed)
+    out_p = fl.bias_gelu_dropout_plain(h.float(), b.float(), rate, seed, dtype=bf)
+    dh_p, db_p = fl.bias_gelu_dropout_bwd_plain(h.float(), b.float(), torch.ones_like(h).float(),
+                                                rate, seed, dtype=bf)
+    for got, ref in ((out, out_p), (dh, dh_p)):
+        fin = torch.isfinite(ref.to(bf))
+        assert _close(got[fin], ref[fin])
+        assert torch.equal(got[~fin].float().nan_to_num(), ref.to(bf)[~fin].float().nan_to_num())
+    # db: the column-sum bound plus the element bound's absolute part once
+    # a row, as the tanh form rounds gelu' to 0 below u ~ -9 where the
+    # sigmoid form keeps its tiny value.
+    fin = torch.isfinite(db_p.to(bf))
+    err = (db[fin].float() - db_p[fin]).abs()
+    tol = 2.0 ** -8 * db_p[fin].abs() + 2.0 ** -11 * dh_p.abs().sum(0)[fin] + 64 * 2.0 ** -16
+    assert bool((err <= tol).all())
+
+
 @pytest.mark.parametrize("sp", [2, 4])
 def test_one_card_ring_matches_k1_k2(cuda, sp):
     """The ring schedule of all sp ranks in one process against K1/K2 over

@@ -42,18 +42,25 @@ that does not hold:
 4. K3, paged decode: the kernel against its plain version at the serving
    pool shape (8 sequences, 12 heads, D 64, 513 blocks of 16) with mixed
    lengths including an idle slot, shuffled block placement, then all
-   lengths 1024, plus a planted fault (one table entry swapped); times
-   both versions the same way;
+   lengths 1024; two launches bit-identical, each sequence alone (B = 1,
+   with the batch's table width and with its own blocks only) bit-equal
+   to its row in the batch, planted faults (a table entry swapped inside
+   a split and at a split's first block); times both versions the same
+   way, "mixed" beside "full";
 5. the fused layer epilogues of ``csrc/fused_layer.cu``: K4
    (LN+residual+dropout) forward and backward, K5 (residual+dropout)
    forward and its backward mask-scale, K6 (bias+GELU+dropout) forward
    and backward, at [4096, 768] / [4096, 3072] (124M, batch 4 x 1024) and
    at the ragged [1000, 1600] / [1000, 6400] (1.5B widths), dropout 0 and
    0.1: each against its plain version run in fp32 on the same values,
-   element by element, the backward kernels twice and bit-identical, a
-   planted fault per kernel (seed + 1); times at the 124M shape beside the
-   plain version and the nearest PyTorch call, and the two passes (the
-   rows, the column sums) of K4's and K6's backward apart with
+   element by element, K4's forward and the backward kernels twice and
+   bit-identical, a planted fault per kernel (seed + 1); K4's forward at
+   rate 0 row-invariant (rows of N = 1 and N = 8 calls bit-equal to N =
+   4096) and, with ``o=None``, bit-equal to a zero o at [8, 768] and
+   [960, 768]; times at the 124M shape beside the plain version and the
+   nearest PyTorch call (K4's forward also at rate 0, with ``o=None``, at
+   serving's [960, 768] and [8, 768] and at [1000, 1600]), and the two
+   passes (the rows, the column sums) of K4's and K6's backward apart with
    ``torch.profiler``; then both K6 kernels on h holding every finite bf16
    value ([64, 1024], b = 0, dout = 1) at dropout 0 and 0.1, against the
    plain versions wherever their values are finite in bf16, with the same
@@ -82,7 +89,7 @@ that does not hold:
    preset with random weights, bf16, max_batch 8, block_size 16, 513
    blocks; checks every request finished with its tokens and the launches
    per prefill and decode step (K1 or K3 12 times, K7's forward 49 times,
-   K4 25 times); requires every greedy and sampled stream to equal
+   K4 25 times, with ``o=None``); requires every greedy and sampled stream to equal
    ``generate_cached(batch=1)``'s, printing for a stream that differs its
    first differing step and the logits there; then holds one prefill and
    one decode step of the kernel attention against the plain attention on
@@ -209,9 +216,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, flush: torch.Tensor, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, flush: torch.Tensor, iters: int = 20, warmup: int = 3,
+            read_flush: bool = False) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each after a
-    write of ``flush`` (larger than the 50 MB L2) so inputs come from HBM.
+    write of ``flush`` (larger than the 50 MB L2) so inputs come from HBM;
+    with ``read_flush``, after a read of it instead (``flush.sum()``), which
+    leaves the L2 holding clean lines rather than dirty ones.
 
     A spin of ~1 ms on the stream before each start event keeps the card
     busy while the host enqueues ``fn``, so the interval between the two
@@ -221,7 +231,10 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 20, warmup: int = 3) -> float:
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
-        flush.zero_()
+        if read_flush:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         s.record()
         fn()
@@ -690,11 +703,13 @@ def phase_fused(flush) -> dict[str, dict]:
         for rate in (0.0, DROPOUT):
             label = f"[{n}, {c}] dropout {rate}"
             r, y, mean, rstd = fl.ln_residual_dropout_fwd(x, o, scale, bias, eps, rate, seed)
+            again = fl.ln_residual_dropout_fwd(x, o, scale, bias, eps, rate, seed)
             ref = fl.ln_residual_dropout_plain(x.float(), o.float(), scale, bias, eps, rate,
                                                seed, dtype=bf)
             hold("ln_residual_dropout_fwd", label, [
                 ("elem", r, ref[0]), ("elem", y, ref[1]), ("stat", mean, ref[2]),
-                ("stat", rstd, ref[3])])
+                ("stat", rstd, ref[3])],
+                same=all(torch.equal(g, a) for g, a in zip((r, y, mean, rstd), again)))
             grads = fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
             again = fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
             refs = fl.ln_residual_dropout_bwd_plain(r.float(), mean, rstd, scale, dr.float(),
@@ -716,6 +731,8 @@ def phase_fused(flush) -> dict[str, dict]:
             hold("bias_gelu_dropout_bwd", label, [
                 ("elem", dh, dh_p), ("col", db, db_p, dh_p.abs().sum(0))],
                 same=torch.equal(dh, dh2) and torch.equal(db, db2))
+        if c == 768:
+            check_ln_fwd_rows(x, o, scale, bias, eps)
         # K5 runs at dropout > 0 only (at 0 the op is the bare add).
         label = f"[{n}, {c}] dropout {DROPOUT}"
         r5 = fl.residual_dropout_fwd(x, o, DROPOUT, seed)
@@ -779,6 +796,7 @@ def phase_fused(flush) -> dict[str, dict]:
                 lambda: torch.ops.aten.gelu_backward(dout, u, approximate="tanh"),
                 6 * nf + 4 * f, 40 * nf),
         }
+        time_ln_fwd_shapes(flush, x, o, scale, bias, eps, seed)
         for name, (kernel, plain, library, nbytes, ops) in cases.items():
             ms = time_ms(kernel, flush)
             plain_ms = time_ms(plain, flush)
@@ -799,6 +817,67 @@ def phase_fused(flush) -> dict[str, dict]:
     for name, row in rows.items():
         row["max_abs_err"] = max_err[name]
     return rows
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` hold the same bits (NaN included)."""
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def check_ln_fwd_rows(x, o, scale, bias, eps) -> None:
+    """K4's forward at rate 0 over x, o [4096, C]: the rows of an N = 1 and
+    an N = 8 call bit-equal to the same rows of the N = 4096 call (its strips
+    differ with N), with o and with o = None; and with o = None (serving's
+    LayerNorm: no o read, no r written) y, mean and rstd bit-equal to the
+    call with a zero o at [8, C] and [960, C]."""
+    from gpt_2_distributed_torch.ops import fused_layer as fl
+
+    def fwd(xs, os):
+        return fl.ln_residual_dropout_fwd(xs, os, scale, bias, eps)
+
+    invariant = True
+    for branch in (o, None):
+        full = fwd(x, branch)
+        for i, j in ((0, 1), (5, 6), (4095, 4096), (0, 8), (4088, 4096)):
+            part = fwd(x[i:j], None if branch is None else branch[i:j])
+            invariant &= all(p is None and f is None or same_bits(p, f[i:j])
+                             for p, f in zip(part, full))
+    zero_branch = True
+    for n in (8, 960):
+        with_zeros = fwd(x[:n], torch.zeros_like(x[:n]))
+        without = fwd(x[:n], None)
+        zero_branch &= without[0] is None and all(
+            same_bits(a, b) for a, b in zip(without[1:], with_zeros[1:]))
+    print(f"ln_residual_dropout_fwd rate 0: rows of N = 1 and N = 8 bit-equal to "
+          f"N = 4096: {invariant}; o = None bit-equal to a zero o at [8, {x.shape[1]}] "
+          f"and [960, {x.shape[1]}]: {zero_branch}", flush=True)
+    if not (invariant and zero_branch):
+        fail("K4's forward rows depend on the call, or o = None differs from o = 0")
+
+
+def time_ln_fwd_shapes(flush, x, o, scale, bias, eps, seed) -> None:
+    """K4's forward at the shapes beside the kernels line's: [4096, C] at
+    rate 0 with o and with o = None, serving's [8, C] and [960, C] with o =
+    None, and the 1.5B width [1000, 1600] at dropout 0.1."""
+    from gpt_2_distributed_torch.ops import fused_layer as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x16, o16 = (torch.randn(1000, 1600, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+    s16 = 1 + 0.1 * torch.randn(1600, generator=gen, device="cuda")
+    b16 = 0.1 * torch.randn(1600, generator=gen, device="cuda")
+    cases = (("[4096, 768] rate 0", lambda: fl.ln_residual_dropout_fwd(x, o, scale, bias, eps)),
+             ("[4096, 768] o = None", lambda: fl.ln_residual_dropout_fwd(x, None, scale, bias,
+                                                                        eps)),
+             ("[960, 768] o = None", lambda: fl.ln_residual_dropout_fwd(x[:960], None, scale,
+                                                                       bias, eps)),
+             ("[8, 768] o = None", lambda: fl.ln_residual_dropout_fwd(x[:8], None, scale,
+                                                                     bias, eps)),
+             ("[1000, 1600] dropout 0.1", lambda: fl.ln_residual_dropout_fwd(
+                 x16, o16, s16, b16, eps, DROPOUT, seed)))
+    print("ln_residual_dropout_fwd: " + ", ".join(
+        f"{label} {time_ms(fn, flush):.4f} ms" for label, fn in cases), flush=True)
 
 
 def every_finite_bf16(rows: int = 64, width: int = 1024) -> torch.Tensor:
@@ -1208,6 +1287,59 @@ def paged_case(lengths, gen, n=513, h=12, bs=16, d=64):
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
+PAGED_CASES = (("mixed", [0, 1, 17, 1024, 300, 555, 64, 999]), ("full", [1024] * 8))
+
+
+def check_paged(name: str, args) -> float:
+    """K3 on one case against its plain version in fp32, idle rows exact
+    zeros, two launches bit-identical, and each sequence's bits alone (B =
+    1, with the batch's table width and with its table cut to its own
+    blocks) equal to its bits in the batch; planted faults (a table entry
+    swapped inside a split, and at a split's first block) rejected. Returns
+    max |o - plain|."""
+    from gpt_2_distributed_torch.ops.paged_attention import (
+        paged_attention_kernel,
+        paged_attention_plain,
+        split_blocks,
+    )
+
+    q, kp, vp, table, lens = args
+    lengths = lens.tolist()
+    bs = kp.shape[2]
+    o = paged_attention_kernel(*args)
+    again = paged_attention_kernel(*args)
+    torch.cuda.synchronize()
+    o_ref = paged_attention_plain(q.float(), kp.float(), vp.float(), table, lens)
+    err, ratio = held(o, o_ref)
+    idle = [i for i, ln in enumerate(lengths) if ln == 0]
+    zeros_ok = all(torch.equal(o[i], torch.zeros_like(o[i])) for i in idle)
+    same = torch.equal(o, again)
+    alone = all(
+        torch.equal(paged_attention_kernel(q[i:i + 1], kp, vp, t, lens[i:i + 1])[0], o[i])
+        for i, ln in enumerate(lengths)
+        for t in (table[i:i + 1], table[i:i + 1, :max(1, -(-ln // bs))].contiguous()))
+    print(f"K3 {name} lengths {lengths}: max|o - plain| {err:.3e}, max "
+          f"err/tol {ratio:.3f}, idle rows exact zeros: {zeros_ok}, two launches "
+          f"bit-identical: {same}, each sequence alone (B = 1) bit-equal to the "
+          f"batch: {alone}", flush=True)
+    if not (ratio <= 1.0 and zeros_ok and same and alone):
+        fail(f"K3 disagrees with its plain version or itself ({name} lengths)")
+    if name == "full":
+        # Planted faults: sequence 0's sixth block, then the first block of
+        # its second split, swapped for sequence 1's. The check must reject
+        # both.
+        for label, j in (("inside a split", 5), ("at a split's first block",
+                                                  split_blocks(bs))):
+            bad = table.clone()
+            bad[0, j] = table[1, j]
+            _, ratio_bad = held(paged_attention_kernel(q, kp, vp, bad, lens), o_ref)
+            print(f"K3 planted fault (one table entry swapped {label}): max err/tol "
+                  f"{ratio_bad:.1f}", flush=True)
+            if ratio_bad <= 1.0:
+                fail(f"the K3 check lets a planted fault {label} through")
+    return err
+
+
 def phase_paged(flush) -> dict:
     from gpt_2_distributed_torch.ops.paged_attention import (
         paged_attention_kernel,
@@ -1217,31 +1349,9 @@ def phase_paged(flush) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     max_err = 0.0
     row = None
-    for name, lengths in (("mixed", [0, 1, 17, 1024, 300, 555, 64, 999]),
-                          ("full", [1024] * 8)):
+    for name, lengths in PAGED_CASES:
         args = paged_case(lengths, gen)
-        q, kp, vp, table, lens = args
-        o = paged_attention_kernel(*args)
-        torch.cuda.synchronize()
-        o_ref = paged_attention_plain(q.float(), kp.float(), vp.float(), table, lens)
-        err, ratio = held(o, o_ref)
-        idle = [i for i, ln in enumerate(lengths) if ln == 0]
-        zeros_ok = all(torch.equal(o[i], torch.zeros_like(o[i])) for i in idle)
-        print(f"K3 {name} lengths {lengths}: max|o - plain| {err:.3e}, max "
-              f"err/tol {ratio:.3f}, idle rows exact zeros: {zeros_ok}", flush=True)
-        if not (ratio <= 1.0 and zeros_ok):
-            fail(f"K3 disagrees with its plain version ({name} lengths)")
-        max_err = max(max_err, err)
-        if name == "full":
-            # Planted fault: sequence 0's sixth block swapped for sequence
-            # 1's. The check must reject it.
-            bad = table.clone()
-            bad[0, 5] = table[1, 5]
-            _, ratio_bad = held(paged_attention_kernel(q, kp, vp, bad, lens), o_ref)
-            print(f"K3 planted fault (one table entry swapped): max err/tol "
-                  f"{ratio_bad:.1f}", flush=True)
-            if ratio_bad <= 1.0:
-                fail("the K3 check lets a planted fault through")
+        max_err = max(max_err, check_paged(name, args))
         ms = time_ms(lambda: paged_attention_kernel(*args), flush)
         plain_ms = time_ms(lambda: paged_attention_plain(*args), flush)
         h, d = 12, 64

@@ -39,9 +39,18 @@
 // stores where a row is 16-byte aligned (width % 8 == 0; otherwise element
 // loads masked at the width), so any N and any width are taken; row and
 // column indices are 32-bit, with no division.
-//   * K4 runs one warp per row: the row (C <= 2048) sits in the warp's
-//     registers, eight features a lane per 256-feature stride, and the
-//     row sums are __shfl_xor reductions.
+//   * K4's forward runs one warp a row: the row (C <= 2048) sits in the
+//     warp's registers, eight features a lane per 256-feature stride, and
+//     the row sums are __shfl_xor reductions. The rows are spread over
+//     contiguous strips (the wrapper's rows_per_block, a function of N
+//     only) of one row a warp up to N = 4224, so at 124M's N = 4096 all
+//     rows are in flight at once, four 8-warp blocks an SM at ~50
+//     registers (a warp walking two rows with the next row's loads in
+//     flight, or scale and bias in shared memory, read slower there); kept
+//     values are divided by keep as K6 divides (below)
+//     with the sign of o copied onto the quotient (div_keep makes -0 +0),
+//     which rounded to bf16 is the IEEE quotient rounded to bf16. A null o
+//     stands for o = 0 (serving's LayerNorm): no o loads and no r.
 //   * K4's backward spreads the rows over at most one 8-warp block an SM
 //     (the wrapper's rows_per_block, a function of N only): each block a
 //     contiguous strip, each warp two rows at a time (C <= 1024) with the
@@ -181,66 +190,89 @@ __device__ __forceinline__ void get8(float* v, const float4* t) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// v / keep: the product with rkeep = fp32(1 / keep), formed on the host,
+// and one fma correction of its remainder (none where the product
+// overflows, which the remainder would turn into NaN).
+__device__ __forceinline__ float div_keep(float v, float keep, float rkeep) {
+  const float q = v * rkeep;
+  return isinf(q) ? q : fmaf(fmaf(-q, keep, v), rkeep, q);
+}
+
 // ---------------------------------------------------------------------------
-// K4: r = x + dropout(o); y = LayerNorm(r) * scale + bias. One warp a row.
+// K4: r = x + dropout(o); y = LayerNorm(r) * scale + bias.
 // ---------------------------------------------------------------------------
 
+// Block blockIdx.x takes the contiguous strip of rows_per_block rows from
+// blockIdx.x * rows_per_block (a function of N only, ln_fwd_strips in
+// ops/fused_layer.py: one row a warp up to N = 4224, one wave of blocks at
+// four an SM); its warp w takes the strip's rows w, w + WARPS, ... A row's
+// arithmetic does not depend on its strip: lane i holds features (i + 32 v)
+// * 8 .. + 8, the sums are the same __shfl_xor trees, so a row's bits are
+// the same in any launch. o == nullptr (then r == nullptr) stands for o =
+// 0: no o loads, no r store, y as with o = 0.
 template <int VPL>
 __global__ void __launch_bounds__(WARPS * 32) ln_res_fwd_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ o,
     const float* __restrict__ scale, const float* __restrict__ bias,
     bf16* __restrict__ r, bf16* __restrict__ y, float* __restrict__ mean,
-    float* __restrict__ rstd, int N, int C, float eps, Dropout drop, bool vec) {
+    float* __restrict__ rstd, int N, int C, int rows_per_block, float eps,
+    Dropout drop, float rkeep, bool vec) {
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (row >= N) return;  // the whole warp: row is warp-uniform
-  const size_t base = (size_t)row * C;
-  const unsigned hr = drop.row_part(row);
-  float v[VPL][8];
-  float sum = 0.f;
+  const bool has_o = o != nullptr;
+  const int row_end = min((int)(blockIdx.x + 1) * rows_per_block, N);
+  for (int row = (int)blockIdx.x * rows_per_block + (int)threadIdx.x / 32; row < row_end;
+       row += WARPS) {
+    const size_t base = (size_t)row * C;
+    const unsigned hr = drop.row_part(row);
+    float v[VPL][8];
+    float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = (lane + 32 * i) * 8;
-    if (c >= C) continue;
-    float xv[8], ov[8];
-    load8(x + base, c, C, vec, xv);
-    load8(o + base, c, C, vec, ov);
+    for (int i = 0; i < VPL; ++i) {
+      const int c = (lane + 32 * i) * 8;
+      if (c >= C) continue;
+      float xv[8], ov[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      load8(x + base, c, C, vec, xv);
+      if (has_o) load8(o + base, c, C, vec, ov);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float od = ov[j];
-      if (drop.on) od = drop.kept(hr, c + j) ? round_bf16(od / drop.keep) : 0.f;
-      v[i][j] = round_bf16(xv[j] + od);  // zero past C
-      sum += v[i][j];
+      for (int j = 0; j < 8; ++j) {
+        float od = ov[j];
+        if (has_o && drop.on)
+          od = drop.kept(hr, c + j)
+                   ? round_bf16(copysignf(div_keep(od, drop.keep, rkeep), od))
+                   : 0.f;
+        v[i][j] = round_bf16(xv[j] + od);  // zero past C
+        sum += v[i][j];
+      }
+      if (has_o) store8(r + base, c, C, vec, v[i]);
     }
-    store8(r + base, c, C, vec, v[i]);
-  }
-  const float mu = warp_sum(sum) / (float)C;
-  float sq = 0.f;
+    const float mu = warp_sum(sum) / (float)C;
+    float sq = 0.f;
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = (lane + 32 * i) * 8;
-    if (c >= C) continue;
+    for (int i = 0; i < VPL; ++i) {
+      const int c = (lane + 32 * i) * 8;
+      if (c >= C) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float d = v[i][j] - mu;
-      if (c + j < C) sq += d * d;
+      for (int j = 0; j < 8; ++j) {
+        const float d = v[i][j] - mu;
+        if (c + j < C) sq += d * d;
+      }
     }
-  }
-  const float rs = rsqrtf(warp_sum(sq) / (float)C + eps);
+    const float rs = rsqrtf(warp_sum(sq) / (float)C + eps);
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = (lane + 32 * i) * 8;
-    if (c >= C) continue;
-    float sc[8], bi[8], yv[8];
-    load8(scale, c, C, vec, sc);
-    load8(bias, c, C, vec, bi);
+    for (int i = 0; i < VPL; ++i) {
+      const int c = (lane + 32 * i) * 8;
+      if (c >= C) continue;
+      float sc[8], bi[8], yv[8];
+      load8(scale, c, C, vec, sc);
+      load8(bias, c, C, vec, bi);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) yv[j] = (v[i][j] - mu) * rs * sc[j] + bi[j];
-    store8(y + base, c, C, vec, yv);
-  }
-  if (lane == 0) {
-    mean[row] = mu;
-    rstd[row] = rs;
+      for (int j = 0; j < 8; ++j) yv[j] = (v[i][j] - mu) * rs * sc[j] + bi[j];
+      store8(y + base, c, C, vec, yv);
+    }
+    if (lane == 0) {
+      mean[row] = mu;
+      rstd[row] = rs;
+    }
   }
 }
 
@@ -512,14 +544,6 @@ __device__ __forceinline__ float gelu_grad(float u, float s) {
   return fmaf(GELU_2C0 * u * s * (1.f - s), fmaf(GELU_3A * u, u, 1.f), s);
 }
 
-// v / keep: the product with rkeep = fp32(1 / keep), formed on the host,
-// and one fma correction of its remainder (none where the product
-// overflows, which the remainder would turn into NaN).
-__device__ __forceinline__ float div_keep(float v, float keep, float rkeep) {
-  const float q = v * rkeep;
-  return isinf(q) ? q : fmaf(fmaf(-q, keep, v), rkeep, q);
-}
-
 // u = bf16(h + b) for the 8 packed features of h and b: one bf16x2 add a
 // pair (a single rounding of the exact sum, which the fp32 sum rounded to
 // bf16 equals: fp32 keeps more than twice bf16's bits), unpacked to fp32.
@@ -659,13 +683,14 @@ int grid_1d(long long threads, int per_block) {
 
 template <int VPL>
 void ln_fwd(const void* x, const void* o, const void* scale, const void* bias,
-            void* r, void* y, void* mean, void* rstd, int N, int C, float eps,
-            Dropout d, bool vec, cudaStream_t s) {
-  ln_res_fwd_kernel<VPL><<<grid_1d(N, WARPS), WARPS * 32, 0, s>>>(
+            void* r, void* y, void* mean, void* rstd, int N, int C,
+            int rows_per_block, float eps, Dropout d, float rkeep, bool vec,
+            cudaStream_t s) {
+  ln_res_fwd_kernel<VPL><<<grid_1d(N, rows_per_block), WARPS * 32, 0, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(o),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<bf16*>(r), static_cast<bf16*>(y), static_cast<float*>(mean),
-      static_cast<float*>(rstd), N, C, eps, d, vec);
+      static_cast<float*>(rstd), N, C, rows_per_block, eps, d, rkeep, vec);
 }
 
 // Rows a warp keeps in flight: two up to C = 1024, where their registers
@@ -721,17 +746,21 @@ int ln_bwd(const void* r, const void* mean, const void* rstd, const void* scale,
 // probability the kept values are divided by, and PyTorch's stream. It
 // launches on that stream and returns cudaGetLastError().
 
-// K4 forward: r, y [N, C] bf16; mean, rstd [N] fp32. C <= 2048.
+// K4 forward: r, y [N, C] bf16; mean, rstd [N] fp32. C <= 2048. o and r
+// both null: o = 0, and no r. Strips of rows_per_block rows a block.
 extern "C" int ln_res_fwd_bf16(const void* x, const void* o, const void* scale,
                                const void* bias, void* r, void* y, void* mean,
-                               void* rstd, int N, int C, float eps,
-                               unsigned seed, unsigned salt, unsigned threshold,
-                               float keep, void* stream) {
+                               void* rstd, int N, int C, int rows_per_block,
+                               float eps, unsigned seed, unsigned salt,
+                               unsigned threshold, float keep, void* stream) {
   if (N == 0) return (int)cudaSuccess;
+  if (rows_per_block < 1 || (o == nullptr) != (r == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Dropout d = make_dropout(seed, salt, threshold, keep);
   const bool vec = vectorized(C, {x, o, scale, bias, r, y});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LN_FWD(V) ln_fwd<V>(x, o, scale, bias, r, y, mean, rstd, N, C, eps, d, vec, s)
+#define LN_FWD(V) ln_fwd<V>(x, o, scale, bias, r, y, mean, rstd, N, C, rows_per_block, \
+                            eps, d, 1.f / keep, vec, s)
   DISPATCH_VPL(vectors_a_lane(C), LN_FWD)
 #undef LN_FWD
   return (int)cudaGetLastError();

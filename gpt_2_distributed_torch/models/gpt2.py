@@ -135,13 +135,12 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
 def norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
          infer: bool) -> torch.Tensor:
     """LayerNorm over the last axis. On the inference paths on the card it
-    is K4 at rate 0 with a zero branch: one warp a row, so a row's bits do
-    not depend on how many rows share the call, as torch's reductions'
-    split does."""
+    is K4 at rate 0 with no branch (``o=None``: no o read, no r written):
+    one warp a row, so a row's bits do not depend on how many rows share
+    the call, as torch's reductions' split does."""
     if not (infer and x.is_cuda):
         return layer_norm(x, scale, bias, eps)
-    x2 = as_rows(x)
-    return ln_residual_dropout_fwd(x2, torch.zeros_like(x2), scale, bias, eps)[1].view(x.shape)
+    return ln_residual_dropout_fwd(as_rows(x), None, scale, bias, eps)[1].view(x.shape)
 
 
 def qkv_proj(config: GPT2Config, y: torch.Tensor, bp: dict, infer: bool = False):

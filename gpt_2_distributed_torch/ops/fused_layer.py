@@ -60,6 +60,13 @@ GELU_C0 = 0.7978845608028654
 GELU_A = 0.044715
 
 LN_MAX_WIDTH = 2048          # K4 holds a row in one warp's registers
+# K4's forward gives each 8-warp block a contiguous strip of rows, at least
+# one row a warp, at most LN_FWD_MAX_BLOCKS strips (:func:`ln_fwd_strips`, a
+# function of N only; a row's bits depend on neither): four blocks an SM of
+# the H100 (132), so up to N = 4224 every row has its own warp and all are
+# in flight at once.
+LN_FWD_MAX_BLOCKS = 528
+LN_FWD_MIN_ROWS = 8
 # The backward kernels of K4 and K6 give each block a contiguous strip of
 # rows, at least two rows for each of its 8 warps, and sum their columns
 # over the strips in a second pass. The strips are a function of N only
@@ -74,7 +81,7 @@ BWD_MIN_ROWS = 16
 _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _DROP = [_U32, _U32, _U32, _F, _P]   # seed, salt, threshold, keep, stream
 _SIGNATURES = {
-    "ln_res_fwd_bf16": [_P] * 8 + [_I, _I, _F] + _DROP,
+    "ln_res_fwd_bf16": [_P] * 8 + [_I, _I, _I, _F] + _DROP,
     "ln_res_bwd_bf16": [_P] * 10 + [_I, _I, _I] + _DROP,
     "res_drop_fwd_bf16": [_P] * 3 + [_I, _I] + _DROP,
     "drop_scale_bf16": [_P] * 2 + [_I, _I] + _DROP,
@@ -122,9 +129,10 @@ def dropped(v, rate, seed, salt, kp):
 def ln_residual_dropout_plain(x, o, scale, bias, eps=1e-5, rate=0.0, seed=None,
                               salt=SALT_LN_RESID, dtype=None):
     """K4's forward over ``[N, C]``: ``(r, y, mean, rstd)``, r and y in x's
-    dtype, mean and rstd fp32 ``[N]``."""
+    dtype, mean and rstd fp32 ``[N]``. ``o=None`` stands for ``o = 0`` and
+    returns ``r = None``."""
     dtype = dtype or x.dtype
-    od = o.float()
+    od = torch.zeros_like(x, dtype=torch.float32) if o is None else o.float()
     if rate > 0.0:
         od = _round(dropped(od, rate, seed, salt, _keep_prob(rate, dtype)), dtype)
     r = _round(x.float() + od, dtype)
@@ -132,7 +140,7 @@ def ln_residual_dropout_plain(x, o, scale, bias, eps=1e-5, rate=0.0, seed=None,
     cent = r - mean
     rstd = torch.rsqrt(cent.square().mean(dim=-1, keepdim=True) + eps)
     y = cent * rstd * scale.float() + bias.float()
-    return r.to(x.dtype), y.to(x.dtype), mean[:, 0], rstd[:, 0]
+    return (None if o is None else r.to(x.dtype)), y.to(x.dtype), mean[:, 0], rstd[:, 0]
 
 
 def ln_residual_dropout_bwd_plain(r, mean, rstd, scale, dr, dy, rate=0.0, seed=None,
@@ -227,6 +235,13 @@ def _dropout_words(rate: float, seed: int | None, salt: int, kp: float):
     return seed & 0xFFFFFFFF, salt, int(rate * (2 ** 32)), kp
 
 
+def ln_fwd_strips(n: int) -> tuple[int, int]:
+    """(rows a strip, strips) of K4's forward over ``n`` rows: at most
+    ``LN_FWD_MAX_BLOCKS`` strips of at least ``LN_FWD_MIN_ROWS`` rows."""
+    rows = max(LN_FWD_MIN_ROWS, -(-n // LN_FWD_MAX_BLOCKS))
+    return rows, -(-n // rows)
+
+
 def bwd_strips(n: int, max_strips: int) -> tuple[int, int]:
     """(rows a strip, strips) of a backward kernel over ``n`` rows: at most
     ``max_strips`` strips of at least ``BWD_MIN_ROWS`` rows."""
@@ -242,8 +257,10 @@ def _launch(fn: str, *args) -> None:
 def ln_residual_dropout_fwd(x, o, scale, bias, eps=1e-5, rate=0.0, seed=None,
                             salt=SALT_LN_RESID):
     """``(r, y, mean, rstd)`` of K4 over ``[N, C]``: CUDA tensors launch the
-    kernel (bf16 x and o, fp32 scale and bias), CPU tensors use the plain
-    version."""
+    kernel over strips of rows (:func:`ln_fwd_strips`; bf16 x and o, fp32
+    scale and bias), CPU tensors use the plain version. ``o=None`` stands
+    for ``o = 0``: the kernel then reads no o and writes no r, and ``r`` is
+    None."""
     if not x.is_cuda:
         return ln_residual_dropout_plain(x, o, scale, bias, eps, rate, seed, salt)
     n, c = x.shape
@@ -253,15 +270,17 @@ def ln_residual_dropout_fwd(x, o, scale, bias, eps=1e-5, rate=0.0, seed=None,
                                   ("o", o, (n, c), torch.bfloat16),
                                   ("scale", scale, (c,), torch.float32),
                                   ("bias", bias, (c,), torch.float32)):
-        check_operand(name, t, shape, dtype, x.device)
-    r, y = torch.empty_like(x), torch.empty_like(x)
+        if t is not None:
+            check_operand(name, t, shape, dtype, x.device)
+    r = None if o is None else torch.empty_like(x)
+    y = torch.empty_like(x)
     mean = torch.empty(n, dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     with torch.cuda.device(x.device):
-        _launch("ln_res_fwd_bf16", x.data_ptr(), o.data_ptr(), scale.data_ptr(),
-                bias.data_ptr(), r.data_ptr(), y.data_ptr(), mean.data_ptr(),
-                rstd.data_ptr(), n, c, eps,
-                *_dropout_words(rate, seed, salt, _keep_prob(rate, x.dtype)))
+        _launch("ln_res_fwd_bf16", x.data_ptr(), None if o is None else o.data_ptr(),
+                scale.data_ptr(), bias.data_ptr(), None if r is None else r.data_ptr(),
+                y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n, c, ln_fwd_strips(n)[0],
+                eps, *_dropout_words(rate, seed, salt, _keep_prob(rate, x.dtype)))
     ln_residual_dropout_fwd.launches += 1
     return r, y, mean, rstd
 

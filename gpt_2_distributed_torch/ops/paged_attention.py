@@ -16,10 +16,14 @@ marks an idle slot (o = 0).
   contiguous-cache decode path runs (``models/decode.py::decode_step``) —
   the counterpart of ``paged_attention_xla``.
 * :func:`paged_attention_kernel` launches ``csrc/paged_decode.cu`` on CUDA
-  tensors: each K/V row is read straight from its pool slot, only the
-  blocks holding data are visited, and no gathered copy exists. On CPU
-  tensors it uses the plain version. ``paged_attention_kernel.launches``
-  counts kernel launches.
+  tensors: each sequence's keys are cut into splits of whole pool blocks
+  (:func:`paged_splits`, a function of the sequence's length and the block
+  size alone), one block of the kernel a (head, sequence, split), and a
+  second kernel merges a sequence's splits in a fixed order. Each K/V row
+  is read straight from its pool slot, only the blocks holding data are
+  visited, and no gathered copy exists. On CPU tensors it uses the plain
+  version. ``paged_attention_kernel.launches`` counts its calls, each of
+  which launches both kernels.
 * :func:`paged_attention` is the decode step's dispatch.
 """
 
@@ -34,18 +38,37 @@ from gpt_2_distributed_torch.kernels import build
 from gpt_2_distributed_torch.ops.attention import MASK_VALUE
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
+# Keys a split holds, rounded up to whole pool blocks (:func:`split_blocks`).
+SPLIT_KEYS = 256
 
 _SIGNATURES = {
     "paged_decode_bf16": [
         ctypes.c_void_p, ctypes.c_longlong,       # q, q batch stride
         ctypes.c_void_p, ctypes.c_void_p,         # k_pool, v_pool
         ctypes.c_void_p, ctypes.c_void_p,         # block_table, lengths
-        ctypes.c_void_p,                          # o
+        ctypes.c_void_p, ctypes.c_void_p,         # o, workspace
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, bs
-        ctypes.c_int, ctypes.c_int,               # D, M
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D, M, split_blocks
         ctypes.c_void_p,                          # stream
     ],
 }
+
+
+def split_blocks(bs: int) -> int:
+    """Pool blocks of ``bs`` positions a split of the kernel holds: the
+    fewest that hold ``SPLIT_KEYS`` keys."""
+    return -(-SPLIT_KEYS // bs)
+
+
+def paged_splits(length: int, bs: int) -> list[tuple[int, int]]:
+    """The key ranges ``[start, end)`` of a sequence of ``length`` cached
+    positions, one per block of the kernel that attends to them: whole pool
+    blocks from the first key, the last cut at ``length``; none for an idle
+    sequence. A function of ``length`` and ``bs`` alone, so a sequence's
+    bits do not depend on the batch it shares, the table width or the
+    card."""
+    keys = split_blocks(bs) * bs
+    return [(s, min(s + keys, length)) for s in range(0, length, keys)]
 
 
 def paged_attention_plain(
@@ -114,12 +137,18 @@ def paged_attention_kernel(
                     ("block_table", block_table), ("lengths", lengths)):
         if x.device != q.device:
             raise ValueError(f"paged kernel: {name} on {x.device}, q on {q.device}")
+    m = block_table.shape[1]
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    # The splits of the longest sequence the table holds: the grid's depth.
+    splits = len(paged_splits(m * bs, bs))
+    # Each split's fp32 (m, l, acc[D]) where a sequence has more than one.
+    ws = (torch.empty((b, h, splits, d + 2), dtype=torch.float32, device=q.device)
+          if splits > 1 else None)
     lib = build.load("paged_decode", _SIGNATURES)
     code = lib.paged_decode_bf16(
         q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        b, h, bs, d, block_table.shape[1],
+        None if ws is None else ws.data_ptr(), b, h, bs, d, m, split_blocks(bs),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(code, "paged_decode_bf16")

@@ -1,14 +1,15 @@
-"""Device times of K6's forward and backward, K4's backward (whose column
-pass K6 now shares) and, as controls, K8's forward and backward, from two
-checkouts of the PyTorch/CUDA port, in turns, on one GPU, at
-chip_smoke.py's timed shapes:
+"""Device times of K4's forward and K3 (paged decode) and, as controls, K6's
+forward and backward and K4's backward, from two checkouts of the
+PyTorch/CUDA port, in turns, on one GPU, at chip_smoke.py's timed shapes:
 
+- K4 forward [4096, 768] at dropout 0.1 and at rate 0 (with a zero o, and
+  where the tree takes it, with ``o=None``), PyTorch's ``layer_norm`` on
+  the same rows beside it; [1000, 1600] at dropout 0.1; serving's [960,
+  768] and [8, 768] with a zero o (and ``o=None``);
+- K3 at chip_smoke.py's "full" (8 x 1024 keys) and "mixed" lengths, 12
+  heads, D 64, blocks of 16;
 - K6 forward and backward [4096, 3072] and K4 backward [4096, 768],
-  dropout 0.1, each backward's two passes (the rows, the column sums)
-  timed apart, with PyTorch's tanh ``gelu`` and ``gelu_backward`` on the
-  same inputs beside K6;
-- K8 forward and backward: one full [4, 12, 512|512, 64] block below the
-  diagonal (sp = 2 at 124M), dropout 0.1, with nonzero do and dlse.
+  dropout 0.1.
 
     python scripts/torch_kernel_ab.py OLD_ROOT NEW_ROOT
 
@@ -16,10 +17,12 @@ Runs OLD, NEW, NEW, OLD, each in its own process that imports
 ``gpt_2_distributed_torch`` from that root (its kernels built under that
 root's ``build/``), and prints the card (``nvidia-smi`` name and power
 limit), then one JSON line a run: each kernel's median device time over 20
-launches on a flushed L2 (chip_smoke.py's ``time_ms``), the passes' mean
-times from torch.profiler (``kernels_apart_ms``), and a hash of K4
-backward's outputs (dx, do, dscale, dbias), equal between two trees whose
-K4 backward gives the same bits. Exits nonzero without a GPU.
+launches on a flushed L2 (chip_smoke.py's ``time_ms``, after a write of the
+flush buffer), the memory-bound rows of K4's forward and K3 also after a
+read of it (``_read``), and hashes of K4 forward's outputs (r, y, mean,
+rstd at dropout 0.1 and at rate 0) and of K4 backward's (dx, do, dscale,
+dbias), equal between two trees that give the same bits. Exits nonzero
+without a GPU.
 """
 
 from __future__ import annotations
@@ -36,10 +39,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (timing helpers; it imports the package lazily)
 
 
+def digest(tensors) -> str:
+    return hashlib.sha256(b"".join(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                                   for t in tensors if t is not None)).hexdigest()[:16]
+
+
 def worker(root: str) -> dict:
     sys.path.insert(0, root)
-    from gpt_2_distributed_torch.ops import flash_block as fb
     from gpt_2_distributed_torch.ops import fused_layer as fl
+    from gpt_2_distributed_torch.ops import paged_attention as pa
 
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -47,48 +55,58 @@ def worker(root: str) -> dict:
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
-    out = {"root": root}
-    q, k, v, do = (randn(4, 12, 512, 64) for _ in range(4))
-    kw = dict(seed=chip_smoke.ATTN_SEED, dropout_rate=chip_smoke.DROPOUT)
-    o, lse = fb.flash_block_fwd(q, k, v, 512, 0, **kw)
-    delta = ((do.float() * o.float()).sum(-1) - randn(4, 12, 512, dtype=torch.float32)
-             * chip_smoke.LOG2E).contiguous()
-    out["k8_fwd_ms"] = chip_smoke.time_ms(lambda: fb.flash_block_fwd(q, k, v, 512, 0, **kw),
-                                          flush)
-    out["k8_bwd_ms"] = chip_smoke.time_ms(
-        lambda: fb.flash_block_bwd(q, k, v, do, lse, delta, 512, 0, **kw), flush)
+    def timed(name, fn, both=False):
+        out[f"{name}_ms"] = chip_smoke.time_ms(fn, flush)
+        if both:
+            out[f"{name}_read_ms"] = chip_smoke.time_ms(fn, flush, read_flush=True)
 
+    out = {"root": root}
     n, c, f = chip_smoke.FUSED_SHAPES[0]
-    seed, rate = chip_smoke.FUSED_SEED, chip_smoke.DROPOUT
+    seed, rate, eps = chip_smoke.FUSED_SEED, chip_smoke.DROPOUT, 1e-5
     x, o, dr, dy = (randn(n, c) for _ in range(4))
     scale = 1 + randn(c, scale=0.1, dtype=torch.float32)
     bias = randn(c, scale=0.1, dtype=torch.float32)
-    r, _, mean, rstd = fl.ln_residual_dropout_fwd(x, o, scale, bias, 1e-5, rate, seed)
+    zero = torch.zeros_like(o)
+    takes_none = hasattr(fl, "ln_fwd_strips")   # K4's forward takes o=None
+
+    def k4(xs, os, r=0.0):
+        return fl.ln_residual_dropout_fwd(xs, os, scale, bias, eps, r, seed)
+
+    out["k4_fwd_sha256"] = digest(k4(x, o, rate))
+    out["k4_fwd_rate0_sha256"] = digest(k4(x, o))
+    timed("k4_fwd", lambda: k4(x, o, rate), both=True)
+    timed("k4_fwd_rate0", lambda: k4(x, o), both=True)
+    timed("k4_fwd_zero_o", lambda: k4(x, zero), both=True)
+    if takes_none:
+        timed("k4_fwd_none", lambda: k4(x, None), both=True)
+    r = k4(x, o)[0]
+    sc16, bi16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    timed("layer_norm", lambda: torch.nn.functional.layer_norm(r, (c,), sc16, bi16, eps),
+          both=True)
+    for rows in (960, 8):
+        timed(f"k4_fwd_{rows}_zero_o", lambda: k4(x[:rows], zero[:rows]))
+        if takes_none:
+            timed(f"k4_fwd_{rows}_none", lambda: k4(x[:rows], None))
+    x16, o16 = randn(1000, 1600), randn(1000, 1600)
+    s16, b16 = 1 + randn(1600, scale=0.1, dtype=torch.float32), randn(
+        1600, scale=0.1, dtype=torch.float32)
+    timed("k4_fwd_1000x1600", lambda: fl.ln_residual_dropout_fwd(
+        x16, o16, s16, b16, eps, rate, seed))
+
+    for name, lengths in chip_smoke.PAGED_CASES:
+        args = chip_smoke.paged_case(lengths, gen)
+        timed(f"k3_{name}", lambda: pa.paged_attention_kernel(*args), both=True)
+
+    rr, _, mean, rstd = k4(x, o, rate)
 
     def k4_bwd():
-        return fl.ln_residual_dropout_bwd(r, mean, rstd, scale, dr, dy, rate, seed)
+        return fl.ln_residual_dropout_bwd(rr, mean, rstd, scale, dr, dy, rate, seed)
 
-    out["k4_bwd_sha256"] = hashlib.sha256(
-        b"".join(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
-                 for t in k4_bwd())).hexdigest()[:16]
-    out["k4_bwd_ms"] = chip_smoke.time_ms(k4_bwd, flush)
-    out["k4_bwd_passes_ms"] = chip_smoke.kernels_apart_ms(
-        k4_bwd, flush, chip_smoke.BWD_PASSES["ln_residual_dropout_bwd"])
+    out["k4_bwd_sha256"] = digest(k4_bwd())
+    timed("k4_bwd", k4_bwd)
     h, dout, b = randn(n, f), randn(n, f), randn(f, scale=0.1)
-    u = h + b
-
-    def k6_bwd():
-        return fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed)
-
-    out["k6_fwd_ms"] = chip_smoke.time_ms(
-        lambda: fl.bias_gelu_dropout_fwd(h, b, rate, seed), flush)
-    out["gelu_ms"] = chip_smoke.time_ms(
-        lambda: torch.nn.functional.gelu(u, approximate="tanh"), flush)
-    out["k6_bwd_ms"] = chip_smoke.time_ms(k6_bwd, flush)
-    out["k6_bwd_passes_ms"] = chip_smoke.kernels_apart_ms(
-        k6_bwd, flush, chip_smoke.BWD_PASSES["bias_gelu_dropout_bwd"])
-    out["gelu_backward_ms"] = chip_smoke.time_ms(
-        lambda: torch.ops.aten.gelu_backward(dout, u, approximate="tanh"), flush)
+    timed("k6_fwd", lambda: fl.bias_gelu_dropout_fwd(h, b, rate, seed))
+    timed("k6_bwd", lambda: fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed))
     return out
 
 

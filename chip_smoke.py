@@ -53,13 +53,17 @@ that does not hold:
    and backward, at [4096, 768] / [4096, 3072] (124M, batch 4 x 1024) and
    at the ragged [1000, 1600] / [1000, 6400] (1.5B widths), dropout 0 and
    0.1: each against its plain version run in fp32 on the same values,
-   element by element, K4's forward and the backward kernels twice and
-   bit-identical, a planted fault per kernel (seed + 1); K4's forward at
-   rate 0 row-invariant (rows of N = 1 and N = 8 calls bit-equal to N =
-   4096) and, with ``o=None``, bit-equal to a zero o at [8, 768] and
-   [960, 768]; times at the 124M shape beside the plain version and the
-   nearest PyTorch call (K4's forward also at rate 0, with ``o=None``, at
-   serving's [960, 768] and [8, 768] and at [1000, 1600]), and the two
+   element by element, K4's forward, K5's two kernels and the backward
+   kernels twice and bit-identical, a planted fault per kernel (seed + 1);
+   K4's forward at rate 0 row-invariant (rows of N = 1 and N = 8 calls
+   bit-equal to N = 4096) and, with ``o=None``, bit-equal to a zero o at
+   [8, 768] and [960, 768]; K5 and K6 with -0 planted at kept and dropped
+   positions (x, o, dr, u = h + b and dout), their bits against the plain
+   versions' (``signed_zeros_held``: K5 everywhere, K6 where u = -0);
+   times at the 124M shape beside the plain version and the nearest
+   PyTorch call (K4's forward also at rate 0, with ``o=None``, at
+   serving's [960, 768] and [8, 768] and at [1000, 1600]; K5 also at
+   [1000, 1600]), and the two
    passes (the rows, the column sums) of K4's and K6's backward apart with
    ``torch.profiler``; then both K6 kernels on h holding every finite bf16
    value ([64, 1024], b = 0, dout = 1) at dropout 0 and 0.1, against the
@@ -652,9 +656,11 @@ BWD_PASSES = {
 def phase_fused(flush) -> dict[str, dict]:
     """K4 (forward, backward), K5 (forward, backward rescale) and K6
     (forward, backward) against their plain versions at FUSED_SHAPES, at
-    dropout 0 and 0.1, element by element; the backward kernels twice,
-    bit-identical; a planted fault per kernel (seed + 1); then times at the
-    124M shape, dropout 0.1. Returns each wrapper's row of the kernels line."""
+    dropout 0 and 0.1 (K5 at 0.1), element by element; K4's and K5's
+    kernels and the backward kernels twice, bit-identical; a planted fault
+    per kernel (seed + 1); the signed zeros of K5 and K6
+    (``signed_zeros_held``); then times at the 124M shape, dropout 0.1.
+    Returns each wrapper's row of the kernels line."""
     from gpt_2_distributed_torch.ops import fused_layer as fl
 
     bf, eps = torch.bfloat16, 1e-5
@@ -733,14 +739,18 @@ def phase_fused(flush) -> dict[str, dict]:
                 same=torch.equal(dh, dh2) and torch.equal(db, db2))
         if c == 768:
             check_ln_fwd_rows(x, o, scale, bias, eps)
+            if not signed_zeros_held():
+                fail("a K5 or K6 kernel writes another zero than its plain version")
         # K5 runs at dropout > 0 only (at 0 the op is the bare add).
         label = f"[{n}, {c}] dropout {DROPOUT}"
         r5 = fl.residual_dropout_fwd(x, o, DROPOUT, seed)
         r5_ref = fl.residual_dropout_plain(x.float(), o.float(), DROPOUT, seed, dtype=bf)
-        hold("residual_dropout_fwd", label, [("elem", r5, r5_ref)])
+        hold("residual_dropout_fwd", label, [("elem", r5, r5_ref)],
+             same=same_bits(r5, fl.residual_dropout_fwd(x, o, DROPOUT, seed)))
         do = fl.dropout_scale(dr, DROPOUT, seed)
         do_ref = fl.dropout_scale_plain(dr.float(), DROPOUT, seed, dtype=bf)
-        hold("dropout_scale", label, [("elem", do, do_ref)])
+        hold("dropout_scale", label, [("elem", do, do_ref)],
+             same=same_bits(do, fl.dropout_scale(dr, DROPOUT, seed)))
         # Planted faults: the next seed draws other masks.
         planted("ln_residual_dropout_fwd",
                 fl.ln_residual_dropout_fwd(x, o, scale, bias, eps, DROPOUT, seed + 1)[0], ref[0])
@@ -814,6 +824,7 @@ def phase_fused(flush) -> dict[str, dict]:
                       f"mean of 20 launches on a flushed L2): "
                       + ", ".join(f"{k} {t:.4f} ms" for k, t in passes.items()), flush=True)
                 rows[name]["passes_ms"] = passes
+        time_k5_shapes(flush, rows, seed)
     for name, row in rows.items():
         row["max_abs_err"] = max_err[name]
     return rows
@@ -854,6 +865,96 @@ def check_ln_fwd_rows(x, o, scale, bias, eps) -> None:
           f"and [960, {x.shape[1]}]: {zero_branch}", flush=True)
     if not (invariant and zero_branch):
         fail("K4's forward rows depend on the call, or o = None differs from o = 0")
+
+
+def signed_zero_case(n: int, c: int) -> dict:
+    """Random bf16 inputs of K5 and K6 at [n, c] on the card with -0 planted
+    in every third column: o, dr and dout -0 there; x -0 in even rows, +0
+    in rows 1 mod 4, random else; h and b -0 where u = -0 (even rows).
+    Also the bool masks ``planted`` and ``u_zero``."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(c)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+    x, o, dr, h, dout = (randn(n, c) for _ in range(5))
+    b = randn(c)
+    zero = torch.zeros((), dtype=bf, device="cuda")
+    rows = torch.arange(n, device="cuda")[:, None]
+    planted = (torch.arange(c, device="cuda") % 3 == 0)[None, :].expand(n, c)
+    u_zero = planted & (rows % 2 == 0)
+    o, dr, dout = (torch.where(planted, -zero, t) for t in (o, dr, dout))
+    return dict(x=torch.where(u_zero, -zero, torch.where(planted & (rows % 4 == 1), zero, x)),
+                o=o, dr=dr, h=torch.where(u_zero, -zero, h),
+                b=torch.where(planted[0], -zero, b), dout=dout, planted=planted,
+                u_zero=u_zero)
+
+
+def signed_zeros_held() -> bool:
+    """-0 planted at kept and dropped positions of dropout 0.1
+    (``signed_zero_case``) at [256, 768] (16-byte rows) and [100, 100] (the
+    element path): K5's forward with o = -0 and x = -0, +0 or random, its
+    rescale at dr = -0, K6's forward at u = h + b = -0 and its backward at
+    dout = -0 there. The outputs' bits against the plain versions' on the
+    card: K5's everywhere (the same roundings of the same IEEE quotient),
+    K6's where u = -0 (elsewhere its sigmoid-form GELU may differ from the
+    plain tanh form within the element bound, which ``phase_fused``
+    holds). Prints the count of differing bits of each; True where none
+    differ."""
+    from gpt_2_distributed_torch.ops import fused_layer as fl
+
+    seed = FUSED_SEED
+    ok = True
+    for n, c in ((256, 768), (100, 100)):
+        t = signed_zero_case(n, c)
+        x, o, dr, h, b, dout, planted, u_zero = (
+            t[k] for k in ("x", "o", "dr", "h", "b", "dout", "planted", "u_zero"))
+        differ = {
+            "residual_dropout_fwd": (fl.residual_dropout_fwd(x, o, DROPOUT, seed),
+                                     fl.residual_dropout_plain(x, o, DROPOUT, seed), None),
+            "dropout_scale": (fl.dropout_scale(dr, DROPOUT, seed),
+                              fl.dropout_scale_plain(dr, DROPOUT, seed), None),
+            "bias_gelu_dropout_fwd": (fl.bias_gelu_dropout_fwd(h, b, DROPOUT, seed),
+                                      fl.bias_gelu_dropout_plain(h, b, DROPOUT, seed), u_zero),
+            "bias_gelu_dropout_bwd": (fl.bias_gelu_dropout_bwd(h, b, dout, DROPOUT, seed)[0],
+                                      fl.bias_gelu_dropout_bwd_plain(h, b, dout, DROPOUT,
+                                                                     seed)[0], u_zero),
+        }
+        parts = []
+        for name, (got, ref, where) in differ.items():
+            bad = got.view(torch.int16) != ref.view(torch.int16)
+            if where is not None:
+                bad = bad & where
+            ok &= not bad.any().item()
+            parts.append(f"{name} {int(bad.sum())} of "
+                         f"{got.numel() if where is None else int(where.sum())}")
+        kept = {salt: fl.epilogue_dropout_mask(seed, salt, (n, c), DROPOUT, "cuda")
+                for salt in (fl.SALT_RESID, fl.SALT_GELU)}
+        print(f"signed zeros at [{n}, {c}], dropout {DROPOUT}: -0 planted at "
+              f"{int((planted & kept[fl.SALT_RESID]).sum())} kept and "
+              f"{int((planted & ~kept[fl.SALT_RESID]).sum())} dropped positions (K5), u = "
+              f"dout = -0 at {int((u_zero & kept[fl.SALT_GELU]).sum())} kept and "
+              f"{int((u_zero & ~kept[fl.SALT_GELU]).sum())} dropped (K6); bits differing "
+              f"from the plain version: " + ", ".join(parts), flush=True)
+    return ok
+
+
+def time_k5_shapes(flush, rows: dict, seed: int) -> None:
+    """K5's forward and rescale at dropout 0.1 at [1000, 1600] (the 1.5B
+    width, ragged rows) beside their [4096, 768] times in ``rows``, each
+    with its bound."""
+    from gpt_2_distributed_torch.ops import fused_layer as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(1600)
+    x, o, dr = (torch.randn(1000, 1600, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(3))
+    cases = (("residual_dropout_fwd", lambda: fl.residual_dropout_fwd(x, o, DROPOUT, seed), 6),
+             ("dropout_scale", lambda: fl.dropout_scale(dr, DROPOUT, seed), 4))
+    print("K5, dropout 0.1: " + "; ".join(
+        f"{name} [4096, 768] {rows[name]['ms']:.4f} ms (bound {rows[name]['bound_ms']:.5f}), "
+        f"[1000, 1600] {time_ms(fn, flush):.4f} ms (bound "
+        f"{bound_ms(per * x.numel(), 0.0)[0]:.5f})" for name, fn, per in cases), flush=True)
 
 
 def time_ln_fwd_shapes(flush, x, o, scale, bias, eps, seed) -> None:

@@ -56,20 +56,31 @@
 //     contiguous strip, each warp two rows at a time (C <= 1024) with the
 //     loads of r, dy and dr of both in flight together; its column sums
 //     and scale sit in shared memory, so the registers hold the rows.
-//   * K5 and its rescale run one thread per eight features of a row.
+//   * K5 and its rescale run a 2-D block shaped to the width (ew_block:
+//     whole warps along a row's 8-feature vectors, at C = 768 96 threads,
+//     two rows of them a block), a thread 8 features of a row with its
+//     loads issued before the math, at 32 registers (8 blocks an SM); row
+//     and column come from the grid, which is a function of N and C only.
+//     Two or four rows a thread read slower on the H100 (more registers,
+//     fewer warps; PERF.md). They divide a kept value as K4's forward does
+//     (div_keep, the dividend's sign copied on), which rounded to bf16 is
+//     the IEEE quotient rounded to bf16.
 //   * K6 takes its GELU in sigmoid form, 0.5 (1 + tanh z) = 1 / (1 +
 //     2^(-2 z log2 e)): one ex2 and one reciprocal (MUFU, approximate, by
 //     name: the shared flags have no fast math), no 1 + t cancellation in
 //     the negative tail; it adds h + b as bf16 pairs, and divides by keep
 //     as a product with the host's fp32 1 / keep and one fma correction
-//     instead of div.rn. Its forward runs a 2-D grid (8-feature vectors in
-//     x, rows in y), each thread the same columns of GF_ROWS rows, their
-//     loads issued before the math and the bias loaded once, at 40
-//     registers (12 blocks an SM). Its backward gives each block a
-//     contiguous strip of rows (a function of N only, as K4's) and a
-//     256-feature slab, a lane 8 features, the 8 warps the strip's rows in
-//     turn with the next row's h and dout loads in flight while the current
-//     one computes; each lane keeps its column sums in registers.
+//     instead of div.rn, with the dividend's sign copied onto the quotient
+//     (the fma turns -0 into +0, where the TPU kernels keep -0: at u = -0
+//     in the forward, dout = -0 in the backward). Its forward runs a 2-D
+//     grid (8-feature vectors in x, rows in y), each thread the same
+//     columns of GF_ROWS rows, their loads issued before the math and the
+//     bias loaded once, at 40 registers (12 blocks an SM). Its backward
+//     gives each block a contiguous strip of rows (a function of N only,
+//     as K4's) and a 256-feature slab, a lane 8 features, the 8 warps the
+//     strip's rows in turn with the next row's h and dout loads in flight
+//     while the current one computes; each lane keeps its column sums in
+//     registers.
 //   * dscale, dbias (K4) and db (K6) are sums over every row. The TPU
 //     kernels accumulate them across a sequential grid; Hopper blocks run
 //     in no order, so each block adds its warps' sums as a fixed-order tree
@@ -93,7 +104,8 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int WARPS = 8;          // warps a block in K4's and K6's backward
-constexpr int EW_THREADS = 256;   // threads a block in K5's kernels
+constexpr int EW_THREADS = 256;   // most threads a block in K5's kernels
+constexpr int EW_MIN_BLOCKS = 8;  // blocks an SM K5's kernels are built for (32 registers)
 constexpr int GF_THREADS = 128;   // threads a block in K6's forward
 constexpr int GF_ROWS = 2;        // rows a thread in K6's forward
 constexpr int GF_MIN_BLOCKS = 12; // blocks an SM K6's forward is built for (40 registers)
@@ -198,6 +210,12 @@ __device__ __forceinline__ float div_keep(float v, float keep, float rkeep) {
   return isinf(q) ? q : fmaf(fmaf(-q, keep, v), rkeep, q);
 }
 
+// div_keep with v's sign: the correction turns -0 into +0, and the TPU
+// kernels' true division keeps -0.
+__device__ __forceinline__ float div_keep_signed(float v, float keep, float rkeep) {
+  return copysignf(div_keep(v, keep, rkeep), v);
+}
+
 // ---------------------------------------------------------------------------
 // K4: r = x + dropout(o); y = LayerNorm(r) * scale + bias.
 // ---------------------------------------------------------------------------
@@ -238,7 +256,7 @@ __global__ void __launch_bounds__(WARPS * 32) ln_res_fwd_kernel(
         float od = ov[j];
         if (has_o && drop.on)
           od = drop.kept(hr, c + j)
-                   ? round_bf16(copysignf(div_keep(od, drop.keep, rkeep), od))
+                   ? round_bf16(div_keep_signed(od, drop.keep, rkeep))
                    : 0.f;
         v[i][j] = round_bf16(xv[j] + od);  // zero past C
         sum += v[i][j];
@@ -466,48 +484,51 @@ __global__ void __launch_bounds__(SHARES * 32) column_sum_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K5: r = x + dropout(o), and the backward's do = keep * dr / kp. One
-// thread per 8 features of a row.
+// K5: r = x + dropout(o), and the backward's do = keep * dr / kp.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(EW_THREADS) res_drop_fwd_kernel(
+// Each thread the 8 features at c of one row at a time: row threadIdx.y of
+// its block's band of blockDim.y rows, the bands stepping by gridDim.y.
+// Its loads are issued before the math.
+__global__ void __launch_bounds__(EW_THREADS, EW_MIN_BLOCKS) res_drop_fwd_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ o,
-    bf16* __restrict__ r, int N, int C, Dropout drop, bool vec) {
-  const int CV = (C + 7) / 8;
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= (long long)N * CV) return;
-  const int row = (int)(v / CV);
-  const int c = (int)(v % CV) * 8;
-  const size_t base = (size_t)row * C;
-  float xv[8], ov[8];
-  load8(x + base, c, C, vec, xv);
-  load8(o + base, c, C, vec, ov);
-  const unsigned hr = drop.row_part(row);
+    bf16* __restrict__ r, int N, int C, Dropout drop, float rkeep, bool vec) {
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (c >= C) return;
+  for (int row = blockIdx.y * blockDim.y + threadIdx.y; row < N; row += gridDim.y * blockDim.y) {
+    const size_t base = (size_t)row * C;
+    const uint4 xv = load8_raw(x + base, c, C, vec), ov = load8_raw(o + base, c, C, vec);
+    float v[8], od[8];
+    unpack8(xv, v);
+    unpack8(ov, od);
+    const unsigned hr = drop.row_part(row);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float od = ov[j];
-    if (drop.on) od = drop.kept(hr, c + j) ? round_bf16(od / drop.keep) : 0.f;
-    xv[j] += od;
+    for (int j = 0; j < 8; ++j) {
+      if (drop.on)
+        od[j] = drop.kept(hr, c + j) ? round_bf16(div_keep_signed(od[j], drop.keep, rkeep))
+                                     : 0.f;
+      v[j] += od[j];
+    }
+    store8(r + base, c, C, vec, v);
   }
-  store8(r + base, c, C, vec, xv);
 }
 
-__global__ void __launch_bounds__(EW_THREADS) drop_scale_kernel(
+// The same layout over dr alone.
+__global__ void __launch_bounds__(EW_THREADS, EW_MIN_BLOCKS) drop_scale_kernel(
     const bf16* __restrict__ dr, bf16* __restrict__ d_o, int N, int C,
-    Dropout drop, bool vec) {
-  const int CV = (C + 7) / 8;
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= (long long)N * CV) return;
-  const int row = (int)(v / CV);
-  const int c = (int)(v % CV) * 8;
-  const size_t base = (size_t)row * C;
-  float dv[8];
-  load8(dr + base, c, C, vec, dv);
-  const unsigned hr = drop.row_part(row);
+    Dropout drop, float rkeep, bool vec) {
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (c >= C) return;
+  for (int row = blockIdx.y * blockDim.y + threadIdx.y; row < N; row += gridDim.y * blockDim.y) {
+    const size_t base = (size_t)row * C;
+    float v[8];
+    unpack8(load8_raw(dr + base, c, C, vec), v);
+    const unsigned hr = drop.row_part(row);
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (drop.on) dv[j] = drop.kept(hr, c + j) ? dv[j] / drop.keep : 0.f;
-  store8(d_o + base, c, C, vec, dv);
+    for (int j = 0; j < 8; ++j)
+      if (drop.on) v[j] = drop.kept(hr, c + j) ? div_keep_signed(v[j], drop.keep, rkeep) : 0.f;
+    store8(d_o + base, c, C, vec, v);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -581,7 +602,7 @@ __global__ void __launch_bounds__(GF_THREADS, GF_MIN_BLOCKS) bias_gelu_fwd_kerne
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         float g = v[j] * gelu_sigma(v[j]);
-        if (drop.on) g = drop.kept(hr, c + j) ? div_keep(g, drop.keep, rkeep) : 0.f;
+        if (drop.on) g = drop.kept(hr, c + j) ? div_keep_signed(g, drop.keep, rkeep) : 0.f;
         v[j] = g;
       }
       store8(out + (size_t)row * F, c, F, vec, v);
@@ -629,7 +650,7 @@ __global__ void __launch_bounds__(WARPS * 32, GB_MIN_BLOCKS) bias_gelu_bwd_kerne
       for (int j = 0; j < 8; ++j) {
         const float gp = gelu_grad(u[j], gelu_sigma(u[j]));
         float dg = dv[j];
-        if (drop.on) dg = drop.kept(hr, c + j) ? div_keep(dg, drop.keep, rkeep) : 0.f;
+        if (drop.on) dg = drop.kept(hr, c + j) ? div_keep_signed(dg, drop.keep, rkeep) : 0.f;
         const float du = dg * gp;  // zero past F: dout is
         dv[j] = du;
         acc[j] += du;
@@ -679,6 +700,21 @@ int vectors_a_lane(int C) { return ((C + 7) / 8 + 31) / 32; }
 
 int grid_1d(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
+}
+
+// K5's block: whole warps along a row's (C + 7) / 8 vectors, split into as
+// few block columns as EW_THREADS allows (C = 768: 96 threads; 1600: 224),
+// and as many rows of them as fit in EW_THREADS (768: 2; 1600: 1).
+dim3 ew_block(int C) {
+  const int vectors = (C + 7) / 8;
+  const int x = 32 * grid_1d(grid_1d(vectors, grid_1d(vectors, EW_THREADS)), 32);
+  return dim3(x, EW_THREADS / x);
+}
+
+// K5's grid: the block columns of a row, and bands of block.y rows (a band a
+// block up to 65535 of them).
+dim3 ew_grid(int N, int C, dim3 block) {
+  return dim3(grid_1d((C + 7) / 8, block.x), std::min(grid_1d(N, block.y), 65535));
 }
 
 template <int VPL>
@@ -792,11 +828,10 @@ extern "C" int res_drop_fwd_bf16(const void* x, const void* o, void* r, int N,
                                  int C, unsigned seed, unsigned salt,
                                  unsigned threshold, float keep, void* stream) {
   if (N == 0) return (int)cudaSuccess;
-  const long long threads = (long long)N * ((C + 7) / 8);
-  res_drop_fwd_kernel<<<grid_1d(threads, EW_THREADS), EW_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const dim3 block = ew_block(C);
+  res_drop_fwd_kernel<<<ew_grid(N, C, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(o),
-      static_cast<bf16*>(r), N, C, make_dropout(seed, salt, threshold, keep),
+      static_cast<bf16*>(r), N, C, make_dropout(seed, salt, threshold, keep), 1.f / keep,
       vectorized(C, {x, o, r}));
   return (int)cudaGetLastError();
 }
@@ -806,11 +841,10 @@ extern "C" int drop_scale_bf16(const void* dr, void* d_o, int N, int C,
                                unsigned seed, unsigned salt, unsigned threshold,
                                float keep, void* stream) {
   if (N == 0) return (int)cudaSuccess;
-  const long long threads = (long long)N * ((C + 7) / 8);
-  drop_scale_kernel<<<grid_1d(threads, EW_THREADS), EW_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const dim3 block = ew_block(C);
+  drop_scale_kernel<<<ew_grid(N, C, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(dr), static_cast<bf16*>(d_o), N, C,
-      make_dropout(seed, salt, threshold, keep), vectorized(C, {dr, d_o}));
+      make_dropout(seed, salt, threshold, keep), 1.f / keep, vectorized(C, {dr, d_o}));
   return (int)cudaGetLastError();
 }
 

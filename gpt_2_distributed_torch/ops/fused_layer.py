@@ -30,7 +30,9 @@ Semantics, as the JAX kernels:
   tanh form; K6 takes it in sigmoid form and divides by a reciprocal with
   an fma correction (``csrc/fused_layer.cu``), which
   ``tests/test_torch_gelu_forms.py`` holds to the tanh form over every
-  bf16 u.
+  bf16 u. K4's forward, K5 and K6 copy the dividend's sign onto that
+  quotient, so a kept -0 stays -0 as in a true division
+  (``tests/test_torch_res_drop_forms.py``).
 
 Each plain version takes ``dtype``, the dtype whose roundings it applies
 inside (x's or h's by default). Called on fp32 copies of bf16 values with

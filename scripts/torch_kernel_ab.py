@@ -1,7 +1,12 @@
-"""Device times of K4's forward and K3 (paged decode) and, as controls, K6's
-forward and backward and K4's backward, from two checkouts of the
-PyTorch/CUDA port, in turns, on one GPU, at chip_smoke.py's timed shapes:
+"""Device times of K5 (residual dropout, its backward rescale), K4's forward
+and K3 (paged decode) and, as controls, K6's forward and backward and K4's
+backward, from two checkouts of the PyTorch/CUDA port, in turns, on one
+GPU, at chip_smoke.py's timed shapes:
 
+- K5's forward and rescale [4096, 768] and [1000, 1600] at dropout 0.1,
+  beside PyTorch's ``torch.add(x, o)`` and ``torch.mul(dr, s)`` in bf16 at
+  [4096, 768] (the same bytes; another function, so controls, not
+  yardsticks);
 - K4 forward [4096, 768] at dropout 0.1 and at rate 0 (with a zero o, and
   where the tree takes it, with ``o=None``), PyTorch's ``layer_norm`` on
   the same rows beside it; [1000, 1600] at dropout 0.1; serving's [960,
@@ -18,10 +23,16 @@ Runs OLD, NEW, NEW, OLD, each in its own process that imports
 root's ``build/``), and prints the card (``nvidia-smi`` name and power
 limit), then one JSON line a run: each kernel's median device time over 20
 launches on a flushed L2 (chip_smoke.py's ``time_ms``, after a write of the
-flush buffer), the memory-bound rows of K4's forward and K3 also after a
-read of it (``_read``), and hashes of K4 forward's outputs (r, y, mean,
-rstd at dropout 0.1 and at rate 0) and of K4 backward's (dx, do, dscale,
-dbias), equal between two trees that give the same bits. Exits nonzero
+flush buffer), the memory-bound rows of K5, K4's forward and K3 and the
+controls also after a read of it (``_read``), and hashes of outputs, equal
+between two trees that give the same bits: K5's (dropout 0.1, both
+shapes), K4 forward's (r, y, mean, rstd at dropout 0.1 and at rate 0), K4
+backward's (dx, do, dscale, dbias), K6's on random inputs, and K5's and
+K6's on chip_smoke.py's ``signed_zero_case`` at [256, 768] (-0 planted),
+K6's also with the sign bits of out and dh cleared in the planted columns
+(``unsigned``: equal when two trees' outputs differ in nothing but sign
+bits there; dout is -0 in those columns, u in their even rows). Exits
+nonzero
 without a GPU.
 """
 
@@ -105,8 +116,28 @@ def worker(root: str) -> dict:
     out["k4_bwd_sha256"] = digest(k4_bwd())
     timed("k4_bwd", k4_bwd)
     h, dout, b = randn(n, f), randn(n, f), randn(f, scale=0.1)
+    out["k6_sha256"] = digest([fl.bias_gelu_dropout_fwd(h, b, rate, seed),
+                               *fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed)])
     timed("k6_fwd", lambda: fl.bias_gelu_dropout_fwd(h, b, rate, seed))
     timed("k6_bwd", lambda: fl.bias_gelu_dropout_bwd(h, b, dout, rate, seed))
+
+    dr16 = randn(1000, 1600)
+    for tag, (xs, os, ds) in (("", (x, o, dr)), ("_1000x1600", (x16, o16, dr16))):
+        out[f"k5_fwd{tag}_sha256"] = digest([fl.residual_dropout_fwd(xs, os, rate, seed)])
+        out[f"k5_scale{tag}_sha256"] = digest([fl.dropout_scale(ds, rate, seed)])
+        timed(f"k5_fwd{tag}", lambda: fl.residual_dropout_fwd(xs, os, rate, seed), both=True)
+        timed(f"k5_scale{tag}", lambda: fl.dropout_scale(ds, rate, seed), both=True)
+    timed("add", lambda: torch.add(x, o), both=True)
+    timed("mul", lambda: torch.mul(dr, 1.0 / 0.9), both=True)
+
+    z = chip_smoke.signed_zero_case(256, 768)
+    out["k5_zeros_sha256"] = digest([fl.residual_dropout_fwd(z["x"], z["o"], rate, seed),
+                                     fl.dropout_scale(z["dr"], rate, seed)])
+    k6_zeros = [fl.bias_gelu_dropout_fwd(z["h"], z["b"], rate, seed),
+                *fl.bias_gelu_dropout_bwd(z["h"], z["b"], z["dout"], rate, seed)]
+    out["k6_zeros_sha256"] = digest(k6_zeros)
+    out["k6_zeros_unsigned_sha256"] = digest(
+        [torch.where(z["planted"], t.abs(), t) for t in k6_zeros[:2]] + k6_zeros[2:])
     return out
 
 

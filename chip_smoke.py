@@ -87,7 +87,34 @@ that does not hold:
    124M legs beside the plain version and ``torch.addmm``/``matmul``
    (dgrad and wgrad rows: the du pass and the product, as the TPU kernel's
    function, with the product alone beside it; the du pass alone);
-7. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
+7. K1's query-offset form (chunked prefill's attention): at starts 0, 16,
+   512 and 944 with chunks of 16 and 256 rows over 1024 keys whose entries
+   past the chunk hold random data, against its plain version in fp32
+   within K1's term-scaled bound (``flash_offset_error_terms``), its rows
+   bit-equal to K1's whole-prompt rows at the same positions, two launches
+   bit-identical, four starts in one launch bit-equal to each alone, a
+   planted fault (starts one block late); times at chunk 256 from 512 and
+   chunk 16 from 944 beside the plain version and SDPA with the boolean
+   offset mask;
+8. the prefix cache and chunked, batched prefill (``phase_prefix_serving``)
+   at 124M, ServeConfig(max_batch=8, block_size=16, num_blocks=513): a
+   512-token prefix served first, then 8 requests of it plus suffixes of 0
+   (a block-aligned full hit, copied on write) to 448 tokens, greedy (32 new
+   tokens) and sampled at temperature 1.0 (16), on engines with the cache
+   in whole-prompt mode (A), with chunks of 256, 4 a dispatch (B) and with
+   no cache (OFF), and phase_serving's 8 prompts with chunks of 256 and no
+   cache (C); requires every stream to equal ``generate_cached(batch=1)``'s,
+   4095 or more prefix-hit tokens and a copy on write in A and B, and the
+   launches of the offset form (12 a chunk dispatch), K1, K3, K7's forward
+   and K4 equal to those the stats imply; prints each engine's mean TTFT,
+   decode ms/step, dispatches and batched rows; holds one chunk dispatch's
+   logits through the kernel against the plain attention and bit-equal to
+   the whole-prompt prefill's; then, 5 runs an engine in turns (medians and
+   ranges), the shared-prefix TTFT with the cache off and on (each run's
+   streams equal to the first's) and the engine steps while a 960-token
+   prompt is admitted whole (OFF) or in chunks of 256 (C) among 7 decoding
+   streams;
+9. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
    greedily, then the same 8 prompts sampled at temperature 1.0 (16 new
    tokens each), through ``ServingEngine`` at the full width of the 124M
    preset with random weights, bf16, max_batch 8, block_size 16, 513
@@ -98,12 +125,12 @@ that does not hold:
    first differing step and the logits there; then holds one prefill and
    one decode step of the kernel attention against the plain attention on
    the same pool state (fp32 logits);
-8. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
+10. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
    kernel path (K1/K2) and the plain path (dense attention), same params,
    batch and seeds, then at dropout 0 with ``fused_layers`` "all" (K4-K6)
    and with ``fused_matmul`` "all" over it (K7), each against "off": the
    loss and every grad;
-9. trains: ``train.main()`` on synthetic shards at 124M full width, seq
+11. trains: ``train.main()`` on synthetic shards at 124M full width, seq
    1024, batch 4, accum 4, dropout 0.1, 16 steps and one eval of 4
    batches, with ``--fused_layers off``, with ``all``, and with
    ``--fused_matmul all --fused_layers all``; checks finite losses, a
@@ -116,19 +143,20 @@ that does not hold:
    a layer and batch, its du pass, dgrad and wgrad once a leg and
    micro-batch; prints each run's ms/step, tok/s and MFU, and the
    ``fused_matmul all`` step beside the ``fused_layers all`` step;
-10. with two or more cards, trains ``--mesh sp=2`` the same way through
+12. with two or more cards, trains ``--mesh sp=2`` the same way through
     ``torch.distributed.run`` (NCCL; two ranks of this script in
     ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
     launched 12 x 2 x (micro-batches + eval batches) forward and 12 x 2 x
     micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
     beside the local step's. On one card it prints that the NCCL ring
     needs two GPUs and that the CPU tests hold that path over gloo;
-11. prints the ``kernels`` JSON line, then the device line last.
+13. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` times K2's two kernels (dk/dv, dq) apart with
 ``torch.profiler`` and adds profiler windows over one serving admission
-step (a 960-token prefill and one decode step), 8 decode steps at batch 8
-and one 124M optimizer step of each training run, and over rank 0's whole
+step (a 960-token prefill and one decode step), one chunked admission
+step (a 256-token chunk of a 960-token prompt and one decode step at
+batch 7), 8 decode steps at batch 8 and one 124M optimizer step of each training run, and over rank 0's whole
 sp=2 training run (set-up and eval included, divided by its 16 steps),
 and prints each window's wall time, device-busy time and its top kernels.
 
@@ -145,6 +173,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
@@ -1642,6 +1671,372 @@ def phase_serving(profile_steps: bool) -> dict[str, int]:
     return got
 
 
+# K1's query-offset form: (start, chunk) cases at H 12, D 64 over S = 1024
+# keys, the engine's chunk widths; the timed ones are the PERF.md rows.
+OFFSET_S = 1024
+OFFSET_CASES = tuple((s, c) for s in (0, 16, 512, 944) for c in (16, 256))
+OFFSET_TIMED = ((512, 256), (944, 16))
+# The prefix-serving workload: a 512-token prefix served first, then 8
+# requests of it plus suffixes (0: a block-aligned full hit, copied on
+# write).
+PREFIX_LEN = 512
+PREFIX_SUFFIXES = (0, 1, 17, 100, 208, 300, 400, 448)
+PREFIX_NEW = (32, 16)    # greedy, sampled (temperature 1.0)
+PREFIX_REPS = 5          # timed runs an engine, in turns
+
+
+def offset_case(start: int, c: int, gen, batch: int = 1):
+    """q [B, 12, c, 64] rows at ``start`` of a whole prompt, k and v [B, 12,
+    S, 64] with random keys and values past the chunk (stale pool data the
+    mask must keep out), the whole prompt's q, k and v, and start [B]."""
+    h, d, s = 12, 64, OFFSET_S
+    full = [torch.randn(batch, h, max(s, start + c), d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(3)]
+    q = full[0][:, :, start:start + c]
+    stale = [x[:, :, :s].clone() for x in full[1:]]
+    for x in stale:
+        x[:, :, start + c:] = torch.randn(x[:, :, start + c:].shape, generator=gen,
+                                          device="cuda", dtype=torch.bfloat16)
+    st = torch.full((batch,), start, dtype=torch.int32, device="cuda")
+    return q, stale[0], stale[1], st, full
+
+
+def offset_bound(start: int, c: int) -> tuple[float, str, float]:
+    """The offset form's bound at H 12, D 64 over S keys: q, o and lse once,
+    the keys and values up to the chunk's last position once; the two
+    causal products over the positions each row attends."""
+    h, d, s = 12, 64, OFFSET_S
+    keys = min(s, start + c)
+    attended = sum(min(p, s - 1) + 1 for p in range(start, start + c))
+    nbytes = 2 * c * h * d * 2 + 2 * keys * h * d * 2 + c * h * 4
+    flops = 4 * h * d * attended
+    return (*bound_ms(nbytes, flops), flops)
+
+
+def phase_offset(flush) -> dict:
+    """K1's query-offset form against its plain version, bit-equal to the
+    whole-prompt form's rows, relaunched bit-identical, a planted fault;
+    timed at OFFSET_TIMED beside its plain version and SDPA with the
+    boolean offset mask."""
+    from gpt_2_distributed_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_fwd_offset,
+        flash_attention_offset_plain,
+        flash_offset_error_terms,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    max_err, worst = 0.0, 0.0
+    for start, c in OFFSET_CASES:
+        q, k, v, st, full = offset_case(start, c, gen)
+        o, lse = flash_attention_fwd_offset(q, k, v, st)
+        again = flash_attention_fwd_offset(q, k, v, st)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_attention_offset_plain(q.float(), k.float(), v.float(), st)
+        (terms,) = flash_offset_error_terms(q, k, v, st)
+        err_o, ratio = held_flash(o, o_ref, terms)
+        err_lse = (lse - lse_ref).abs().max().item()
+        # The whole-prompt form over the same prompt: rows start .. start + c
+        # (those inside it) must be the offset form's bit for bit.
+        t = min(start + c, OFFSET_S)
+        o_w, lse_w = flash_attention_fwd(*(x[:, :, :t] for x in full))
+        rows = t - start
+        bits = (torch.equal(o[:, :, :rows], o_w[:, :, start:t])
+                and torch.equal(lse[:, :, :rows], lse_w[:, :, start:t]))
+        same = torch.equal(again[0], o) and torch.equal(again[1], lse)
+        print(f"K1 offset start {start} chunk {c} (S {OFFSET_S}): max|o - plain| "
+              f"{err_o:.3e}, max err/tol {ratio:.3f}, max|lse - plain| {err_lse:.3e}; "
+              f"rows bit-equal to K1's whole-prompt rows: {bits}; two launches "
+              f"bit-identical: {same}", flush=True)
+        if not (ratio <= 1.0 and err_lse <= LSE_TOL and bits and same):
+            fail(f"K1's offset form disagrees at start {start}, chunk {c}")
+        max_err, worst = max(max_err, err_o), max(worst, ratio)
+    # One launch over rows of four starts, each row's bits its own launch's.
+    q, k, v, _, _ = offset_case(0, 256, gen, batch=4)
+    st = torch.tensor([0, 16, 512, 944], dtype=torch.int32, device="cuda")
+    o, lse = flash_attention_fwd_offset(q, k, v, st)
+    alone = [flash_attention_fwd_offset(q[i:i + 1], k[i:i + 1], v[i:i + 1], st[i:i + 1])
+             for i in range(4)]
+    batched = all(torch.equal(o[i:i + 1], a[0]) and torch.equal(lse[i:i + 1], a[1])
+                  for i, a in enumerate(alone))
+    # Planted fault: the starts one block late.
+    o_ref, _ = flash_attention_offset_plain(q.float(), k.float(), v.float(), st)
+    (terms,) = flash_offset_error_terms(q, k, v, st)
+    _, ratio_bad = held_flash(flash_attention_fwd_offset(q, k, v, st + 16)[0], o_ref, terms)
+    print(f"K1 offset: four starts in one launch bit-equal to each alone: {batched}; "
+          f"planted fault (start + 16): max err/tol {ratio_bad:.1f}", flush=True)
+    if not batched or ratio_bad <= 1.0:
+        fail("K1's offset form depends on its batch, or its check lets a fault through")
+
+    row = None
+    for start, c in OFFSET_TIMED:
+        q, k, v, st, _ = offset_case(start, c, gen)
+        ms = time_ms(lambda: flash_attention_fwd_offset(q, k, v, st), flush)
+        plain_ms = time_ms(lambda: flash_attention_offset_plain(q, k, v, st), flush)
+        qpos = start + torch.arange(c, device="cuda")[:, None]
+        mask = torch.arange(OFFSET_S, device="cuda") <= qpos
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), flush)
+        b_ms, b_by, flops = offset_bound(start, c)
+        print(f"K1 offset start {start} chunk {c}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa (bool mask) "
+              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+        if row is None:   # chunk 256 at start 512 goes into the line
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by, max_abs_err=max_err)
+    return row
+
+
+def phase_prefix_serving(profile_steps: bool) -> dict[str, int]:
+    """The prefix cache and chunked, batched prefill at 124M: engines A
+    (prefix cache, whole-prompt mode), B (prefix cache, chunks of 256, 4
+    a dispatch) and OFF (no cache, whole-prompt) serve the 512-token prefix
+    and then its 8 sharers, greedily and sampled; C (chunks of 256, no
+    cache) serves phase_serving's 8 prompts. Every stream must equal
+    generate_cached(batch=1)'s; returns the launches of the main path's
+    kernels, held against counts derived from the engines' stats. With
+    ``profile_steps``, a profiler window over one of C's steps that
+    carries a 256-token chunk of a 960-token prompt."""
+    from gpt_2_distributed_torch.config import MODEL_PRESETS, ServeConfig
+    from gpt_2_distributed_torch.models import decode, gpt2
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
+    from gpt_2_distributed_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_fwd_offset,
+    )
+    from gpt_2_distributed_torch.ops.fused_layer import ln_residual_dropout_fwd
+    from gpt_2_distributed_torch.ops.paged_attention import paged_attention_kernel
+    from gpt_2_distributed_torch.serving import ServingEngine
+    from gpt_2_distributed_torch.serving.engine import chunk_prefill
+
+    config = MODEL_PRESETS["124M"]
+    base = dict(max_batch=8, block_size=16, num_blocks=513)
+    settings = {"A": dict(prefix_cache=True), "OFF": {},
+                "B": dict(prefix_cache=True, prefill_chunk=256, prefill_batch=4),
+                "C": dict(prefill_chunk=256)}
+    t0 = time.monotonic()
+    params = gpt2.init_params(config, seed=0)
+    engines = {(name, temp): ServingEngine(params, config, ServeConfig(**base, **kw),
+                                           temperature=temp)
+               for name, kw in settings.items() for temp in (0.0, 1.0)}
+    rng = torch.Generator().manual_seed(11)
+    prefix = torch.randint(0, config.vocab_size, (PREFIX_LEN,), generator=rng).tolist()
+    sharers = [prefix + torch.randint(0, config.vocab_size, (s,), generator=rng).tolist()
+               for s in PREFIX_SUFFIXES]
+    rng7 = torch.Generator().manual_seed(7)   # phase_serving's prompts
+    mixed = [torch.randint(0, config.vocab_size, (p,), generator=rng7).tolist()
+             for p in (1, 17, 100, 208, 400, 512, 777, 960)]
+    warm = torch.randint(0, config.vocab_size, (40,), generator=rng).tolist()
+    for eng in engines.values():   # allocator, handles, both prefill paths
+        for _ in range(2):
+            eng.submit(warm, 2)
+            eng.run_until_idle()
+        eng.clear_prefix_cache()
+    print(f"prefix serving: 124M, 8 engines (A, B, C, OFF greedy and sampled), set-up "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+    wrappers = {"flash_attention_fwd_offset": flash_attention_fwd_offset,
+                "flash_attention_fwd": flash_attention_fwd,
+                "paged_attention_kernel": paged_attention_kernel,
+                "linear": fm.linear, "head_logits": fm.head_logits,
+                "ln_residual_dropout_fwd": ln_residual_dropout_fwd}
+    before = {key: dict(eng.stats) for key, eng in engines.items()}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    runs = {}   # (engine, temperature) -> [(prompt, seed, handle)]
+    ttft = {}
+    for (name, temp), eng in engines.items():
+        new = PREFIX_NEW[temp > 0]
+        seed0 = 300 if temp > 0 else 0
+        if name == "C":
+            prompts, first = mixed, []
+        else:
+            h0 = eng.submit(prefix, new, seed=seed0)
+            eng.run_until_idle()
+            prompts, first = sharers, [(prefix, seed0, h0)]
+        hs = [eng.submit(p, new, seed=seed0 + 1 + i) for i, p in enumerate(prompts)]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        runs[name, temp] = first + [(p, seed0 + 1 + i, h) for i, (p, h) in
+                                    enumerate(zip(prompts, hs))]
+        ttft[name, temp] = sum((h.first_token_time - h.submit_time) * 1e3
+                               for h in hs) / len(hs)
+        for _, _, h in runs[name, temp]:
+            if h.finish_reason != "length" or len(h.generated) != new:
+                fail(f"prefix serving {name}: request {h.id} finished "
+                     f"{h.finish_reason!r} with {len(h.generated)} tokens")
+    got = {name: w.launches for name, w in wrappers.items()}
+
+    # The launches the stats imply: a whole prefill is one K1 launch a
+    # layer, a chunk dispatch one offset launch a layer, a decode step one
+    # K3 launch a layer; each of them 4 products a layer and the head
+    # through K7 and 2 LayerNorms a layer and the final one through K4.
+    n_layer = config.n_layer
+    whole = dispatches = steps = 0
+    for key, eng in engines.items():
+        d = {k: eng.stats[k] - before[key][k] for k in eng.stats}
+        w = (sum(h.prefix_cached_tokens == 0 for _, _, h in runs[key])
+             if eng.serve.prefill_chunk == 0 else 0)
+        whole += w
+        dispatches += d["prefill_dispatches"] - w
+        steps += d["decode_steps"]
+        if eng.serve.prefix_cache:
+            if d["prefix_hit_tokens"] < 7 * PREFIX_LEN + PREFIX_LEN - 1 or d["cow_copies"] < 1:
+                fail(f"prefix serving {key[0]}: {d['prefix_hit_tokens']} prefix-hit tokens, "
+                     f"{d['cow_copies']} copies on write")
+        print(f"prefix serving {key[0]} temperature {key[1]}: mean TTFT "
+              f"{ttft[key]:.2f} ms, {d['decode_steps']} decode steps at "
+              f"{d['decode_ms'] / max(d['decode_steps'], 1):.3f} ms/step, "
+              f"prefix_hit_tokens {d['prefix_hit_tokens']}, cow_copies {d['cow_copies']}, "
+              f"prefill_dispatches {d['prefill_dispatches']}, prefill_batched "
+              f"{d['prefill_batched']}, prefill_ms {d['prefill_ms']:.1f}", flush=True)
+    want = {"flash_attention_fwd_offset": n_layer * dispatches,
+            "flash_attention_fwd": n_layer * whole,
+            "paged_attention_kernel": n_layer * steps,
+            "linear": 4 * n_layer * (whole + dispatches + steps),
+            "head_logits": whole + dispatches + steps,
+            "ln_residual_dropout_fwd": (2 * n_layer + 1) * (whole + dispatches + steps)}
+    print(f"prefix serving: launches {got} over {whole} whole prefills, {dispatches} "
+          f"chunk dispatches and {steps} decode steps", flush=True)
+    if not (dispatches and whole and got == want):
+        fail(f"prefix serving launch counts {got} != {want}")
+
+    # Every stream against generate_cached(batch=1), localised where it
+    # differs (phase_serving's printout).
+    oracle = {}
+    differ = 0
+    for (name, temp), entries in runs.items():
+        new = PREFIX_NEW[temp > 0]
+        same = 0
+        for p, seed, h in entries:
+            key = (tuple(p), new, seed, temp)
+            if key not in oracle:
+                oracle[key] = decode.generate_cached(
+                    params, config, [p], seed=seed, max_new_tokens=new, temperature=temp,
+                    block_size=base["block_size"])[0, len(p):].tolist()
+            want_ids = oracle[key]
+            if want_ids == h.generated:
+                same += 1
+                continue
+            t = next(j for j, (a, c) in enumerate(zip(h.generated, want_ids)) if a != c)
+            eng = engines[name, temp]
+            with torch.no_grad():
+                hid, _ = decode.prefill(eng.w, config,
+                                        torch.tensor([p + want_ids[:t]], device="cuda"),
+                                        len(p) + t)
+                logits = gpt2.logits_fp32(eng.w, hid[:, -1])[0]
+            top = logits.topk(2).values
+            print(f"prefix serving {name} temperature {temp} request {h.id} (prompt "
+                  f"{len(p)}, {h.prefix_cached_tokens} cached): first differing step {t}: "
+                  f"engine token {h.generated[t]} (logit "
+                  f"{logits[h.generated[t]].item():.6f}), generate_cached token "
+                  f"{want_ids[t]} (logit {logits[want_ids[t]].item():.6f}), top-two gap "
+                  f"{(top[0] - top[1]).item():.3e}", flush=True)
+        print(f"prefix serving {name} temperature {temp}: {same} of {len(entries)} streams "
+              f"equal generate_cached(batch=1)'s", flush=True)
+        differ += len(entries) - same
+    if differ:
+        fail(f"{differ} prefix-serving streams differ from generate_cached(batch=1)'s")
+
+    # One chunk dispatch on A's pools (cloned): 100 tokens past the cached
+    # prefix, through the kernel and the plain attention; the kernel's
+    # logits must also be the whole-prompt prefill's bit for bit.
+    eng = engines["A", 0.0]
+    p = sharers[3]                          # the prefix + 100 tokens
+    bs = base["block_size"]
+    cached = eng.prefix_cache.lookup(p)[:PREFIX_LEN // bs]
+    own = eng.allocator.alloc(-(-len(p) // bs) - len(cached))
+    bt = np.zeros((1, eng._m), np.int32)
+    bt[0, :len(cached) + len(own)] = cached + own
+    chunk = np.zeros((1, 256), np.int64)
+    chunk[0, :len(p) - PREFIX_LEN] = p[PREFIX_LEN:]
+    start, clen = np.array([PREFIX_LEN]), np.array([len(p) - PREFIX_LEN])
+    logits = {impl: chunk_prefill(eng.w, config, eng.k_pool.clone(), eng.v_pool.clone(),
+                                  bt, chunk, start, clen, impl)[0]
+              for impl in ("kernel", "plain")}
+    eng.allocator.release(own)
+    with torch.no_grad():
+        hid, _ = decode.prefill(eng.w, config, torch.tensor([p], device="cuda"), len(p))
+        whole_logits = gpt2.logits_fp32(eng.w, hid[:, -1])[0]
+    err = (logits["kernel"] - logits["plain"]).abs().max().item()
+    bits = torch.equal(logits["kernel"], whole_logits)
+    finite = bool(torch.isfinite(logits["kernel"]).all())
+    print(f"prefix serving: one chunk dispatch (100 tokens at 512): kernel vs plain fp32 "
+          f"logits max|diff| {err:.3e} (tol {LOGITS_TOL}), finite {finite}; kernel logits "
+          f"bit-equal to the whole-prompt prefill's: {bits}", flush=True)
+    if not (finite and err <= LOGITS_TOL and bits):
+        fail("the chunk path's logits disagree with the plain path or the whole prompt")
+
+    # Host time moves one engine's reading by more than the effects, so
+    # the timed workloads run PREFIX_REPS times, the engines in turns
+    # (the order reversed each time), and their medians and ranges are
+    # printed. Shared-prefix TTFT, greedy: the cache emptied first, so each
+    # run is the counted run's workload, whose streams it must repeat.
+    def spread(xs):
+        xs = sorted(xs)
+        return f"median {xs[len(xs) // 2]:.2f} ms (range {xs[0]:.2f}-{xs[-1]:.2f})"
+
+    order = ["OFF", "A", "B"]
+    reads = {name: [] for name in order}
+    for r in range(PREFIX_REPS):
+        for name in order[::1 - 2 * (r % 2)]:
+            eng = engines[name, 0.0]
+            eng.clear_prefix_cache()
+            first = eng.submit(prefix, PREFIX_NEW[0], seed=0)
+            eng.run_until_idle()
+            hs = [eng.submit(p, PREFIX_NEW[0], seed=1 + i) for i, p in enumerate(sharers)]
+            eng.run_until_idle()
+            if [h.generated for h in [first] + hs] != [h.generated for _, _, h in
+                                                         runs[name, 0.0]]:
+                fail(f"prefix serving {name}: a repeated run's streams differ")
+            reads[name].append(sum((h.first_token_time - h.submit_time) * 1e3
+                                   for h in hs) / len(hs))
+    print(f"prefix serving: mean TTFT of the 8 shared-prefix requests, greedy, "
+          f"{PREFIX_REPS} runs an engine in turns: cache off {spread(reads['OFF'])}; cache on "
+          f"(A) {spread(reads['A'])}; cache on with chunks of 256, 4 a dispatch (B) "
+          f"{spread(reads['B'])}", flush=True)
+
+    # Engine steps while a 960-token prompt comes in: 7 streams decoding,
+    # then the prompt admitted whole (OFF) or in chunks of 256 (C); the wall
+    # time of each step until its first token, beside 4 steady steps.
+    walls = {name: [] for name in ("OFF", "C")}
+    for r in range(PREFIX_REPS):
+        for name in ("OFF", "C")[::1 - 2 * (r % 2)]:
+            eng = engines[name, 0.0]
+            streams = [eng.submit(mixed[i % 4], 24, seed=i) for i in range(7)]
+            while not all(h.generated for h in streams):   # every stream decoding
+                eng.step()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(4):
+                eng.step()
+            steady = (time.monotonic() - t0) / 4 * 1e3
+            big = eng.submit(mixed[-1], 4)
+            steps = []
+            while not big.generated:
+                t0 = time.monotonic()
+                eng.step()
+                steps.append((time.monotonic() - t0) * 1e3)
+            eng.run_until_idle()
+            walls[name].append((max(steps), sum(steps) / len(steps), steady, len(steps)))
+    for name, how in (("OFF", "whole"), ("C", "in chunks of 256")):
+        w = walls[name]
+        print(f"prefix serving {name}: a 960-token prompt admitted {how} among 7 decoding "
+              f"streams, {PREFIX_REPS} runs: {w[0][3]} step(s) to its first token; longest "
+              f"step {spread([x[0] for x in w])}, mean step {spread([x[1] for x in w])}, "
+              f"steady decode step {spread([x[2] for x in w])}", flush=True)
+    if profile_steps:
+        eng = engines["C", 0.0]
+        streams = [eng.submit(mixed[i % 4], 16, seed=i) for i in range(7)]
+        while not all(h.generated for h in streams):
+            eng.step()
+        eng.submit(mixed[-1], 4)
+        profile_window("chunked admission (a 256-token chunk of a 960-token prompt + 1 "
+                       "decode at batch 7)", lambda: (eng.step(), 1)[1])
+        eng.run_until_idle()
+    return got
+
+
 def phase_model_paths() -> None:
     """One 124M training micro-batch [4, 1024] twice, with the same params,
     batch and seeds: at dropout 0.1 through the kernel path (K1/K2) and the
@@ -1947,7 +2342,9 @@ def main() -> None:
     fused_rows = phase_fused(flush)
     phase_gelu_every_bf16()
     mm_rows = phase_matmul(flush)
+    offset_row = phase_offset(flush)
     del flush
+    prefix = phase_prefix_serving(profile)
     serving = phase_serving(profile)
     phase_model_paths()
     counts, ms_steps = phase_training(profile)
@@ -1965,7 +2362,8 @@ def main() -> None:
           + "; serving: " + ", ".join(f"{name} {serving[name]}"
                                       for name, _ in MM_SERVE_WRAPPERS)
           + f"; K8 {k8['flash_block_fwd']} forward, {k8['flash_block_bwd']} backward "
-          + ("(the one-card ring)" if k8_train is None else "(sp=2 training, rank 0)"),
+          + ("(the one-card ring)" if k8_train is None else "(sp=2 training, rank 0)")
+          + "; prefix serving: " + ", ".join(f"{name} {n}" for name, n in prefix.items()),
           flush=True)
 
     kernels = [
@@ -1973,6 +2371,10 @@ def main() -> None:
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
              launches=k1_serve + k1_train, **k1_row),
+        dict(name="flash_attention_fwd_offset", route="cuda",
+             source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
+             replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
+             launches=prefix["flash_attention_fwd_offset"], **offset_row),
         dict(name="flash_attention_bwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",

@@ -162,11 +162,16 @@ class ServeConfig:
     * ``eos_id`` — generation stops when this token is sampled; None = run
       every request to its max_new_tokens.
 
-    ``prefill_chunk``, ``prefix_cache``, ``admission``,
-    ``watermark_blocks``, ``mesh``, ``prefill_batch`` and ``spec`` mirror
-    the JAX engine's options and are validated as there; only their
-    defaults (whole-prompt prefill, no prefix cache, worst-case block
-    reservation, one device, one prefill a step, no speculation) are ported
+    * ``prefill_chunk`` — 0 prefills a prompt whole inside admission; N > 0
+      prefills it in N-token chunks, one a step, between decode steps.
+    * ``prefix_cache`` — share full KV blocks across requests whose prompts
+      share a prefix (refcounted, LRU-evicted under pool pressure).
+    * ``prefill_batch`` — chunked mode: in-progress prefills advanced per
+      step, in one dispatch.
+
+    ``admission``, ``watermark_blocks``, ``mesh`` and ``spec`` mirror the
+    JAX engine's options and are validated as there; only their defaults
+    (worst-case block reservation, one device, no speculation) are ported
     so far.
     """
 
@@ -219,9 +224,8 @@ class ServeConfig:
                 f"prefill_batch={self.prefill_batch} must be in "
                 f"[1, max_batch={self.max_batch}]"
             )
-        for field, default in (("prefill_chunk", 0), ("prefix_cache", False),
-                               ("admission", "reserve"), ("watermark_blocks", 1),
-                               ("mesh", ""), ("prefill_batch", 1), ("spec", "")):
+        for field, default in (("admission", "reserve"), ("watermark_blocks", 1),
+                               ("mesh", ""), ("spec", "")):
             value = getattr(self, field)
             if value != default:
                 raise _later_slice("ServeConfig", field, value)

@@ -49,6 +49,20 @@
 // (b, h), so the causal imbalance leaves no long tail. Every row of every
 // operand must start on a 16-byte boundary (the wrapper copies those that
 // do not).
+//
+// The query-offset form (OFF, flash_fwd_offset_bf16) carries the serving
+// engine's chunked prefill: query row r of batch b sits at global position
+// start[b] + r, the C query rows attend causally over S keys (the gathered
+// block table's view from position 0), no dropout. It is the same kernel:
+// keys are tiled from position 0 as above, and a block walks key tiles 0 ..
+// (start + q0 + BQ - 1) / BK, clipped to S; a tile that holds a key past
+// some row of the block (or past S) is masked by global position, each warp
+// forming only the 16-key groups up to its own last row. A key tile that is
+// wholly masked for a row leaves its m unchanged (alpha = 1) and adds p = 0
+// to its sums, so a row at position i runs the very arithmetic, over the
+// very tiles, that the whole-prompt form runs for row i: its o and lse are
+// the whole-prompt form's bit for bit. With OFF false every new expression
+// folds to the whole-prompt form's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,10 +81,11 @@ constexpr int BK = 64;   // keys per tile
 constexpr int NT = 128;  // 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool OFF>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, int H, int T,
+    bf16* __restrict__ o, float* __restrict__ lse, const int* __restrict__ start, int H,
+    int T, int S,
     long long qsb, long long qsh, long long qst,
     long long ksb, long long ksh, long long kst,
     long long vsb, long long vsh, long long vst,
@@ -86,6 +101,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest tiles first
   const int q0 = qt * BQ;
+  // Global position of the tile's first row, the keys, the last key tile.
+  const int p0 = OFF ? start[b] + q0 : q0;
+  const int SK = OFF ? S : T;
+  const int kt_last = OFF ? min((p0 + BQ - 1) / BK, (S - 1) / BK) : qt;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
   const int wr = warp * 16 + g;  // the thread's first row in the tile; the other is wr + 8
@@ -102,8 +121,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const bf16* kb = k + b * ksb + h * ksh;
   const bf16* vb = v + b * vsb + h * vsh;
   tc::load_rows<BQ, D, NT>(qs, qb, qst, q0, T);
-  tc::load_rows<BK, D, NT>(ks, kb, kst, 0, T);
-  tc::load_rows<BK, D, NT>(vs, vb, vst, 0, T);
+  tc::load_rows<BK, D, NT>(ks, kb, kst, 0, SK);
+  tc::load_rows<BK, D, NT>(vs, vb, vst, 0, SK);
   tc::cp_async_commit();
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -113,19 +132,27 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  // BQ == BK, so query tile qt's diagonal lies in key tile qt.
-  for (int kt = 0; kt <= qt; ++kt) {
+  // BQ == BK, so query tile qt's diagonal lies in key tile qt (whole-prompt
+  // form). The offset form's diagonal may straddle two key tiles.
+  for (int kt = 0; kt <= kt_last; ++kt) {
     const int st = kt & 1;
-    if (kt < qt) {
-      tc::load_rows<BK, D, NT>(ks + (st ^ 1) * BK * LD, kb, kst, (kt + 1) * BK, T);
-      tc::load_rows<BK, D, NT>(vs + (st ^ 1) * BK * LD, vb, vst, (kt + 1) * BK, T);
+    if (kt < kt_last) {
+      tc::load_rows<BK, D, NT>(ks + (st ^ 1) * BK * LD, kb, kst, (kt + 1) * BK, SK);
+      tc::load_rows<BK, D, NT>(vs + (st ^ 1) * BK * LD, vb, vst, (kt + 1) * BK, SK);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // everything but the tile just requested has landed
     __syncthreads();
 
-    const bool diag = kt == qt;
-    const int hi = diag ? warp + 1 : BK / 16;  // 16-key groups this warp needs
+    // A masked tile holds a key past some row of the block (or past S).
+    const bool diag = OFF ? kt * BK + BK - 1 > p0 || kt * BK + BK > S : kt == qt;
+    // Row wr's diagonal column in this tile is rel + wr.
+    const int rel = OFF ? p0 - kt * BK : 0;
+    int hi = diag ? warp + 1 : BK / 16;  // 16-key groups this warp needs
+    if (OFF && diag) {
+      const int last = min(rel + warp * 16 + 15, S - 1 - kt * BK);  // its last column
+      hi = last < 0 ? 0 : min(BK / 16, last / 16 + 1);
+    }
     const bf16* kst_s = ks + st * BK * LD;
     const bf16* vst_s = vs + st * BK * LD;
     float s[NJ][4];
@@ -141,7 +168,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + 2 * tq + (e & 1);
-        if (diag && col > wr + (e >> 1) * 8) s[j][e] = -INFINITY;
+        if (diag && (col > rel + wr + (e >> 1) * 8 || (OFF && kt * BK + col >= S)))
+          s[j][e] = -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
     float ms[2], alpha[2];
@@ -149,7 +177,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      // Column k0 <= every row of this tile, so mx is finite.
+      // Key 0 <= every row, so m is finite from key tile 0 on; mx is -inf
+      // only on a tile wholly masked for the row (offset form), which
+      // leaves m as it is and gives alpha = 1.
       const float m_new = fmaxf(m[i], mx[i]);
       alpha[i] = exp2f((m[i] - m_new) * scale);
       m[i] = m_new;
@@ -199,22 +229,22 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   }
 }
 
-template <int D, bool DROP>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T,
-           const long long* st, unsigned seed, unsigned threshold, float keep,
-           cudaStream_t stream) {
+template <int D, bool DROP, bool OFF>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const int* start,
+           int B, int H, int T, int S, const long long* st, unsigned seed, unsigned threshold,
+           float keep, cudaStream_t stream) {
   constexpr size_t smem = sizeof(bf16) * (BQ + 4 * BK) * (D + tc::PAD);
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, DROP, OFF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid(B * H, (T + BQ - 1) / BQ);
-  flash_fwd_kernel<D, DROP><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<D, DROP, OFF><<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), H, T,
+      static_cast<bf16*>(o), static_cast<float*>(lse), start, H, T, S,
       st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], seed, threshold, keep);
   return (int)cudaGetLastError();
@@ -224,10 +254,19 @@ template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
              int T, const long long* st, unsigned seed, unsigned threshold, float keep,
              cudaStream_t stream) {
-  return threshold ? launch<D, true>(q, k, v, o, lse, B, H, T, st, seed, threshold, keep,
-                                     stream)
-                   : launch<D, false>(q, k, v, o, lse, B, H, T, st, seed, threshold, keep,
-                                      stream);
+  return threshold ? launch<D, true, false>(q, k, v, o, lse, nullptr, B, H, T, T, st, seed,
+                                            threshold, keep, stream)
+                   : launch<D, false, false>(q, k, v, o, lse, nullptr, B, H, T, T, st, seed,
+                                             threshold, keep, stream);
+}
+
+// Every row of every operand on a 16-byte boundary.
+bool aligned(const void* const* ptrs, const long long* strides) {
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8 != 0) return false;
+  return true;
 }
 
 }  // namespace
@@ -245,15 +284,33 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               const long long* strides, unsigned seed,
                               unsigned threshold, float keep, void* stream) {
   const void* ptrs[4] = {q, k, v, o};
-  for (int i = 0; i < 4; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < 12; ++i)
-    if (strides[i] % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (!aligned(ptrs, strides)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch_d<32>(q, k, v, o, lse, B, H, T, strides, seed, threshold, keep, s);
     case 64: return launch_d<64>(q, k, v, o, lse, B, H, T, strides, seed, threshold, keep, s);
     case 128: return launch_d<128>(q, k, v, o, lse, B, H, T, strides, seed, threshold, keep, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The query-offset form: q, o bf16 [B, H, C, D] whose row r of batch b sits
+// at global position start[b] + r (start: int32 [B] on the device); k, v
+// bf16 [B, H, S, D] from position 0; element strides (b, h, t) of q, k, v,
+// o in `strides` as 12 int64, the d stride 1. lse: fp32 [B, H, C],
+// contiguous. Causal by global position, no dropout. Returns
+// cudaErrorInvalidValue (nothing launched) for a misaligned row, S < 1 or
+// an unsupported D, else cudaGetLastError().
+extern "C" int flash_fwd_offset_bf16(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, const int* start, int B, int H, int C, int S,
+                                     int D, const long long* strides, void* stream) {
+  const void* ptrs[4] = {q, k, v, o};
+  if (!aligned(ptrs, strides) || S < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32, false, true>(q, k, v, o, lse, start, B, H, C, S, strides, 0, 0, 1.f, s);
+    case 64: return launch<64, false, true>(q, k, v, o, lse, start, B, H, C, S, strides, 0, 0, 1.f, s);
+    case 128: return launch<128, false, true>(q, k, v, o, lse, start, B, H, C, S, strides, 0, 0, 1.f, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -31,9 +31,17 @@ The kernels copy their tiles 16 bytes at a time, so every row of every bf16
 operand must start on a 16-byte boundary: the wrappers copy an input whose
 rows do not, and refuse such an ``o``.
 
-``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches`` count
-kernel launches (never plain calls), so a run can show that its main path
-went through the kernels.
+K1's query-offset form, :func:`flash_attention_fwd_offset`, carries the
+serving engine's chunked prefill (``ops/paged_attention.py::
+paged_prefill_attention``): query row r of batch b sits at global position
+``start[b] + r`` and attends causally over keys from position 0. It is K1
+itself, keys tiled from position 0, so a row's o and lse equal the
+whole-prompt form's at the same position bit for bit; its plain version is
+:func:`flash_attention_offset_plain`.
+
+``flash_attention_fwd.launches``, ``flash_attention_fwd_offset.launches``
+and ``flash_attention_bwd.launches`` count kernel launches (never plain
+calls), so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import math
 import torch
 
 from gpt_2_distributed_torch.kernels import build
-from gpt_2_distributed_torch.ops.attention import causal_scores, dropout_probs
+from gpt_2_distributed_torch.ops.attention import MASK_VALUE, causal_scores, dropout_probs
 from gpt_2_distributed_torch.ops.spmd import causal_dropout_keep
 
 LOG2E = 1.4426950408889634
@@ -58,6 +66,13 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H T D
         ctypes.c_void_p,                                     # int64 strides[12]
         *_DROPOUT_ARGS,
+        ctypes.c_void_p,                                     # stream
+    ],
+    "flash_fwd_offset_bf16": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # o, lse, start
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H C S D
+        ctypes.c_void_p,                                     # int64 strides[12]
         ctypes.c_void_p,                                     # stream
     ],
 }
@@ -101,6 +116,33 @@ def flash_attention_plain(
     lse = torch.logsumexp(scores, dim=-1)
     probs = dropout_probs(torch.softmax(scores, dim=-1), dropout_rate, seed)
     o = probs.to(q.dtype) @ v
+    return o, lse * LOG2E
+
+
+def _offset_scores(q: torch.Tensor, k: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """fp32 scaled scores ``[B, H, C, S]`` of q rows at global positions
+    ``start[b] + r`` against keys from position 0, ``MASK_VALUE`` past each
+    row's position."""
+    c, d, s = q.shape[2], q.shape[3], k.shape[2]
+    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
+    qpos = start.to(q.device).long()[:, None, None, None] + torch.arange(
+        c, device=q.device)[:, None]
+    return scores.masked_fill(torch.arange(s, device=q.device) > qpos, MASK_VALUE)
+
+
+def flash_attention_offset_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, start: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_plain` with a query offset: q ``[B, H, C, D]``
+    whose row r of batch b sits at global position ``start[b] + r``, k and
+    v ``[B, H, S, D]`` from position 0; key j is attended where ``j <=
+    start[b] + r``. The same ops as the whole-prompt plain version (fp32
+    scores over sqrt(D), ``MASK_VALUE`` fill, fp32 softmax, probabilities
+    cast to q's dtype), so at ``start = 0`` and ``S = C`` it is that version
+    bit for bit. Returns ``(o, lse)``, lse fp32 base-2 ``[B, H, C]``."""
+    scores = _offset_scores(q, k, start)
+    lse = torch.logsumexp(scores, dim=-1)
+    o = torch.softmax(scores, dim=-1).to(q.dtype) @ v
     return o, lse * LOG2E
 
 
@@ -177,6 +219,15 @@ def flash_error_terms(
     c = 1.0 / math.sqrt(d)
     return (o_terms, (ds @ k.abs()) * c, (ds.transpose(-1, -2) @ q.abs()) * c,
             pd.transpose(-1, -2) @ do.float().abs())
+
+
+def flash_offset_error_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             start: torch.Tensor) -> tuple[torch.Tensor]:
+    """:func:`flash_error_terms`' ``(o,)`` for the query-offset form:
+    ``sum_j P[r, j] |v[j]|`` in fp32, P the offset form's normalized
+    probabilities. A tolerance for checks only."""
+    p = torch.softmax(_offset_scores(q.float(), k.float(), start), dim=-1)
+    return (p @ v.float().abs(),)
 
 
 def flash_tolerance(ref: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
@@ -272,6 +323,54 @@ def flash_attention_fwd(
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_fwd_offset(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, start: torch.Tensor,
+    o: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's query-offset form: q ``[B, H, C, D]`` at global positions
+    ``start[b] + r`` against k, v ``[B, H, S, D]`` from position 0, causal by
+    global position, no dropout; returns ``(o, lse)``, lse fp32 base-2
+    ``[B, H, C]``. CUDA tensors launch K1 (bf16, D in 32/64/128, ``start``
+    int32 ``[B]`` on the same device), writing into ``o`` when given (any
+    b/h/t strides that keep its rows on 16-byte boundaries); CPU tensors use
+    :func:`flash_attention_offset_plain`. Raises on a shape, dtype or
+    device the kernel does not take and on a launch error."""
+    if not q.is_cuda:
+        return flash_attention_offset_plain(q, k, v, start)
+    b, h, c, d = q.shape
+    s = k.shape[2]
+    if o is None:
+        o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _check_operands(q, {"q": q, "o": o})
+    for name, x in (("k", k), ("v", v)):
+        _check_operand(name, x, (b, h, s, d))
+        if x.device != q.device:
+            raise ValueError(f"flash kernel: {name} on {x.device}, q on {q.device}")
+    if s < 1:
+        raise ValueError("flash kernel: the offset form needs at least one key")
+    if start.dtype != torch.int32 or tuple(start.shape) != (b,) or not start.is_contiguous():
+        raise ValueError(f"flash kernel: start must be a contiguous int32 [{b}]")
+    if start.device != q.device:
+        raise ValueError(f"flash kernel: start on {start.device}, q on {q.device}")
+    if not _rows_aligned(o):
+        raise ValueError("flash kernel: every row of o must start on a 16-byte boundary")
+    q, k, v = (_aligned_input(x) for x in (q, k, v))
+    lse = torch.empty((b, h, c), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, o)
+    lib = build.load("flash_fwd", _SIGNATURES)
+    code = lib.flash_fwd_offset_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        start.data_ptr(), b, h, c, s, d, strides.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(code, "flash_fwd_offset_bf16")
+    flash_attention_fwd_offset.launches += 1
+    return o, lse
+
+
+flash_attention_fwd_offset.launches = 0
 
 
 def flash_attention_bwd(

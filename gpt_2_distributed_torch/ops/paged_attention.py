@@ -25,6 +25,12 @@ marks an idle slot (o = 0).
   version. ``paged_attention_kernel.launches`` counts its calls, each of
   which launches both kernels.
 * :func:`paged_attention` is the decode step's dispatch.
+* :func:`paged_prefill_attention` is chunked prefill's attention: a chunk
+  of query rows per sequence, starting mid-sequence, over the partly built
+  block table's gathered view. Its plain version mirrors the JAX op (an
+  XLA gather there); on CUDA tensors it launches K1's query-offset form
+  (``ops/flash_attention.py::flash_attention_fwd_offset``), whose rows
+  equal the whole-prompt prefill's bit for bit.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ import torch
 
 from gpt_2_distributed_torch.kernels import build
 from gpt_2_distributed_torch.ops.attention import MASK_VALUE
+from gpt_2_distributed_torch.ops.flash_attention import (
+    flash_attention_fwd_offset,
+    flash_attention_offset_plain,
+)
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
 # Keys a split holds, rounded up to whole pool blocks (:func:`split_blocks`).
@@ -71,6 +81,14 @@ def paged_splits(length: int, bs: int) -> list[tuple[int, int]]:
     return [(s, min(s + keys, length)) for s in range(0, length, keys)]
 
 
+def _table_view(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The contiguous per-sequence view ``[B, H, M * bs, D]`` of a pool
+    ``[N, H, bs, D]`` through a block table ``[B, M]``."""
+    b, m = table.shape
+    _, h, bs, d = pool.shape
+    return pool[table.long()].permute(0, 2, 1, 3, 4).reshape(b, h, m * bs, d)
+
+
 def paged_attention_plain(
     q: torch.Tensor,            # [B, H, D] compute dtype
     k_pool: torch.Tensor,       # [N, H, bs, D]
@@ -81,15 +99,10 @@ def paged_attention_plain(
     """Gather-based plain version: fp32 scores, ``MASK_VALUE`` fill (which
     underflows to exactly 0 after the softmax's max-subtract), probs cast
     back to the compute dtype, idle rows zeroed."""
-    b, h, d = q.shape
-    m = block_table.shape[1]
-    bs = k_pool.shape[2]
-    table = block_table.long()
-    # [B, M, H, bs, D] -> [B, H, M*bs, D]: the contiguous per-sequence view.
-    kc = k_pool[table].permute(0, 2, 1, 3, 4).reshape(b, h, m * bs, d)
-    vc = v_pool[table].permute(0, 2, 1, 3, 4).reshape(b, h, m * bs, d)
+    d = q.shape[2]
+    kc, vc = _table_view(k_pool, block_table), _table_view(v_pool, block_table)
     scores = (q.float()[:, :, None] @ kc.float().transpose(-1, -2)) / math.sqrt(d)
-    kpos = torch.arange(m * bs, device=q.device)
+    kpos = torch.arange(kc.shape[2], device=q.device)
     lens = lengths.to(q.device).long()[:, None, None, None]
     scores = scores.masked_fill(kpos >= lens, MASK_VALUE)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -190,3 +203,56 @@ def paged_attention(
             "kernel has no CPU build (use 'auto' or 'plain' on the CPU)"
         )
     return paged_attention_kernel(q, k_pool, v_pool, block_table, lengths)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,            # [B, T, H, D]
+    k_pool: torch.Tensor,       # [N, H, bs, D]
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # [B, M] int32
+    start: torch.Tensor,        # [B] int32 absolute position of q[:, 0]
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Chunked-prefill attention over a partly built block table
+    (``gpt_2_distributed_tpu/ops/paged_attention.py::paged_prefill_attention``).
+
+    Query t of sequence b sits at absolute position ``start[b] + t`` and
+    attends causally over the table's contiguous view: every earlier
+    position (earlier chunks and prefix-cache hits already in pool blocks)
+    and the chunk's own K/V, which the caller scatters before this call.
+    Returns ``[B, T, H, D]``.
+
+    The plain version mirrors the JAX op form for form on the gathered
+    view (``flash_attention_offset_plain``): fp32 scores with the scale
+    applied after the product, ``MASK_VALUE`` past each query's position
+    (whatever the pool holds there, stale data included, which the
+    softmax's max-subtract turns into exact zeros), fp32 softmax, probs
+    cast back to the compute dtype. "auto": CUDA tensors launch K1's
+    query-offset form (one launch for all B rows), CPU tensors take the
+    plain version; "kernel" refuses CPU tensors; "plain" is the plain
+    version on any device. The kernel raises on what it does not take and
+    never gives way to the plain version."""
+    if impl not in ("auto", "kernel", "plain"):
+        raise ValueError(
+            f"paged_prefill_attention impl={impl!r}: expected 'auto', 'kernel' or 'plain'"
+        )
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, T, H, D], got shape {tuple(q.shape)}")
+    if k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            f"k_pool/v_pool must be matching [N, H, bs, D], got "
+            f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}"
+        )
+    if impl == "kernel" and not q.is_cuda:
+        raise ValueError(
+            "paged_prefill_attention impl='kernel' needs CUDA tensors: the flash "
+            "kernel has no CPU build (use 'auto' or 'plain' on the CPU)"
+        )
+    kc, vc = _table_view(k_pool, block_table), _table_view(v_pool, block_table)
+    qh = q.transpose(1, 2)                                   # [B, H, T, D]
+    if impl == "plain":
+        return flash_attention_offset_plain(qh, kc, vc, start)[0].transpose(1, 2)
+    # The kernel writes o straight into the [B, T, H, D] layout.
+    o = torch.empty_like(q, memory_format=torch.contiguous_format).transpose(1, 2)
+    return flash_attention_fwd_offset(qh, kc, vc, start, o=o)[0].transpose(1, 2)

@@ -1,17 +1,36 @@
 """Continuous-batching decode engine over the paged KV cache
-(``gpt_2_distributed_tpu/serving/engine.py``, whole-prompt mode).
+(``gpt_2_distributed_tpu/serving/engine.py``).
 
 * **Admission at step boundaries.** A FIFO queue feeds free slots. Each
   admission reserves the request's worst-case block need
-  (``ceil((P + max_new - 1) / block_size)``) all-or-nothing, so an
-  in-flight request can never run out of blocks mid-decode; if the queue
-  head does not fit, nothing behind it jumps the queue.
-* **Whole-prompt prefill** runs inside admission: the prompt, right-padded
-  to the block bucket ``pb = ceil(P / bs) * bs`` (capped at
-  ``n_positions``), goes through ``models/decode.py::prefill`` — on the
-  card through the flash kernel — the first token is sampled from hidden
-  row ``P - 1``, and the K/V land in the request's pool blocks. Padding is
-  causally inert: it sits after every real position.
+  (``ceil((P + max_new - 1) / block_size)``, less the blocks it shares
+  from the prefix cache) all-or-nothing, so an in-flight request can never
+  run out of blocks mid-decode; if the queue head does not fit, unpinned
+  prefix-cache entries are evicted (LRU) and, failing that, nothing behind
+  it jumps the queue.
+* **Prefix caching** (``ServeConfig.prefix_cache``): full prompt blocks are
+  hash-consed by token prefix (``paged_cache.PrefixCache``) over
+  refcounted blocks. A hit run is pinned before the grant and prefill
+  starts after it; a block-aligned, fully cached prompt copies its last
+  block (copy-on-write) and recomputes its last position for the logits.
+  A request registers its full blocks when its prefill completes (first
+  writer wins).
+* **Whole-prompt prefill** (no hit, ``prefill_chunk = 0``) runs inside
+  admission: the prompt, right-padded to the block bucket ``pb = ceil(P /
+  bs) * bs`` (capped at ``n_positions``), goes through
+  ``models/decode.py::prefill`` — on the card through the flash kernel —
+  the first token is sampled from hidden row ``P - 1``, and the K/V land in
+  the request's pool blocks. Padding is causally inert: it sits after
+  every real position.
+* **Chunked prefill** (:func:`chunk_prefill`) starts mid-sequence: each
+  row's K/V are scattered into its blocks at position granularity and its
+  queries attend over the partly built table
+  (``ops/paged_attention.py::paged_prefill_attention``, on the card K1's
+  query-offset form). It carries every prefix-cache continuation and, with
+  ``prefill_chunk = N``, every prompt: one step advances up to
+  ``prefill_batch`` prefills, oldest admission first, by one N-token chunk
+  each in one dispatch, before the decode step, so a long prompt no longer
+  stalls every stream. Prefilling rows hold their slot but do not decode.
 * **One decode step** for every slot per engine step: each active row
   writes its K/V at its own position, in place, BEFORE attending (the row
   attends to itself), then attends over its pages through
@@ -33,10 +52,15 @@ product, LayerNorm and the head run kernels whose result for a row does
 not depend on the rows beside it (``models/gpt2.py``), and both sides
 decode through the paged kernel (``models/decode.py``).
 
-Not ported yet (refused by ``ServeConfig``): chunked prefill, the prefix
-cache, watermark admission with preemption, serving meshes and
-speculative decoding, and with them the migration surface
-(``extract_inflight`` / ``adopt``, the request wire form).
+A request's generator is drawn once for its first token, on its final
+prefill chunk only (never for a pad row), so chunking and cache hits leave
+its draws where ``generate_cached(batch=1)`` makes them; every op of the
+chunk path gives a row the bits the whole-prompt path gives it on the card.
+
+Not ported yet (refused by ``ServeConfig``): watermark admission with
+preemption, serving meshes and speculative decoding, and with them the
+migration surface (``extract_inflight`` / ``adopt``, the request wire
+form).
 """
 
 from __future__ import annotations
@@ -55,8 +79,11 @@ from gpt_2_distributed_torch.models.generate import (
     check_generation_args,
     sample_token,
 )
+from gpt_2_distributed_torch.ops.paged_attention import paged_prefill_attention
 from gpt_2_distributed_torch.serving.paged_cache import (
     BlockAllocator,
+    PrefixCache,
+    copy_block,
     init_pools,
     pool_bytes,
     scatter_prefill,
@@ -87,10 +114,13 @@ class RequestHandle:
         self.first_token_time: float | None = None
         self.queue_wait_ms = 0.0
         self.preemptions = 0          # always 0 until preemption is ported
-        self.prefix_cached_tokens = 0  # always 0 until the prefix cache is
+        self.prefix_cached_tokens = 0  # prompt tokens skipped at admission
         self._gen: torch.Generator | None = None
         self._blocks: list[int] | None = None
         self._enqueue_time: float | None = None
+        self._admit_order = -1        # monotone per admission
+        self._work: np.ndarray | None = None  # the tokens this admission prefills
+        self._prefill_pos: int | None = None  # next work position; None = done
 
     def _emit(self, tok: int) -> None:
         if self.first_token_time is None:
@@ -101,6 +131,70 @@ class RequestHandle:
     def _finish(self, reason: str) -> None:
         self.done = True
         self.finish_reason = reason
+
+
+@torch.no_grad()
+def chunk_prefill(
+    w: dict,
+    config: GPT2Config,
+    k_pool: torch.Tensor,   # [L, N, H, bs, D], written in place
+    v_pool: torch.Tensor,
+    bt: np.ndarray,         # [R, M] int32: one block-table row per request
+    chunk: np.ndarray,      # [R, C] int tokens, right-padded per row
+    start: np.ndarray,      # [R] int: work position of chunk[r, 0]
+    clen: np.ndarray,       # [R] int: real tokens per row (0 = pad row)
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """R prefill chunks straight into the pools in one dispatch
+    (``_chunk_prefill_impl`` of the JAX engine): each row's K/V for
+    positions ``[start_r, start_r + clen_r)`` are scattered into its blocks
+    at position granularity, and its queries attend over the partly built
+    table. Returns the ``[R, V]`` fp32 logits at each row's ``start + clen -
+    1`` (row 0's for a pad row); sampling is the caller's, so a request's
+    generator is drawn on its final chunk only.
+
+    Padded positions (``i >= clen_r``) are never scattered (only the valid
+    positions are selected: indexed assignment has no drop mode), and a
+    valid position's block is never the null block. Embeddings clip
+    positions past ``n_positions`` (a final chunk straddling it) as the
+    JAX gathers do. Every op gives a row what the whole-prompt prefill
+    (``models/decode.py::prefill``) gives it: the products, LayerNorms and
+    head through the row-invariant inference helpers of ``models/gpt2.py``,
+    the attention through ``paged_prefill_attention`` over the table's
+    blocks up to the furthest valid position."""
+    bt, chunk = np.asarray(bt, np.int32), np.asarray(chunk)
+    start, clen = np.asarray(start, np.int64), np.asarray(clen, np.int64)
+    r, c = chunk.shape
+    bs = k_pool.shape[3]
+    dev = k_pool.device
+    pos = start[:, None] + np.arange(c)[None]                     # [R, C]
+    rows, cols = np.nonzero(np.arange(c)[None] < clen[:, None])   # valid positions
+    vpos = pos[rows, cols]
+    blk = bt[rows, vpos // bs]
+    if (blk == 0).any():
+        raise ValueError("chunk_prefill: a valid position maps to the null block")
+    nb = min(bt.shape[1], max(1, -(-int((start + clen).max()) // bs)))
+
+    def dev_tensor(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    sel = (dev_tensor(rows, torch.long), dev_tensor(cols, torch.long))
+    blk_d, off_d = dev_tensor(blk, torch.long), dev_tensor(vpos % bs, torch.long)
+    table = dev_tensor(bt[:, :nb], torch.int32)
+    start_d = dev_tensor(start, torch.int32)
+    x = gpt2.embed(w, config, dev_tensor(chunk, torch.long), dev_tensor(pos, torch.long))
+    for layer, bp in enumerate(w["blocks"]):
+        y = gpt2.norm(x, bp["ln1_scale"], bp["ln1_bias"], config.layer_norm_eps, infer=True)
+        q, k, v = gpt2.qkv_proj(config, y, bp, infer=True)       # [R, C, H, D]
+        kp, vp = k_pool[layer], v_pool[layer]                    # [N, H, bs, D]
+        kp[blk_d, :, off_d] = k[sel]
+        vp[blk_d, :, off_d] = v[sel]
+        o = paged_prefill_attention(q, kp, vp, table, start_d, impl=attn_impl)
+        x = x + gpt2.attn_out(o.reshape(r, c, config.n_embd), bp, infer=True)
+        x = gpt2.mlp_sublayer(config, x, bp, infer=True)
+    last = dev_tensor(np.maximum(clen - 1, 0), torch.long)
+    h = gpt2.final_norm(w, config, x[torch.arange(r, device=dev), last])
+    return gpt2.logits_fp32(w, h)
 
 
 class ServingEngine:
@@ -151,6 +245,7 @@ class ServingEngine:
         self.k_pool, self.v_pool = init_pools(config, serve, compute_dtype,
                                               self.device)
         self.allocator = BlockAllocator(serve.num_blocks)
+        self._cache = PrefixCache(serve.block_size) if serve.prefix_cache else None
         # Scheduler state lives on the host as numpy; each decode step
         # ships it to the device in a few small copies.
         self.block_table = np.zeros((serve.max_batch, self._m), np.int32)
@@ -161,11 +256,14 @@ class ServingEngine:
         self._slots: list[RequestHandle | None] = [None] * serve.max_batch
         self._queue: collections.deque[RequestHandle] = collections.deque()
         self._next_id = 0
+        self._admit_seq = 0
         self._deadlines = False
         self.stats = {
-            "admitted": 0, "finished": 0, "prefills": 0, "decode_steps": 0,
-            "tokens_out": 0, "timeouts": 0, "prefill_ms": 0.0,
-            "decode_ms": 0.0, "queue_wait_ms": 0.0,
+            "admitted": 0, "finished": 0, "prefills": 0, "prefill_chunks": 0,
+            "prefill_dispatches": 0, "prefill_batched": 0, "decode_steps": 0,
+            "tokens_out": 0, "timeouts": 0, "prefix_hit_tokens": 0,
+            "cow_copies": 0, "prefill_ms": 0.0, "decode_ms": 0.0,
+            "queue_wait_ms": 0.0,
         }
 
     @property
@@ -220,43 +318,102 @@ class ServingEngine:
         self._queue.append(req)
         return req
 
+    def _alloc_blocks(self, n: int) -> list[int] | None:
+        """n blocks, evicting unpinned prefix-cache entries (LRU) under
+        pressure; None when even that does not free enough."""
+        while True:
+            if self.allocator.available >= n:
+                return self.allocator.alloc(n) if n else []
+            if self._cache is None or not self._cache.evict_one(self.allocator):
+                return None
+
+    def _admit_one(self, slot: int, req: RequestHandle) -> bool:
+        """Place the queue head into ``slot``: prefix-cache lookup, block
+        grant, copy-on-write of a block-aligned fully cached prompt's last
+        block, then prefill (inline in whole-prompt mode, deferred to
+        ``_prefill_tick`` in chunked mode). False, with every pin undone,
+        when the blocks are not there."""
+        bs = self.serve.block_size
+        work = np.asarray(req.prompt, np.int32)
+        p_work = len(work)
+        shared: list[int] = []
+        cow_src: int | None = None
+        s0 = 0
+        if self._cache is not None:
+            hits = self._cache.lookup(work)
+            if hits and len(hits) * bs == p_work:
+                # Whole prompt cached and block-aligned: the last block must
+                # be private (position p_work - 1 is recomputed for its
+                # logits and written back), so it is copied.
+                cow_src = hits.pop()
+                s0 = p_work - 1
+            else:
+                s0 = len(hits) * bs
+            shared = hits
+            # Pin what is reused BEFORE allocating: eviction under pressure
+            # takes exactly the unpinned (refcount 1) entries.
+            for b in shared + ([cow_src] if cow_src is not None else []):
+                self.allocator.retain(b)
+        need = self._blocks_needed(p_work, req.max_new_tokens)
+        ids = self._alloc_blocks(max(need - len(shared), 0))
+        if ids is None:
+            self.allocator.release(shared + ([cow_src] if cow_src is not None else []))
+            return False
+        if cow_src is not None:
+            copy_block(self.k_pool, self.v_pool, cow_src, ids[0])
+            self.allocator.release([cow_src])   # the copy's pin
+            self.stats["cow_copies"] += 1
+
+        now = time.monotonic()
+        wait_ms = (now - req._enqueue_time) * 1e3
+        req.queue_wait_ms += wait_ms
+        self.stats["queue_wait_ms"] += wait_ms
+        req._admit_order = self._admit_seq
+        self._admit_seq += 1
+        self.stats["admitted"] += 1
+        if s0:
+            self.stats["prefix_hit_tokens"] += s0
+            req.prefix_cached_tokens = s0
+        blocks = shared + ids
+        req._blocks = blocks
+        req._work, req._prefill_pos = work, s0
+        self._slots[slot] = req
+        self.block_table[slot, :] = 0
+        self.block_table[slot, :len(blocks)] = blocks
+        self.pos[slot] = 0
+        self.active[slot] = False
+        if self.serve.prefill_chunk == 0:
+            # Whole-prompt mode: prefill completes inside admission.
+            if s0 == 0:
+                self._prefill_whole(slot, req)
+            else:
+                while self._slots[slot] is req and req._prefill_pos is not None:
+                    self._prefill_step(slot, req)
+        return True
+
     def _try_admit(self) -> None:
         """Admit queued requests into free slots, FIFO, while blocks last."""
         while self._queue:
             slot = next((s for s, r in enumerate(self._slots) if r is None), None)
-            if slot is None:
-                break
-            req = self._queue[0]
-            ids = self.allocator.alloc(
-                self._blocks_needed(len(req.prompt), req.max_new_tokens)
-            )
-            if ids is None:
-                break   # head waits for evictions; nothing jumps the queue
+            if slot is None or not self._admit_one(slot, self._queue[0]):
+                break   # the head waits; nothing jumps the queue
             self._queue.popleft()
-            now = time.monotonic()
-            wait_ms = (now - req._enqueue_time) * 1e3
-            req.queue_wait_ms += wait_ms
-            self.stats["queue_wait_ms"] += wait_ms
-            self.stats["admitted"] += 1
-            req._blocks = ids
-            self._slots[slot] = req
-            self.block_table[slot, :] = 0
-            self.block_table[slot, :len(ids)] = ids
-            self._prefill_whole(slot, req)
 
     # ------------------------------------------------------------ prefill
 
     @torch.no_grad()
     def _prefill_whole(self, slot: int, req: RequestHandle) -> None:
-        """Bucketed whole-prompt forward, first-token sample, block scatter."""
+        """Bucketed whole-prompt forward, first-token sample, block scatter
+        (fresh admissions with no cache hit; continuations go through the
+        chunk path, which starts mid-sequence)."""
         bs = self.serve.block_size
-        p = len(req.prompt)
+        p = len(req._work)
         nb = -(-p // bs)                       # blocks prefill fills
         pb = nb * bs                           # scatter width
         pf = min(pb, self.config.n_positions)  # forward width
         t0 = time.monotonic()
         prompt = torch.zeros((1, pf), dtype=torch.long)
-        prompt[0, :p] = torch.tensor(req.prompt)
+        prompt[0, :p] = torch.from_numpy(req._work)
         h, cache = decode.prefill(self.w, self.config, prompt.to(self.device),
                                   pf, self.serve.attn_impl)
         # Row p-1 is the real last position; rows past it are padding.
@@ -273,32 +430,116 @@ class ServingEngine:
         first_i = int(first[0])                # the device sync
         self.stats["prefill_ms"] += (time.monotonic() - t0) * 1e3
         self.stats["prefills"] += 1
+        self.stats["prefill_dispatches"] += 1
+        req._prefill_pos = None
+        self._register_prefix(req)
+        self._activate(slot, req, p, first_i)
 
-        req.generated.append(first_i)
+    def _prefill_step(self, slot: int, req: RequestHandle) -> None:
+        """Advance one request's prefill by one chunk; whole-prompt mode's
+        continuation width is the remainder bucketed to a block multiple."""
+        if self.serve.prefill_chunk:
+            width = self.serve.prefill_chunk
+        else:
+            bs = self.serve.block_size
+            width = min(-(-(len(req._work) - req._prefill_pos) // bs) * bs, self._m * bs)
+        self._prefill_rows([slot], width, 1)
+
+    @torch.no_grad()
+    def _prefill_rows(self, slots: list[int], width: int, pad_rows: int) -> None:
+        """Advance each slot's prefill by one chunk of ``width`` in ONE
+        dispatch, rows padded to ``pad_rows`` with ``clen = 0``; a request
+        whose prefill completes draws its first token here, once. A
+        dispatch with no final row is not waited for: the decode step
+        queues behind it on the stream."""
+        r = max(pad_rows, len(slots))
+        bt = np.zeros((r, self._m), np.int32)
+        chunk = np.zeros((r, width), np.int64)
+        start = np.zeros((r,), np.int64)
+        clen = np.zeros((r,), np.int64)
+        for i, slot in enumerate(slots):
+            req = self._slots[slot]
+            s = req._prefill_pos
+            cl = min(width, len(req._work) - s)
+            bt[i] = self.block_table[slot]
+            chunk[i, :cl] = req._work[s:s + cl]
+            start[i], clen[i] = s, cl
+        t0 = time.monotonic()
+        logits = chunk_prefill(self.w, self.config, self.k_pool, self.v_pool,
+                               bt, chunk, start, clen, self.serve.attn_impl)
+        firsts = {}
+        for i, slot in enumerate(slots):
+            req = self._slots[slot]
+            if start[i] + clen[i] == len(req._work):
+                firsts[i] = sample_token(logits[i:i + 1], [req._gen],
+                                         self.temperature, self.top_k)
+        firsts = {i: int(t[0]) for i, t in firsts.items()}   # the device sync, if any
+        self.stats["prefill_ms"] += (time.monotonic() - t0) * 1e3
+        self.stats["prefill_dispatches"] += 1
+        self.stats["prefill_batched"] += max(len(slots) - 1, 0)
+        for i, slot in enumerate(slots):
+            req = self._slots[slot]
+            self.stats["prefill_chunks"] += 1
+            if i not in firsts:
+                req._prefill_pos += int(clen[i])
+                continue
+            self.stats["prefills"] += 1
+            req._prefill_pos = None
+            self._register_prefix(req)
+            self._activate(slot, req, len(req._work), firsts[i])
+
+    def _activate(self, slot: int, req: RequestHandle, p_work: int, first: int) -> None:
+        """Prefill done: emit the first token, then open the decode row
+        (or evict on EOS or length)."""
+        req.generated.append(first)
         self.stats["tokens_out"] += 1
-        req._emit(first_i)
-        if self.serve.eos_id is not None and first_i == self.serve.eos_id:
+        req._emit(first)
+        if self.serve.eos_id is not None and first == self.serve.eos_id:
             self._evict(slot, "eos")
         elif len(req.generated) >= req.max_new_tokens:
             self._evict(slot, "length")
         else:
-            self.tokens[slot] = first_i
-            self.pos[slot] = p
+            self.tokens[slot] = first
+            self.pos[slot] = p_work
             self.active[slot] = True
+
+    def _register_prefix(self, req: RequestHandle) -> None:
+        """Hash-cons every full block of the work prompt into the prefix
+        cache (first writer wins; hits re-register as no-ops)."""
+        if self._cache is None:
+            return
+        for j in range(len(req._work) // self.serve.block_size):
+            self._cache.insert(req._work, j, req._blocks[j], self.allocator)
+
+    def _prefill_tick(self) -> None:
+        """Chunked mode: advance up to ``prefill_batch`` in-progress
+        prefills, oldest admission first, by one chunk each in one
+        dispatch, rows padded to ``prefill_batch``."""
+        if self.serve.prefill_chunk == 0:
+            return
+        cands = sorted((req._admit_order, s) for s, req in enumerate(self._slots)
+                       if req is not None and req._prefill_pos is not None)
+        if cands:
+            self._prefill_rows([s for _, s in cands[:self.serve.prefill_batch]],
+                               self.serve.prefill_chunk, self.serve.prefill_batch)
 
     # -------------------------------------------------------------- churn
 
-    def _evict(self, slot: int, reason: str) -> None:
+    def _release_slot(self, slot: int) -> None:
         req = self._slots[slot]
-        req._finish(reason)
         self.allocator.release(req._blocks)
         req._blocks = None
+        req._work, req._prefill_pos = None, None
         self._slots[slot] = None
         # Table row back to the null block; the slot decodes as a no-op
         # (length 0) until the next admission overwrites it.
         self.block_table[slot, :] = 0
         self.pos[slot] = 0
         self.active[slot] = False
+
+    def _evict(self, slot: int, reason: str) -> None:
+        self._slots[slot]._finish(reason)
+        self._release_slot(slot)
         self.stats["finished"] += 1
 
     def _evict_overdue(self) -> int:
@@ -346,23 +587,27 @@ class ServingEngine:
         plain one on the same pool state)."""
         impl = self.serve.attn_impl if attn_impl is None else attn_impl
         dev = self.device
-        # Idle rows hold position 0 and a zeroed table row: they write to
-        # the null block 0 and attend to nothing (length 0).
+        # Inactive rows (idle, or still prefilling) hold position 0 and get
+        # a zeroed table row: they write to the null block 0 and attend to
+        # nothing (length 0).
         lengths = np.where(self.active, self.pos + 1, 0).astype(np.int32)
+        table = np.where(self.active[:, None], self.block_table, 0).astype(np.int32)
         return decode.paged_decode_step(
             self.w, self.config, torch.from_numpy(self.tokens).to(dev),
             torch.from_numpy(self.pos).to(dev), self.k_pool, self.v_pool,
-            torch.from_numpy(self.block_table).to(dev), torch.from_numpy(lengths).to(dev),
+            torch.from_numpy(table).to(dev), torch.from_numpy(lengths).to(dev),
             impl)
 
     @torch.no_grad()
     def step(self) -> int:
         """One engine step: evict overdue requests, admit what fits
-        (prefilling each), then one decode step for every active row.
-        Returns tokens emitted this step."""
+        (whole-prompt mode prefills each inline), advance one prefill tick
+        (chunked mode), then one decode step for every active row. Returns
+        tokens emitted this step."""
         self._evict_overdue()
         emitted_before = self.stats["tokens_out"]
         self._try_admit()
+        self._prefill_tick()
         if not self.active.any():
             return self.stats["tokens_out"] - emitted_before
 
@@ -422,9 +667,21 @@ class ServingEngine:
         adm = max(self.stats["admitted"], 1)
         return {
             "queue_wait_ms": self.stats["queue_wait_ms"] / adm,
+            "prefix_cached_tokens": float(self.stats["prefix_hit_tokens"]),
             "serve_queue_depth": float(len(self._queue)),
             "serve_occupancy": float(self.occupancy),
             "kv_pool_bytes": float(self.kv_pool_bytes),
+            "prefill_batched": float(self.stats["prefill_batched"]),
             "decode_steps": float(self.stats["decode_steps"]),
             "tokens_out": float(self.stats["tokens_out"]),
         }
+
+    @property
+    def prefix_cache(self) -> PrefixCache | None:
+        """The engine's prefix cache (None when ``prefix_cache`` is off)."""
+        return self._cache
+
+    def clear_prefix_cache(self) -> None:
+        """Drop every unpinned prefix-cache entry and return its blocks."""
+        if self._cache is not None:
+            self._cache.clear(self.allocator)

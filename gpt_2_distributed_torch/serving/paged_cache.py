@@ -1,6 +1,6 @@
 """Paged KV-cache plumbing (``gpt_2_distributed_tpu/serving/paged_cache.py``):
-the block pool, its allocator, and the in-place writes that move prefill
-K/V into pool blocks.
+the block pool, its refcounted allocator, the prefix cache, and the
+in-place writes that move prefill K/V into pool blocks.
 
 Layout: one preallocated tensor per K and V, ``[L, num_blocks, H,
 block_size, D]``. Block 0 is the null block: never allocated, it backs
@@ -17,18 +17,22 @@ from __future__ import annotations
 import collections
 from typing import Iterable
 
+import numpy as np
 import torch
 
 from gpt_2_distributed_torch.config import GPT2Config, ServeConfig
 
 
 class BlockAllocator:
-    """Free-list allocator over pool blocks ``1..num_blocks-1`` (0 = null).
+    """Refcounted free-list allocator over pool blocks ``1..num_blocks-1``
+    (0 = null).
 
     ``alloc`` is all-or-nothing: the caller gets every block it asked for,
-    or None with the free list untouched. A double free or a foreign id
-    fails loudly. (The JAX package refcounts blocks for its prefix cache;
-    the refcounts come with that cache.)"""
+    at refcount 1, or None with the free list untouched. The prefix cache
+    pins a block (``retain``) that the request which wrote it still holds;
+    ``release`` drops one reference, and a block returns to the free list
+    at refcount 0. A double free or a foreign id fails loudly. One shard:
+    the JAX package's per-shard free lists come with the serving mesh."""
 
     def __init__(self, num_blocks: int):
         if num_blocks < 2:
@@ -37,32 +41,127 @@ class BlockAllocator:
             )
         self.num_blocks = num_blocks
         self._free = collections.deque(range(1, num_blocks))
-        self._held: set[int] = set()
+        self._held: dict[int, int] = {}
 
     @property
     def available(self) -> int:
         return len(self._free)
 
     def alloc(self, n: int) -> list[int] | None:
-        """n blocks, or None (free list untouched)."""
+        """n blocks at refcount 1, or None (free list untouched)."""
         if n < 1:
             raise ValueError(f"alloc({n}): need at least one block")
         if n > len(self._free):
             return None
         ids = [self._free.popleft() for _ in range(n)]
-        self._held.update(ids)
+        for i in ids:
+            self._held[i] = 1
         return ids
 
+    def retain(self, i: int) -> None:
+        """Add a reference to an allocated block (the prefix cache and each
+        request using the block hold one each)."""
+        if i not in self._held:
+            raise ValueError(f"retain({i}): not an allocated block")
+        self._held[i] += 1
+
+    def refcount(self, i: int) -> int:
+        """Current reference count (0 = free or never allocated)."""
+        return self._held.get(i, 0)
+
     def release(self, ids: Iterable[int]) -> None:
-        """Return blocks to the free list."""
+        """Drop one reference per id; blocks reaching refcount 0 return to
+        the free list."""
         for i in ids:
             if i not in self._held:
                 raise ValueError(
                     f"release({i}): not an allocated block (double free, the "
                     f"null block, or a foreign id)"
                 )
-            self._held.remove(i)
-            self._free.append(i)
+            self._held[i] -= 1
+            if self._held[i] == 0:
+                del self._held[i]
+                self._free.append(i)
+
+
+class PrefixCache:
+    """Hash-cons of full KV blocks by token prefix, LRU
+    (``gpt_2_distributed_tpu/serving/paged_cache.py::PrefixCache``).
+
+    Block ``j`` of a prompt is cached under the exact int32 bytes of
+    ``tokens[:(j + 1) * block_size]``: K/V at position i depends on every
+    token ``<= i``, so two requests may share a block only when their whole
+    prefix up to its end matches. The cache holds one allocator reference
+    per entry (``retain`` at insert). A lookup returns the longest run of
+    leading full-block hits (a miss at block j ends it: block j + 1's K/V
+    attended into the missed span). Eviction takes the least recently used
+    entry whose block no live request holds (refcount 1)."""
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        self._entries: collections.OrderedDict[bytes, int] = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @staticmethod
+    def _key(tokens, end: int) -> bytes:
+        return np.asarray(tokens[:end], np.int32).tobytes()
+
+    def peek_run(self, tokens) -> int:
+        """Length in blocks of the leading full-block hit run, without
+        touching the LRU order or the hit and miss counters (a probe is not
+        a use)."""
+        run = 0
+        for j in range(len(tokens) // self.block_size):
+            if self._key(tokens, (j + 1) * self.block_size) not in self._entries:
+                break
+            run += 1
+        return run
+
+    def lookup(self, tokens) -> list[int]:
+        """The cached block ids of the leading full-block hit run (the
+        caller ``retain``s each before use); hit entries move to MRU."""
+        run: list[int] = []
+        for j in range(len(tokens) // self.block_size):
+            key = self._key(tokens, (j + 1) * self.block_size)
+            bid = self._entries.get(key)
+            if bid is None:
+                self.misses += 1
+                break
+            self._entries.move_to_end(key)
+            self.hits += 1
+            run.append(bid)
+        return run
+
+    def insert(self, tokens, j: int, block_id: int, allocator: BlockAllocator) -> bool:
+        """Register ``block_id`` as block ``j`` of ``tokens``. The first
+        writer wins: a prefix already cached is left as it is (False)."""
+        key = self._key(tokens, (j + 1) * self.block_size)
+        if key in self._entries:
+            return False
+        allocator.retain(block_id)
+        self._entries[key] = block_id
+        return True
+
+    def evict_one(self, allocator: BlockAllocator) -> bool:
+        """Drop the LRU entry that only the cache holds (refcount 1) and
+        release its block; False when every entry is pinned by a request."""
+        for key, bid in self._entries.items():
+            if allocator.refcount(bid) == 1:
+                del self._entries[key]
+                allocator.release([bid])
+                self.evictions += 1
+                return True
+        return False
+
+    def clear(self, allocator: BlockAllocator) -> None:
+        """Drop every unpinned entry."""
+        while self.evict_one(allocator):
+            pass
 
 
 def init_pools(
@@ -107,7 +206,8 @@ def scatter_prefill(
 
 def copy_block(k_pool: torch.Tensor, v_pool: torch.Tensor,
                src: int, dst: int) -> None:
-    """Copy one pool block to another across all layers, in place (the
-    prefix cache's copy-on-write, which a later slice ports)."""
+    """Copy one pool block to another across all layers, in place: the
+    prefix cache's copy-on-write of a block-aligned, fully cached prompt's
+    last block, which the request recomputes and writes back."""
     k_pool[:, dst] = k_pool[:, src]
     v_pool[:, dst] = v_pool[:, src]

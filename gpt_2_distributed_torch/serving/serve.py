@@ -20,8 +20,12 @@ Weights come from ``--params_npz`` (a JAX-layout tree saved with
 engine runs on CUDA; ``--device cpu`` runs it on the CPU, and without a
 visible GPU nothing else runs.
 
+``--prefix_cache`` shares KV blocks across requests whose prompts share a
+prefix; ``--prefill_chunk N`` prefills prompts in N-token chunks between
+decode steps, ``--prefill_batch B`` of them a step in one dispatch.
+
 The parser takes every flag of the JAX CLI, under the same names, types
-and defaults. The scheduler options beyond the defaults, speculation,
+and defaults. Watermark admission, serving meshes, speculation,
 checkpoints, metrics and tracing sinks, replica placement and fault
 injection come with later slices of the port: any other value than the
 default of those flags is refused.
@@ -42,8 +46,7 @@ import time
 # Flags of the JAX CLI whose planes come with later slices of the port,
 # with the value that leaves them off; any other value is refused.
 _UNPORTED = {
-    "ckpt": None, "prefill_chunk": 0, "prefill_batch": 1, "serve_mesh": "",
-    "prefix_cache": False, "admission": "reserve", "watermark_blocks": 1,
+    "ckpt": None, "serve_mesh": "", "admission": "reserve", "watermark_blocks": 1,
     "draft_preset": None, "spec_k": None, "draft_ckpt": None,
     "tb_dir": None, "metrics_every": 20, "trace_dir": None,
     "trace_max_file_bytes": 64 * 1024 * 1024, "xla_profile_at": None,
@@ -93,6 +96,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu")
     p.add_argument("--stream", action="store_true",
                    help="emit a JSON line per token as it is generated")
+    p.add_argument("--prefill_chunk", type=int, default=0,
+                   help="prefill chunk width; 0 = whole-prompt prefill")
+    p.add_argument("--prefill_batch", type=int, default=1,
+                   help="chunked mode: in-progress prefills advanced per step")
+    p.add_argument("--prefix_cache", action="store_true",
+                   help="reuse KV blocks across shared prompt prefixes")
     p.add_argument("--request_timeout_s", type=float, default=None,
                    help="per-request deadline from submission (queue wait "
                         "included) for lines without 'timeout_s'; overdue "
@@ -107,14 +116,8 @@ def _add_unported_flags(p: argparse.ArgumentParser) -> None:
     types and defaults."""
     p.add_argument("--ckpt", default=None,
                    help="checkpoint dir (later slice; use --params_npz)")
-    p.add_argument("--prefill_chunk", type=int, default=0,
-                   help="prefill chunk width; 0 = whole-prompt prefill")
-    p.add_argument("--prefill_batch", type=int, default=1,
-                   help="chunked mode: in-progress prefills advanced per step")
     p.add_argument("--serve_mesh", default="",
                    help="serving mesh spec 'data:N[,tp:M]'")
-    p.add_argument("--prefix_cache", action="store_true",
-                   help="reuse KV blocks across shared prompt prefixes")
     p.add_argument("--admission", default="reserve", choices=["reserve", "watermark"],
                    help="block grant policy")
     p.add_argument("--watermark_blocks", type=int, default=1,
@@ -180,7 +183,9 @@ def build_serve_config(args: argparse.Namespace, config):
     )
     return ServeConfig(max_batch=args.max_batch, block_size=args.block_size,
                        num_blocks=num_blocks, attn_impl=args.attn_impl,
-                       eos_id=args.eos)
+                       eos_id=args.eos, prefill_chunk=args.prefill_chunk,
+                       prefix_cache=args.prefix_cache,
+                       prefill_batch=args.prefill_batch)
 
 
 def read_requests(path: str, args: argparse.Namespace) -> list[tuple]:

@@ -1,7 +1,11 @@
-"""Device times of K5 (residual dropout, its backward rescale), K4's forward
-and K3 (paged decode) and, as controls, K6's forward and backward and K4's
-backward, from two checkouts of the PyTorch/CUDA port, in turns, on one
-GPU, at chip_smoke.py's timed shapes:
+"""Device times of K1's whole-prompt form, K5 (residual dropout, its
+backward rescale), K4's forward and K3 (paged decode) and, as controls,
+K6's forward and backward and K4's backward, from two checkouts of the
+PyTorch/CUDA port, in turns, on one GPU, at chip_smoke.py's timed shapes:
+
+- K1 (the flash forward) at the training shape [4, 12, 1024, 64] with
+  dropout 0.1 and at the prefill shape [1, 12, 1024, 64], with hashes of
+  its o and lse;
 
 - K5's forward and rescale [4096, 768] and [1000, 1600] at dropout 0.1,
   beside PyTorch's ``torch.add(x, o)`` and ``torch.mul(dr, s)`` in bf16 at
@@ -57,6 +61,7 @@ def digest(tensors) -> str:
 
 def worker(root: str) -> dict:
     sys.path.insert(0, root)
+    from gpt_2_distributed_torch.ops import flash_attention as fa
     from gpt_2_distributed_torch.ops import fused_layer as fl
     from gpt_2_distributed_torch.ops import paged_attention as pa
 
@@ -72,6 +77,12 @@ def worker(root: str) -> dict:
             out[f"{name}_read_ms"] = chip_smoke.time_ms(fn, flush, read_flush=True)
 
     out = {"root": root}
+    b1, h1, t1, d1 = chip_smoke.TRAIN_SHAPE
+    for tag, batch, r in (("train", b1, chip_smoke.DROPOUT), ("prefill", 1, 0.0)):
+        q1, k1, v1 = (randn(batch, h1, t1, d1) for _ in range(3))
+        out[f"k1_{tag}_sha256"] = digest(fa.flash_attention_fwd(q1, k1, v1, r,
+                                                                chip_smoke.ATTN_SEED))
+        timed(f"k1_{tag}", lambda: fa.flash_attention_fwd(q1, k1, v1, r, chip_smoke.ATTN_SEED))
     n, c, f = chip_smoke.FUSED_SHAPES[0]
     seed, rate, eps = chip_smoke.FUSED_SEED, chip_smoke.DROPOUT, 1e-5
     x, o, dr, dy = (randn(n, c) for _ in range(4))

@@ -723,3 +723,56 @@ def test_one_card_ring_matches_k1_k2(cuda, sp):
     for i, (g, r) in enumerate(zip(got, ref)):
         rel = ((g.float() - r.float()).norm() / r.float().norm()).item()
         assert rel <= (2.0 ** -7 if i == 0 else 2.0 ** -6), (i, rel)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_offset_form_rows_are_the_whole_prompt_rows(cuda, d):
+    """K1's query-offset form: rows at starts 0, 37 and 128 of three
+    prompts in one launch, keys past each chunk holding random data, equal
+    bit for bit to the whole-prompt form's rows at the same positions, and
+    held to the offset plain version within K1's term-scaled bound."""
+    rng = np.random.default_rng(d)
+    t, c = 200, 48
+    q, k, v = (_bf16(rng, 3, 2, t, d, device=cuda) for _ in range(3))
+    starts = [0, 37, 128]
+    qc = torch.stack([q[i, :, s:s + c] for i, s in enumerate(starts)])
+    kc, vc = k.clone(), v.clone()
+    for i, s in enumerate(starts):
+        kc[i, :, s + c:] = _bf16(rng, 2, t - s - c, d, device=cuda)
+        vc[i, :, s + c:] = _bf16(rng, 2, t - s - c, d, device=cuda)
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    o, lse = flash.flash_attention_fwd_offset(qc, kc, vc, st)
+    o_w, lse_w = flash.flash_attention_fwd(q, k, v)
+    for i, s in enumerate(starts):
+        assert torch.equal(o[i], o_w[i, :, s:s + c]) and torch.equal(lse[i], lse_w[i, :, s:s + c])
+    o_ref, lse_ref = flash.flash_attention_offset_plain(qc.float(), kc.float(), vc.float(), st)
+    (terms,) = flash.flash_offset_error_terms(qc, kc, vc, st)
+    assert _flash_close(o, o_ref, terms)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+def test_engine_prefix_cache_and_chunks_equal_generate_cached_on_the_card(cuda):
+    """Every stream of engines with the prefix cache, chunks and batched
+    prefill equals generate_cached(batch=1)'s, sampled, and each chunk
+    dispatch launches the offset form once a layer."""
+    cfg = GPT2Config(vocab_size=1000, n_positions=256, n_embd=128, n_layer=2, n_head=2)
+    params = gpt2.init_params(cfg, seed=0)
+    prefix = list(range(300, 364))
+    prompts = [prefix, prefix + [1, 2, 3], prefix, prefix[:32], prefix + list(range(9, 90))]
+    refs = [generate_cached(params, cfg, [p], seed=7 + i, max_new_tokens=12, temperature=1.0,
+                            block_size=16)[0, len(p):].tolist() for i, p in enumerate(prompts)]
+    for chunk, batch in ((0, 1), (16, 2), (64, 4)):
+        serve = ServeConfig(max_batch=4, block_size=16, num_blocks=64, prefix_cache=True,
+                            prefill_chunk=chunk, prefill_batch=batch)
+        eng = ServingEngine(params, cfg, serve, temperature=1.0)
+        n0 = flash.flash_attention_fwd_offset.launches
+        first = eng.submit(prompts[0], 12, seed=7)
+        eng.run_until_idle(max_steps=200)
+        rest = [eng.submit(p, 12, seed=8 + i) for i, p in enumerate(prompts[1:])]
+        eng.run_until_idle(max_steps=200)
+        assert [h.generated for h in [first] + rest] == refs, (chunk, batch)
+        assert eng.stats["cow_copies"] >= 1 and eng.stats["prefix_hit_tokens"] > 0
+        # Whole-prompt mode prefills a request with no hit whole (K1).
+        whole = sum(h.prefix_cached_tokens == 0 for h in [first] + rest) if chunk == 0 else 0
+        assert (flash.flash_attention_fwd_offset.launches - n0
+                == cfg.n_layer * (eng.stats["prefill_dispatches"] - whole))

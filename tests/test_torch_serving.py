@@ -113,9 +113,9 @@ def test_scatter_prefill_and_copy_block_write_in_place():
 
 
 @pytest.mark.parametrize("option", [
-    {"prefill_chunk": 4}, {"prefix_cache": True}, {"admission": "watermark"},
+    {"mesh": "data:2,tp:2"}, {"spec": "draft:124M,k:2"}, {"admission": "watermark"},
     {"mesh": "data:2"}, {"spec": "draft:124M,k:4"}, {"watermark_blocks": 2},
-    {"prefill_batch": 2},
+    {"admission": "watermark", "watermark_blocks": 4},
 ])
 def test_unported_serve_options_are_refused(option):
     with pytest.raises(ValueError, match="later slice"):
@@ -184,7 +184,7 @@ def test_cli_refuses_each_unported_flag(capsys):
     from gpt_2_distributed_torch.serving import serve
 
     port_actions = {a.dest: a for a in serve.build_argparser()._actions}
-    assert len(serve._UNPORTED) == 28
+    assert len(serve._UNPORTED) == 25
     for dest in serve._UNPORTED:
         with pytest.raises(SystemExit) as e:
             serve.main(["--requests", "r.jsonl", "--init_random"]

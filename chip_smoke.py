@@ -114,7 +114,28 @@ that does not hold:
    streams equal to the first's) and the engine steps while a 960-token
    prompt is admitted whole (OFF) or in chunks of 256 (C) among 7 decoding
    streams;
-9. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
+9. watermark admission with preemption (``phase_preempt_serving``) at
+   124M, ServeConfig(max_batch=8, block_size=16, num_blocks=54,
+   admission="watermark", watermark_blocks=1): 8 prompts of 95 to 431
+   tokens, greedy (96 new tokens) and then sampled at temperature 1.0 (32),
+   on an engine in whole-prompt mode (W) and one with chunks of 256, 4 a
+   dispatch, and the prefix cache (C); requires every stream to equal
+   ``generate_cached(batch=1)``'s (a stream that differs prints its first
+   differing step and the logits there), 4 or more preemptions an engine,
+   a resume for each preemption of a request that had sampled, ``on_token``
+   once a token, the allocator back to its free count, and the launches of
+   K1, its offset form, K3 (also once a layer for each resume dispatch's
+   decode-written rows), K7's forward and K4 equal to those the stats
+   imply; prints each engine's preemptions, resumes, decode ms/step and
+   step walls; then one request preempted after 40 decode steps and
+   resumed: the K and V of its decode-written positions, layer by layer,
+   against the decode step's bits (the engine's resume must change none),
+   and with K1's offset form alone; then a migration: an engine of C's
+   configuration stopped after one step with requests decoding,
+   prefilling and queued, ``extract_inflight`` through ``to_wire``, JSON
+   and ``from_wire`` into a second engine, every sampled stream equal to
+   the uninterrupted one's and no token emitted twice;
+10. serves 8 requests (prompts of 1 to 960 tokens, 64 new tokens each)
    greedily, then the same 8 prompts sampled at temperature 1.0 (16 new
    tokens each), through ``ServingEngine`` at the full width of the 124M
    preset with random weights, bf16, max_batch 8, block_size 16, 513
@@ -125,12 +146,12 @@ that does not hold:
    first differing step and the logits there; then holds one prefill and
    one decode step of the kernel attention against the plain attention on
    the same pool state (fp32 logits);
-10. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
+11. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
    kernel path (K1/K2) and the plain path (dense attention), same params,
    batch and seeds, then at dropout 0 with ``fused_layers`` "all" (K4-K6)
    and with ``fused_matmul`` "all" over it (K7), each against "off": the
    loss and every grad;
-11. trains: ``train.main()`` on synthetic shards at 124M full width, seq
+12. trains: ``train.main()`` on synthetic shards at 124M full width, seq
    1024, batch 4, accum 4, dropout 0.1, 16 steps and one eval of 4
    batches, with ``--fused_layers off``, with ``all``, and with
    ``--fused_matmul all --fused_layers all``; checks finite losses, a
@@ -143,14 +164,14 @@ that does not hold:
    a layer and batch, its du pass, dgrad and wgrad once a leg and
    micro-batch; prints each run's ms/step, tok/s and MFU, and the
    ``fused_matmul all`` step beside the ``fused_layers all`` step;
-12. with two or more cards, trains ``--mesh sp=2`` the same way through
+13. with two or more cards, trains ``--mesh sp=2`` the same way through
     ``torch.distributed.run`` (NCCL; two ranks of this script in
     ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
     launched 12 x 2 x (micro-batches + eval batches) forward and 12 x 2 x
     micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
     beside the local step's. On one card it prints that the NCCL ring
     needs two GPUs and that the CPU tests hold that path over gloo;
-13. prints the ``kernels`` JSON line, then the device line last.
+14. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` times K2's two kernels (dk/dv, dq) apart with
 ``torch.profiler`` and adds profiler windows over one serving admission
@@ -167,6 +188,7 @@ computed from this run's shapes and the H100 SXM peaks (3.35 TB/s,
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -1519,6 +1541,25 @@ def profile_window(label: str, fn) -> None:
               f"{e.count / n:6.1f}/step  {e.key[:90]}", flush=True)
 
 
+def print_first_difference(label: str, w: dict, config, p: list[int], got: list[int],
+                           want: list[int]) -> None:
+    """A stream that differs from generate_cached(batch=1)'s: its first
+    differing step, the two tokens' logits there and the top-two gap, from
+    a batch-1 prefill of the common prefix."""
+    from gpt_2_distributed_torch.models import decode, gpt2
+
+    t = next(j for j, (a, c) in enumerate(zip(got, want)) if a != c)
+    with torch.no_grad():
+        hid, _ = decode.prefill(w, config, torch.tensor([p + want[:t]], device="cuda"),
+                                len(p) + t)
+        logits = gpt2.logits_fp32(w, hid[:, -1])[0]
+    top = logits.topk(2).values
+    print(f"{label} (prompt {len(p)}): first differing step {t}: engine token {got[t]} "
+          f"(logit {logits[got[t]].item():.6f}), generate_cached token {want[t]} (logit "
+          f"{logits[want[t]].item():.6f}), top-two gap {(top[0] - top[1]).item():.3e}",
+          flush=True)
+
+
 def phase_serving(profile_steps: bool) -> dict[str, int]:
     """Serves the 8 requests greedily and sampled; returns the launches of
     the serving path's kernels by wrapper name."""
@@ -1617,18 +1658,8 @@ def phase_serving(profile_steps: bool) -> dict[str, int]:
             if want_ids == h.generated:
                 same += 1
                 continue
-            t = next(j for j, (a, c) in enumerate(zip(h.generated, want_ids)) if a != c)
-            with torch.no_grad():
-                hid, _ = decode.prefill(eng.w, config,
-                                        torch.tensor([p + want_ids[:t]], device="cuda"),
-                                        len(p) + t)
-                logits = gpt2.logits_fp32(eng.w, hid[:, -1])[0]
-            top = logits.topk(2).values
-            print(f"serving {label} request {h.id} (prompt {len(p)}): first differing "
-                  f"step {t}: engine token {h.generated[t]} (logit "
-                  f"{logits[h.generated[t]].item():.6f}), generate_cached token "
-                  f"{want_ids[t]} (logit {logits[want_ids[t]].item():.6f}), top-two gap "
-                  f"{(top[0] - top[1]).item():.3e}", flush=True)
+            print_first_difference(f"serving {label} request {h.id}", eng.w, config, p,
+                                   h.generated, want_ids)
         print(f"serving: {same} of {len(handles)} {label} engine streams equal "
               f"generate_cached(batch=1)'s", flush=True)
         differ += len(handles) - same
@@ -1918,20 +1949,10 @@ def phase_prefix_serving(profile_steps: bool) -> dict[str, int]:
             if want_ids == h.generated:
                 same += 1
                 continue
-            t = next(j for j, (a, c) in enumerate(zip(h.generated, want_ids)) if a != c)
-            eng = engines[name, temp]
-            with torch.no_grad():
-                hid, _ = decode.prefill(eng.w, config,
-                                        torch.tensor([p + want_ids[:t]], device="cuda"),
-                                        len(p) + t)
-                logits = gpt2.logits_fp32(eng.w, hid[:, -1])[0]
-            top = logits.topk(2).values
-            print(f"prefix serving {name} temperature {temp} request {h.id} (prompt "
-                  f"{len(p)}, {h.prefix_cached_tokens} cached): first differing step {t}: "
-                  f"engine token {h.generated[t]} (logit "
-                  f"{logits[h.generated[t]].item():.6f}), generate_cached token "
-                  f"{want_ids[t]} (logit {logits[want_ids[t]].item():.6f}), top-two gap "
-                  f"{(top[0] - top[1]).item():.3e}", flush=True)
+            print_first_difference(
+                f"prefix serving {name} temperature {temp} request {h.id} "
+                f"({h.prefix_cached_tokens} cached)", engines[name, temp].w, config, p,
+                h.generated, want_ids)
         print(f"prefix serving {name} temperature {temp}: {same} of {len(entries)} streams "
               f"equal generate_cached(batch=1)'s", flush=True)
         differ += len(entries) - same
@@ -2034,6 +2055,264 @@ def phase_prefix_serving(profile_steps: bool) -> dict[str, int]:
         profile_window("chunked admission (a 256-token chunk of a 960-token prompt + 1 "
                        "decode at batch 7)", lambda: (eng.step(), 1)[1])
         eng.run_until_idle()
+    return got
+
+
+# Watermark admission with preemption: 8 prompts of 95-431 tokens, the
+# longest first, so the newest admissions (the preemption victims) are the
+# short ones; a length one short of a block multiple makes every request
+# grow a block at its first decode step. The pool of 54 blocks makes both
+# engines preempt 5 times over a greedy and a sampled run (the schedule
+# depends on the lengths alone: a run on the CPU at a tiny width counts the
+# same preemptions).
+PREEMPT_LENGTHS = (431, 383, 335, 287, 239, 191, 143, 95)
+PREEMPT_NEW = (96, 32)   # greedy, then sampled at temperature 1.0
+PREEMPT_BLOCKS = 54
+PREEMPT_BITS_STEPS = 40  # decode steps before the pool-bits preemption
+
+
+def resumed_pool_bits(eng, prompt: list[int], ref: list[int]) -> None:
+    """One greedy request on an idle engine, uninterrupted for
+    PREEMPT_BITS_STEPS decode steps, then preempted and resumed: the K and V its resume writes
+    at the decode-written positions against the decode step's, bit for
+    bit, layer by layer; then the same resume with K1's offset form alone
+    (every row through the chunk attention). Fails if the engine's resume
+    changes a bit; its stream must still equal ``ref``."""
+    from gpt_2_distributed_torch.serving.engine import chunk_prefill
+
+    bs, n, p = eng.serve.block_size, PREEMPT_BITS_STEPS, len(prompt)
+    pos = torch.arange(p, p + n, device="cuda")
+
+    def rows(table_row):   # [2, n, L, H, D]: K and V at the n positions
+        blk = torch.as_tensor(table_row, dtype=torch.long, device="cuda")[pos // bs]
+        return torch.stack([pool.permute(1, 3, 0, 2, 4)[blk, pos % bs]
+                            for pool in (eng.k_pool, eng.v_pool)])
+
+    def differing(a, b):   # per layer, (K, V) elements that differ
+        return [tuple(int((a[kv, :, layer] != b[kv, :, layer]).sum()) for kv in (0, 1))
+                for layer in range(a.shape[2])]
+
+    eng.temperature = 0.0
+    h = eng.submit(prompt, len(ref))
+    while len(h.generated) < n + 1:
+        eng.step()
+    slot = eng._slots.index(h)
+    decoded = rows(eng.block_table[slot]).clone()
+    work = prompt + h.generated[:n]
+    eng._preempt(slot)
+    t0 = time.monotonic()
+    eng._try_admit()            # whole-prompt mode: the resume completes inline
+    torch.cuda.synchronize()
+    resume_ms = (time.monotonic() - t0) * 1e3
+    slot = eng._slots.index(h)
+    routed = differing(rows(eng.block_table[slot]), decoded)
+    # K1's offset form alone over the same work prompt, into blocks of its own.
+    own = eng.allocator.alloc(-(-len(work) // bs))
+    bt = np.zeros((1, eng._m), np.int32)
+    bt[0, :len(own)] = own
+    chunk_prefill(eng.w, eng.config, eng.k_pool, eng.v_pool, bt, np.array([work]),
+                  np.array([0]), np.array([len(work)]), eng.serve.attn_impl)
+    alone = differing(rows(bt[0]), decoded)
+    eng.allocator.release(own)
+    eng.run_until_idle()
+    total = decoded[0, :, 0].numel()
+    print(f"preempt serving: pool bits at the {n} decode-written positions of a "
+          f"{p}-token prompt, resumed (one resume dispatch, {resume_ms:.3f} ms wall): elements "
+          f"differing from the decode step's, (K, V) per layer of {total}: decode rows through "
+          f"K3 (the engine) {routed}; K1's offset form alone {alone}", flush=True)
+    enough = all(k == v == 0 for k, v in alone)
+    print(f"preempt serving: K1's offset form alone gives the decode step's bits: {enough}",
+          flush=True)
+    if any(k or v for k, v in routed) or h.generated != ref:
+        fail("a resume changed the pool bits the decode step wrote, or its stream")
+
+
+def phase_preempt_serving() -> dict[str, int]:
+    """Watermark admission with preemption and a recompute resume at 124M:
+    engines W (whole-prompt mode, no cache) and C (chunks of 256, 4 a
+    dispatch, prefix cache), ServeConfig(max_batch=8, block_size=16,
+    num_blocks=54, admission="watermark", watermark_blocks=1), each serving
+    the 8 prompts greedily (96 new tokens) and then sampled at temperature
+    1.0 (32). Every stream must equal generate_cached(batch=1)'s, each
+    on_token be called once a token, every preemption of a request that had
+    sampled be resumed, the allocator come back, each engine preempt 4
+    times or more, and the launches equal those the stats imply; then the
+    pool bits of one resume (``resumed_pool_bits``) and a migration: C's
+    configuration stopped with requests decoding, prefilling and queued,
+    ``extract_inflight`` through the wire form and JSON into a second
+    engine. Returns the counted runs' launches by wrapper name."""
+    from gpt_2_distributed_torch.config import MODEL_PRESETS, ServeConfig
+    from gpt_2_distributed_torch.models import decode, gpt2
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
+    from gpt_2_distributed_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_fwd_offset,
+    )
+    from gpt_2_distributed_torch.ops.fused_layer import ln_residual_dropout_fwd
+    from gpt_2_distributed_torch.ops.paged_attention import paged_attention_kernel
+    from gpt_2_distributed_torch.serving import RequestHandle, ServingEngine
+
+    config = MODEL_PRESETS["124M"]
+    base = dict(max_batch=8, block_size=16, num_blocks=PREEMPT_BLOCKS, admission="watermark",
+                watermark_blocks=1)
+    settings = {"W": {}, "C": dict(prefill_chunk=256, prefill_batch=4, prefix_cache=True)}
+    t0 = time.monotonic()
+    params = gpt2.init_params(config, seed=0)
+    engines = {name: ServingEngine(params, config, ServeConfig(**base, **kw))
+               for name, kw in settings.items()}
+    rng = torch.Generator().manual_seed(15)
+    prompts = [torch.randint(0, config.vocab_size, (n,), generator=rng).tolist()
+               for n in PREEMPT_LENGTHS]
+    warm = torch.randint(0, config.vocab_size, (40,), generator=rng).tolist()
+    for eng in engines.values():
+        for _ in range(2):
+            eng.submit(warm, 2)
+            eng.run_until_idle()
+        eng.clear_prefix_cache()
+    refs = {}   # (prompt index, temperature) -> stream, shared by every engine
+    for i, p in enumerate(prompts):
+        for temp, new in zip((0.0, 1.0), PREEMPT_NEW):
+            refs[i, temp] = decode.generate_cached(
+                params, config, [p], seed=500 + i, max_new_tokens=new, temperature=temp,
+                block_size=base["block_size"])[0, len(p):].tolist()
+    print(f"preempt serving: 124M, engines W and C, {PREEMPT_BLOCKS} blocks of 16 (the "
+          f"8 requests' worst case: "
+          f"{sum(-(-(n + PREEMPT_NEW[0] - 1) // 16) for n in PREEMPT_LENGTHS)}), set-up and "
+          f"references {time.monotonic() - t0:.1f} s", flush=True)
+
+    wrappers = {"flash_attention_fwd_offset": flash_attention_fwd_offset,
+                "flash_attention_fwd": flash_attention_fwd,
+                "paged_attention_kernel": paged_attention_kernel,
+                "linear": fm.linear, "head_logits": fm.head_logits,
+                "ln_residual_dropout_fwd": ln_residual_dropout_fwd}
+    before = {name: dict(eng.stats) for name, eng in engines.items()}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    differ = 0
+    for name, eng in engines.items():
+        early = collections.Counter()   # preemptions before a request's first token
+        preempt = eng._preempt
+
+        def counted(slot, eng=eng, preempt=preempt, early=early):
+            early[eng._slots[slot].id] += not eng._slots[slot].generated
+            preempt(slot)
+
+        eng._preempt = counted
+        for temp, new in zip((0.0, 1.0), PREEMPT_NEW):
+            eng.temperature = temp
+            start = dict(eng.stats)
+            emitted = collections.Counter()
+            hs = [eng.submit(p, new, seed=500 + i,
+                             on_token=lambda r, t, emitted=emitted: emitted.update([r.id]))
+                  for i, p in enumerate(prompts)]
+            walls, resume_ms = [], []
+            while eng.has_work():
+                rd = eng.stats["resume_dispatches"]
+                torch.cuda.synchronize()
+                t1 = time.monotonic()
+                eng.step()
+                torch.cuda.synchronize()
+                walls.append((time.monotonic() - t1) * 1e3)
+                if eng.stats["resume_dispatches"] > rd:
+                    resume_ms.append(walls[-1])
+            d = {k: eng.stats[k] - start[k] for k in eng.stats}
+            same = sum(h.generated == refs[i, temp] for i, h in enumerate(hs))
+            for i, h in enumerate(hs):
+                if h.generated != refs[i, temp]:
+                    print_first_difference(
+                        f"preempt serving {name} temperature {temp} request {h.id}", eng.w,
+                        config, prompts[i], h.generated, refs[i, temp])
+            differ += len(hs) - same
+            cached = len(eng.prefix_cache) if eng.prefix_cache is not None else 0
+            print(f"preempt serving {name} temperature {temp}: {same} of {len(hs)} streams "
+                  f"equal generate_cached(batch=1)'s; {d['preemptions']} preemptions, "
+                  f"{d['resumes']} resumes, {d['resume_dispatches']} resume dispatches, "
+                  f"{d['prefix_hit_tokens']} prefix-hit tokens; {d['decode_steps']} decode "
+                  f"steps at {d['decode_ms'] / d['decode_steps']:.3f} ms/step; engine steps "
+                  f"with a resume dispatch "
+                  + (f"{np.mean(resume_ms):.3f} ms mean wall" if resume_ms else "none")
+                  + f", the "
+                  f"longest step {max(walls):.3f} ms, the median "
+                  f"{sorted(walls)[len(walls) // 2]:.3f} ms", flush=True)
+            if any(h.resumes != h.preemptions - early[h.id] for h in hs) \
+                    or d["resumes"] != sum(h.resumes for h in hs) \
+                    or d["preemptions"] != sum(h.preemptions for h in hs):
+                fail(f"preempt serving {name}: resumes {[h.resumes for h in hs]} against "
+                     f"preemptions {[h.preemptions for h in hs]} (before a first token: "
+                     f"{dict(early)})")
+            if emitted != {h.id: len(h.generated) for h in hs} \
+                    or any(h.finish_reason != "length" for h in hs):
+                fail(f"preempt serving {name}: tokens emitted {dict(emitted)} for streams of "
+                     f"{[len(h.generated) for h in hs]}")
+            if eng.allocator.available != PREEMPT_BLOCKS - 1 - cached:
+                fail(f"preempt serving {name}: {eng.allocator.available} blocks free, "
+                     f"{cached} cached, of {PREEMPT_BLOCKS - 1}")
+        eng._preempt = preempt
+    got = {name: w.launches for name, w in wrappers.items()}
+    if differ:
+        fail(f"{differ} preempt-serving streams differ from generate_cached(batch=1)'s")
+
+    # The launches the stats imply: as in phase_prefix_serving, and K3 once
+    # a layer more for each chunk dispatch that carries decode-written rows
+    # of a resume. W prefills every fresh admission whole, every resume in
+    # chunks; C everything in chunks.
+    n_layer = config.n_layer
+    whole = dispatches = steps = resumed = 0
+    for name, eng in engines.items():
+        d = {k: eng.stats[k] - before[name][k] for k in eng.stats}
+        if d["preemptions"] < 4:
+            fail(f"preempt serving {name}: {d['preemptions']} preemptions, fewer than 4")
+        w = d["admitted"] - d["resumes"] if eng.serve.prefill_chunk == 0 else 0
+        whole += w
+        dispatches += d["prefill_dispatches"] - w
+        steps += d["decode_steps"]
+        resumed += d["resume_dispatches"]
+    want = {"flash_attention_fwd_offset": n_layer * dispatches,
+            "flash_attention_fwd": n_layer * whole,
+            "paged_attention_kernel": n_layer * (steps + resumed),
+            "linear": 4 * n_layer * (whole + dispatches + steps),
+            "head_logits": whole + dispatches + steps,
+            "ln_residual_dropout_fwd": (2 * n_layer + 1) * (whole + dispatches + steps)}
+    print(f"preempt serving: launches {got} over {whole} whole prefills, {dispatches} chunk "
+          f"dispatches ({resumed} with decode-written rows) and {steps} decode steps",
+          flush=True)
+    if not (whole and resumed and got == want):
+        fail(f"preempt serving launch counts {got} != {want}")
+
+    resumed_pool_bits(engines["W"], prompts[5], refs[5, 0.0])
+
+    # Migration: C's configuration, the prompts in another order so that
+    # after one step a request decodes, one prefills and the rest wait;
+    # every request through the wire form and JSON into a second engine.
+    order = [7, 0, 6, 5, 4, 3, 2, 1]
+    src, dst = (ServingEngine(params, config, ServeConfig(**base, **settings["C"]),
+                              temperature=1.0) for _ in range(2))
+    emitted = collections.Counter()
+
+    def on_token(r, t):
+        emitted.update([r.id])
+
+    for i in order:
+        src.submit(prompts[i], PREEMPT_NEW[1], seed=500 + i, rid=i, on_token=on_token)
+    src.step()
+    slotted = [h._prefill_pos is None for h in src._slots if h is not None]
+    kinds = (sum(slotted), len(slotted) - sum(slotted), len(src._queue))
+    keys = src.decode_keys()
+    wires = [json.loads(json.dumps(h.to_wire())) for h in src.extract_inflight()]
+    adopted = [RequestHandle.from_wire(wire, on_token) for wire in wires]
+    for h in adopted:
+        dst.adopt(h)
+    dst.run_until_idle()
+    same = sum(h.generated == refs[h.id, 1.0] for h in adopted)
+    print(f"preempt serving: migration after 1 step ({kinds[0]} decoding, {kinds[1]} "
+          f"prefilling, {kinds[2]} queued) through to_wire, JSON and from_wire: {same} of "
+          f"{len(adopted)} sampled streams equal generate_cached(batch=1)'s; tokens emitted "
+          f"{sum(emitted.values())} for {sum(len(h.generated) for h in adopted)} generated; "
+          f"{dst.stats['preemptions']} preemptions after it", flush=True)
+    if min(kinds) < 1 or same != len(adopted) \
+            or emitted != {h.id: len(h.generated) for h in adopted} \
+            or any(keys[w["rid"]] != w["generator"] for w in wires if w["rid"] in keys):
+        fail("a migrated stream differs, re-emitted a token, or lost its generator state")
     return got
 
 
@@ -2345,6 +2624,7 @@ def main() -> None:
     offset_row = phase_offset(flush)
     del flush
     prefix = phase_prefix_serving(profile)
+    preempt = phase_preempt_serving()
     serving = phase_serving(profile)
     phase_model_paths()
     counts, ms_steps = phase_training(profile)
@@ -2363,7 +2643,8 @@ def main() -> None:
                                       for name, _ in MM_SERVE_WRAPPERS)
           + f"; K8 {k8['flash_block_fwd']} forward, {k8['flash_block_bwd']} backward "
           + ("(the one-card ring)" if k8_train is None else "(sp=2 training, rank 0)")
-          + "; prefix serving: " + ", ".join(f"{name} {n}" for name, n in prefix.items()),
+          + "; prefix serving: " + ", ".join(f"{name} {n}" for name, n in prefix.items())
+          + "; preempt serving: " + ", ".join(f"{name} {n}" for name, n in preempt.items()),
           flush=True)
 
     kernels = [
@@ -2374,7 +2655,8 @@ def main() -> None:
         dict(name="flash_attention_fwd_offset", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
-             launches=prefix["flash_attention_fwd_offset"], **offset_row),
+             launches=prefix["flash_attention_fwd_offset"]
+             + preempt["flash_attention_fwd_offset"], **offset_row),
         dict(name="flash_attention_bwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",
@@ -2382,7 +2664,7 @@ def main() -> None:
         dict(name="paged_attention_kernel", route="cuda",
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",
-             launches=k3, **k3_row),
+             launches=k3 + preempt["paged_attention_kernel"], **k3_row),
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
              replaces=replaces, launches=counts["fused_layers all"][name], **fused_rows[name])

@@ -168,10 +168,15 @@ class ServeConfig:
       share a prefix (refcounted, LRU-evicted under pool pressure).
     * ``prefill_batch`` — chunked mode: in-progress prefills advanced per
       step, in one dispatch.
+    * ``admission`` — "reserve" grants a request's worst-case blocks at
+      admission; "watermark" grants them as the request grows and
+      preempts the newest admission when the pool runs out (it resumes by
+      recomputing its prefill).
+    * ``watermark_blocks`` — watermark mode: blocks an admission leaves
+      free while any slot is occupied, for the decoding rows to grow into.
 
-    ``admission``, ``watermark_blocks``, ``mesh`` and ``spec`` mirror the
-    JAX engine's options and are validated as there; only their defaults
-    (worst-case block reservation, one device, no speculation) are ported
+    ``mesh`` and ``spec`` mirror the JAX engine's options and are validated
+    as there; only their defaults (one device, no speculation) are ported
     so far.
     """
 
@@ -224,8 +229,7 @@ class ServeConfig:
                 f"prefill_batch={self.prefill_batch} must be in "
                 f"[1, max_batch={self.max_batch}]"
             )
-        for field, default in (("admission", "reserve"), ("watermark_blocks", 1),
-                               ("mesh", ""), ("spec", "")):
+        for field, default in (("mesh", ""), ("spec", "")):
             value = getattr(self, field)
             if value != default:
                 raise _later_slice("ServeConfig", field, value)

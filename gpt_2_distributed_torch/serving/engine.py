@@ -1,23 +1,44 @@
 """Continuous-batching decode engine over the paged KV cache
 (``gpt_2_distributed_tpu/serving/engine.py``).
 
-* **Admission at step boundaries.** A FIFO queue feeds free slots. Each
-  admission reserves the request's worst-case block need
-  (``ceil((P + max_new - 1) / block_size)``, less the blocks it shares
-  from the prefix cache) all-or-nothing, so an in-flight request can never
-  run out of blocks mid-decode; if the queue head does not fit, unpinned
-  prefix-cache entries are evicted (LRU) and, failing that, nothing behind
-  it jumps the queue.
+* **Admission at step boundaries.** A FIFO queue feeds free slots; if the
+  queue head does not fit, unpinned prefix-cache entries are evicted (LRU)
+  and, failing that, nothing behind it jumps the queue. Two grant policies
+  (``ServeConfig.admission``):
+
+  - ``"reserve"`` takes the request's worst-case block need
+    (``ceil((P + max_new - 1) / block_size)``, less the blocks it shares
+    from the prefix cache) all-or-nothing, so an in-flight request never
+    runs out of blocks mid-decode;
+  - ``"watermark"`` grants what the prefill writes plus the first decode
+    position and, while a slot is occupied, leaves ``watermark_blocks``
+    free. Before each decode step ``_grow_tables`` gives a block to every
+    row about to write past its last one, oldest admission first; on
+    exhaustion the newest admission is **preempted**: its blocks are
+    freed and it is requeued at the head, its last sampled token carried
+    as the pending decode input.
+* **Recompute resume.** A preempted (or migrated) request is prefilled
+  again over its work prompt ``prompt + generated[:-1]`` through the chunk
+  path, in whole-prompt mode too. Its prefill neither emits nor samples:
+  the pending token becomes the decode input and the request's generator
+  is not drawn. The positions the decode step wrote (``>= len(prompt)``)
+  attend as the decode step did, through the paged attention of
+  ``ops/paged_attention.py`` (K3 on the card) as one-row sequences of
+  length ``pos + 1``, so every layer's K/V there get the decode step's
+  bits and the stream stays equal to the uninterrupted one on the card.
 * **Prefix caching** (``ServeConfig.prefix_cache``): full prompt blocks are
   hash-consed by token prefix (``paged_cache.PrefixCache``) over
   refcounted blocks. A hit run is pinned before the grant and prefill
   starts after it; a block-aligned, fully cached prompt copies its last
   block (copy-on-write) and recomputes its last position for the logits.
-  A request registers its full blocks when its prefill completes (first
-  writer wins).
-* **Whole-prompt prefill** (no hit, ``prefill_chunk = 0``) runs inside
-  admission: the prompt, right-padded to the block bucket ``pb = ceil(P /
-  bs) * bs`` (capped at ``n_positions``), goes through
+  A request registers its full work-prompt blocks when its prefill
+  completes (first writer wins). A block that holds decode-written
+  positions is keyed by its tokens and the request's prompt length, so
+  only that request's own later resume reuses it (see
+  ``_register_prefix``).
+* **Whole-prompt prefill** (no hit, ``prefill_chunk = 0``, not a resume)
+  runs inside admission: the prompt, right-padded to the block bucket
+  ``pb = ceil(P / bs) * bs`` (capped at ``n_positions``), goes through
   ``models/decode.py::prefill`` — on the card through the flash kernel —
   the first token is sampled from hidden row ``P - 1``, and the K/V land in
   the request's pool blocks. Padding is causally inert: it sits after
@@ -26,11 +47,12 @@
   row's K/V are scattered into its blocks at position granularity and its
   queries attend over the partly built table
   (``ops/paged_attention.py::paged_prefill_attention``, on the card K1's
-  query-offset form). It carries every prefix-cache continuation and, with
-  ``prefill_chunk = N``, every prompt: one step advances up to
-  ``prefill_batch`` prefills, oldest admission first, by one N-token chunk
-  each in one dispatch, before the decode step, so a long prompt no longer
-  stalls every stream. Prefilling rows hold their slot but do not decode.
+  query-offset form). It carries every prefix-cache continuation, every
+  resume and, with ``prefill_chunk = N``, every prompt: one step advances
+  up to ``prefill_batch`` prefills, oldest admission first, by one N-token
+  chunk each in one dispatch, before the decode step, so a long prompt no
+  longer stalls every stream. Prefilling rows hold their slot but do not
+  decode.
 * **One decode step** for every slot per engine step: each active row
   writes its K/V at its own position, in place, BEFORE attending (the row
   attends to itself), then attends over its pages through
@@ -40,12 +62,20 @@
 * **Eviction** on EOS, on length, or past a request's deadline releases
   its blocks and zeroes its table row.
 * **Streaming**: every sampled token goes through the request's
-  ``on_token`` callback in the step that produces it.
+  ``on_token`` callback in the step that produces it, once.
+* **Migration**: ``extract_inflight`` detaches every live request in
+  admission order with the state ``_preempt`` saves, ``adopt`` queues one
+  on another engine with the same ``ServeConfig``, and
+  ``RequestHandle.to_wire``/``from_wire`` carry a request across a
+  process boundary as JSON. A migrated stream resumes as a preempted one
+  does, with zero tokens re-emitted.
 
 Sampling: each request owns a ``torch.Generator`` seeded from its seed, on
 the engine's device, drawn once per sampled token in the same order as
 ``generate_cached(batch=1)``, and each row is sampled on its own — so a
 request's stream never depends on which requests share its batch. The
+generator stays on the handle through preemption and travels in the wire
+form (its state bytes), so nothing is captured from the engine. The
 engine's streams equal ``generate_cached(batch=1)``'s token for token, on
 the CPU (``tests/test_torch_serving.py``) and on the card: there every
 product, LayerNorm and the head run kernels whose result for a row does
@@ -53,14 +83,13 @@ not depend on the rows beside it (``models/gpt2.py``), and both sides
 decode through the paged kernel (``models/decode.py``).
 
 A request's generator is drawn once for its first token, on its final
-prefill chunk only (never for a pad row), so chunking and cache hits leave
-its draws where ``generate_cached(batch=1)`` makes them; every op of the
-chunk path gives a row the bits the whole-prompt path gives it on the card.
+prefill chunk only (never for a pad row or a resume), so chunking and
+cache hits leave its draws where ``generate_cached(batch=1)`` makes them;
+every op of the chunk path gives a row the bits the whole-prompt path (or,
+for a decode-written position, the decode step) gives it on the card.
 
-Not ported yet (refused by ``ServeConfig``): watermark admission with
-preemption, serving meshes and speculative decoding, and with them the
-migration surface (``extract_inflight`` / ``adopt``, the request wire
-form).
+Not ported yet (refused by ``ServeConfig``): serving meshes and
+speculative decoding.
 """
 
 from __future__ import annotations
@@ -79,7 +108,10 @@ from gpt_2_distributed_torch.models.generate import (
     check_generation_args,
     sample_token,
 )
-from gpt_2_distributed_torch.ops.paged_attention import paged_prefill_attention
+from gpt_2_distributed_torch.ops.paged_attention import (
+    paged_attention,
+    paged_prefill_attention,
+)
 from gpt_2_distributed_torch.serving.paged_cache import (
     BlockAllocator,
     PrefixCache,
@@ -91,9 +123,40 @@ from gpt_2_distributed_torch.serving.paged_cache import (
 from gpt_2_distributed_torch.utils.device import resolve_device
 
 
+# Version tag of the serialized request form (``RequestHandle.to_wire``).
+# Bump on any change of a field's meaning: ``from_wire`` refuses unknown
+# versions, so a stale worker never adopts a payload it would misread.
+REQUEST_WIRE_VERSION = 1
+
+
+def _generator_state(gen: torch.Generator | None) -> dict | None:
+    """A sampling generator's state as JSON-able data: its device type and
+    its state bytes (a CUDA Philox generator's seed and offset, or a CPU
+    Mersenne generator's whole state; the two are not interchangeable)."""
+    if gen is None:
+        return None
+    return {"device": gen.device.type, "state": gen.get_state().tolist()}
+
+
+def _generator_from_state(d: dict | None, device: torch.device) -> torch.Generator | None:
+    """The generator :func:`_generator_state` describes, rebuilt on
+    ``device``. Raises ValueError when its device type is not ``device``'s."""
+    if d is None:
+        return None
+    if d["device"] != device.type:
+        raise ValueError(
+            f"request wire: a {d['device']} generator state cannot be adopted "
+            f"on a {device.type} engine (the generators' states differ in kind)"
+        )
+    gen = torch.Generator(device=device)
+    gen.set_state(torch.tensor(d["state"], dtype=torch.uint8))
+    return gen
+
+
 class RequestHandle:
     """One submitted request: its prompt, its growing output, and the
-    accounting the serving CLI reads."""
+    accounting the serving CLI reads (timestamps, queue wait, preemption
+    and resume counts, prefix-cache hits)."""
 
     def __init__(
         self,
@@ -112,15 +175,18 @@ class RequestHandle:
         self.deadline: float | None = None     # monotonic; None = no deadline
         self.submit_time: float | None = None
         self.first_token_time: float | None = None
-        self.queue_wait_ms = 0.0
-        self.preemptions = 0          # always 0 until preemption is ported
-        self.prefix_cached_tokens = 0  # prompt tokens skipped at admission
+        self.finish_time: float | None = None
+        self.queue_wait_ms = 0.0      # cumulative: every (re)queue -> admit gap
+        self.preemptions = 0          # times swapped out for pool pressure
+        self.resumes = 0              # re-admissions after a preemption
+        self.prefix_cached_tokens = 0  # prompt tokens skipped at 1st admission
         self._gen: torch.Generator | None = None
         self._blocks: list[int] | None = None
         self._enqueue_time: float | None = None
-        self._admit_order = -1        # monotone per admission
+        self._admit_order = -1        # monotone per admission; newest = victim
         self._work: np.ndarray | None = None  # the tokens this admission prefills
         self._prefill_pos: int | None = None  # next work position; None = done
+        self._pending_token: int | None = None  # resume: decode input, no emit
 
     def _emit(self, tok: int) -> None:
         if self.first_token_time is None:
@@ -131,6 +197,65 @@ class RequestHandle:
     def _finish(self, reason: str) -> None:
         self.done = True
         self.finish_reason = reason
+        self.finish_time = time.monotonic()
+
+    def to_wire(self) -> dict:
+        """The migration state ``extract_inflight`` leaves on the handle as
+        JSON-able data: generated tokens, the generator's state, the pending
+        decode input, so the request resumes on another process bit for bit
+        with zero re-emitted tokens. Timestamps are CLOCK_MONOTONIC, which
+        is machine-wide on Linux, so deadlines and queue-wait accounting
+        stay valid across processes on one host."""
+        return {
+            "v": REQUEST_WIRE_VERSION,
+            "rid": self.id,
+            "prompt": list(self.prompt),
+            "max_new_tokens": self.max_new_tokens,
+            "generated": list(self.generated),
+            "generator": _generator_state(self._gen),
+            "pending_token": self._pending_token,
+            "deadline": self.deadline,
+            "submit_time": self.submit_time,
+            "first_token_time": self.first_token_time,
+            "queue_wait_ms": self.queue_wait_ms,
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
+            "prefix_cached_tokens": self.prefix_cached_tokens,
+        }
+
+    @classmethod
+    def from_wire(
+        cls,
+        d: dict,
+        on_token: Callable[["RequestHandle", int], None] | None = None,
+        *,
+        device: str | torch.device | None = None,
+    ) -> "RequestHandle":
+        """Rebuild a handle from :meth:`to_wire` output, its generator on
+        ``device`` (the adopting engine's; CUDA unless the CPU is asked
+        for). Raises ValueError on an unknown version tag and on a
+        generator state of another device type: adopting a payload whose
+        fields would be misread would silently corrupt a stream."""
+        v = d.get("v")
+        if v != REQUEST_WIRE_VERSION:
+            raise ValueError(
+                f"unknown request wire version {v!r} "
+                f"(this build speaks {REQUEST_WIRE_VERSION})"
+            )
+        req = cls(int(d["rid"]), [int(t) for t in d["prompt"]],
+                  int(d["max_new_tokens"]), on_token)
+        req.generated = [int(t) for t in d["generated"]]
+        req._gen = _generator_from_state(d["generator"], resolve_device(device))
+        if d["pending_token"] is not None:
+            req._pending_token = int(d["pending_token"])
+        req.deadline = d["deadline"]
+        req.submit_time = d["submit_time"]
+        req.first_token_time = d["first_token_time"]
+        req.queue_wait_ms = float(d["queue_wait_ms"])
+        req.preemptions = int(d["preemptions"])
+        req.resumes = int(d["resumes"])
+        req.prefix_cached_tokens = int(d["prefix_cached_tokens"])
+        return req
 
 
 @torch.no_grad()
@@ -144,6 +269,7 @@ def chunk_prefill(
     start: np.ndarray,      # [R] int: work position of chunk[r, 0]
     clen: np.ndarray,       # [R] int: real tokens per row (0 = pad row)
     attn_impl: str = "auto",
+    decode_from: np.ndarray | None = None,  # [R] int: first decode-written position
 ) -> torch.Tensor:
     """R prefill chunks straight into the pools in one dispatch
     (``_chunk_prefill_impl`` of the JAX engine): each row's K/V for
@@ -161,7 +287,17 @@ def chunk_prefill(
     (``models/decode.py::prefill``) gives it: the products, LayerNorms and
     head through the row-invariant inference helpers of ``models/gpt2.py``,
     the attention through ``paged_prefill_attention`` over the table's
-    blocks up to the furthest valid position."""
+    blocks up to the furthest valid position.
+
+    ``decode_from[r]`` is the first of row r's positions that the decode
+    step wrote in the uninterrupted run (a resume's prompt length; None:
+    no row has any). A valid query at or past it attends through
+    ``paged_attention`` — K3 on the card, as the decode step does — as a
+    one-row sequence of length ``pos + 1`` over its row's blocks, in one
+    call a layer for all such queries; its K/V at the next layer then get
+    the decode step's bits, since K3's result for a sequence does not
+    depend on the sequences beside it. Those queries' rows of the chunk
+    attention are computed and replaced."""
     bt, chunk = np.asarray(bt, np.int32), np.asarray(chunk)
     start, clen = np.asarray(start, np.int64), np.asarray(clen, np.int64)
     r, c = chunk.shape
@@ -182,6 +318,14 @@ def chunk_prefill(
     blk_d, off_d = dev_tensor(blk, torch.long), dev_tensor(vpos % bs, torch.long)
     table = dev_tensor(bt[:, :nb], torch.int32)
     start_d = dev_tensor(start, torch.int32)
+    decoded = np.zeros(len(rows), bool)
+    if decode_from is not None:
+        decoded = vpos >= np.asarray(decode_from, np.int64)[rows]
+    if decoded.any():
+        drows, dcols = rows[decoded], cols[decoded]
+        dsel = (dev_tensor(drows, torch.long), dev_tensor(dcols, torch.long))
+        dtable = dev_tensor(bt[drows, :nb], torch.int32)
+        dlen = dev_tensor(vpos[decoded] + 1, torch.int32)
     x = gpt2.embed(w, config, dev_tensor(chunk, torch.long), dev_tensor(pos, torch.long))
     for layer, bp in enumerate(w["blocks"]):
         y = gpt2.norm(x, bp["ln1_scale"], bp["ln1_bias"], config.layer_norm_eps, infer=True)
@@ -190,6 +334,8 @@ def chunk_prefill(
         kp[blk_d, :, off_d] = k[sel]
         vp[blk_d, :, off_d] = v[sel]
         o = paged_prefill_attention(q, kp, vp, table, start_d, impl=attn_impl)
+        if decoded.any():
+            o[dsel] = paged_attention(q[dsel], kp, vp, dtable, dlen, impl=attn_impl)
         x = x + gpt2.attn_out(o.reshape(r, c, config.n_embd), bp, infer=True)
         x = gpt2.mlp_sublayer(config, x, bp, infer=True)
     last = dev_tensor(np.maximum(clen - 1, 0), torch.long)
@@ -263,7 +409,10 @@ class ServingEngine:
             "prefill_dispatches": 0, "prefill_batched": 0, "decode_steps": 0,
             "tokens_out": 0, "timeouts": 0, "prefix_hit_tokens": 0,
             "cow_copies": 0, "prefill_ms": 0.0, "decode_ms": 0.0,
-            "queue_wait_ms": 0.0,
+            "queue_wait_ms": 0.0, "preemptions": 0, "resumes": 0,
+            # Chunk dispatches whose decode-written rows attend through
+            # the paged attention (K3 once a layer on the card).
+            "resume_dispatches": 0,
         }
 
     @property
@@ -275,7 +424,9 @@ class ServingEngine:
 
     def _blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
         # Positions 0 .. P+max_new-2 get written (the last sampled token is
-        # emitted but never processed); worst case ignores early EOS.
+        # emitted but never processed); worst case ignores early EOS. The
+        # formula holds through preemption: a resumed request's work prompt
+        # plus its remaining tokens end at the same last position.
         return -(-(prompt_len + max_new_tokens - 1) // self.serve.block_size)
 
     def submit(
@@ -285,13 +436,16 @@ class ServingEngine:
         *,
         seed: int = 0,
         on_token: Callable[[RequestHandle, int], None] | None = None,
+        rid: int | None = None,
         timeout_s: float | None = None,
     ) -> RequestHandle:
         """Queue a request, validated here with the same ValueErrors as
         ``generate_cached``. ``seed`` seeds the request's sampling
-        generator; ``timeout_s`` sets a deadline counted from submission
-        (queue wait included), after which the request is evicted with
-        finish reason ``"timeout"``."""
+        generator; ``rid`` overrides the engine's id counter (a router
+        assigns ids unique across its replicas; left None, ids count 0, 1,
+        2, ... in submit order); ``timeout_s`` sets a deadline counted from
+        submission (queue wait included), after which the request is
+        evicted with finish reason ``"timeout"``."""
         prompt = [int(t) for t in prompt]
         check_generation_args(
             self.config, len(prompt), max_new_tokens, self.top_k, batch=1
@@ -307,8 +461,10 @@ class ServingEngine:
             )
         if timeout_s is not None and timeout_s < 0:
             raise ValueError(f"timeout_s must be >= 0, got {timeout_s}")
-        req = RequestHandle(self._next_id, prompt, max_new_tokens, on_token)
-        self._next_id += 1
+        if rid is None:
+            rid = self._next_id
+            self._next_id += 1
+        req = RequestHandle(rid, prompt, max_new_tokens, on_token)
         req._gen = torch.Generator(device=self.device).manual_seed(int(seed))
         req.submit_time = time.monotonic()
         if timeout_s is not None:
@@ -318,29 +474,34 @@ class ServingEngine:
         self._queue.append(req)
         return req
 
-    def _alloc_blocks(self, n: int) -> list[int] | None:
-        """n blocks, evicting unpinned prefix-cache entries (LRU) under
-        pressure; None when even that does not free enough."""
+    def _alloc_blocks(self, n: int, floor: int = 0) -> list[int] | None:
+        """n blocks while leaving ``floor`` free, evicting unpinned
+        prefix-cache entries (LRU) under pressure; None when even that
+        does not free enough."""
         while True:
-            if self.allocator.available >= n:
+            if self.allocator.available >= n + floor:
                 return self.allocator.alloc(n) if n else []
             if self._cache is None or not self._cache.evict_one(self.allocator):
                 return None
 
     def _admit_one(self, slot: int, req: RequestHandle) -> bool:
         """Place the queue head into ``slot``: prefix-cache lookup, block
-        grant, copy-on-write of a block-aligned fully cached prompt's last
-        block, then prefill (inline in whole-prompt mode, deferred to
-        ``_prefill_tick`` in chunked mode). False, with every pin undone,
-        when the blocks are not there."""
+        grant (reserve or watermark), copy-on-write of a block-aligned fully
+        cached prompt's last block, then prefill (inline in whole-prompt
+        mode, deferred to ``_prefill_tick`` in chunked mode). A preempted or
+        migrated request prefills its work prompt ``prompt +
+        generated[:-1]`` through the chunk path. False, with every pin
+        undone, when the blocks are not there."""
         bs = self.serve.block_size
-        work = np.asarray(req.prompt, np.int32)
+        resuming = req._pending_token is not None
+        work = np.asarray(req.prompt + req.generated[:-1], np.int32)
         p_work = len(work)
+        need_total = self._blocks_needed(len(req.prompt), req.max_new_tokens)
         shared: list[int] = []
         cow_src: int | None = None
         s0 = 0
         if self._cache is not None:
-            hits = self._cache.lookup(work)
+            hits = self._cache.lookup(work, len(req.prompt))
             if hits and len(hits) * bs == p_work:
                 # Whole prompt cached and block-aligned: the last block must
                 # be private (position p_work - 1 is recomputed for its
@@ -354,8 +515,14 @@ class ServingEngine:
             # takes exactly the unpinned (refcount 1) entries.
             for b in shared + ([cow_src] if cow_src is not None else []):
                 self.allocator.retain(b)
-        need = self._blocks_needed(p_work, req.max_new_tokens)
-        ids = self._alloc_blocks(max(need - len(shared), 0))
+        if self.serve.admission == "watermark":
+            # What the prefill writes plus the first decode position; the
+            # floor keeps room for the rows already decoding to grow.
+            n_alloc = min(-(-(p_work + 1) // bs), need_total) - len(shared)
+            floor = self.serve.watermark_blocks if self.occupancy else 0
+        else:
+            n_alloc, floor = need_total - len(shared), 0
+        ids = self._alloc_blocks(max(n_alloc, 0), floor)
         if ids is None:
             self.allocator.release(shared + ([cow_src] if cow_src is not None else []))
             return False
@@ -371,9 +538,13 @@ class ServingEngine:
         req._admit_order = self._admit_seq
         self._admit_seq += 1
         self.stats["admitted"] += 1
+        if resuming or (req.generated and req._pending_token is None):
+            req.resumes += 1
+            self.stats["resumes"] += 1
         if s0:
             self.stats["prefix_hit_tokens"] += s0
-            req.prefix_cached_tokens = s0
+            if not req.generated:
+                req.prefix_cached_tokens = s0
         blocks = shared + ids
         req._blocks = blocks
         req._work, req._prefill_pos = work, s0
@@ -384,7 +555,7 @@ class ServingEngine:
         self.active[slot] = False
         if self.serve.prefill_chunk == 0:
             # Whole-prompt mode: prefill completes inside admission.
-            if s0 == 0:
+            if s0 == 0 and not resuming:
                 self._prefill_whole(slot, req)
             else:
                 while self._slots[slot] is req and req._prefill_pos is not None:
@@ -437,7 +608,8 @@ class ServingEngine:
 
     def _prefill_step(self, slot: int, req: RequestHandle) -> None:
         """Advance one request's prefill by one chunk; whole-prompt mode's
-        continuation width is the remainder bucketed to a block multiple."""
+        continuation or resume width is the remainder bucketed to a block
+        multiple (a row's bits do not depend on the width)."""
         if self.serve.prefill_chunk:
             width = self.serve.prefill_chunk
         else:
@@ -448,15 +620,18 @@ class ServingEngine:
     @torch.no_grad()
     def _prefill_rows(self, slots: list[int], width: int, pad_rows: int) -> None:
         """Advance each slot's prefill by one chunk of ``width`` in ONE
-        dispatch, rows padded to ``pad_rows`` with ``clen = 0``; a request
-        whose prefill completes draws its first token here, once. A
-        dispatch with no final row is not waited for: the decode step
-        queues behind it on the stream."""
+        dispatch, rows padded to ``pad_rows`` with ``clen = 0``. A request
+        whose prefill completes draws its first token here, once; a resume
+        draws nothing (its pending token is the decode input). A dispatch
+        with no sampled row is not waited for: the decode step queues
+        behind it on the stream."""
         r = max(pad_rows, len(slots))
         bt = np.zeros((r, self._m), np.int32)
         chunk = np.zeros((r, width), np.int64)
         start = np.zeros((r,), np.int64)
         clen = np.zeros((r,), np.int64)
+        decode_from = np.zeros((r,), np.int64)
+        done = []
         for i, slot in enumerate(slots):
             req = self._slots[slot]
             s = req._prefill_pos
@@ -464,52 +639,74 @@ class ServingEngine:
             bt[i] = self.block_table[slot]
             chunk[i, :cl] = req._work[s:s + cl]
             start[i], clen[i] = s, cl
+            decode_from[i] = len(req.prompt)   # work positions past it: decoded
+            if s + cl == len(req._work):
+                done.append(i)
         t0 = time.monotonic()
         logits = chunk_prefill(self.w, self.config, self.k_pool, self.v_pool,
-                               bt, chunk, start, clen, self.serve.attn_impl)
-        firsts = {}
-        for i, slot in enumerate(slots):
-            req = self._slots[slot]
-            if start[i] + clen[i] == len(req._work):
-                firsts[i] = sample_token(logits[i:i + 1], [req._gen],
-                                         self.temperature, self.top_k)
+                               bt, chunk, start, clen, self.serve.attn_impl,
+                               decode_from)
+        firsts = {i: sample_token(logits[i:i + 1], [self._slots[slots[i]]._gen],
+                                  self.temperature, self.top_k)
+                  for i in done if self._slots[slots[i]]._pending_token is None}
         firsts = {i: int(t[0]) for i, t in firsts.items()}   # the device sync, if any
         self.stats["prefill_ms"] += (time.monotonic() - t0) * 1e3
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_batched"] += max(len(slots) - 1, 0)
+        self.stats["resume_dispatches"] += bool((start + clen > decode_from).any())
         for i, slot in enumerate(slots):
             req = self._slots[slot]
             self.stats["prefill_chunks"] += 1
-            if i not in firsts:
+            if i not in done:
                 req._prefill_pos += int(clen[i])
                 continue
             self.stats["prefills"] += 1
             req._prefill_pos = None
             self._register_prefix(req)
-            self._activate(slot, req, len(req._work), firsts[i])
+            self._activate(slot, req, len(req._work), firsts.get(i))
 
-    def _activate(self, slot: int, req: RequestHandle, p_work: int, first: int) -> None:
-        """Prefill done: emit the first token, then open the decode row
-        (or evict on EOS or length)."""
-        req.generated.append(first)
-        self.stats["tokens_out"] += 1
-        req._emit(first)
-        if self.serve.eos_id is not None and first == self.serve.eos_id:
-            self._evict(slot, "eos")
-        elif len(req.generated) >= req.max_new_tokens:
-            self._evict(slot, "length")
+    def _activate(self, slot: int, req: RequestHandle, p_work: int,
+                  first: int | None) -> None:
+        """Prefill done: emit the sampled first token (a fresh request) or
+        restore the pending token (a resume: already emitted, already past
+        the EOS and length gates; no re-emit, no draw), then open the
+        decode row (or evict on EOS or length)."""
+        if req._pending_token is not None:
+            self.tokens[slot] = req._pending_token
+            req._pending_token = None
         else:
+            req.generated.append(first)
+            self.stats["tokens_out"] += 1
+            req._emit(first)
+            if self.serve.eos_id is not None and first == self.serve.eos_id:
+                self._evict(slot, "eos")
+                return
+            if len(req.generated) >= req.max_new_tokens:
+                self._evict(slot, "length")
+                return
             self.tokens[slot] = first
-            self.pos[slot] = p_work
-            self.active[slot] = True
+        self.pos[slot] = p_work
+        self.active[slot] = True
 
     def _register_prefix(self, req: RequestHandle) -> None:
         """Hash-cons every full block of the work prompt into the prefix
-        cache (first writer wins; hits re-register as no-ops)."""
+        cache (first writer wins; hits re-register as no-ops).
+
+        A resume's work prompt holds decode-written positions. On the card
+        their K/V carry the decode step's bits (the paged kernel's sum
+        order), where a fresh request whose prompt holds the same tokens
+        gets the prefill's (the flash kernel's), and its
+        ``generate_cached(batch=1)`` reference prefills them too. So a
+        block ending past ``len(prompt)`` is keyed by its tokens and the
+        prompt length: the request's own later resume reuses it, a fresh
+        prompt equal to ``prompt + generated`` does not. The JAX engine,
+        whose resume and prefill share one attention, keys by tokens
+        alone."""
         if self._cache is None:
             return
         for j in range(len(req._work) // self.serve.block_size):
-            self._cache.insert(req._work, j, req._blocks[j], self.allocator)
+            self._cache.insert(req._work, j, req._blocks[j], self.allocator,
+                               len(req.prompt))
 
     def _prefill_tick(self) -> None:
         """Chunked mode: advance up to ``prefill_batch`` in-progress
@@ -542,6 +739,50 @@ class ServingEngine:
         self._release_slot(slot)
         self.stats["finished"] += 1
 
+    def _preempt(self, slot: int) -> None:
+        """Swap a request out: free its blocks and requeue it at the head,
+        its generated tokens to be recomputed by the resume's prefill. The
+        last sampled token (already emitted) is carried as the pending
+        decode input, so the resume neither re-emits nor samples; the
+        generator stays on the handle where it is."""
+        req = self._slots[slot]
+        req.preemptions += 1
+        self.stats["preemptions"] += 1
+        req._pending_token = req.generated[-1] if req.generated else None
+        self._release_slot(slot)
+        req._enqueue_time = time.monotonic()
+        self._queue.appendleft(req)
+
+    def _grow_tables(self) -> None:
+        """Watermark mode, before each decode step: every active row about
+        to write into an unallocated block gets one. On pool exhaustion the
+        NEWEST admission is preempted (possibly a prefilling one) and the
+        grant retried; oldest-first order means an old request takes from
+        newer ones, never the reverse, so the oldest always runs to
+        completion and the engine cannot livelock."""
+        bs = self.serve.block_size
+        order = sorted((s for s, r in enumerate(self._slots)
+                        if r is not None and self.active[s]),
+                       key=lambda s: self._slots[s]._admit_order)
+        for slot in order:
+            req = self._slots[slot]
+            if req is None or not self.active[slot]:
+                continue    # preempted by an older row's growth
+            # The last position the request can ever write: the final
+            # block count equals the reserve grant's.
+            last = min(int(self.pos[slot]), len(req.prompt) + req.max_new_tokens - 2)
+            while last // bs >= len(req._blocks):
+                ids = self._alloc_blocks(1)
+                if ids is not None:
+                    req._blocks.append(ids[0])
+                    self.block_table[slot, len(req._blocks) - 1] = ids[0]
+                    continue
+                victim = max((s for s, r in enumerate(self._slots) if r is not None),
+                             key=lambda s: self._slots[s]._admit_order)
+                self._preempt(victim)
+                if victim == slot:
+                    break   # preempted itself (submit guarantees one request fits)
+
     def _evict_overdue(self) -> int:
         """Evict every request past its deadline — slotted rows and queued
         requests alike. Free when no live request carries a deadline."""
@@ -567,6 +808,51 @@ class ServingEngine:
             for r in list(self._slots) + list(self._queue)
         )
         return evicted
+
+    # ---------------------------------------------------------- migration
+
+    def extract_inflight(self) -> list[RequestHandle]:
+        """Detach every live request for migration to another engine, in
+        admission order (slotted rows first, then the queue), with exactly
+        the state ``_preempt`` leaves: generated tokens, the pending decode
+        input, and the generator on the handle. ``adopt`` on an engine with
+        the same ``ServeConfig`` resumes each stream bit for bit with zero
+        re-emitted tokens."""
+        out = []
+        for slot in sorted((s for s, r in enumerate(self._slots) if r is not None),
+                           key=lambda s: self._slots[s]._admit_order):
+            req = self._slots[slot]
+            req._pending_token = req.generated[-1] if req.generated else None
+            self._release_slot(slot)
+            out.append(req)
+        out.extend(self._queue)
+        self._queue.clear()
+        return out
+
+    def decode_keys(self) -> dict[int, dict]:
+        """The generator state of every decoding request, keyed by rid, in
+        the wire form's ``"generator"`` shape: what ``extract_inflight``
+        would carry for it after this step. Queued and prefilling requests
+        are absent: their generators have not moved since they last
+        sampled."""
+        return {req.id: _generator_state(req._gen)
+                for req in self._slots
+                if req is not None and req._prefill_pos is None}
+
+    def adopt(self, req: RequestHandle) -> None:
+        """Queue a request extracted from another engine (with the same
+        ``ServeConfig``; it already passed ``submit``'s gates there). The
+        handle carries over whole: id, callback, emitted tokens and
+        generator, which must live on this engine's device type."""
+        if req._gen is not None and req._gen.device.type != self.device.type:
+            raise ValueError(
+                f"adopt: request {req.id}'s generator is on {req._gen.device.type}, "
+                f"the engine on {self.device.type}"
+            )
+        req._enqueue_time = time.monotonic()
+        if req.deadline is not None:
+            self._deadlines = True
+        self._queue.append(req)
 
     def has_work(self) -> bool:
         """Anything queued or in flight."""
@@ -602,12 +888,15 @@ class ServingEngine:
     def step(self) -> int:
         """One engine step: evict overdue requests, admit what fits
         (whole-prompt mode prefills each inline), advance one prefill tick
-        (chunked mode), then one decode step for every active row. Returns
-        tokens emitted this step."""
+        (chunked mode), grow block tables and preempt under pressure
+        (watermark mode), then one decode step for every active row.
+        Returns tokens emitted this step."""
         self._evict_overdue()
         emitted_before = self.stats["tokens_out"]
         self._try_admit()
         self._prefill_tick()
+        if self.serve.admission == "watermark" and self.active.any():
+            self._grow_tables()
         if not self.active.any():
             return self.stats["tokens_out"] - emitted_before
 
@@ -667,6 +956,7 @@ class ServingEngine:
         adm = max(self.stats["admitted"], 1)
         return {
             "queue_wait_ms": self.stats["queue_wait_ms"] / adm,
+            "preempted": float(self.stats["preemptions"]),
             "prefix_cached_tokens": float(self.stats["prefix_hit_tokens"]),
             "serve_queue_depth": float(len(self._queue)),
             "serve_occupancy": float(self.occupancy),

@@ -95,11 +95,20 @@ class PrefixCache:
     per entry (``retain`` at insert). A lookup returns the longest run of
     leading full-block hits (a miss at block j ends it: block j + 1's K/V
     attended into the missed span). Eviction takes the least recently used
-    entry whose block no live request holds (refcount 1)."""
+    entry whose block no live request holds (refcount 1).
+
+    ``plen`` (the prompt length of the request the tokens belong to; None:
+    all of them) keys a block that ends past it by its tokens AND ``plen``:
+    such a block holds positions the decode step wrote, whose bits on the
+    card are the decode step's, not the prefill's, so only a request with
+    the same prompt (its own resume) may reuse it
+    (``engine.ServingEngine._register_prefix``). Blocks wholly inside a
+    prompt are keyed by their tokens alone, as in the JAX package."""
 
     def __init__(self, block_size: int):
         self.block_size = block_size
-        self._entries: collections.OrderedDict[bytes, int] = collections.OrderedDict()
+        self._entries: collections.OrderedDict[bytes | tuple[bytes, int], int] = (
+            collections.OrderedDict())
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -108,26 +117,27 @@ class PrefixCache:
         return len(self._entries)
 
     @staticmethod
-    def _key(tokens, end: int) -> bytes:
-        return np.asarray(tokens[:end], np.int32).tobytes()
+    def _key(tokens, end: int, plen: int | None) -> bytes | tuple[bytes, int]:
+        raw = np.asarray(tokens[:end], np.int32).tobytes()
+        return raw if plen is None or end <= plen else (raw, plen)
 
-    def peek_run(self, tokens) -> int:
+    def peek_run(self, tokens, plen: int | None = None) -> int:
         """Length in blocks of the leading full-block hit run, without
         touching the LRU order or the hit and miss counters (a probe is not
         a use)."""
         run = 0
         for j in range(len(tokens) // self.block_size):
-            if self._key(tokens, (j + 1) * self.block_size) not in self._entries:
+            if self._key(tokens, (j + 1) * self.block_size, plen) not in self._entries:
                 break
             run += 1
         return run
 
-    def lookup(self, tokens) -> list[int]:
+    def lookup(self, tokens, plen: int | None = None) -> list[int]:
         """The cached block ids of the leading full-block hit run (the
         caller ``retain``s each before use); hit entries move to MRU."""
         run: list[int] = []
         for j in range(len(tokens) // self.block_size):
-            key = self._key(tokens, (j + 1) * self.block_size)
+            key = self._key(tokens, (j + 1) * self.block_size, plen)
             bid = self._entries.get(key)
             if bid is None:
                 self.misses += 1
@@ -137,10 +147,11 @@ class PrefixCache:
             run.append(bid)
         return run
 
-    def insert(self, tokens, j: int, block_id: int, allocator: BlockAllocator) -> bool:
+    def insert(self, tokens, j: int, block_id: int, allocator: BlockAllocator,
+               plen: int | None = None) -> bool:
         """Register ``block_id`` as block ``j`` of ``tokens``. The first
         writer wins: a prefix already cached is left as it is (False)."""
-        key = self._key(tokens, (j + 1) * self.block_size)
+        key = self._key(tokens, (j + 1) * self.block_size, plen)
         if key in self._entries:
             return False
         allocator.retain(block_id)

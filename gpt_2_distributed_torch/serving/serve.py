@@ -23,12 +23,16 @@ visible GPU nothing else runs.
 ``--prefix_cache`` shares KV blocks across requests whose prompts share a
 prefix; ``--prefill_chunk N`` prefills prompts in N-token chunks between
 decode steps, ``--prefill_batch B`` of them a step in one dispatch.
+``--admission watermark`` grants KV blocks as requests grow, keeping
+``--watermark_blocks`` free at admission, and preempts the newest request
+when the pool runs out; it resumes later by recomputing its prefill, with
+no token emitted twice. The summary line on stderr counts the preemptions.
 
 The parser takes every flag of the JAX CLI, under the same names, types
-and defaults. Watermark admission, serving meshes, speculation,
-checkpoints, metrics and tracing sinks, replica placement and fault
-injection come with later slices of the port: any other value than the
-default of those flags is refused.
+and defaults. Serving meshes, speculation, checkpoints, metrics and
+tracing sinks, replica placement and fault injection come with later
+slices of the port: any other value than the default of those flags is
+refused.
 
 Usage::
 
@@ -46,7 +50,7 @@ import time
 # Flags of the JAX CLI whose planes come with later slices of the port,
 # with the value that leaves them off; any other value is refused.
 _UNPORTED = {
-    "ckpt": None, "serve_mesh": "", "admission": "reserve", "watermark_blocks": 1,
+    "ckpt": None, "serve_mesh": "",
     "draft_preset": None, "spec_k": None, "draft_ckpt": None,
     "tb_dir": None, "metrics_every": 20, "trace_dir": None,
     "trace_max_file_bytes": 64 * 1024 * 1024, "xla_profile_at": None,
@@ -102,6 +106,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="chunked mode: in-progress prefills advanced per step")
     p.add_argument("--prefix_cache", action="store_true",
                    help="reuse KV blocks across shared prompt prefixes")
+    p.add_argument("--admission", default="reserve",
+                   choices=["reserve", "watermark"],
+                   help="block grant policy: worst-case reservation, or "
+                   "lazy growth with preemption under pool pressure")
+    p.add_argument("--watermark_blocks", type=int, default=1,
+                   help="free-block floor for --admission watermark")
     p.add_argument("--request_timeout_s", type=float, default=None,
                    help="per-request deadline from submission (queue wait "
                         "included) for lines without 'timeout_s'; overdue "
@@ -118,10 +128,6 @@ def _add_unported_flags(p: argparse.ArgumentParser) -> None:
                    help="checkpoint dir (later slice; use --params_npz)")
     p.add_argument("--serve_mesh", default="",
                    help="serving mesh spec 'data:N[,tp:M]'")
-    p.add_argument("--admission", default="reserve", choices=["reserve", "watermark"],
-                   help="block grant policy")
-    p.add_argument("--watermark_blocks", type=int, default=1,
-                   help="free-block floor for --admission watermark")
     p.add_argument("--draft_preset", default=None,
                    help="speculative decoding: draft-model preset")
     p.add_argument("--spec_k", type=int, default=None,
@@ -185,7 +191,9 @@ def build_serve_config(args: argparse.Namespace, config):
                        num_blocks=num_blocks, attn_impl=args.attn_impl,
                        eos_id=args.eos, prefill_chunk=args.prefill_chunk,
                        prefix_cache=args.prefix_cache,
-                       prefill_batch=args.prefill_batch)
+                       prefill_batch=args.prefill_batch,
+                       admission=args.admission,
+                       watermark_blocks=args.watermark_blocks)
 
 
 def read_requests(path: str, args: argparse.Namespace) -> list[tuple]:
@@ -275,7 +283,8 @@ def main(argv: list[str] | None = None) -> None:
     toks = sum(len(h.generated) for h in handles)
     print(f"{len(handles)} requests, {toks} tokens, {wall:.3f}s "
           f"({toks / wall:.0f} tok/s), {engine.stats['decode_steps']} decode "
-          f"steps on {device}", file=sys.stderr)
+          f"steps on {device}, {engine.stats['preemptions']} preemptions, "
+          f"{engine.stats['prefix_hit_tokens']} prefix-cached tokens", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -270,7 +270,7 @@ def test_serve_config_accepts_the_ported_options(option):
     serve = ServeConfig(max_batch=4, **option)
     assert all(getattr(serve, k) == v for k, v in option.items())
     with pytest.raises(ValueError, match="later slice"):
-        ServeConfig(admission="watermark", **option)
+        ServeConfig(mesh="data:2", **option)
 
 
 def test_cli_serves_with_prefix_cache_and_chunks(tmp_path, capsys):

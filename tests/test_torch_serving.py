@@ -1,5 +1,6 @@
 """The port's serving path on the CPU: allocator and pool units, the
-unported ``ServeConfig`` options refused loudly, engine greedy streams
+unported ``ServeConfig`` options refused loudly and the watermark options
+accepted, engine greedy streams
 equal to the JAX engine's, engine streams equal to the port's own
 ``generate_cached(batch=1)`` (greedy and sampled, any batch mix), and the
 JSONL CLI."""
@@ -113,13 +114,22 @@ def test_scatter_prefill_and_copy_block_write_in_place():
 
 
 @pytest.mark.parametrize("option", [
-    {"mesh": "data:2,tp:2"}, {"spec": "draft:124M,k:2"}, {"admission": "watermark"},
-    {"mesh": "data:2"}, {"spec": "draft:124M,k:4"}, {"watermark_blocks": 2},
-    {"admission": "watermark", "watermark_blocks": 4},
+    {"mesh": "data:2,tp:2"}, {"spec": "draft:124M,k:2"}, {"mesh": "tp:2"},
+    {"mesh": "data:2"}, {"spec": "draft:124M,k:4"}, {"spec": "draft:345M,k:3"},
+    {"mesh": "data:2", "spec": "draft:124M,k:2"},
 ])
 def test_unported_serve_options_are_refused(option):
     with pytest.raises(ValueError, match="later slice"):
         ServeConfig(**option)
+
+
+@pytest.mark.parametrize("option", [
+    {"admission": "watermark"}, {"watermark_blocks": 2},
+    {"admission": "watermark", "watermark_blocks": 4},
+])
+def test_watermark_serve_options_are_accepted(option):
+    serve = ServeConfig(**option)
+    assert all(getattr(serve, k) == v for k, v in option.items())
 
 
 @pytest.mark.parametrize("option", [
@@ -173,7 +183,8 @@ def test_cli_parses_every_jax_serve_flag():
         one = _flag_value(port_actions.get(a.dest, a))
         port_p.parse_args(["--requests", "r.jsonl"] + one)   # exits on an unknown flag
         argv += one
-        if a.dest in serve._UNPORTED or a.dest == "request_timeout_s":
+        if a.dest in serve._UNPORTED or a.dest in ("request_timeout_s", "admission",
+                                                   "watermark_blocks"):
             assert port_actions[a.dest].default == a.default, a.dest
             assert port_actions[a.dest].type == a.type, a.dest
             assert port_actions[a.dest].nargs == a.nargs, a.dest
@@ -184,7 +195,7 @@ def test_cli_refuses_each_unported_flag(capsys):
     from gpt_2_distributed_torch.serving import serve
 
     port_actions = {a.dest: a for a in serve.build_argparser()._actions}
-    assert len(serve._UNPORTED) == 25
+    assert len(serve._UNPORTED) == 23
     for dest in serve._UNPORTED:
         with pytest.raises(SystemExit) as e:
             serve.main(["--requests", "r.jsonl", "--init_random"]

@@ -164,14 +164,38 @@ that does not hold:
    a layer and batch, its du pass, dgrad and wgrad once a leg and
    micro-batch; prints each run's ms/step, tok/s and MFU, and the
    ``fused_matmul all`` step beside the ``fused_layers all`` step;
-13. with two or more cards, trains ``--mesh sp=2`` the same way through
+13. the front end (``phase_frontend``): the serving CLI
+   (``serving/serve.py`` on ``EngineDriver`` over a one-replica
+   ``ReplicaRouter``) in subprocesses at 124M with random weights, greedy,
+   64 new tokens for phase_serving's 8 prompts: untraced and SIGTERM'd
+   after its first streamed token (every final record printed, exit 0),
+   with ``--trace_dir``, and with ``--trace_dir --xla_profile_at 3:2
+   --prefix_cache --prefill_chunk 256 --prefill_batch 4``; every stream
+   equal to ``generate_cached(batch=1)``'s, every engine_step span holding
+   admit and prefill and decode exactly when it decoded, the decode spans
+   numbering the decode steps, the TTFT that ``scripts/obs_report.py``
+   derives equal to each record's ``ttft_ms``, the profiler window's
+   Chrome trace holding the decode annotation and the K3 and K7 kernels;
+   prints tok/s of each run, the decode span's ms and each phase's share
+   of the engine_step wall; then ``gpt2-torch-frontend`` with 2 replicas
+   on port 0: /healthz, /metrics, 4 SSE streams at once equal to the
+   CLI's, SIGTERM mid-stream, the streams completing and exit 0; then 2
+   replicas in this process behind the affinity router with the prefix
+   cache (8 sharers of a 512-token prefix among 4 strangers, greedy and
+   sampled): every stream equal to ``generate_cached(batch=1)``'s, the
+   sharers on one replica, the launches of K1, its offset form, K3, K7's
+   forward and K4 equal to those the stats imply; then a traced training
+   run of the "off" configuration: one ``step`` span an optimizer step,
+   90% or more of the step wall attributed to named phases, the losses
+   equal to the untraced run's bit for bit;
+14. with two or more cards, trains ``--mesh sp=2`` the same way through
     ``torch.distributed.run`` (NCCL; two ranks of this script in
     ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
     launched 12 x 2 x (micro-batches + eval batches) forward and 12 x 2 x
     micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
     beside the local step's. On one card it prints that the NCCL ring
     needs two GPUs and that the CPU tests hold that path over gloo;
-14. prints the ``kernels`` JSON line, then the device line last.
+15. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` times K2's two kernels (dk/dv, dq) apart with
 ``torch.profiler`` and adds profiler windows over one serving admission
@@ -191,8 +215,11 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2364,12 +2391,24 @@ TRAIN_RUNS = (
     ("fused_layers all", "all", "off"),
     ("fused_matmul all", "all", "all"),
 )
+TRAIN_STEPS, TRAIN_ACCUM, TRAIN_EVAL_BATCHES = 16, 4, 4
 
 
-def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, float]]:
+def train_argv(data_dir: str, fused_layers: str = "off", fused_matmul: str = "off") -> list[str]:
+    """The training runs' flags: 124M, seq 1024, batch 4, TRAIN_ACCUM
+    micro-batches, dropout 0.1, TRAIN_STEPS steps, one eval at the end."""
+    return ["--data_dir", data_dir, "--model", "124M", "--seq_len", "1024",
+            "--batch", "4", "--grad_accum_steps", str(TRAIN_ACCUM), "--dropout",
+            str(DROPOUT), "--lr", "6e-4", "--max_steps", str(TRAIN_STEPS), "--eval_every",
+            str(TRAIN_STEPS), "--eval_batches", str(TRAIN_EVAL_BATCHES), "--cli_every", "1",
+            "--fused_layers", fused_layers, "--fused_matmul", fused_matmul]
+
+
+def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, float],
+                                           dict[str, list[float]]]:
     """``train.main()`` at 124M on synthetic shards, once for each of
-    TRAIN_RUNS; returns each run's launches by wrapper name and its median
-    ms/step."""
+    TRAIN_RUNS; returns each run's launches by wrapper name, its median
+    ms/step and its losses."""
     import tempfile
 
     from gpt_2_distributed_torch import train
@@ -2384,27 +2423,21 @@ def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, 
                 "flash_attention_bwd": fa.flash_attention_bwd}
     wrappers.update((name, getattr(fl, name)) for name, _ in FUSED_WRAPPERS)
     wrappers.update((name, getattr(fm, name)) for name, _ in MM_WRAPPERS + MM_SERVE_WRAPPERS)
-    steps, accum, eval_batches, n_layer = 16, 4, 4, MODEL_PRESETS["124M"].n_layer
-    micro = steps * accum
-    fwd, bwd = n_layer * (micro + eval_batches), n_layer * micro
-    counts, ms_steps = {}, {}
+    steps, n_layer = TRAIN_STEPS, MODEL_PRESETS["124M"].n_layer
+    micro = steps * TRAIN_ACCUM
+    fwd, bwd = n_layer * (micro + TRAIN_EVAL_BATCHES), n_layer * micro
+    counts, ms_steps, run_losses = {}, {}, {}
     with tempfile.TemporaryDirectory() as data_dir:
         write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
         for label, fused_layers, fused_matmul in TRAIN_RUNS:
             for w in wrappers.values():
                 w.launches = 0
             t0 = time.monotonic()
-            tracker = train.main([
-                "--data_dir", data_dir, "--model", "124M", "--seq_len", "1024",
-                "--batch", "4", "--grad_accum_steps", str(accum), "--dropout",
-                str(DROPOUT), "--lr", "6e-4", "--max_steps", str(steps), "--eval_every",
-                str(steps), "--eval_batches", str(eval_batches), "--cli_every", "1",
-                "--fused_layers", fused_layers, "--fused_matmul", fused_matmul,
-            ])
+            tracker = train.main(train_argv(data_dir, fused_layers, fused_matmul))
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             got = counts[label] = {name: w.launches for name, w in wrappers.items()}
-            losses = list(tracker.buffers["loss"])
+            losses = run_losses[label] = list(tracker.buffers["loss"])
             tok_s = sorted(tracker.buffers["tokens_per_second"])
             tok_s = tok_s[len(tok_s) // 2]    # median step; the first carries warm-up
             ms_step = ms_steps[label] = tracker.tokens_per_step / tok_s * 1e3
@@ -2451,7 +2484,389 @@ def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, 
     if profile:
         for _, fused_layers, fused_matmul in TRAIN_RUNS:
             profile_train_step(fused_layers, fused_matmul)
-    return counts, ms_steps
+    return counts, ms_steps, run_losses
+
+
+# The front-end phase: phase_serving's prompt lengths, 64 new tokens, the
+# shared-prefix fleet (8 sharers of a 512-token prefix and 4 strangers),
+# and the profiler window of the traced CLI run.
+FRONT_LENGTHS = (1, 17, 100, 208, 400, 512, 777, 960)
+FRONT_NEW = 64
+FRONT_STRANGERS = (33, 150, 600, 900)
+FRONT_FLEET_NEW = (32, 16)   # greedy, sampled (temperature 1.0)
+FRONT_PROFILE_AT = "3:2"
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_serve_cli(requests: str, flags: list[str], sigterm: bool = False) -> dict:
+    """``gpt_2_distributed_torch.serving.serve`` on the 124M preset with
+    random weights, greedy, streaming, in a subprocess; with ``sigterm``
+    the process gets SIGTERM right after its first streamed token. Returns
+    the streamed tokens by request id, the final records, the summary's
+    numbers and stderr; fails unless it exits 0."""
+    import re
+    import tempfile
+
+    cmd = [sys.executable, "-m", "gpt_2_distributed_torch.serving.serve", "--init_random",
+           "--model", "124M", "--requests", requests, "--new", str(FRONT_NEW), "--stream",
+           "--temperature", "0", *flags]
+    with tempfile.TemporaryFile("w+") as errf:
+        proc = subprocess.Popen(cmd, cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=errf,
+                                text=True)
+        try:
+            if sigterm:
+                head = proc.stdout.readline()
+                proc.send_signal(signal.SIGTERM)
+            # One buffered stream throughout: the first line's read may
+            # have buffered more.
+            out = head + proc.stdout.read() if sigterm else proc.stdout.read()
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        errf.seek(0)
+        err = errf.read()
+    if proc.returncode != 0:
+        fail(f"serve CLI {flags} exited {proc.returncode}: {err[-2000:]}")
+    streams: dict[int, list[int]] = collections.defaultdict(list)
+    finals = []
+    for line in out.splitlines():
+        rec = json.loads(line)
+        if "token" in rec:
+            streams[rec["id"]].append(rec["token"])
+        else:
+            finals.append(rec)
+    m = re.search(r"(\d+) requests, (\d+) tokens, ([\d.]+)s \(\d+ tok/s\), (\d+) decode steps",
+                  err)
+    if m is None:
+        fail(f"serve CLI {flags}: no summary line in {err[-2000:]}")
+    toks, wall, steps = int(m.group(2)), float(m.group(3)), int(m.group(4))
+    return {"streams": dict(streams), "finals": finals, "tok_s": toks / wall,
+            "decode_steps": steps, "stderr": err}
+
+
+def obs_report(trace_dir: str) -> dict:
+    """``scripts/obs_report.py --json`` on a trace directory."""
+    out = subprocess.run([sys.executable, "scripts/obs_report.py", "--json", trace_dir],
+                         cwd=REPO_DIR, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"obs_report {trace_dir}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout)
+
+
+def check_engine_trace(trace_dir: str, decode_steps: int) -> None:
+    """Every engine_step span holds admit and prefill, and holds decode
+    exactly when its step decoded (the next step's ``n`` is one more);
+    the decode spans number the summary's decode steps."""
+    with open(os.path.join(trace_dir, "trace-p0.jsonl"), encoding="utf-8") as f:
+        spans = [r for r in map(json.loads, f) if r["ph"] == "span"]
+    kids = collections.defaultdict(list)
+    for r in spans:
+        kids[r["parent"]].append(r["name"])
+    steps = sorted((r for r in spans if r["name"] == "engine_step"), key=lambda r: r["ts"])
+    n_decode = sum(r["name"] == "decode" for r in spans)
+    if n_decode != decode_steps:
+        fail(f"{n_decode} decode spans against {decode_steps} decode steps")
+    for i, st in enumerate(steps):
+        names = kids[st["sid"]]
+        nxt = steps[i + 1]["attrs"]["n"] if i + 1 < len(steps) else decode_steps
+        if not {"admit", "prefill"} <= set(names) or names.count("decode") != nxt - st["attrs"]["n"]:
+            fail(f"engine_step {i} holds {names}; it decoded {nxt - st['attrs']['n']} times")
+
+
+def check_profile_window(trace_dir: str) -> None:
+    """The profiler window's Chrome trace holds the decode span's
+    annotation and the K3 and K7 forward kernels."""
+    import glob
+
+    paths = glob.glob(os.path.join(trace_dir, "xla_profile", "*.json"))
+    if len(paths) != 1:
+        fail(f"profiler window: {paths}")
+    with open(paths[0], encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    ann = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    have = {name: sum(name in k for k in kernels)
+            for name in ("paged_split_kernel", "fwd_kernel", "flash_fwd_kernel")}
+    print(f"front end: profiler window {FRONT_PROFILE_AT}: {len(kernels)} kernel launches, "
+          f"annotations {sorted(ann)}, launches of K3 {have['paged_split_kernel']}, "
+          f"K7 forward {have['fwd_kernel']}, K1 {have['flash_fwd_kernel']}", flush=True)
+    if "decode" not in ann or not (have["paged_split_kernel"] and have["fwd_kernel"]):
+        fail("the profiler window lacks the decode annotation or the K3/K7 kernels")
+
+
+def http_get(port: int, path: str) -> tuple[int, dict]:
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    c.request("GET", path)
+    r = c.getresponse()
+    body = json.loads(r.read() or b"null")
+    c.close()
+    return r.status, body
+
+
+def sse_stream(port: int, payload: dict, first, out: dict, key) -> None:
+    """POST a streamed completion; ``out[key]`` = (status, tokens, saw
+    [DONE]); ``first`` is set at the first data chunk."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request("POST", "/v1/completions", json.dumps({**payload, "stream": True}),
+              {"Content-Type": "application/json"})
+    r = c.getresponse()
+    toks, done = [], False
+    for raw in r:
+        line = raw.decode().rstrip("\r\n")
+        if line == "data: [DONE]":
+            done = True
+        elif line.startswith("data: "):
+            first.set()
+            tok = json.loads(line[6:])["choices"][0]["token"]
+            if tok is not None:
+                toks.append(tok)
+    c.close()
+    out[key] = (r.status, toks, done)
+
+
+def phase_frontend_http(prompts: list[list[int]], cli_streams: dict) -> None:
+    """``gpt_2_distributed_torch.serving.frontend.server`` with 2 replicas
+    at 124M on port 0: /healthz and /metrics, then 4 streamed completions
+    at once, SIGTERM once each has its first token; the streams complete,
+    equal the CLI's for the same seeds, and the process exits 0. The
+    engines run on the server's driver thread."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gpt_2_distributed_torch.serving.frontend.server",
+         "--init_random", "--model", "124M", "--replicas", "2", "--port", "0",
+         "--temperature", "0"],
+        cwd=REPO_DIR, stderr=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(900, proc.kill)   # a hung server ends; the check then fails
+    watchdog.start()
+    try:
+        port = None
+        t0 = time.monotonic()
+        for line in proc.stderr:
+            if "frontend: http://" in line:
+                port = int(line.rsplit(":", 1)[1].split()[0])
+                break
+        if port is None:
+            fail(f"the front end never announced its port (rc {proc.poll()})")
+        print(f"front end: HTTP server with 2 replicas up in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        health, metrics = http_get(port, "/healthz"), http_get(port, "/metrics")
+        if health != (200, {"status": "ok", "replicas": 2}) or metrics[0] != 200 \
+                or not isinstance(metrics[1], dict) or metrics[1]["serve_replicas"] != 2.0:
+            fail(f"/healthz {health}, /metrics {metrics[0]}")
+        out, firsts, threads = {}, [], []
+        for i in range(4):
+            firsts.append(threading.Event())
+            threads.append(threading.Thread(target=sse_stream, args=(
+                port, {"prompt_ids": prompts[i], "max_tokens": FRONT_NEW, "seed": i},
+                firsts[-1], out, i)))
+            threads[-1].start()
+        if not all(e.wait(300) for e in firsts):
+            fail("a streamed completion never produced its first token")
+        open_streams = 4 - len(out)
+        proc.send_signal(signal.SIGTERM)
+        for t in threads:
+            t.join(600)
+        rc = proc.wait(timeout=300)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+    same = sum(out.get(i, (0, None, False))[1] == cli_streams[i] for i in range(4))
+    print(f"front end: HTTP: /healthz 200, /metrics JSON; 4 SSE streams, {open_streams} open at "
+          f"SIGTERM, {same} of 4 equal to the CLI's; exit code {rc}", flush=True)
+    if not (rc == 0 and same == 4 and open_streams > 0
+            and all(out[i][0] == 200 and out[i][2] for i in range(4))):
+        fail("the HTTP front end's streams or its SIGTERM drain failed")
+
+
+def phase_frontend(train_losses_off: list[float]) -> dict[str, int]:
+    """The serving CLI on the EngineDriver (plain, traced, traced with the
+    prefix cache, chunks and a profiler window, and the SIGTERM drain),
+    two replicas behind the ReplicaRouter in this process, the HTTP front
+    end, and a traced training run; returns the launches of the
+    in-process parts by wrapper name."""
+    import tempfile
+
+    from gpt_2_distributed_torch import train
+    from gpt_2_distributed_torch.config import MODEL_PRESETS, ServeConfig
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+    from gpt_2_distributed_torch.models import decode, gpt2
+    from gpt_2_distributed_torch.ops import flash_attention as fa
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
+    from gpt_2_distributed_torch.ops.fused_layer import ln_residual_dropout_fwd
+    from gpt_2_distributed_torch.ops.paged_attention import paged_attention_kernel
+    from gpt_2_distributed_torch.serving import ServingEngine
+    from gpt_2_distributed_torch.serving.frontend import EngineDriver, ReplicaRouter
+
+    config = MODEL_PRESETS["124M"]
+    params = gpt2.init_params(config)   # the CLIs' --init_random weights
+    rng = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, config.vocab_size, (p,), generator=rng).tolist()
+               for p in FRONT_LENGTHS]
+    oracle = {}
+
+    def reference(p, new, seed, temperature):
+        key = (tuple(p), new, seed, temperature)
+        if key not in oracle:
+            oracle[key] = decode.generate_cached(
+                params, config, [p], seed=seed, max_new_tokens=new, temperature=temperature,
+                block_size=16)[0, len(p):].tolist()
+        return oracle[key]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reqs = os.path.join(tmp, "reqs.jsonl")
+        with open(reqs, "w", encoding="utf-8") as f:
+            for i, p in enumerate(prompts):
+                f.write(json.dumps({"prompt_ids": p, "new": FRONT_NEW, "seed": i}) + "\n")
+        traced, chunked = os.path.join(tmp, "traced"), os.path.join(tmp, "chunked")
+        runs = {
+            "off (SIGTERM after the first token)": run_serve_cli(reqs, [], sigterm=True),
+            "traced": run_serve_cli(reqs, ["--trace_dir", traced]),
+            "traced, prefix cache, chunks of 256 x 4, profiler window": run_serve_cli(
+                reqs, ["--trace_dir", chunked, "--xla_profile_at", FRONT_PROFILE_AT,
+                       "--prefix_cache", "--prefill_chunk", "256", "--prefill_batch", "4"]),
+        }
+        off = runs["off (SIGTERM after the first token)"]
+        if "[preempt] received signal 15" not in off["stderr"] or [
+                (r["id"], r["finish_reason"], len(r["generated"])) for r in off["finals"]] \
+                != [(i, "length", FRONT_NEW) for i in range(8)]:
+            fail(f"the SIGTERM'd serve CLI did not print every final record: {off['finals']}")
+        print("front end: serve CLI SIGTERM'd after its first token: 8 of 8 final records "
+              "(finish_reason length, 64 tokens), exit code 0", flush=True)
+        for label, run in runs.items():
+            same = sum(run["streams"].get(i) == reference(p, FRONT_NEW, i, 0.0)
+                       for i, p in enumerate(prompts))
+            steps = run["decode_steps"]
+            print(f"front end: serve CLI {label}: {run['tok_s']:.1f} tok/s (8 requests, "
+                  f"{8 * FRONT_NEW} tokens, process set-up excluded), {steps} decode steps, "
+                  f"{same} of 8 greedy streams equal generate_cached(batch=1)'s", flush=True)
+            if same != 8:
+                fail(f"serve CLI {label}: {8 - same} streams differ from generate_cached's")
+        for label, d in (("traced", traced), ("chunked", chunked)):
+            run = runs["traced"] if label == "traced" else runs[
+                "traced, prefix cache, chunks of 256 x 4, profiler window"]
+            check_engine_trace(d, run["decode_steps"])
+            rep = obs_report(d)
+            rows = {r["rid"]: r for r in rep["serving"]["requests"]}
+            ttft_equal = sum(round(rows[r["id"]]["first_token_ms"], 2) == r["ttft_ms"]
+                             for r in run["finals"])
+            es = rep["engine_steps"]
+            shares = ", ".join(f"{k} {v['share_pct']:.1f}%" for k, v in es["phases"].items())
+            dec = es["phases"]["decode"]
+            print(f"front end: {label} trace: {es['n_steps']} engine steps, mean "
+                  f"{es['step']['mean_ms']:.3f} ms; decode span mean {dec['mean_ms']:.3f} ms "
+                  f"(p50 {dec['p50_ms']:.3f}) over {dec['n']} steps; shares of engine_step "
+                  f"wall: {shares}; attributed {es['attributed_pct']:.1f}%; trace TTFT equal "
+                  f"to the record's ttft_ms for {ttft_equal} of 8", flush=True)
+            if ttft_equal != 8:
+                fail(f"{label}: the trace's TTFT differs from the records'")
+        check_profile_window(chunked)
+    phase_frontend_http(prompts, runs["traced"]["streams"])
+
+    # Two replicas in this process behind the affinity router, prefix cache
+    # on, whole-prompt mode: 8 sharers of a 512-token prefix among 4
+    # strangers, greedy then sampled.
+    wrappers = {"flash_attention_fwd_offset": fa.flash_attention_fwd_offset,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "paged_attention_kernel": paged_attention_kernel,
+                "linear": fm.linear, "head_logits": fm.head_logits,
+                "ln_residual_dropout_fwd": ln_residual_dropout_fwd}
+    serve = ServeConfig(max_batch=8, block_size=16, num_blocks=513, prefix_cache=True)
+    router = ReplicaRouter(lambda: ServingEngine(params, config, serve, temperature=0.0),
+                           replicas=2, policy="affinity")
+    driver = EngineDriver(router)
+    rng = torch.Generator().manual_seed(13)
+    prefix = torch.randint(0, config.vocab_size, (PREFIX_LEN,), generator=rng).tolist()
+    sharers = [prefix + torch.randint(0, config.vocab_size, (s,), generator=rng).tolist()
+               for s in PREFIX_SUFFIXES]
+    strangers = [torch.randint(0, config.vocab_size, (n,), generator=rng).tolist()
+                 for n in FRONT_STRANGERS]
+    order = [(p, True) for p in sharers[:2]] + [(strangers[0], False)] + [
+        (p, True) for p in sharers[2:5]] + [(strangers[1], False), (strangers[2], False)] + [
+        (p, True) for p in sharers[5:]] + [(strangers[3], False)]
+    for e in router.engines:   # warm-up (allocator, both prefill paths), not counted
+        for _ in range(2):
+            e.submit(strangers[0][:40], 2)
+            e.run_until_idle()
+        e.clear_prefix_cache()
+    before = [dict(e.stats) for e in router.engines]
+    for w in wrappers.values():
+        w.launches = 0
+    fleet = []
+    t0 = time.monotonic()
+    for temperature, new, seed0 in ((0.0, FRONT_FLEET_NEW[0], 0), (1.0, FRONT_FLEET_NEW[1], 500)):
+        for e in router.engines:
+            e.temperature = temperature
+        hs = [(p, shared, seed0 + i, driver.submit(p, new, seed=seed0 + i))
+              for i, (p, shared) in enumerate(order)]
+        driver.drain()
+        fleet.append((temperature, new, hs))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    got = {name: w.launches for name, w in wrappers.items()}
+    n_layer = config.n_layer
+    whole = sum(h.prefix_cached_tokens == 0 for _, _, hs in fleet for *_, h in hs)
+    d = {k: sum(e.stats[k] - b[k] for e, b in zip(router.engines, before))
+         for k in ("prefill_dispatches", "decode_steps", "prefix_hit_tokens", "cow_copies")}
+    dispatches, steps = d["prefill_dispatches"] - whole, d["decode_steps"]
+    want = {"flash_attention_fwd_offset": n_layer * dispatches,
+            "flash_attention_fwd": n_layer * whole,
+            "paged_attention_kernel": n_layer * steps,
+            "linear": 4 * n_layer * (whole + dispatches + steps),
+            "head_logits": whole + dispatches + steps,
+            "ln_residual_dropout_fwd": (2 * n_layer + 1) * (whole + dispatches + steps)}
+    placed = {(temperature, shared): sorted({h.replica for _, s, _, h in hs if s == shared})
+              for temperature, _, hs in fleet for shared in (True, False)}
+    same = sum(h.generated == reference(p, new, seed, temperature)
+               for temperature, new, hs in fleet for p, _, seed, h in hs)
+    total = sum(len(hs) for _, _, hs in fleet)
+    print(f"front end: 2 replicas in process (affinity, prefix cache): {total} requests in "
+          f"{wall:.2f} s; sharers of the prefix on replicas {placed[0.0, True]} (greedy) and "
+          f"{placed[1.0, True]} (sampled), strangers on {placed[0.0, False]} and "
+          f"{placed[1.0, False]}; {router.affinity_hits} affinity routes, prefix_hit_tokens "
+          f"{d['prefix_hit_tokens']}, cow_copies {d['cow_copies']}; {same} of {total} streams "
+          f"equal generate_cached(batch=1)'s; launches {got} over {whole} whole prefills, "
+          f"{dispatches} chunk dispatches and {steps} decode steps", flush=True)
+    if not (len(placed[0.0, True]) == len(placed[1.0, True]) == 1 and same == total
+            and whole and dispatches and got == want and d["cow_copies"]):
+        fail(f"two-replica fleet: placement, streams or launches {got} != {want}")
+    del router, driver
+
+    # A traced training run of TRAIN_RUNS' "off" configuration.
+    for w in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, trace_dir = os.path.join(tmp, "shards"), os.path.join(tmp, "trace")
+        write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
+        tracker = train.main(train_argv(data_dir) + ["--trace_dir", trace_dir])
+        torch.cuda.synchronize()
+        rep = obs_report(trace_dir)["train_steps"]
+    losses = list(tracker.buffers["loss"])
+    tok_s = sorted(tracker.buffers["tokens_per_second"])
+    ms_step = tracker.tokens_per_step / tok_s[len(tok_s) // 2] * 1e3
+    shares = ", ".join(f"{k} {v['share_pct']:.1f}%" for k, v in rep["phases"].items())
+    print(f"front end: traced training 124M (off): {rep['n_steps']} step spans, median "
+          f"{ms_step:.1f} ms/step; shares of the step wall: {shares}; attributed "
+          f"{rep['attributed_pct']:.1f}%; losses bit-equal to the untraced run's: "
+          f"{losses == train_losses_off}", flush=True)
+    micro = TRAIN_STEPS * TRAIN_ACCUM
+    train_got = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    train_want = (n_layer * (micro + TRAIN_EVAL_BATCHES), n_layer * micro)
+    if not (rep["n_steps"] == TRAIN_STEPS and rep["attributed_pct"] >= 90.0
+            and losses == train_losses_off and train_got == train_want):
+        fail(f"the traced training run's steps, attribution, losses or launches {train_got} "
+             f"!= {train_want} are off")
+    got["flash_attention_fwd"] += train_got[0]
+    got["flash_attention_bwd"] = train_got[1]
+    return got
 
 
 SP_ARGS = ("--model", "124M", "--seq_len", "1024", "--batch", "4", "--grad_accum_steps", "4",
@@ -2627,7 +3042,8 @@ def main() -> None:
     preempt = phase_preempt_serving()
     serving = phase_serving(profile)
     phase_model_paths()
-    counts, ms_steps = phase_training(profile)
+    counts, ms_steps, train_losses = phase_training(profile)
+    front = phase_frontend(train_losses["off"])
     k8_train = phase_sp_training(ms_steps["off"], profile)
     k8 = k8_ring if k8_train is None else k8_train
     k1_serve, k3 = serving["flash_attention_fwd"], serving["paged_attention_kernel"]
@@ -2644,30 +3060,34 @@ def main() -> None:
           + f"; K8 {k8['flash_block_fwd']} forward, {k8['flash_block_bwd']} backward "
           + ("(the one-card ring)" if k8_train is None else "(sp=2 training, rank 0)")
           + "; prefix serving: " + ", ".join(f"{name} {n}" for name, n in prefix.items())
-          + "; preempt serving: " + ", ".join(f"{name} {n}" for name, n in preempt.items()),
+          + "; preempt serving: " + ", ".join(f"{name} {n}" for name, n in preempt.items())
+          + "; front end: " + ", ".join(f"{name} {n}" for name, n in front.items()),
           flush=True)
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
-             launches=k1_serve + k1_train, **k1_row),
+             launches=k1_serve + k1_train + front["flash_attention_fwd"], **k1_row),
         dict(name="flash_attention_fwd_offset", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
              launches=prefix["flash_attention_fwd_offset"]
-             + preempt["flash_attention_fwd_offset"], **offset_row),
+             + preempt["flash_attention_fwd_offset"]
+             + front["flash_attention_fwd_offset"], **offset_row),
         dict(name="flash_attention_bwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",
-             launches=k2, **k2_row),
+             launches=k2 + front["flash_attention_bwd"], **k2_row),
         dict(name="paged_attention_kernel", route="cuda",
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",
-             launches=k3 + preempt["paged_attention_kernel"], **k3_row),
+             launches=k3 + preempt["paged_attention_kernel"] + front["paged_attention_kernel"],
+             **k3_row),
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
-             replaces=replaces, launches=counts["fused_layers all"][name], **fused_rows[name])
+             replaces=replaces, launches=counts["fused_layers all"][name] + front.get(name, 0),
+             **fused_rows[name])
         for name, replaces in FUSED_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
@@ -2675,7 +3095,7 @@ def main() -> None:
         for name, replaces in MM_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
-             replaces=replaces, launches=serving[name], **mm_rows[name])
+             replaces=replaces, launches=serving[name] + front[name], **mm_rows[name])
         for name, replaces in MM_SERVE_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/flash_block.cu",

@@ -147,6 +147,39 @@ ATTN_IMPLS = ("auto", "kernel", "plain")
 
 
 @dataclass(frozen=True)
+class TracePolicy:
+    """Structured-tracing policy (``obs/trace.py``), the JAX package's.
+
+    Default disabled: the tracer is then a pure no-op (shared null span, no
+    file ever opened), so instrumented hot paths cost one branch per call
+    site.
+
+    * ``trace_dir`` — where per-process ``trace-p{rank}.jsonl`` files land
+      (None = tracing off). Read back with ``scripts/obs_report.py``.
+    * ``max_file_bytes`` — rotation bound per process: the live file plus
+      one ``.1`` generation, so disk use is capped at twice this.
+    * ``xla_profile_at`` — on-demand ``torch.profiler`` window,
+      ``STEP[:NSTEPS]`` (None = no capture); host spans enter
+      ``torch.profiler.record_function`` while it is open.
+    """
+
+    trace_dir: str | None = None
+    max_file_bytes: int = 64 * 1024 * 1024
+    xla_profile_at: str | None = None
+
+    @property
+    def enabled(self) -> bool:
+        return self.trace_dir is not None
+
+    def __post_init__(self) -> None:
+        if self.max_file_bytes < 4096:
+            raise ValueError(
+                f"max_file_bytes={self.max_file_bytes} must be >= 4096 "
+                f"(one meta record + headroom)"
+            )
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     """Serving-engine shape and scheduler policy.
 
@@ -238,6 +271,11 @@ class ServeConfig:
         """Static block-table width: enough blocks for a full-context
         sequence."""
         return -(-n_positions // self.block_size)
+
+    @property
+    def mesh_devices(self) -> int:
+        """Devices one replica spans: 1 (serving meshes are not ported)."""
+        return 1
 
 
 # The standard GPT-2 family.

@@ -11,10 +11,13 @@ package's names and formats:
   ``utils/flops.py``);
 * freq-20 ``mem/`` (collector): the CUDA caching allocator's current and
   peak allocation against the card's memory (``torch.cuda.memory_stats``),
-  and the host process's resident memory.
+  and the host process's resident memory;
+* ``serve/`` (TensorBoard only): the serving-load metrics both serving
+  entry points push through ``EngineDriver`` every ``--metrics_every``
+  engine steps (``ReplicaRouter.metrics_snapshot``).
 
 The metrics of planes not ported yet (checkpoint saves, the multi-host
-control plane, fused kernels, elastic resize, serving) come with them.
+control plane, elastic resize) come with them.
 """
 
 from __future__ import annotations
@@ -89,6 +92,47 @@ METRIC_REGISTRY.metric(
     "eval_loss", reduction=ReductionStrategy.CURRENT,
     tb_prefix="eval/", cli_format="eval_loss: {value:.4f}",
 )(float)
+
+
+# --- serving-load metrics (pushed by the serving --tb_dir sink) ------------
+# TensorBoard only (cli_format None): the serving CLI's stderr summary
+# narrates totals. All CURRENT: each flush pushes the fleet's
+# metrics_snapshot() as of now (the wait is a running mean, the counters
+# are cumulative). The names are the JAX package's, the keys of
+# serving/frontend/router.py::ReplicaRouter.metrics_snapshot plus the
+# driver's watchdog_trips; those of planes not ported yet (speculation,
+# worker processes, remote hosts, the step watchdog) read 0.
+
+for _name in (
+    "queue_wait_ms",            # mean enqueue->admission gap per admission
+    "preempted",                # cumulative pool-pressure swap-outs
+    "prefix_cached_tokens",     # cumulative prompt tokens served from cache
+    "serve_queue_depth",        # requests waiting for a slot, as of the flush
+    "serve_occupancy",          # occupied decode slots, as of the flush
+    "serve_replicas",           # active engine replicas, as of the flush
+    "serve_shed",               # cumulative SLO-admission refusals (503s)
+    "route_affinity_hits",      # cumulative prefix-affinity route decisions
+    "slo_violations",           # cumulative finished requests over TTFT SLO
+    "replica_failures",         # cumulative replicas marked FAILED
+    "requests_migrated",        # cumulative requests moved off failed replicas
+    "requests_timed_out",       # cumulative deadline evictions (504s)
+    "watchdog_trips",           # cumulative step-watchdog firings
+    "serve_mesh_devices",       # devices across the fleet's replicas
+    "kv_pool_bytes_per_device",  # largest per-device KV pool footprint
+    "prefill_batched",          # cumulative extra rows batched into prefills
+    "worker_restarts",          # cumulative replacement worker respawns
+    "host_failures",            # cumulative whole-host domains lost
+    "hosts_active",             # remote fleet hosts not quarantined
+    "spec_draft_tokens",        # cumulative draft-model proposals
+    "spec_accepted_tokens",     # cumulative proposals the target accepted
+    "spec_rollbacks",           # cumulative verify passes with a rejection
+    "draft_ms",                 # cumulative draft-pass wall time
+    "verify_ms",                # cumulative target-verify wall time
+):
+    METRIC_REGISTRY.metric(
+        _name, reduction=ReductionStrategy.CURRENT, tb_prefix="serve/",
+        cli_format=None,
+    )(float)
 
 
 # --- freq-1 performance collector ------------------------------------------

@@ -59,6 +59,11 @@ class MetricDefinition:
     processor: Callable[[Any], float] | None = None
     collector: Callable[..., dict[str, float]] | None = None
 
+    @property
+    def tb_tag(self) -> str:
+        """The metric's TensorBoard tag, the JAX package's."""
+        return f"{self.tb_prefix}{self.name}"
+
 
 class MetricRegistry:
     """Name -> definition mapping with decorator registration."""

@@ -1,15 +1,18 @@
-"""StatsTracker: buffered, windowed metric runtime with a CLI sink
-(``gpt_2_distributed_tpu/metrics/tracker.py``).
+"""StatsTracker: buffered, windowed metric runtime with a CLI and a
+TensorBoard sink (``gpt_2_distributed_tpu/metrics/tracker.py``).
 
 Values pushed via ``update(step, **metrics)`` are processed and buffered
 into per-metric windows (deque, maxlen 50); pull-style collectors run at
-their declared frequencies; every ``cli_every`` steps one line of training
-metrics is printed (``step N | loss: ... | ...``), with memory metrics on
-their own ``MEMORY:`` line, and the token-rate window resets.
+their declared frequencies; every ``tb_every`` steps (with a ``tb_dir``)
+every metric's window, collapsed by its reduction, goes to TensorBoard
+under the JAX package's tags, the writer flushed at most every 30 s; every
+``cli_every`` steps one line of training metrics is printed (``step N |
+loss: ... | ...``), with memory metrics on their own ``MEMORY:`` line, and
+the token-rate window resets.
 
-Left out until the slices that need them: the TensorBoard sink (it needs
-``tensorboardX``; the training CLI refuses ``--log_dir``) and the
-cross-process reduction of metrics (single process here).
+The TensorBoard sink needs ``tensorboardX``, imported only when a
+``tb_dir`` is given; without it the tracker refuses to start. Left out
+until the DDP slice: the cross-process reduction of metrics.
 """
 
 from __future__ import annotations
@@ -24,17 +27,33 @@ from gpt_2_distributed_torch.metrics import builtin as _builtin  # noqa: F401  (
 from gpt_2_distributed_torch.metrics.registry import METRIC_REGISTRY, MetricDefinition
 
 WINDOW_SIZE = 50
+TB_FLUSH_INTERVAL_S = 30
+
+
+def open_tb_writer(tb_dir: str):
+    """A ``tensorboardX.SummaryWriter`` on ``tb_dir``; RuntimeError naming
+    the missing package when it is not installed."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError as e:
+        raise RuntimeError(
+            f"a TensorBoard directory ({tb_dir!r}) needs the tensorboardX "
+            f"package, which is not installed ({e})"
+        ) from e
+    return SummaryWriter(log_dir=tb_dir)
 
 
 class StatsTracker:
-    """Training metrics runtime with a CLI sink.
+    """Training metrics runtime with a CLI and a TensorBoard sink.
 
     ``batch_size`` is the effective batch of one optimizer step
     (micro-batch x grad_accum), so ``tokens_per_step = batch_size x
     seq_len``, counted over all ``n_chips`` devices of a mesh.
     ``device`` is where the memory collector reads the CUDA allocator (a
     CPU device: host memory only). ``printing=False`` (every process of a
-    mesh but the first) keeps the metrics and prints nothing."""
+    mesh but the first) keeps the metrics, prints nothing and writes no
+    TensorBoard file. The serving sink passes ``batch_size=0`` and pushes
+    every update with ``count_tokens=False``."""
 
     def __init__(
         self,
@@ -46,9 +65,12 @@ class StatsTracker:
         device: torch.device | None = None,
         n_chips: int = 1,
         printing: bool = True,
+        tb_dir: str | None = None,
+        tb_every: int = 1,
     ) -> None:
         self.registry = METRIC_REGISTRY
         self.cli_every = max(1, int(cli_every))
+        self.tb_every = max(1, int(tb_every))
         self.device = device
         self.n_chips = n_chips
         self.printing = printing
@@ -60,6 +82,8 @@ class StatsTracker:
         self.window_tokens = 0
         self.window_start_time = time.perf_counter()
         self.epoch_start_time = time.perf_counter()
+        self._last_flush = time.perf_counter()
+        self.writer = open_tb_writer(tb_dir) if tb_dir and printing else None
 
     def start_epoch(self) -> None:
         """Reset the epoch wall-clock and the token-rate window."""
@@ -71,14 +95,20 @@ class StatsTracker:
         """Record one optimizer step's metrics. ``count_tokens=False`` marks
         an out-of-band update (a periodic eval result) for a step whose
         training update was already recorded: it buffers the values and
-        neither counts tokens, runs collectors nor prints. A name that is
-        not registered (``metrics/builtin.py``) raises KeyError."""
+        neither counts tokens, runs collectors nor prints; on the
+        ``tb_every`` cadence it writes the pushed metrics' windows. A name
+        that is not registered (``metrics/builtin.py``) raises KeyError."""
+        pushed = []
         for name, value in metrics.items():
             d = self.registry.get(name)
             if d is None:
                 raise KeyError(f"metric {name!r} is not registered (metrics/builtin.py)")
             self._buffer(name, float(d.processor(value)) if d.processor else float(value))
+            pushed.append(d)
         if not count_tokens:
+            if self.writer is not None and step % self.tb_every == 0:
+                for d in pushed:
+                    self.writer.add_scalar(d.tb_tag, self._window_value(d), step)
             return
 
         self.total_tokens += self.tokens_per_step
@@ -86,11 +116,31 @@ class StatsTracker:
         for d in self.registry.due_collectors(step):
             for name, v in d.collector(self).items():
                 self._buffer(name, float(v))
+        if self.writer is not None and step % self.tb_every == 0:
+            self._write_tensorboard(step)
         if step % self.cli_every == 0:
             if self.printing:
                 self._print_cli(step)
             self.window_tokens = 0
             self.window_start_time = time.perf_counter()
+
+    def close(self) -> None:
+        """Flush and release the TensorBoard writer."""
+        if self.writer is not None:
+            self.writer.flush()
+            self.writer.close()
+            self.writer = None
+
+    def _write_tensorboard(self, step: int) -> None:
+        """Every metric's window collapsed by its declared reduction."""
+        for d in self.registry.all():
+            v = self._window_value(d)
+            if v is not None:
+                self.writer.add_scalar(d.tb_tag, v, step)
+        now = time.perf_counter()
+        if now - self._last_flush >= TB_FLUSH_INTERVAL_S:
+            self.writer.flush()
+            self._last_flush = now
 
     def _buffer(self, name: str, value: float) -> None:
         if name not in self.buffers:

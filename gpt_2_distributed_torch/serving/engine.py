@@ -64,11 +64,23 @@
 * **Streaming**: every sampled token goes through the request's
   ``on_token`` callback in the step that produces it, once.
 * **Migration**: ``extract_inflight`` detaches every live request in
-  admission order with the state ``_preempt`` saves, ``adopt`` queues one
-  on another engine with the same ``ServeConfig``, and
+  admission order with the state ``_preempt`` saves (also from an engine
+  whose ``step`` raised: its allocator is then not trusted), ``adopt``
+  queues one on another engine with the same ``ServeConfig``, and
   ``RequestHandle.to_wire``/``from_wire`` carry a request across a
   process boundary as JSON. A migrated stream resumes as a preempted one
-  does, with zero tokens re-emitted.
+  does, with zero tokens re-emitted. The replica router
+  (``serving/frontend/router.py``) moves a failed replica's requests so.
+* **Tracing** (``obs/trace.py``, off unless configured): ``step`` is an
+  ``engine_step(n)`` span holding ``admit``, ``prefill``, ``grow``
+  (watermark mode) and ``decode(rows)``, and the request lifecycle events
+  ``submit``, ``admit``, ``prefill_chunk``, ``prefix_hit``, ``cow``,
+  ``preempt``, ``resume``, ``first_token`` and ``finish`` carry the JAX
+  engine's names and attributes. The handle's events reuse its own
+  ``time.monotonic()`` stamps (the tracer's ``perf_counter`` is the same
+  clock on Linux), so a TTFT rebuilt from the trace equals the handle's
+  exactly. No span closes on a device sync of its own: ``decode`` ends
+  after the step's one existing sync, the sampled tokens' copy.
 
 Sampling: each request owns a ``torch.Generator`` seeded from its seed, on
 the engine's device, drawn once per sampled token in the same order as
@@ -108,6 +120,7 @@ from gpt_2_distributed_torch.models.generate import (
     check_generation_args,
     sample_token,
 )
+from gpt_2_distributed_torch.obs.trace import get_tracer
 from gpt_2_distributed_torch.ops.paged_attention import (
     paged_attention,
     paged_prefill_attention,
@@ -171,7 +184,9 @@ class RequestHandle:
         self.on_token = on_token
         self.generated: list[int] = []
         self.done = False
-        self.finish_reason: str | None = None  # "eos" | "length" | "timeout"
+        # "eos" | "length" | "timeout" (deadline exceeded) | "failed"
+        # (replica lost with no healthy replica to migrate to)
+        self.finish_reason: str | None = None
         self.deadline: float | None = None     # monotonic; None = no deadline
         self.submit_time: float | None = None
         self.first_token_time: float | None = None
@@ -180,6 +195,7 @@ class RequestHandle:
         self.preemptions = 0          # times swapped out for pool pressure
         self.resumes = 0              # re-admissions after a preemption
         self.prefix_cached_tokens = 0  # prompt tokens skipped at 1st admission
+        self.replica: int | None = None  # set by the replica router on route
         self._gen: torch.Generator | None = None
         self._blocks: list[int] | None = None
         self._enqueue_time: float | None = None
@@ -188,9 +204,17 @@ class RequestHandle:
         self._prefill_pos: int | None = None  # next work position; None = done
         self._pending_token: int | None = None  # resume: decode input, no emit
 
+    @property
+    def tokens(self) -> list[int]:
+        """Prompt + generated so far."""
+        return list(self.prompt) + list(self.generated)
+
     def _emit(self, tok: int) -> None:
         if self.first_token_time is None:
             self.first_token_time = time.monotonic()
+            # ts is the handle's own stamp, so a trace-derived TTFT equals
+            # first_token_time - submit_time exactly.
+            get_tracer().event("first_token", ts=self.first_token_time, rid=self.id)
         if self.on_token is not None:
             self.on_token(self, tok)
 
@@ -198,6 +222,8 @@ class RequestHandle:
         self.done = True
         self.finish_reason = reason
         self.finish_time = time.monotonic()
+        get_tracer().event("finish", ts=self.finish_time, rid=self.id, reason=reason,
+                           n_generated=len(self.generated))
 
     def to_wire(self) -> dict:
         """The migration state ``extract_inflight`` leaves on the handle as
@@ -414,11 +440,17 @@ class ServingEngine:
             # the paged attention (K3 once a layer on the card).
             "resume_dispatches": 0,
         }
+        get_tracer().event("engine_mesh", mesh="single", devices=1, data=1, tp=1)
 
     @property
     def kv_pool_bytes(self) -> int:
         """Device bytes of the two KV pools."""
         return pool_bytes(self.config, self.serve, self.k_pool.element_size())
+
+    @property
+    def kv_pool_bytes_per_device(self) -> int:
+        """The pools' bytes on each device the engine spans (one device)."""
+        return self.kv_pool_bytes
 
     # ------------------------------------------------------------- intake
 
@@ -472,6 +504,8 @@ class ServingEngine:
             self._deadlines = True
         req._enqueue_time = req.submit_time
         self._queue.append(req)
+        get_tracer().event("submit", ts=req.submit_time, rid=req.id,
+                           prompt_len=len(prompt), max_new_tokens=max_new_tokens)
         return req
 
     def _alloc_blocks(self, n: int, floor: int = 0) -> list[int] | None:
@@ -526,10 +560,12 @@ class ServingEngine:
         if ids is None:
             self.allocator.release(shared + ([cow_src] if cow_src is not None else []))
             return False
+        tracer = get_tracer()
         if cow_src is not None:
             copy_block(self.k_pool, self.v_pool, cow_src, ids[0])
             self.allocator.release([cow_src])   # the copy's pin
             self.stats["cow_copies"] += 1
+            tracer.event("cow", rid=req.id, src=cow_src, dst=ids[0])
 
         now = time.monotonic()
         wait_ms = (now - req._enqueue_time) * 1e3
@@ -538,13 +574,16 @@ class ServingEngine:
         req._admit_order = self._admit_seq
         self._admit_seq += 1
         self.stats["admitted"] += 1
+        tracer.event("admit", ts=now, rid=req.id, slot=slot, queue_wait_ms=wait_ms)
         if resuming or (req.generated and req._pending_token is None):
             req.resumes += 1
             self.stats["resumes"] += 1
+            tracer.event("resume", ts=now, rid=req.id, slot=slot)
         if s0:
             self.stats["prefix_hit_tokens"] += s0
             if not req.generated:
                 req.prefix_cached_tokens = s0
+            tracer.event("prefix_hit", ts=now, rid=req.id, tokens=s0)
         blocks = shared + ids
         req._blocks = blocks
         req._work, req._prefill_pos = work, s0
@@ -599,9 +638,12 @@ class ServingEngine:
             k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
         scatter_prefill(self.k_pool, self.v_pool, k, v, req._blocks[:nb])
         first_i = int(first[0])                # the device sync
-        self.stats["prefill_ms"] += (time.monotonic() - t0) * 1e3
+        dur_ms = (time.monotonic() - t0) * 1e3
+        self.stats["prefill_ms"] += dur_ms
         self.stats["prefills"] += 1
         self.stats["prefill_dispatches"] += 1
+        get_tracer().event("prefill_chunk", rid=req.id, n_tokens=p, dur_ms=dur_ms,
+                           whole=True)
         req._prefill_pos = None
         self._register_prefix(req)
         self._activate(slot, req, p, first_i)
@@ -650,13 +692,17 @@ class ServingEngine:
                                   self.temperature, self.top_k)
                   for i in done if self._slots[slots[i]]._pending_token is None}
         firsts = {i: int(t[0]) for i, t in firsts.items()}   # the device sync, if any
-        self.stats["prefill_ms"] += (time.monotonic() - t0) * 1e3
+        dur_ms = (time.monotonic() - t0) * 1e3
+        self.stats["prefill_ms"] += dur_ms
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_batched"] += max(len(slots) - 1, 0)
         self.stats["resume_dispatches"] += bool((start + clen > decode_from).any())
+        tracer = get_tracer()
         for i, slot in enumerate(slots):
             req = self._slots[slot]
             self.stats["prefill_chunks"] += 1
+            tracer.event("prefill_chunk", rid=req.id, n_tokens=int(clen[i]),
+                         dur_ms=dur_ms, whole=False)
             if i not in done:
                 req._prefill_pos += int(clen[i])
                 continue
@@ -751,6 +797,8 @@ class ServingEngine:
         req._pending_token = req.generated[-1] if req.generated else None
         self._release_slot(slot)
         req._enqueue_time = time.monotonic()
+        get_tracer().event("preempt", ts=req._enqueue_time, rid=req.id, slot=slot,
+                           n_generated=len(req.generated))
         self._queue.appendleft(req)
 
     def _grow_tables(self) -> None:
@@ -817,13 +865,18 @@ class ServingEngine:
         the state ``_preempt`` leaves: generated tokens, the pending decode
         input, and the generator on the handle. ``adopt`` on an engine with
         the same ``ServeConfig`` resumes each stream bit for bit with zero
-        re-emitted tokens."""
+        re-emitted tokens. Block release is best-effort: the engine may be
+        a failed one, whose allocator is not trusted and whose pools are
+        abandoned with it; the requests' state is on their handles."""
         out = []
         for slot in sorted((s for s, r in enumerate(self._slots) if r is not None),
                            key=lambda s: self._slots[s]._admit_order):
             req = self._slots[slot]
             req._pending_token = req.generated[-1] if req.generated else None
-            self._release_slot(slot)
+            try:
+                self._release_slot(slot)
+            except Exception:
+                self._slots[slot] = None
             out.append(req)
         out.extend(self._queue)
         self._queue.clear()
@@ -859,7 +912,13 @@ class ServingEngine:
         return bool(self._queue) or any(s is not None for s in self._slots)
 
     @property
+    def queue_depth(self) -> int:
+        """Requests accepted but not yet admitted to a slot."""
+        return len(self._queue)
+
+    @property
     def occupancy(self) -> int:
+        """Occupied decode slots (prefilling rows included)."""
         return sum(s is not None for s in self._slots)
 
     # ------------------------------------------------------------- decode
@@ -891,33 +950,46 @@ class ServingEngine:
         (chunked mode), grow block tables and preempt under pressure
         (watermark mode), then one decode step for every active row.
         Returns tokens emitted this step."""
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return self._step_impl(tracer)
+        with tracer.span("engine_step", n=int(self.stats["decode_steps"])):
+            return self._step_impl(tracer)
+
+    def _step_impl(self, tracer) -> int:
         self._evict_overdue()
         emitted_before = self.stats["tokens_out"]
-        self._try_admit()
-        self._prefill_tick()
-        if self.serve.admission == "watermark" and self.active.any():
-            self._grow_tables()
+        with tracer.span("admit"):
+            self._try_admit()
+        with tracer.span("prefill"):
+            self._prefill_tick()
         if not self.active.any():
             return self.stats["tokens_out"] - emitted_before
+        if self.serve.admission == "watermark":
+            with tracer.span("grow"):
+                self._grow_tables()
+            if not self.active.any():
+                return self.stats["tokens_out"] - emitted_before
 
         was_active = self.active.copy()
-        t0 = time.monotonic()
-        logits = self.decode_logits()
-        if self.temperature == 0.0:
-            next_tokens = sample_token(logits, None, 0.0, self.top_k)
-        else:
-            # Each row on its own with its request's generator: a row's
-            # draw never depends on its batch mates.
-            next_tokens = torch.zeros(logits.shape[0], dtype=torch.long,
-                                      device=logits.device)
-            for slot in np.flatnonzero(was_active):
-                next_tokens[slot] = sample_token(
-                    logits[slot:slot + 1], [self._slots[slot]._gen],
-                    self.temperature, self.top_k,
-                )[0]
-        toks = next_tokens.cpu().numpy()            # the device sync
-        self.stats["decode_ms"] += (time.monotonic() - t0) * 1e3
-        self.stats["decode_steps"] += 1
+        with tracer.span("decode", rows=int(was_active.sum())):
+            t0 = time.monotonic()
+            logits = self.decode_logits()
+            if self.temperature == 0.0:
+                next_tokens = sample_token(logits, None, 0.0, self.top_k)
+            else:
+                # Each row on its own with its request's generator: a row's
+                # draw never depends on its batch mates.
+                next_tokens = torch.zeros(logits.shape[0], dtype=torch.long,
+                                          device=logits.device)
+                for slot in np.flatnonzero(was_active):
+                    next_tokens[slot] = sample_token(
+                        logits[slot:slot + 1], [self._slots[slot]._gen],
+                        self.temperature, self.top_k,
+                    )[0]
+            toks = next_tokens.cpu().numpy()            # the device sync
+            self.stats["decode_ms"] += (time.monotonic() - t0) * 1e3
+            self.stats["decode_steps"] += 1
 
         self.tokens = np.where(was_active, toks, self.tokens)
         self.pos = np.where(was_active, self.pos + 1, self.pos)

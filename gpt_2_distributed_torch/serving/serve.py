@@ -28,16 +28,26 @@ decode steps, ``--prefill_batch B`` of them a step in one dispatch.
 when the pool runs out; it resumes later by recomputing its prefill, with
 no token emitted twice. The summary line on stderr counts the preemptions.
 
+The step loop is ``serving/frontend/driver.py``'s ``EngineDriver`` over a
+one-replica ``ReplicaRouter``, the loop the HTTP front end
+(``gpt2-torch-frontend``) runs too. SIGTERM drains: the requests in
+flight run to completion, every final record is printed, and the process
+exits 0. ``--trace_dir`` writes span/event traces (``obs/trace.py``; read
+them with ``scripts/obs_report.py``), ``--xla_profile_at STEP[:NSTEPS]``
+opens a ``torch.profiler`` window over those engine steps (a Chrome trace
+under ``<trace_dir or tb_dir>/xla_profile``), and ``--tb_dir`` writes the
+serving-load metrics to TensorBoard every ``--metrics_every`` engine steps
+(it needs ``tensorboardX``).
+
 The parser takes every flag of the JAX CLI, under the same names, types
-and defaults. Serving meshes, speculation, checkpoints, metrics and
-tracing sinks, replica placement and fault injection come with later
-slices of the port: any other value than the default of those flags is
-refused.
+and defaults. Serving meshes, speculation, checkpoints, replica placement,
+the step watchdog and fault injection come with later slices of the port:
+any other value than the default of those flags is refused.
 
 Usage::
 
     python -m gpt_2_distributed_torch.serving.serve --init_random \\
-        --requests reqs.jsonl --stream
+        --requests reqs.jsonl --stream [--trace_dir traces]
 """
 
 from __future__ import annotations
@@ -47,13 +57,11 @@ import json
 import sys
 import time
 
-# Flags of the JAX CLI whose planes come with later slices of the port,
+# Flags of the JAX CLIs whose planes come with later slices of the port,
 # with the value that leaves them off; any other value is refused.
 _UNPORTED = {
     "ckpt": None, "serve_mesh": "",
     "draft_preset": None, "spec_k": None, "draft_ckpt": None,
-    "tb_dir": None, "metrics_every": 20, "trace_dir": None,
-    "trace_max_file_bytes": 64 * 1024 * 1024, "xla_profile_at": None,
     "placement": "inprocess", "worker_max_respawns": 3,
     "worker_respawn_backoff_s": 2.0, "worker_rpc_timeout_s": 300.0,
     "worker_heartbeat_s": 1.0, "worker_connect_timeout_s": 120.0,
@@ -65,22 +73,28 @@ _UNPORTED = {
 PLACEMENTS = ("inprocess", "subprocess", "remote")
 
 
-def build_argparser() -> argparse.ArgumentParser:
-    from gpt_2_distributed_torch.config import ATTN_IMPLS, MODEL_PRESETS
+def add_model_flags(p: argparse.ArgumentParser) -> None:
+    """Weights and model-shape flags, shared with ``gpt2-torch-frontend``."""
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
 
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--params_npz", default=None,
                    help="weights: a JAX-layout .npz (models/convert.py)")
     p.add_argument("--init_random", action="store_true",
                    help="serve seeded-init weights instead of --params_npz")
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint dir (later slice; use --params_npz)")
     p.add_argument("--model", default="124M", choices=sorted(MODEL_PRESETS))
     p.add_argument("--n_layer", type=int, default=None)
     p.add_argument("--n_embd", type=int, default=None)
     p.add_argument("--n_head", type=int, default=None)
     p.add_argument("--vocab_size", type=int, default=None)
     p.add_argument("--seq_len", type=int, default=None)
-    p.add_argument("--requests", required=True,
-                   help="JSONL request file, or '-' for stdin")
+
+
+def add_engine_flags(p: argparse.ArgumentParser) -> None:
+    """ServeConfig and sampling flags, shared with the front end."""
+    from gpt_2_distributed_torch.config import ATTN_IMPLS
+
     p.add_argument("--new", type=int, default=64,
                    help="default max_new_tokens for requests without one")
     p.add_argument("--seed", type=int, default=0,
@@ -96,14 +110,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--attn_impl", default="auto", choices=list(ATTN_IMPLS),
                    help="attention: CUDA kernels on the card (auto), kernels "
                         "only (kernel), or the plain PyTorch versions (plain)")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu")
-    p.add_argument("--stream", action="store_true",
-                   help="emit a JSON line per token as it is generated")
     p.add_argument("--prefill_chunk", type=int, default=0,
                    help="prefill chunk width; 0 = whole-prompt prefill")
     p.add_argument("--prefill_batch", type=int, default=1,
                    help="chunked mode: in-progress prefills advanced per step")
+    p.add_argument("--serve_mesh", default="",
+                   help="serving mesh spec 'data:N[,tp:M]' (later slice)")
     p.add_argument("--prefix_cache", action="store_true",
                    help="reuse KV blocks across shared prompt prefixes")
     p.add_argument("--admission", default="reserve",
@@ -112,36 +124,36 @@ def build_argparser() -> argparse.ArgumentParser:
                    "lazy growth with preemption under pool pressure")
     p.add_argument("--watermark_blocks", type=int, default=1,
                    help="free-block floor for --admission watermark")
-    p.add_argument("--request_timeout_s", type=float, default=None,
-                   help="per-request deadline from submission (queue wait "
-                        "included) for lines without 'timeout_s'; overdue "
-                        "requests are evicted with finish reason 'timeout' "
-                        "and their KV blocks freed")
-    _add_unported_flags(p)
-    return p
-
-
-def _add_unported_flags(p: argparse.ArgumentParser) -> None:
-    """The JAX CLI's flags of later slices (``_UNPORTED``), with its names,
-    types and defaults."""
-    p.add_argument("--ckpt", default=None,
-                   help="checkpoint dir (later slice; use --params_npz)")
-    p.add_argument("--serve_mesh", default="",
-                   help="serving mesh spec 'data:N[,tp:M]'")
     p.add_argument("--draft_preset", default=None,
-                   help="speculative decoding: draft-model preset")
+                   help="speculative decoding: draft-model preset (later slice)")
     p.add_argument("--spec_k", type=int, default=None,
-                   help="draft tokens per verify pass")
-    p.add_argument("--draft_ckpt", default=None, help="draft-model checkpoint dir")
+                   help="draft tokens per verify pass (later slice)")
+    p.add_argument("--draft_ckpt", default=None,
+                   help="draft-model checkpoint dir (later slice)")
+
+
+def add_obs_flags(p: argparse.ArgumentParser) -> None:
+    """Metrics, tracing and profiling flags, and the device; shared with
+    the front end."""
     p.add_argument("--tb_dir", default=None,
-                   help="TensorBoard dir for serving-load metrics")
+                   help="TensorBoard dir for serving-load metrics (needs "
+                        "tensorboardX)")
     p.add_argument("--metrics_every", type=int, default=20,
                    help="engine steps between --tb_dir metric flushes")
-    p.add_argument("--trace_dir", default=None, help="span/event trace JSONL dir")
+    p.add_argument("--trace_dir", default=None,
+                   help="write span/event trace JSONL here (obs/trace.py)")
     p.add_argument("--trace_max_file_bytes", type=int, default=64 * 1024 * 1024,
-                   help="rotate trace files past this size")
+                   help="rotate trace-p*.jsonl past this size")
     p.add_argument("--xla_profile_at", default=None, metavar="STEP[:NSTEPS]",
-                   help="profiler capture window")
+                   help="a torch.profiler window over NSTEPS (default 1) "
+                        "engine steps from STEP, its Chrome trace written "
+                        "under --trace_dir (or --tb_dir)/xla_profile")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+
+
+def add_placement_flags(p: argparse.ArgumentParser) -> None:
+    """Replica placement and worker supervision flags (later slice)."""
     p.add_argument("--placement", default="inprocess", choices=list(PLACEMENTS),
                    help="replica placement")
     p.add_argument("--worker_max_respawns", type=int, default=3)
@@ -152,11 +164,34 @@ def _add_unported_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--worker_heartbeat_timeout_s", type=float, default=None)
     p.add_argument("--worker_auth_token_file", default=None)
     p.add_argument("--worker_pool", default=None)
+
+
+def add_fault_flags(p: argparse.ArgumentParser) -> None:
+    """Request deadlines; the watchdog and fault injection (later slice)."""
+    p.add_argument("--request_timeout_s", type=float, default=None,
+                   help="per-request deadline from submission (queue wait "
+                        "included) for requests without their own "
+                        "'timeout_s'; overdue requests are evicted with "
+                        "finish reason 'timeout' and their KV blocks freed")
     p.add_argument("--watchdog_timeout_s", type=float, default=None,
                    help="fail a replica whose single step exceeds this")
     p.add_argument("--inject_replica_fail_at", default=None, metavar="STEP[:REPLICA]")
     p.add_argument("--inject_replica_hang_at", default=None, metavar="STEP[:REPLICA]")
     p.add_argument("--inject_step_exception", type=int, default=None, metavar="STEP")
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    add_model_flags(p)
+    p.add_argument("--requests", required=True,
+                   help="JSONL request file, or '-' for stdin")
+    add_engine_flags(p)
+    p.add_argument("--stream", action="store_true",
+                   help="emit a JSON line per token as it is generated")
+    add_obs_flags(p)
+    add_placement_flags(p)
+    add_fault_flags(p)
+    return p
 
 
 def _refuse_unported(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
@@ -222,34 +257,114 @@ def read_requests(path: str, args: argparse.Namespace) -> list[tuple]:
     return specs
 
 
-def main(argv: list[str] | None = None) -> None:
-    p = build_argparser()
-    args = p.parse_args(argv)
+def setup_observability(p: argparse.ArgumentParser, args: argparse.Namespace):
+    """Tracing and profiler-window wiring shared by serve and the front
+    end. Returns the armed :class:`ProfilerCapture` (inert when
+    unconfigured); exits through ``p.error`` on an invalid flag."""
+    from gpt_2_distributed_torch.config import TracePolicy
+    from gpt_2_distributed_torch.obs.trace import (
+        ProfilerCapture,
+        configure_tracing,
+        parse_profile_at,
+    )
+
+    try:
+        policy = TracePolicy(trace_dir=args.trace_dir,
+                             max_file_bytes=args.trace_max_file_bytes,
+                             xla_profile_at=args.xla_profile_at)
+        spec = parse_profile_at(policy.xla_profile_at)
+    except ValueError as e:
+        p.error(str(e))
+    profile_root = args.trace_dir or args.tb_dir
+    if spec and not profile_root:
+        p.error("--xla_profile_at needs --trace_dir or --tb_dir for output")
+    if policy.enabled:
+        configure_tracing(policy.trace_dir, max_file_bytes=policy.max_file_bytes)
+    return ProfilerCapture(spec, profile_root)
+
+
+def make_tracker(args: argparse.Namespace):
+    """The --tb_dir serving sink, or None. Exits when tensorboardX is
+    missing."""
+    if not args.tb_dir:
+        return None
+    from gpt_2_distributed_torch.metrics.tracker import StatsTracker
+
+    # batch/seq 0: the serving sink never counts training tokens; every
+    # update is out-of-band (count_tokens=False), TensorBoard only.
+    try:
+        return StatsTracker(batch_size=0, seq_len=0, tb_dir=args.tb_dir)
+    except RuntimeError as e:
+        sys.exit(f"--tb_dir: {e}")
+
+
+def cli_device(args: argparse.Namespace):
+    """``--device`` as a torch device; exits when it is not there."""
+    from gpt_2_distributed_torch.utils.device import resolve_device
+
+    try:
+        return resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        sys.exit(f"--device {args.device}: {e}")
+
+
+def engine_factory(p: argparse.ArgumentParser, args: argparse.Namespace, device):
+    """A function building one in-process replica on ``device`` over one
+    copy of the weights (``--init_random`` or ``--params_npz``)."""
+    from gpt_2_distributed_torch.models import gpt2
+    from gpt_2_distributed_torch.models.convert import load_npz
+    from gpt_2_distributed_torch.serving.engine import ServingEngine
+
+    config = model_config_from_args(args)
+    try:
+        serve = build_serve_config(args, config)
+    except ValueError as e:
+        p.error(str(e))
+    params = (gpt2.init_params(config) if args.init_random
+              else load_npz(args.params_npz))
+
+    def make_engine():
+        return ServingEngine(params, config, serve, temperature=args.temperature,
+                             top_k=args.top_k, device=device)
+
+    return make_engine
+
+
+def check_common_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    """The refusals both serving CLIs share."""
     _refuse_unported(p, args)
     if (args.params_npz is None) == (not args.init_random):
         p.error("exactly one of --params_npz / --init_random is required")
     if args.request_timeout_s is not None and args.request_timeout_s < 0:
         p.error(f"--request_timeout_s={args.request_timeout_s} must be >= 0")
 
-    from gpt_2_distributed_torch.models import gpt2
-    from gpt_2_distributed_torch.models.convert import load_npz
-    from gpt_2_distributed_torch.serving.engine import ServingEngine
-    from gpt_2_distributed_torch.utils.device import resolve_device
 
-    try:
-        device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        sys.exit(f"--device {args.device}: {e}")
-    config = model_config_from_args(args)
+DRAIN_NOTICE = ("draining: in-flight requests will complete, new submits "
+                "are refused, then exit 0")
+
+
+def main(argv: list[str] | None = None) -> None:
+    p = build_argparser()
+    args = p.parse_args(argv)
+    check_common_args(p, args)
+
+    from gpt_2_distributed_torch.obs.trace import configure_tracing
+    from gpt_2_distributed_torch.resilience import PreemptionHandler
+    from gpt_2_distributed_torch.serving.frontend.driver import EngineDriver
+    from gpt_2_distributed_torch.serving.frontend.router import ReplicaRouter
+
+    device = cli_device(args)
+    capture = setup_observability(p, args)
+    tracker = make_tracker(args)
     specs = read_requests(args.requests, args)
-    params = (gpt2.init_params(config) if args.init_random
-              else load_npz(args.params_npz))
-    try:
-        serve = build_serve_config(args, config)
-    except ValueError as e:
-        p.error(str(e))
-    engine = ServingEngine(params, config, serve, temperature=args.temperature,
-                           top_k=args.top_k, device=device)
+    router = ReplicaRouter(engine_factory(p, args, device), replicas=1)
+    # SIGTERM = finish what was accepted, exit 0. Every request below is
+    # submitted before the loop starts, so the flag can only stop further
+    # submits: a TERM during the batch drains instead of cutting streams.
+    handler = PreemptionHandler(notice=DRAIN_NOTICE).install()
+    driver = EngineDriver(router, tracker=tracker, metrics_every=args.metrics_every,
+                          profiler_capture=capture, preemption=handler,
+                          request_timeout_s=args.request_timeout_s)
 
     def on_token(req, tok):
         if args.stream:
@@ -257,17 +372,22 @@ def main(argv: list[str] | None = None) -> None:
 
     t0 = time.monotonic()
     handles = []
-    for ids, new, seed, timeout_s in specs:
-        if timeout_s is None:
-            timeout_s = args.request_timeout_s
-        try:
-            handles.append(engine.submit(ids, new, seed=seed, on_token=on_token,
-                                         timeout_s=timeout_s))
-        except ValueError as e:
-            sys.exit(f"request {len(handles)}: {e}")
-    engine.run_until_idle()
+    try:
+        for ids, new, seed, timeout_s in specs:
+            try:
+                handles.append(driver.submit(ids, new, seed=seed, on_token=on_token,
+                                             timeout_s=timeout_s))
+            except ValueError as e:
+                sys.exit(f"request {len(handles)}: {e}")
+        driver.drain()
+    finally:
+        driver.close()
+        if args.trace_dir:
+            configure_tracing(None)   # closes the file; later runs trace nothing
+        handler.uninstall()
     wall = time.monotonic() - t0
 
+    eng = router.engines[0]
     for h in handles:
         print(json.dumps({
             "id": h.id,
@@ -282,9 +402,9 @@ def main(argv: list[str] | None = None) -> None:
         }), flush=True)
     toks = sum(len(h.generated) for h in handles)
     print(f"{len(handles)} requests, {toks} tokens, {wall:.3f}s "
-          f"({toks / wall:.0f} tok/s), {engine.stats['decode_steps']} decode "
-          f"steps on {device}, {engine.stats['preemptions']} preemptions, "
-          f"{engine.stats['prefix_hit_tokens']} prefix-cached tokens", file=sys.stderr)
+          f"({toks / wall:.0f} tok/s), {eng.stats['decode_steps']} decode "
+          f"steps on {device}, {eng.stats['preemptions']} preemptions, "
+          f"{eng.stats['prefix_hit_tokens']} prefix-cached tokens", file=sys.stderr)
 
 
 if __name__ == "__main__":

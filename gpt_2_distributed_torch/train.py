@@ -12,12 +12,19 @@ weight decay, periodic eval, the non-finite step guard with its per-layer
 clip fallback and ``--inject_nan_at``, ``--dropout``, ``--attention_impl``,
 ``--fused_layers``, ``--fused_matmul``, ``--device_prefetch`` (pinned host
 batches copied with ``non_blocking=True`` one optimizer step ahead),
-``--device`` and ``--mesh sp=S``. Every
-flag whose plane is not ported yet (DDP/FSDP and tp meshes, checkpoints and
-resume, the spike monitor's rollback, TensorBoard and tracing, the
-multi-host control plane, the other fault injections, bf16 grad
-accumulation, remat) is refused with a "later slice"
-error instead of being ignored.
+``--device`` and ``--mesh sp=S``, and observability: ``--trace_dir`` (span
+traces of the step loop, ``obs/trace.py``: ``step(n)`` holding
+``data_fetch``, ``h2d``, ``step_dispatch``, ``h2d_prefetch``,
+``device_sync``, ``collector`` and ``eval``, and the ``guard_skip`` event;
+``scripts/obs_report.py`` folds them into per-phase shares of a step),
+``--log_dir`` (TensorBoard scalars every ``--tb_every`` steps, with
+tensorboardX), ``--profile`` (a ``torch.profiler`` trace of the whole run
+into ``<log_dir>/profile``) or ``--xla_profile_at STEP[:NSTEPS]`` (one
+over those optimizer steps into ``<log_dir>/xla_profile``). Every flag whose
+plane is not ported yet (DDP/FSDP and tp meshes, checkpoints and resume,
+the spike monitor's rollback, the multi-host control plane, the other
+fault injections, bf16 grad accumulation, remat) is refused with a "later
+slice" error instead of being ignored.
 
 Runs on CUDA unless ``--device cpu`` is given; without a visible GPU it
 exits with the "no CUDA device" message. On CUDA the attention runs
@@ -68,8 +75,6 @@ _UNPORTED = {
     "keep_last_n": 0, "save_retries": 2, "save_retry_backoff": 0.5,
     "preempt_poll_url": None, "preempt_poll_interval": 5.0,
     "spike_sigma": 6.0, "max_consecutive_skips": 3, "max_rollbacks": 3,
-    "log_dir": None, "tb_every": 1, "profile": False, "xla_profile_at": None,
-    "trace_dir": None, "trace_max_file_bytes": 64 * 1024 * 1024,
     "accum_dtype": "fp32", "desync_check_every": 0, "consensus_every": 1,
     "hang_timeout_s": 0.0, "inject_fail_at": 0, "inject_preempt_at": 0,
     "inject_save_fail_at": 0, "inject_save_fail_count": 1,
@@ -181,12 +186,19 @@ def build_parser() -> argparse.ArgumentParser:
                    "over the layers either way")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default) or cpu")
-    p.add_argument("--profile", action="store_true")
-    p.add_argument("--xla_profile_at", default=None)
-    p.add_argument("--trace_dir", default=None)
-    p.add_argument("--trace_max_file_bytes", type=int, default=64 * 1024 * 1024)
+    p.add_argument("--profile", action="store_true",
+                   help="torch.profiler trace of the whole run into <log_dir>/profile")
+    p.add_argument("--xla_profile_at", default=None, metavar="STEP[:NSTEPS]",
+                   help="a torch.profiler window over NSTEPS (default 1) optimizer "
+                   "steps from STEP into <log_dir>/xla_profile; host spans "
+                   "annotate it")
+    p.add_argument("--trace_dir", default=None,
+                   help="write span/event trace JSONL here (obs/trace.py)")
+    p.add_argument("--trace_max_file_bytes", type=int, default=64 * 1024 * 1024,
+                   help="rotate trace-p*.jsonl past this size")
     p.add_argument("--cli_every", type=int, default=20)
-    p.add_argument("--tb_every", type=int, default=1)
+    p.add_argument("--tb_every", type=int, default=1,
+                   help="steps between TensorBoard writes (with --log_dir)")
     p.add_argument("--coordinator_address", default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
@@ -255,6 +267,7 @@ def main(argv: list[str] | None = None):
                 "fallback lives inside the guarded step)")
     if args.dropout is not None and not (0.0 <= args.dropout < 1.0):
         p.error(f"--dropout must be in [0, 1), got {args.dropout}")
+    profile_spec = _profile_spec(p, args)
     spec = _mesh_spec(p, args)
 
     import torch
@@ -304,7 +317,7 @@ def main(argv: list[str] | None = None):
                  f"per device, but WORLD_SIZE is {world}: launch it with torchrun "
                  f"--nproc_per_node {spec.n_devices}")
     if world == 1:
-        return _run(args, config, device, None)
+        return _run(args, config, device, None, profile_spec)
     rank = int(os.environ["RANK"])
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
@@ -314,9 +327,32 @@ def main(argv: list[str] | None = None):
     try:
         mesh = Mesh(spec, rank)
         with activate_mesh(mesh):
-            return _run(args, config, device, mesh)
+            return _run(args, config, device, mesh, profile_spec)
     finally:
         dist.destroy_process_group()
+
+
+def _profile_spec(p: argparse.ArgumentParser, args):
+    """``--xla_profile_at`` as ``(start, n)`` or None, with the trace and
+    profiler flags' refusals (the JAX CLI's)."""
+    from gpt_2_distributed_torch.config import TracePolicy
+    from gpt_2_distributed_torch.obs.trace import parse_profile_at
+
+    try:
+        TracePolicy(trace_dir=args.trace_dir, max_file_bytes=args.trace_max_file_bytes,
+                    xla_profile_at=args.xla_profile_at)
+        spec = parse_profile_at(args.xla_profile_at)
+    except ValueError as e:
+        p.error(str(e))
+    if spec and not args.log_dir:
+        p.error("--xla_profile_at needs --log_dir (the capture lands in "
+                "<log_dir>/xla_profile)")
+    if spec and args.profile:
+        p.error("--xla_profile_at and --profile both open a torch.profiler "
+                "session; profiler sessions cannot nest — pick one")
+    if args.profile and not args.log_dir:
+        p.error("--profile needs --log_dir (the trace lands in <log_dir>/profile)")
+    return spec
 
 
 def _mesh_spec(p: argparse.ArgumentParser, args):
@@ -342,10 +378,12 @@ def _mesh_spec(p: argparse.ArgumentParser, args):
     return spec
 
 
-def _run(args, config, device, mesh):
+def _run(args, config, device, mesh, profile_spec):
     """The training loop of :func:`main` on ``device``; under an sp mesh
     every process reads the same global batches and trains on its
-    ``[B, T/sp]`` block of each, and only the first one prints."""
+    ``[B, T/sp]`` block of each, and only the first one prints (and
+    writes TensorBoard). Each process traces into its own
+    ``trace-p{rank}.jsonl``."""
     import torch
 
     from gpt_2_distributed_torch.data.dataloader import (
@@ -355,6 +393,11 @@ def _run(args, config, device, mesh):
     )
     from gpt_2_distributed_torch.metrics.tracker import StatsTracker
     from gpt_2_distributed_torch.models import gpt2
+    from gpt_2_distributed_torch.obs.trace import (
+        ProfilerCapture,
+        configure_tracing,
+        get_tracer,
+    )
     from gpt_2_distributed_torch.parallel.mesh import is_primary
     from gpt_2_distributed_torch.parallel.train_step import (
         make_eval_step,
@@ -366,6 +409,14 @@ def _run(args, config, device, mesh):
     from gpt_2_distributed_torch.utils.flops import device_peak_flops, flops_per_token
 
     primary = is_primary()
+    # Tracing defaults off: get_tracer() then hands out a no-op and no
+    # trace file is created.
+    rank = 0 if mesh is None else mesh.rank
+    if args.trace_dir:
+        configure_tracing(args.trace_dir, process_index=rank,
+                          max_file_bytes=args.trace_max_file_bytes)
+    tracer = get_tracer()
+    capture = ProfilerCapture(profile_spec, args.log_dir, rank=rank)
 
     def say(*a, **kw) -> None:
         if primary:
@@ -409,12 +460,16 @@ def _run(args, config, device, mesh):
     nan_scale = ones_scale.clone()
     nan_scale[0] = float("nan")
 
-    tracker = StatsTracker(
-        batch_size=args.batch * args.grad_accum_steps, seq_len=args.seq_len,
-        cli_every=args.cli_every, flops_per_token=flops_per_token(config, args.seq_len),
-        peak_flops_per_chip=device_peak_flops(device), device=device,
-        n_chips=1 if mesh is None else mesh.spec.n_devices, printing=primary,
-    )
+    try:
+        tracker = StatsTracker(
+            batch_size=args.batch * args.grad_accum_steps, seq_len=args.seq_len,
+            cli_every=args.cli_every, flops_per_token=flops_per_token(config, args.seq_len),
+            peak_flops_per_chip=device_peak_flops(device), device=device,
+            n_chips=1 if mesh is None else mesh.spec.n_devices, printing=primary,
+            tb_dir=args.log_dir, tb_every=args.tb_every,
+        )
+    except RuntimeError as e:
+        sys.exit(f"--log_dir: {e}")
 
     # --- evaluation ---------------------------------------------------------
     # The val split (shard 0), the epoch-0 permutation every time, so
@@ -476,96 +531,146 @@ def _run(args, config, device, mesh):
             return
         p_step, p_epoch, p_batch, m = pending
         pending = None
-        extra = {}
-        skipped = False
-        if use_guard:
-            if m.skip_reason:
-                skipped = True
-                last_skip_reason_host = m.skip_reason
-                say(f"[guard] step {p_step} skipped "
-                    f"({SKIP_REASON_NAMES.get(m.skip_reason, m.skip_reason)}); "
-                    f"params/opt-state unchanged (total skipped: "
-                    f"{m.skipped_steps})", flush=True)
-            if m.skipped_steps or last_skip_reason_host:
-                extra = {"skipped_steps": m.skipped_steps,
-                         "last_skip_reason": last_skip_reason_host}
-            if m.clipped:
-                say(f"[guard] step {p_step} grad norm {float(m.grad_norm):.2f} "
-                    f"exceeded --guard_max_grad_norm {args.guard_max_grad_norm:g}; "
-                    f"clipped per-layer to {args.guard_clip_norm:g} and applied "
-                    f"(total clipped: {m.clipped_steps})", flush=True)
-            if m.clipped_steps:
-                extra["clipped_steps"] = m.clipped_steps
-        if dataset.read_retry_count:
-            extra["data_read_retries"] = dataset.read_retry_count
-        values = dict(lr=float(lr_of(p_step - 1)), epoch=p_epoch, batch=p_batch)
-        # A skipped step's loss and grad norm are the rejected values: the
-        # [guard] line reports them; the windowed averages stay clean.
-        if not skipped:
-            values["loss"] = float(m.loss)
-            values["grad_norm"] = float(m.grad_norm)
-        tracker.update(p_step, **values, **extra)
+        # The first host read of m waits for the step's device work: that
+        # wait is the device_sync phase (what follows is host arithmetic).
+        with tracer.span("device_sync", step=p_step):
+            extra = {}
+            skipped = False
+            if use_guard:
+                if m.skip_reason:
+                    skipped = True
+                    last_skip_reason_host = m.skip_reason
+                    tracer.event("guard_skip", step=p_step, reason=m.skip_reason)
+                    say(f"[guard] step {p_step} skipped "
+                        f"({SKIP_REASON_NAMES.get(m.skip_reason, m.skip_reason)}); "
+                        f"params/opt-state unchanged (total skipped: "
+                        f"{m.skipped_steps})", flush=True)
+                if m.skipped_steps or last_skip_reason_host:
+                    extra = {"skipped_steps": m.skipped_steps,
+                             "last_skip_reason": last_skip_reason_host}
+                if m.clipped:
+                    say(f"[guard] step {p_step} grad norm {float(m.grad_norm):.2f} "
+                        f"exceeded --guard_max_grad_norm {args.guard_max_grad_norm:g}; "
+                        f"clipped per-layer to {args.guard_clip_norm:g} and applied "
+                        f"(total clipped: {m.clipped_steps})", flush=True)
+                if m.clipped_steps:
+                    extra["clipped_steps"] = m.clipped_steps
+            if dataset.read_retry_count:
+                extra["data_read_retries"] = dataset.read_retry_count
+            values = dict(lr=float(lr_of(p_step - 1)), epoch=p_epoch, batch=p_batch)
+            # A skipped step's loss and grad norm are the rejected values: the
+            # [guard] line reports them; the windowed averages stay clean.
+            if not skipped:
+                values["loss"] = float(m.loss)
+                values["grad_norm"] = float(m.grad_norm)
+        with tracer.span("collector", step=p_step):
+            tracker.update(p_step, **values, **extra)
 
+    # The "step" span is entered and left by hand: the loop leaves an
+    # iteration through several breaks, and begin closes whatever span a
+    # break path left open.
+    step_span = None
+
+    def begin_step_span() -> None:
+        nonlocal step_span
+        end_step_span()
+        if tracer.enabled:
+            step_span = tracer.span("step", n=global_step + 1)
+            step_span.__enter__()
+
+    def end_step_span() -> None:
+        nonlocal step_span
+        if step_span is not None:
+            step_span.__exit__(None, None, None)
+            step_span = None
+
+    whole_run = None
+    if args.profile:
+        whole_run = ProfilerCapture((0, 1 << 62), args.log_dir, subdir="profile",
+                                    rank=rank)
+        whole_run.maybe_start(0)
     done = False
-    for epoch in range(args.epochs):
-        dataset.set_epoch(epoch)
-        tracker.start_epoch()
-        loader_iter = iter(create_dataloader(dataset, batch_size=local_batch,
-                                             prefetch_factor=args.prefetch_factor))
-        step_in_epoch = 0
-        micro: list = []
-        prefetched = None
-        while step_in_epoch < steps_per_epoch:
-            if prefetched is not None:
-                x, y = prefetched
-                prefetched = None
-            else:
-                try:
-                    while len(micro) < args.grad_accum_steps:
-                        micro.append(next(loader_iter))
-                except StopIteration:
+    try:
+        for epoch in range(args.epochs):
+            dataset.set_epoch(epoch)
+            tracker.start_epoch()
+            loader_iter = iter(create_dataloader(dataset, batch_size=local_batch,
+                                                 prefetch_factor=args.prefetch_factor))
+            step_in_epoch = 0
+            micro: list = []
+            prefetched = None
+            while step_in_epoch < steps_per_epoch:
+                begin_step_span()
+                if prefetched is not None:
+                    x, y = prefetched
+                    prefetched = None
+                else:
+                    try:
+                        with tracer.span("data_fetch"):
+                            while len(micro) < args.grad_accum_steps:
+                                micro.append(next(loader_iter))
+                    except StopIteration:
+                        break
+                    with tracer.span("h2d"):
+                        x, y = to_device(micro)
+                micro = []
+                capture.maybe_start(global_step + 1)
+                if use_guard:
+                    loss_scale = ones_scale
+                    if args.inject_nan_at and global_step + 1 == args.inject_nan_at:
+                        loss_scale = nan_scale
+                        say(f"[inject] poisoning micro-batch 0 loss with NaN at "
+                            f"step {global_step + 1}", flush=True)
+                    with tracer.span("step_dispatch", step=global_step + 1):
+                        guard_state, m = train_step(params, guard_state, x, y, args.seed,
+                                                    global_step, loss_scale)
+                else:
+                    with tracer.span("step_dispatch", step=global_step + 1):
+                        m = train_step(params, x, y, args.seed, global_step)
+                global_step += 1
+                step_in_epoch += 1
+                # --device_prefetch: the next step's batch goes to the card now,
+                # while this step's work is still queued on it.
+                if (args.device_prefetch == "on" and step_in_epoch < steps_per_epoch
+                        and not (args.max_steps and global_step >= args.max_steps)):
+                    try:
+                        with tracer.span("h2d_prefetch"):
+                            while len(micro) < args.grad_accum_steps:
+                                micro.append(next(loader_iter))
+                            prefetched = to_device(micro)
+                    except StopIteration:
+                        pass
+                flush_pending()
+                pending = (global_step, epoch, step_in_epoch, m)
+                if use_guard:
+                    # The guarded step has already waited for its own results;
+                    # a lag would only charge the next step's time to this one.
+                    flush_pending()
+                # Stop the window once its last step has been flushed (its
+                # device work is then in the trace, not just queued).
+                capture.maybe_stop(global_step - 1)
+                if run_eval is not None and global_step % args.eval_every == 0:
+                    flush_pending()
+                    with tracer.span("eval", step=global_step):
+                        tracker.update(global_step, count_tokens=False,
+                                       eval_loss=run_eval())
+                if args.max_steps and global_step >= args.max_steps:
+                    done = True
                     break
-                x, y = to_device(micro)
-            micro = []
-            if use_guard:
-                loss_scale = ones_scale
-                if args.inject_nan_at and global_step + 1 == args.inject_nan_at:
-                    loss_scale = nan_scale
-                    say(f"[inject] poisoning micro-batch 0 loss with NaN at "
-                        f"step {global_step + 1}", flush=True)
-                guard_state, m = train_step(params, guard_state, x, y, args.seed,
-                                            global_step, loss_scale)
-            else:
-                m = train_step(params, x, y, args.seed, global_step)
-            global_step += 1
-            step_in_epoch += 1
-            # --device_prefetch: the next step's batch goes to the card now,
-            # while this step's work is still queued on it.
-            if (args.device_prefetch == "on" and step_in_epoch < steps_per_epoch
-                    and not (args.max_steps and global_step >= args.max_steps)):
-                try:
-                    while len(micro) < args.grad_accum_steps:
-                        micro.append(next(loader_iter))
-                    prefetched = to_device(micro)
-                except StopIteration:
-                    pass
-            flush_pending()
-            pending = (global_step, epoch, step_in_epoch, m)
-            if use_guard:
-                # The guarded step has already waited for its own results;
-                # a lag would only charge the next step's time to this one.
-                flush_pending()
-            if run_eval is not None and global_step % args.eval_every == 0:
-                flush_pending()
-                tracker.update(global_step, count_tokens=False, eval_loss=run_eval())
-            if args.max_steps and global_step >= args.max_steps:
-                done = True
+            end_step_span()
+            loader_iter.close()
+            if done:
                 break
-        loader_iter.close()
-        if done:
-            break
 
-    flush_pending()
+        flush_pending()
+    finally:
+        end_step_span()
+        capture.stop_if_active()
+        if whole_run is not None:
+            whole_run.stop_if_active()
+        tracker.close()
+        if args.trace_dir:
+            configure_tracing(None)   # closes the file; later runs trace nothing
     say(f"training done: {global_step} optimizer steps", flush=True)
     return tracker
 

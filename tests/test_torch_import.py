@@ -29,7 +29,20 @@ def _port_modules() -> list[str]:
     return mods
 
 
+# Modules the poisoned import must cover by name (the list above is found
+# by walking the package; these pin the ones later slices added).
+REQUIRED = (
+    "gpt_2_distributed_torch.obs.trace",
+    "gpt_2_distributed_torch.resilience",
+    "gpt_2_distributed_torch.serving.frontend.driver",
+    "gpt_2_distributed_torch.serving.frontend.router",
+    "gpt_2_distributed_torch.serving.frontend.autoscale",
+    "gpt_2_distributed_torch.serving.frontend.server",
+)
+
+
 def test_port_imports_with_jax_poisoned():
+    assert set(REQUIRED) <= set(_port_modules())
     code = (
         "import sys\n"
         + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)

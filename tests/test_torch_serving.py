@@ -184,7 +184,10 @@ def test_cli_parses_every_jax_serve_flag():
         port_p.parse_args(["--requests", "r.jsonl"] + one)   # exits on an unknown flag
         argv += one
         if a.dest in serve._UNPORTED or a.dest in ("request_timeout_s", "admission",
-                                                   "watermark_blocks"):
+                                                   "watermark_blocks", "tb_dir",
+                                                   "metrics_every", "trace_dir",
+                                                   "trace_max_file_bytes",
+                                                   "xla_profile_at"):
             assert port_actions[a.dest].default == a.default, a.dest
             assert port_actions[a.dest].type == a.type, a.dest
             assert port_actions[a.dest].nargs == a.nargs, a.dest
@@ -195,7 +198,9 @@ def test_cli_refuses_each_unported_flag(capsys):
     from gpt_2_distributed_torch.serving import serve
 
     port_actions = {a.dest: a for a in serve.build_argparser()._actions}
-    assert len(serve._UNPORTED) == 23
+    # 23 until the tracing and metric sinks were ported: tb_dir,
+    # metrics_every, trace_dir, trace_max_file_bytes and xla_profile_at.
+    assert len(serve._UNPORTED) == 18
     for dest in serve._UNPORTED:
         with pytest.raises(SystemExit) as e:
             serve.main(["--requests", "r.jsonl", "--init_random"]

@@ -195,14 +195,34 @@ that does not hold:
     micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
     beside the local step's. On one card it prints that the NCCL ring
     needs two GPUs and that the CPU tests hold that path over gloo;
-15. prints the ``kernels`` JSON line, then the device line last.
+15. data-parallel and fully-sharded training: every rank of a data=2 x
+    fsdp=2 mesh in this process (``phase_ddp_ranks``), K1, K2 and K4-K7 on
+    its rows at 124M shapes with the per-shard seed against their plain
+    versions, the ranks' masks all different, the unfused dropout's rank
+    blocks equal to the global draw; then, with two or more cards, three
+    runs of ``train.main()`` as in 12 through ``torch.distributed.run``
+    (NCCL; ``--ddp_worker`` mode): ``--training_mode ddp`` (the update
+    sharded by ``auto``) with ``--fused_layers all --fused_matmul all``,
+    ``--training_mode fsdp`` and ``--mesh data=2 --shard_update off``:
+    finite, falling losses equal on both ranks, the final params
+    bit-identical across ranks, each rank's launches those its
+    micro-batches imply, its AdamW moments 1/2 of the replicated layout's
+    under fsdp and the sharded update, its fp32 params and grads 1/2 of
+    the replicated layout's under fsdp, and the fsdp run's peak
+    allocation below the replicated run's by at least half the state it
+    sheds; prints ms/step and tok/s beside the local steps'. On one card
+    it prints that the NCCL runs need two GPUs and that the CPU tests hold
+    them over gloo;
+16. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` times K2's two kernels (dk/dv, dq) apart with
 ``torch.profiler`` and adds profiler windows over one serving admission
 step (a 960-token prefill and one decode step), one chunked admission
 step (a 256-token chunk of a 960-token prompt and one decode step at
 batch 7), 8 decode steps at batch 8 and one 124M optimizer step of each training run, and over rank 0's whole
-sp=2 training run (set-up and eval included, divided by its 16 steps),
+sp=2 training run (set-up and eval included, divided by its 16 steps)
+and rank 0's middle step of each two-card DDP/FSDP run (with its top host
+operators),
 and prints each window's wall time, device-busy time and its top kernels.
 
 Every time here is measured on the card in this run; every bound is
@@ -1546,8 +1566,9 @@ def phase_paged(flush) -> dict:
     return row
 
 
-def profile_window(label: str, fn) -> None:
-    """Wall time, summed device time and top kernels of ``fn``'s window."""
+def profile_window(label: str, fn, host_ops: int = 0) -> None:
+    """Wall time, summed device time and top kernels of ``fn``'s window
+    (and its top ``host_ops`` operators by host self time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1566,6 +1587,10 @@ def profile_window(label: str, fn) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/step  "
               f"{e.count / n:6.1f}/step  {e.key[:90]}", flush=True)
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:host_ops]
+    for e in ops:
+        print(f"  host {e.self_cpu_time_total / 1e3 / n:9.4f} ms/step  "
+              f"{e.count / n:7.1f}/step  {e.key[:80]}", flush=True)
 
 
 def print_first_difference(label: str, w: dict, config, p: list[int], got: list[int],
@@ -2404,6 +2429,47 @@ def train_argv(data_dir: str, fused_layers: str = "off", fused_matmul: str = "of
             "--fused_layers", fused_layers, "--fused_matmul", fused_matmul]
 
 
+def training_wrappers() -> dict:
+    """The launch-counted wrappers of the training runs, by name: K1, K2,
+    K4-K6 and K7 (with its inference epilogues, which training must not
+    launch)."""
+    from gpt_2_distributed_torch.ops import flash_attention as fa
+    from gpt_2_distributed_torch.ops import fused_layer as fl
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
+
+    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd}
+    wrappers.update((name, getattr(fl, name)) for name, _ in FUSED_WRAPPERS)
+    wrappers.update((name, getattr(fm, name)) for name, _ in MM_WRAPPERS + MM_SERVE_WRAPPERS)
+    return wrappers
+
+
+def training_launches(fused_layers: str, fused_matmul: str) -> dict[str, int]:
+    """The launches per process of one training run of ``train_argv``:
+    TRAIN_STEPS x TRAIN_ACCUM micro-batches and TRAIN_EVAL_BATCHES eval
+    batches through 12 layers. K1 runs in training and eval, K2 in
+    training. The forward kernels of the fused legs run in both (at rate 0
+    in eval), K5 (rate > 0 only) and every backward in training. With the
+    fused matmuls K7 takes every leg K4-K6 would: its bias leg (qkv) and
+    gelu leg (fc) once a layer, its resid legs (the two out-projections)
+    twice, and one dgrad and one wgrad a leg."""
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+
+    n_layer, micro = MODEL_PRESETS["124M"].n_layer, TRAIN_STEPS * TRAIN_ACCUM
+    fwd, bwd = n_layer * (micro + TRAIN_EVAL_BATCHES), n_layer * micro
+    want = {name: 0 for name in training_wrappers()}
+    want.update(flash_attention_fwd=fwd, flash_attention_bwd=bwd)
+    if fused_matmul == "all":
+        want.update(mm_bias_fwd=fwd, mm_gelu_fwd=fwd, mm_resid_fwd=2 * fwd,
+                    mm_dgrad=3 * bwd, mm_dgrad_gelu=bwd, mm_wgrad=3 * bwd,
+                    mm_wgrad_gelu=bwd, mm_du=4 * bwd)
+    elif fused_layers == "all":
+        for name, _ in FUSED_WRAPPERS:
+            want[name] = fwd if name in ("ln_residual_dropout_fwd",
+                                         "bias_gelu_dropout_fwd") else bwd
+    return want
+
+
 def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, float],
                                            dict[str, list[float]]]:
     """``train.main()`` at 124M on synthetic shards, once for each of
@@ -2414,18 +2480,10 @@ def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, 
     from gpt_2_distributed_torch import train
     from gpt_2_distributed_torch.config import MODEL_PRESETS
     from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
-    from gpt_2_distributed_torch.ops import flash_attention as fa
-    from gpt_2_distributed_torch.ops import fused_layer as fl
-    from gpt_2_distributed_torch.ops import fused_matmul as fm
     from gpt_2_distributed_torch.utils import flops
 
-    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
-                "flash_attention_bwd": fa.flash_attention_bwd}
-    wrappers.update((name, getattr(fl, name)) for name, _ in FUSED_WRAPPERS)
-    wrappers.update((name, getattr(fm, name)) for name, _ in MM_WRAPPERS + MM_SERVE_WRAPPERS)
-    steps, n_layer = TRAIN_STEPS, MODEL_PRESETS["124M"].n_layer
-    micro = steps * TRAIN_ACCUM
-    fwd, bwd = n_layer * (micro + TRAIN_EVAL_BATCHES), n_layer * micro
+    wrappers = training_wrappers()
+    steps = TRAIN_STEPS
     counts, ms_steps, run_losses = {}, {}, {}
     with tempfile.TemporaryDirectory() as data_dir:
         write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
@@ -2459,22 +2517,7 @@ def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, 
                 fail(f"the training loss ({label}) did not fall")
             if skipped:
                 fail(f"{skipped} steps were skipped by the guard")
-            # K1 runs in training and eval, K2 in training. The forward
-            # kernels of the fused legs run in both (at rate 0 in eval), K5
-            # (rate > 0 only) and every backward in training. With the fused
-            # matmuls K7 takes every leg K4-K6 would: its bias leg (qkv) and
-            # gelu leg (fc) once a layer, its resid legs (the two
-            # out-projections) twice, and one dgrad and one wgrad a leg.
-            want = {name: 0 for name in wrappers}
-            want.update(flash_attention_fwd=fwd, flash_attention_bwd=bwd)
-            if fused_matmul == "all":
-                want.update(mm_bias_fwd=fwd, mm_gelu_fwd=fwd, mm_resid_fwd=2 * fwd,
-                            mm_dgrad=3 * bwd, mm_dgrad_gelu=bwd, mm_wgrad=3 * bwd,
-                            mm_wgrad_gelu=bwd, mm_du=4 * bwd)
-            elif fused_layers == "all":
-                for name, _ in FUSED_WRAPPERS:
-                    want[name] = fwd if name in ("ln_residual_dropout_fwd",
-                                                 "bias_gelu_dropout_fwd") else bwd
+            want = training_launches(fused_layers, fused_matmul)
             if got != want:
                 fail(f"launch counts ({label}) {got} != {want}")
     print(f"training 124M in this call: fused_matmul all {ms_steps['fused_matmul all']:.1f} "
@@ -2973,6 +3016,345 @@ def phase_sp_training(local_ms_step: float, profile: bool) -> dict[str, int] | N
     return ranks[0]["launches"]
 
 
+# The data-parallel and fully-sharded training runs on two cards: (label,
+# mesh flags, --fused_layers, --fused_matmul, the share of the replicated
+# layout's bytes that each rank holds after a step of the AdamW moments
+# and of the fp32 params with their grads). --shard_update holds the whole
+# params and, beside them, its master shards and their grads: all told
+# the replicated bytes.
+DDP_RUNS = (
+    ("--training_mode ddp (data=2, shard_update auto), fused all",
+     ["--training_mode", "ddp"], "all", "all", 0.5, 1.0),
+    ("--training_mode fsdp (fsdp=2)", ["--training_mode", "fsdp"], "off", "off", 0.5, 0.5),
+    ("--mesh data=2 --shard_update off", ["--mesh", "data=2", "--shard_update", "off"],
+     "off", "off", 1.0, 1.0),
+)
+
+
+def ddp_worker(data_dir: str, index: int, profile: bool) -> None:
+    """One rank of a DDP_RUNS run (``chip_smoke.py --ddp_worker DIR I``
+    under ``torch.distributed.run``): zeroes the training kernels' counts
+    and the card's peak-memory mark, runs ``train.main()`` with the run's
+    flags and prints one ``ddp_worker`` JSON line with its launches,
+    losses, step times, a digest of its whole params after the run, the
+    bytes it holds of the training state (``train_step.state_bytes``) and
+    its peak allocated bytes. The optimizer and the sharded state are read
+    through a wrapper of ``make_optimizer``, which the CLI calls. With
+    ``profile`` rank 0 profiles its middle optimizer step (through a
+    wrapper of ``make_train_step``) and prints its device and host
+    breakdown."""
+    import hashlib
+    import os
+
+    from gpt_2_distributed_torch import train
+    from gpt_2_distributed_torch.parallel import train_step as ts
+
+    label, flags, fused_layers, fused_matmul, _, _ = DDP_RUNS[index]
+    wrappers = training_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    made = {}
+    make_optimizer = ts.make_optimizer
+
+    def capture(params, *args, **kwargs):
+        made["params"], made["sharded"] = params, kwargs.get("sharded")
+        made["optimizer"] = make_optimizer(params, *args, **kwargs)
+        return made["optimizer"]
+
+    def gather_then_destroy(*args, **kwargs):
+        # train.main() ends the process group on its way out: gather the
+        # whole params (fsdp holds only shards) while it still runs.
+        params, sharded = made["params"], made["sharded"]
+        made["whole"] = [p.detach().cpu() for p in ts.param_list(
+            params if sharded is None else sharded.full_params(params))]
+        destroy(*args, **kwargs)
+
+    def profiled(*args, **kwargs):
+        step, calls = make_train_step(*args, **kwargs), [0]
+
+        def one(*a):
+            calls[0] += 1
+            if calls[0] != TRAIN_STEPS // 2:
+                return step(*a)
+            out = []
+            profile_window(f"training 124M {label}, rank 0, step {calls[0]}",
+                           lambda: (out.append(step(*a)), 1)[1], host_ops=12)
+            return out[0]
+        return one
+
+    ts.make_optimizer = capture
+    make_train_step = ts.make_train_step
+    rank = int(os.environ["RANK"])
+    if profile and rank == 0:
+        ts.make_train_step = profiled
+    destroy = torch.distributed.destroy_process_group
+    torch.distributed.destroy_process_group = gather_then_destroy
+    torch.cuda.reset_peak_memory_stats()
+    made["tracker"] = train.main(train_argv(data_dir, fused_layers, fused_matmul) + flags)
+    torch.cuda.synchronize()
+    tracker, whole = made["tracker"], made["whole"]
+    digest = hashlib.sha256()
+    for p in whole:
+        digest.update(p.numpy().tobytes())
+    print("ddp_worker " + json.dumps({
+        "rank": rank,
+        "launches": {name: w.launches for name, w in wrappers.items()},
+        "losses": list(tracker.buffers["loss"]),
+        "eval_loss": tracker.buffers["eval_loss"][-1],
+        "skipped": tracker.buffers.get("skipped_steps", [0])[-1],
+        "tokens_per_second": list(tracker.buffers["tokens_per_second"]),
+        "tokens_per_step": tracker.tokens_per_step,
+        "params_sha256": digest.hexdigest(),
+        "held": ts.state_bytes(made["params"], made["optimizer"], made["sharded"]),
+        "param_bytes": sum(p.nbytes for p in whole),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+    }), flush=True)
+
+
+def phase_ddp_training(local_ms_steps: dict[str, float], card: str, profile: bool) -> None:
+    """DDP_RUNS at 124M on two cards (NCCL), when the machine has them:
+    ``torch.distributed.run`` starts two ranks of this script in
+    ``--ddp_worker`` mode per run; checks finite, falling losses equal on
+    both ranks with the first near ln 50257, no skipped step, the final
+    params bit-identical across ranks (a digest per rank), each rank's
+    launches of K1, K2, K4-K7 equal to those its micro-batches imply
+    (``training_launches``), each rank's AdamW moments and its fp32 params
+    with their grads the run's shares of the replicated layout's, and the
+    fsdp run's peak allocation below the replicated run's by at least half
+    of the state bytes fsdp sheds; prints ms/step and tok/s beside the
+    local step's of ``phase_training`` in this call."""
+    import tempfile
+
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+
+    if torch.cuda.device_count() < 2:
+        print("training --training_mode ddp / fsdp: the NCCL runs need two GPUs and this "
+              f"machine has {torch.cuda.device_count()}; the data=2, fsdp=2, data=2 x fsdp=2 "
+              "and data=2 x sp=2 steps are held on the CPU over gloo by "
+              "tests/test_torch_ddp.py (against the local step and the JAX package's "
+              "mesh steps), and the kernels' per-shard seeds on this card by the "
+              "per-rank check above", flush=True)
+        return
+    with tempfile.TemporaryDirectory() as data_dir:
+        # Two ranks read a global batch of 8 rows: twice the local runs' data.
+        write_synthetic_shards(data_dir, num_shards=8, tokens_per_shard=262144, seed=0)
+        peaks, held = {}, {}
+        for index, (label, _, fused_layers, fused_matmul, share, held_share) in enumerate(
+                DDP_RUNS):
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "2", __file__, "--ddp_worker", data_dir, str(index)]
+                + (["--profile"] if profile else []),
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"{label} exited with {proc.returncode}:\n{proc.stdout[-4000:]}"
+                     f"\n{proc.stderr[-4000:]}")
+            for line in proc.stdout.splitlines():
+                if line.startswith(("profile ", "  ")):
+                    print(line, flush=True)
+            ranks = sorted((json.loads(line.split(" ", 1)[1])
+                            for line in proc.stdout.splitlines()
+                            if line.startswith("ddp_worker ")), key=lambda r: r["rank"])
+            if len(ranks) != 2:
+                fail(f"{label} reported {len(ranks)} ranks:\n{proc.stdout[-4000:]}")
+            losses = ranks[0]["losses"]
+            tok_s = sorted(ranks[0]["tokens_per_second"])[TRAIN_STEPS // 2]
+            ms_step = ranks[0]["tokens_per_step"] / tok_s * 1e3
+            local_label = "fused_matmul all" if fused_matmul == "all" else "off"
+            replicated = {"moments": 2 * ranks[0]["param_bytes"],
+                          "params": 2 * ranks[0]["param_bytes"]}
+            moments = [r["held"]["moments"] / replicated["moments"] for r in ranks]
+            pg = [(r["held"]["params"] + r["held"]["grads"]) / replicated["params"] for r in ranks]
+            peaks[index] = max(r["peak_bytes"] for r in ranks)
+            held[index] = max(sum(r["held"].values()) for r in ranks)
+            print(f"training 124M {label} on 2 cards ({card}): median {ms_step:.1f} ms/step "
+                  f"({tok_s:,.0f} tok/s over both cards, {ranks[0]['tokens_per_step']} tokens "
+                  f"a step) against the local {local_label} step's "
+                  f"{local_ms_steps[local_label]:.1f} ms/step in this call; first loss "
+                  f"{losses[0]:.4f}, last 5 mean {sum(losses[-5:]) / 5:.4f}, eval loss "
+                  f"{ranks[0]['eval_loss']:.4f}; AdamW moments per rank "
+                  f"{[r['held']['moments'] for r in ranks]} bytes ({moments[0]:.4f} of the "
+                  f"replicated layout's {replicated['moments']}); fp32 params + grads per "
+                  f"rank {[r['held']['params'] + r['held']['grads'] for r in ranks]} bytes "
+                  f"({pg[0]:.4f} of {replicated['params']}); peak allocated per rank "
+                  f"{[r['peak_bytes'] for r in ranks]} bytes; params "
+                  f"sha256 per rank {[r['params_sha256'][:16] for r in ranks]}; launches "
+                  f"per rank {[r['launches'] for r in ranks]}", flush=True)
+            if not (len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses)
+                    and all(r["losses"] == losses for r in ranks)
+                    and math.isfinite(ranks[0]["eval_loss"])):
+                fail(f"{label}: missing, non-finite or rank-dependent losses")
+            if abs(losses[0] - math.log(50257)) > 0.3 or not sum(losses[-5:]) / 5 < losses[0]:
+                fail(f"{label}: the first loss is not near ln(50257) or the loss did not fall")
+            if any(r["skipped"] for r in ranks):
+                fail(f"{label}: the guard skipped a step")
+            if len({r["params_sha256"] for r in ranks}) != 1:
+                fail(f"{label}: the ranks end with different params")
+            want = training_launches(fused_layers, fused_matmul)
+            for r in ranks:
+                if r["launches"] != want:
+                    fail(f"{label} rank {r['rank']} launches {r['launches']} != {want}")
+            if not all(abs(m - share) < 0.01 for m in moments):
+                fail(f"{label}: AdamW moments per rank are {moments} of the replicated "
+                     f"layout's, not {share}")
+            if not all(abs(m - held_share) < 0.01 for m in pg):
+                fail(f"{label}: fp32 params and grads per rank are {pg} of the replicated "
+                     f"layout's, not {held_share}")
+    # fsdp (run 1) sheds half the replicated state (run 2): its peak must
+    # fall by at least half of that (the rest may go to whole tensors in
+    # flight and to the allocator's rounding).
+    shed = held[2] - held[1]
+    print(f"training 124M on 2 cards ({card}): fsdp=2 peak {peaks[1]} bytes against "
+          f"data=2 off's {peaks[2]}: {peaks[2] - peaks[1]} bytes lower; held state "
+          f"{held[1]} against {held[2]} bytes", flush=True)
+    if not peaks[2] - peaks[1] >= shed / 2:
+        fail(f"fsdp=2 peak {peaks[1]} bytes is not {shed / 2:.0f} bytes below the replicated "
+             f"run's {peaks[2]}")
+
+
+def phase_ddp_ranks() -> None:
+    """Every rank of a data=2 x fsdp=2 mesh in this process, one after the
+    other (``activate_mesh(Mesh(spec, r))``, no process group): on that
+    rank's 4 rows of a global batch of 16 at 124M shapes, dropout 0.1, the
+    kernels the mesh runs with the per-shard seed of ``models/gpt2.py::
+    _site_seed`` (K1, K2, K4 and K6 forward and backward, K5 and its
+    rescale, K7's gelu and resid forward and the gelu leg's du, dgrad and
+    wgrad) against their plain versions under the same seed, to the
+    per-element bounds above; the ranks' masks (K5 on x = 0, o = 1) all
+    differ; the unfused dropout's rank blocks equal the global draw's rows
+    bit for bit."""
+    from gpt_2_distributed_torch.models import gpt2
+    from gpt_2_distributed_torch.ops import flash_attention as fa
+    from gpt_2_distributed_torch.ops import fused_layer as fl
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
+    from gpt_2_distributed_torch.ops.layers import dropout, site_key
+    from gpt_2_distributed_torch.ops.spmd import batch_axes, shard_offset
+    from gpt_2_distributed_torch.parallel.mesh import Mesh, MeshSpec, activate_mesh
+
+    bf, eps = torch.bfloat16, 1e-5
+    spec, rows = MeshSpec(data=2, fsdp=2), 4
+    b, h, t, d = TRAIN_SHAPE
+    c, f = h * d, 4 * h * d
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    n_global = spec.n_devices * rows
+    q, k, v, do = (randn(n_global, h, t, d) for _ in range(4))
+    x, o, dr, dy = (randn(n_global * t, c) for _ in range(4))
+    hh, dout = randn(n_global * t, f), randn(n_global * t, f)
+    scale, bias = 1 + randn(c, scale=0.1, dtype=torch.float32), randn(c, scale=0.1,
+                                                                     dtype=torch.float32)
+    bb = randn(f, scale=0.1)
+    w_fc, w_pr = randn(c, f, scale=c ** -0.5), randn(f, c, scale=f ** -0.5)
+    g = randn(n_global * t, f)
+    site = site_key(42, 3, 1, 5, 2)
+    masks, worst = [], {}
+
+    def hold(name, rank, checks):
+        ratio = max(q_ for _, q_ in checks)
+        worst[name] = max(worst.get(name, 0.0), ratio)
+        if ratio > 1.0:
+            fail(f"{name} on rank {rank} of {spec.to_str()} disagrees with its plain "
+                 f"version under the per-shard seed (max err/tol {ratio:.3f})")
+
+    for r in range(spec.n_devices):
+        mesh = Mesh(spec, r)
+        with activate_mesh(mesh):
+            b0 = shard_offset(mesh, batch_axes(mesh, rows), rows)
+            seed = gpt2._site_seed(site, DROPOUT, rows)
+        bl, tl = slice(b0, b0 + rows), slice(b0 * t, (b0 + rows) * t)
+        qr, kr, vr, dor = (a[bl] for a in (q, k, v, do))
+        o1, lse = fa.flash_attention_fwd(qr, kr, vr, DROPOUT, seed)
+        o_ref, _ = fa.flash_attention_plain(qr.float(), kr.float(), vr.float(), DROPOUT, seed)
+        (terms,) = fa.flash_error_terms(qr, kr, vr, DROPOUT, seed)
+        hold("flash_attention_fwd", r, [held_flash(o1, o_ref, terms)])
+        delta = (dor.float() * o1.float()).sum(-1)
+        grads = fa.flash_attention_bwd(qr, kr, vr, dor, lse, delta, DROPOUT, seed)
+        refs = fa.flash_attention_bwd_plain(qr.float(), kr.float(), vr.float(), dor.float(),
+                                            lse, delta, DROPOUT, seed)
+        terms = fa.flash_error_terms(qr, kr, vr, DROPOUT, seed, do=dor, delta=delta)[1:]
+        hold("flash_attention_bwd", r, [held_flash(gr, rf, w)
+                                        for gr, rf, w in zip(grads, refs, terms)])
+        xr, or_, drr, dyr, hr, doutr, gr_ = (a[tl] for a in (x, o, dr, dy, hh, dout, g))
+        rr, y, mean, rstd = fl.ln_residual_dropout_fwd(xr, or_, scale, bias, eps, DROPOUT, seed)
+        ref = fl.ln_residual_dropout_plain(xr.float(), or_.float(), scale, bias, eps, DROPOUT,
+                                           seed, dtype=bf)
+        hold("ln_residual_dropout_fwd", r, [held(rr, ref[0]), held(y, ref[1])])
+        lg = fl.ln_residual_dropout_bwd(rr, mean, rstd, scale, drr, dyr, DROPOUT, seed)
+        lref = fl.ln_residual_dropout_bwd_plain(rr.float(), mean, rstd, scale, drr.float(),
+                                                dyr.float(), DROPOUT, seed)
+        rhat = (rr.float() - mean[:, None]) * rstd[:, None]
+        hold("ln_residual_dropout_bwd", r, [
+            held(lg[0], lref[0]), held(lg[1], lref[1]),
+            held_colsum(lg[2], lref[2], (dyr.float() * rhat).abs().sum(0)),
+            held_colsum(lg[3], lref[3], dyr.float().abs().sum(0))])
+        hold("residual_dropout_fwd", r, [held(
+            fl.residual_dropout_fwd(xr, or_, DROPOUT, seed),
+            fl.residual_dropout_plain(xr.float(), or_.float(), DROPOUT, seed, dtype=bf))])
+        hold("dropout_scale", r, [held(fl.dropout_scale(drr, DROPOUT, seed),
+                                       fl.dropout_scale_plain(drr.float(), DROPOUT, seed,
+                                                              dtype=bf))])
+        hold("bias_gelu_dropout_fwd", r, [held(
+            fl.bias_gelu_dropout_fwd(hr, bb, DROPOUT, seed),
+            fl.bias_gelu_dropout_plain(hr.float(), bb.float(), DROPOUT, seed, dtype=bf))])
+        dh, db = fl.bias_gelu_dropout_bwd(hr, bb, doutr, DROPOUT, seed)
+        dh_p, db_p = fl.bias_gelu_dropout_bwd_plain(hr.float(), bb.float(), doutr.float(),
+                                                    DROPOUT, seed, dtype=bf)
+        hold("bias_gelu_dropout_bwd", r, [held(dh, dh_p),
+                                          held_colsum(db, db_p, dh_p.abs().sum(0))])
+        # K7: the fc leg (gelu) and the MLP out-projection (resid).
+        xf, wf, bfl = xr.float(), w_fc.float(), bb.float()
+        gain = EPI_GAIN / (1.0 - DROPOUT)
+        y7, u7 = fm.mm_gelu_fwd(xr, w_fc, bb, DROPOUT, seed, fm.SALT_MM_GELU)
+        y_ref, u_ref = fm.matmul_fwd_plain("gelu", xf, wf, bfl, None, DROPOUT, seed,
+                                           fm.SALT_MM_GELU)
+        terms_fwd = xf.abs() @ wf.abs() + bfl.abs()
+        hold("mm_gelu_fwd", r, [held_mm(y7, y_ref, gain * terms_fwd),
+                                held_mm(u7, u_ref, terms_fwd)])
+        yr = fm.mm_resid_fwd(hr, w_pr, bias.to(bf), xr, DROPOUT, seed, fm.SALT_MM_MLP_PROJ)
+        yr_ref = fm.matmul_fwd_plain("resid", hr.float(), w_pr.float(), bias.to(bf).float(),
+                                     xr.float(), DROPOUT, seed, fm.SALT_MM_MLP_PROJ)
+        hold("mm_resid_fwd", r, [held_mm(yr, yr_ref, gain * (
+            hr.float().abs() @ w_pr.float().abs() + bias.abs()))])
+        gf, uf = gr_.float(), u7.float()
+        du = fm.du_plain(gf, uf, DROPOUT, seed, fm.SALT_MM_GELU, bf)
+        du_k, db_k = fm.mm_du(gr_, u7, DROPOUT, seed, fm.SALT_MM_GELU)
+        err = (du_k.float() - du).abs()
+        hold("mm_du", r, [(err.max().item(), (err / (2.0 ** -7 * du.abs())).nan_to_num(
+            0.0, float("inf")).max().item()), held_mm(db_k, du.sum(0), du.abs().sum(0))])
+        dx = fm.mm_dgrad_gelu(du_k, w_fc)
+        dx_ref = fm.matmul_dgrad_plain(gf, wf, uf, DROPOUT, seed, fm.SALT_MM_GELU, bf)
+        hold("mm_dgrad_gelu", r, [held_mm(dx, dx_ref, du.abs() @ wf.abs().t())])
+        dw = fm.mm_wgrad_gelu(xr, du_k)
+        dw_ref, _ = fm.matmul_wgrad_plain(xf, gf, uf, DROPOUT, seed, fm.SALT_MM_GELU, bf)
+        hold("mm_wgrad_gelu", r, [held_mm(dw, dw_ref, xf.abs().t() @ du.abs())])
+        masks.append(fl.residual_dropout_fwd(torch.zeros_like(xr[:1024]),
+                                             torch.ones_like(xr[:1024]), DROPOUT, seed) == 0)
+    differ = all(not torch.equal(masks[i], masks[j])
+                 for i in range(len(masks)) for j in range(i))
+    # The unfused dropout (plain torch) hashes global coordinates: each
+    # rank's block of the draw equals the global draw's rows.
+    xg = x.view(n_global, t, c)
+    whole = dropout(xg, DROPOUT, site, False)
+    blocks_equal = True
+    for r in range(spec.n_devices):
+        mesh = Mesh(spec, r)
+        b0 = shard_offset(mesh, batch_axes(mesh, rows), rows)
+        blk = dropout(xg[b0:b0 + rows], DROPOUT, site, False, origin=(b0, 0, 0))
+        blocks_equal = blocks_equal and torch.equal(blk, whole[b0:b0 + rows])
+    print(f"per-rank kernels on {spec.to_str()} in one process ({rows} rows of {n_global} "
+          f"each, [{rows}, {h}, {t}, {d}] attention, [{rows * t}, {c} / {f}] epilogues and "
+          f"legs, dropout {DROPOUT}, the per-shard seed): max err/tol over the ranks "
+          + ", ".join(f"{name} {q_:.3f}" for name, q_ in worst.items())
+          + f"; the ranks' K5 masks all differ: {differ}; the unfused dropout's rank blocks "
+          f"bit-equal to the global draw's rows: {blocks_equal}", flush=True)
+    if not (differ and blocks_equal):
+        fail("a rank's dropout stream is not its own, or the unfused dropout's rank blocks "
+             "differ from the global draw")
+
+
 def profile_train_step(fused_layers: str, fused_matmul: str) -> None:
     """A torch.profiler window over one optimizer step (4 micro-batches of
     [4, 1024]) of the 124M train step, after one warm-up step."""
@@ -2998,6 +3380,10 @@ def profile_train_step(fused_layers: str, fused_matmul: str) -> None:
 def main() -> None:
     if "--sp_worker" in sys.argv[1:]:
         sp_worker(sys.argv[sys.argv.index("--sp_worker") + 1], "--profile" in sys.argv)
+        return
+    if "--ddp_worker" in sys.argv[1:]:
+        i = sys.argv.index("--ddp_worker")
+        ddp_worker(sys.argv[i + 1], int(sys.argv[i + 2]), "--profile" in sys.argv)
         return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -3045,6 +3431,8 @@ def main() -> None:
     counts, ms_steps, train_losses = phase_training(profile)
     front = phase_frontend(train_losses["off"])
     k8_train = phase_sp_training(ms_steps["off"], profile)
+    phase_ddp_ranks()
+    phase_ddp_training(ms_steps, card, profile)
     k8 = k8_ring if k8_train is None else k8_train
     k1_serve, k3 = serving["flash_attention_fwd"], serving["paged_attention_kernel"]
     k1_train = sum(c["flash_attention_fwd"] for c in counts.values())

@@ -63,7 +63,8 @@ from gpt_2_distributed_torch.ops.layers import (
     site_key,
 )
 from gpt_2_distributed_torch.ops.losses import IGNORE_INDEX, blocked_cross_entropy
-from gpt_2_distributed_torch.parallel.mesh import sp_mesh
+from gpt_2_distributed_torch.ops.spmd import batch_axes, shard_offset, shard_seed
+from gpt_2_distributed_torch.parallel.mesh import active_mesh
 
 INIT_SEED = 42
 
@@ -178,9 +179,21 @@ def _mm_proj_fused(config: GPT2Config) -> bool:
     return config.fused_matmul in ("proj", "all")
 
 
-def _site_seed(key: tuple[int, int] | None) -> int | None:
-    """A fused kernel's int seed from its site's key words."""
-    return None if key is None else attention_seed(key)
+def _site_seed(key: tuple[int, int] | None, rate: float = 0.0,
+               batch: int = 1) -> int | None:
+    """A kernel's int seed from its site's key words. Under a data/fsdp
+    mesh the kernels (flash attention, K4-K7) hash this process's LOCAL
+    coordinates, so, as the JAX package's shard_map wrappers do, the seed
+    is the per-shard seed of ``ops/spmd.py::shard_seed`` over the batch
+    axes of a ``batch``-row block (unchanged at ``rate`` 0, with no mesh,
+    and under sp > 1, where the ring hashes global coordinates)."""
+    if key is None:
+        return None
+    seed = attention_seed(key)
+    mesh = active_mesh()
+    if mesh is None or mesh.sp > 1:
+        return seed
+    return shard_seed(seed, mesh, batch_axes(mesh, batch), rate)
 
 
 def _mlp_core(config: GPT2Config, y: torch.Tensor, bp: dict, rate: float,
@@ -193,12 +206,13 @@ def _mlp_core(config: GPT2Config, y: torch.Tensor, bp: dict, rate: float,
     ("gelu", "all") the bias add, GELU and dropout run as one epilogue over
     the matmul output (K6, ``ops/fused_layer.py``); both in eval mode too
     (at rate 0). Otherwise the unfused composition."""
+    seed = _site_seed(key, rate, y.shape[0])
     if _mm_fc_fused(config):
         return fm.matmul_bias_gelu_dropout(y, bp["mlp_fc_w"], bp["mlp_fc_b"], rate=rate,
-                                           seed=_site_seed(key), deterministic=rate == 0.0)
+                                           seed=seed, deterministic=rate == 0.0)
     if _gelu_fused(config):
         return fused_bias_gelu_dropout(linear(y, bp["mlp_fc_w"], None, infer),
-                                       bp["mlp_fc_b"], rate=rate, seed=_site_seed(key),
+                                       bp["mlp_fc_b"], rate=rate, seed=seed,
                                        deterministic=rate == 0.0)
     y = gelu_tanh(linear(y, bp["mlp_fc_w"], bp["mlp_fc_b"], infer))
     return dropout(y, rate, key, rate == 0.0, origin)
@@ -217,7 +231,8 @@ def mlp_sublayer(config: GPT2Config, x: torch.Tensor, bp: dict,
     y = _mlp_core(config, y, bp, rate, keys[0], infer, origin)
     if _mm_proj_fused(config):
         return fm.matmul_bias_residual_dropout(
-            y, bp["mlp_proj_w"], bp["mlp_proj_b"], x, rate=rate, seed=_site_seed(keys[1]),
+            y, bp["mlp_proj_w"], bp["mlp_proj_b"], x, rate=rate,
+            seed=_site_seed(keys[1], rate, x.shape[0]),
             deterministic=rate == 0.0, salt=fm.SALT_MM_MLP_PROJ)
     y = linear(y, bp["mlp_proj_w"], bp["mlp_proj_b"], infer)
     return x + dropout(y, rate, keys[1], rate == 0.0, origin)
@@ -252,7 +267,7 @@ def _attention(config: GPT2Config, x: torch.Tensor, bp: dict, rate: float,
     y = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], config.layer_norm_eps)
     q, k, v = qkv_proj(config, y, bp)
     attn_fn = select_attention_impl(config.attention_impl, x.device)
-    seed = attention_seed(key) if rate > 0.0 else None
+    seed = _site_seed(key, rate, b) if rate > 0.0 else None
     return attn_fn(q, k, v, dropout_rate=rate, seed=seed).reshape(b, t, c)
 
 
@@ -263,7 +278,7 @@ def _mlp_half_fused(config: GPT2Config, x: torch.Tensor, y2: torch.Tensor, bp: d
     activation and out-projection sites'."""
     y = _mlp_core(config, y2, bp, rate, keys[0])
     y = y @ bp["mlp_proj_w"] + bp["mlp_proj_b"]
-    return fused_residual_dropout(x, y, rate=rate, seed=_site_seed(keys[1]),
+    return fused_residual_dropout(x, y, rate=rate, seed=_site_seed(keys[1], rate, x.shape[0]),
                                   deterministic=rate == 0.0)
 
 
@@ -291,12 +306,13 @@ def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
     if _mm_proj_fused(config):
         x = fm.matmul_bias_residual_dropout(
             o, bp["attn_proj_w"], bp["attn_proj_b"], x, rate=resid_rate,
-            seed=_site_seed(key(SITE_ATTN_RESID)), deterministic=not train,
+            seed=_site_seed(key(SITE_ATTN_RESID), resid_rate, x.shape[0]),
+            deterministic=not train,
             salt=fm.SALT_MM_ATTN_PROJ)
     elif _ln_fused(config):
         x, y2 = fused_ln_residual_dropout(
             x, attn_out(o, bp), bp["ln2_scale"], bp["ln2_bias"], eps=config.layer_norm_eps,
-            rate=resid_rate, seed=_site_seed(key(SITE_ATTN_RESID)),
+            rate=resid_rate, seed=_site_seed(key(SITE_ATTN_RESID), resid_rate, x.shape[0]),
             deterministic=not train)
         return _mlp_half_fused(config, x, y2, bp, resid_rate, mlp_keys)
     else:
@@ -322,19 +338,26 @@ def hidden_states(
     :func:`ops.layers.site_key`, statelessly, so the same step redraws the
     same masks. ``deterministic=False`` (training) needs it.
 
-    Under an active mesh with sp > 1 (``parallel/mesh.py``) ``idx`` is this
-    process's ``[B, T/sp]`` block of the sequence, whose first position is
-    ``sp_index * T/sp``: the positions and every dropout site's bits are
-    those of that slice of the global sequence, and attention runs the ring
-    over the mesh."""
+    Under an active mesh (``parallel/mesh.py``) ``idx`` is this process's
+    block of the global batch: its rows from ``shard_offset`` over the
+    batch axes, and under sp > 1 its ``T/sp`` block of the sequence, whose
+    first position is ``sp_index * T/sp``. The positions and every unfused
+    dropout site's bits are those of that slice of the global ``[B, T,
+    C]`` (the JAX package hashes the global view), the kernel sites take
+    the per-shard seed (:func:`_site_seed`), and under sp > 1 attention
+    runs the ring over the mesh."""
     b, t = idx.shape
-    mesh = sp_mesh()
-    seq0, t_global = (0, t) if mesh is None else (mesh.sp_index * t, mesh.sp * t)
+    mesh = active_mesh()
+    seq0, t_global, row0 = 0, t, 0
+    if mesh is not None:
+        seq0, t_global = mesh.sp_index * t, mesh.sp * t
+        row0 = shard_offset(mesh, batch_axes(mesh, b), b)
     if t_global > config.n_positions:
         raise ValueError(
             f"sequence length {t_global} exceeds n_positions {config.n_positions}"
         )
-    if mesh is not None and (config.fused_layers, config.fused_matmul) != ("off", "off"):
+    if (mesh is not None and mesh.sp > 1
+            and (config.fused_layers, config.fused_matmul) != ("off", "off")):
         raise ValueError(
             f"fused_layers={config.fused_layers!r} / fused_matmul={config.fused_matmul!r} "
             f"under a mesh with sp={mesh.sp} is not ported to PyTorch yet (the JAX "
@@ -343,7 +366,7 @@ def hidden_states(
         )
     if not deterministic and rng is None:
         raise ValueError("training-mode forward (deterministic=False) needs rng")
-    origin = (0, seq0, 0)
+    origin = (row0, seq0, 0)
     w = {"wte": params["wte"].to(compute_dtype), "wpe": params["wpe"].to(compute_dtype)}
     x = embed(w, config, idx, seq0 + torch.arange(t, device=idx.device)[None])
     if not deterministic:

@@ -37,8 +37,8 @@ import torch
 
 from gpt_2_distributed_torch.ops.flash_block import flash_block
 from gpt_2_distributed_torch.ops.spmd import (
-    BATCH_AXIS_NAMES,
     HEAD_AXIS_NAMES,
+    batch_axes,
     dividing_axes,
     shard_offset,
 )
@@ -79,7 +79,7 @@ def ring_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``[B, T/sp, H, D]`` output. ``seed`` is the int attention-dropout seed,
     the same on every rank."""
     b, _, h, _ = q.shape
-    b_off = shard_offset(mesh, dividing_axes(mesh, BATCH_AXIS_NAMES, b), b)
+    b_off = shard_offset(mesh, batch_axes(mesh, b), b)
     h_off = shard_offset(mesh, dividing_axes(mesh, HEAD_AXIS_NAMES, h), h)
     return _ring_local(q, k, v, sp=mesh.sp, idx=mesh.sp_index, shift=mesh.shift,
                        b_off=b_off, h_off=h_off, dropout_rate=dropout_rate, seed=seed)

@@ -5,9 +5,12 @@ share (``gpt_2_distributed_tpu/ops/spmd.py``).
 (K1/K2) and of the ring's block kernel (K8); :func:`dividing_axes` and
 :func:`shard_offset` give a shard's global batch or head origin over the
 mesh axes that divide that dim, which the hash takes as absolute
-coordinates. The fused-path fallback registry of the JAX module has no
-counterpart: the port refuses the fused layers under a sequence-parallel
-mesh instead of falling back.
+coordinates; :func:`shard_seed` is the JAX wrappers' other scheme, for the
+kernels that hash LOCAL coordinates under a data/fsdp mesh (flash attention
+and the fused epilogues): the linear shard index mixed into the seed. The
+fused-path fallback registry of the JAX module has no counterpart: the port
+refuses the fused layers under a sequence-parallel mesh instead of falling
+back.
 
 uint32 arithmetic in torch: the values live in int64 tensors (or Python
 ints) holding uint32 values. Every product is kept exact by splitting the
@@ -51,6 +54,35 @@ def shard_offset(mesh, axes: tuple[str, ...], local_dim: int) -> int:
     for a in axes:
         off = off * mesh.shape[a] + mesh.axis_index(a)
     return off * local_dim
+
+
+def batch_axes(mesh, local_batch: int) -> tuple[str, ...]:
+    """The batch-like axes of ``mesh`` that split a batch of which this
+    process holds ``local_batch`` rows: :func:`dividing_axes` over the
+    GLOBAL batch (``local_batch`` times those axes' degrees), the dim the
+    JAX wrappers see under their global view."""
+    n = 1
+    for a in mesh.axis_names:
+        if a in BATCH_AXIS_NAMES:
+            n *= mesh.shape[a]
+    return dividing_axes(mesh, BATCH_AXIS_NAMES, local_batch * n)
+
+
+def shard_seed(seed: int, mesh, axes: tuple[str, ...], rate: float) -> int:
+    """The kernel seed of this process's shard: ``seed ^ (idx *
+    0x9E3779B1)`` in uint32, ``idx`` the linear index of this process over
+    ``axes`` (row-major), returned as the int32 of those bits — the JAX
+    ``_shard_seed`` (``ops/fused_layer.py``) and the flash wrapper's
+    mixing, which give every shard of a kernel that hashes local
+    coordinates its own stream. At ``rate`` 0, or with no axes, ``seed``
+    is returned unchanged."""
+    if rate <= 0.0 or not axes:
+        return seed
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.axis_index(a)
+    bits = (seed & M32) ^ mul32(idx & M32, 0x9E3779B1)
+    return bits - (1 << 32) if bits >= 1 << 31 else bits
 
 
 def mul32(x, c: int):

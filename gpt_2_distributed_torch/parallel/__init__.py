@@ -1,3 +1,2 @@
-"""Training step and the sequence-parallel mesh
-(``gpt_2_distributed_tpu/parallel``); the sharding modules come with the
-DDP/FSDP slice."""
+"""Training step, mesh and placement rules (``gpt_2_distributed_tpu/parallel``):
+one device, or a data / fsdp / sequence-parallel mesh of processes."""

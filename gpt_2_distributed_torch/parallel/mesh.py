@@ -7,11 +7,18 @@ process per device: here the mesh is the process group, each process
 holds one position on it, and the code that needs the mesh reads its
 degrees and this process's index along each axis from :class:`Mesh`.
 
-What the port runs so far is sequence parallelism: ``sp`` processes, each
-holding a contiguous ``T/sp`` block of every sequence, with ring attention
-(``ops/ring_attention.py``) passing K/V blocks around the ring. A ``data``,
-``fsdp`` or ``tp`` degree above 1 is refused: they come with the DDP/FSDP
-and tensor-parallel slices of the port.
+What the port runs: ``data`` (data parallel: the batch split, the
+gradients summed), ``fsdp`` (the batch split too, and the fp32 master
+weights, their gradients' reduction and the AdamW state sharded by
+``parallel/sharding.py``) and ``sp`` (each process holds a contiguous
+``T/sp`` block of every sequence, ring attention passes K/V blocks around
+the ring), in any combination. A ``tp`` degree above 1 is refused: it
+comes with the tensor-parallel slice of the port.
+
+:class:`Mesh` runs ``all_reduce``/``all_gather``/``reduce_scatter`` over a
+named set of its axes (the 'data' ranks, the 'fsdp' ranks, the (data,
+fsdp) batch group, ...), through a process subgroup per set, made on
+first use, its ranks ordered as :meth:`Mesh.axis_index` orders them.
 
 The port keeps its own copies of ``MeshSpec`` and of the JAX CLI's
 ``validate_mesh_for_config``; :func:`activate_mesh` / :func:`active_mesh`
@@ -22,6 +29,7 @@ package.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from dataclasses import dataclass
 
@@ -33,6 +41,7 @@ FSDP_AXIS = "fsdp"
 SP_AXIS = "sp"    # sequence/context parallel (ring attention)
 TP_AXIS = "tp"    # tensor (Megatron) parallel
 AXES = (DATA_AXIS, FSDP_AXIS, SP_AXIS, TP_AXIS)
+TRAINING_MODES = ("local", "dp", "ddp", "fsdp")
 
 
 @dataclass(frozen=True)
@@ -84,22 +93,31 @@ class MeshSpec:
         """The inverse of :meth:`parse`: ``"data=2,fsdp=4,sp=1,tp=1"``."""
         return f"data={self.data},fsdp={self.fsdp},sp={self.sp},tp={self.tp}"
 
+    @classmethod
+    def for_mode(cls, mode: str, n_devices: int | None = None) -> "MeshSpec":
+        """The mesh of a ``--training_mode``: 'local' one device, 'dp' /
+        'ddp' every device on 'data', 'fsdp' every device on 'fsdp'.
+        ``n_devices`` defaults to the launcher's ``WORLD_SIZE`` (one
+        process per device)."""
+        if n_devices is None:
+            n_devices = int(os.environ.get("WORLD_SIZE", "1"))
+        if mode == "local":
+            return cls(1, 1)
+        if mode in ("dp", "ddp"):
+            return cls(n_devices, 1)
+        if mode == "fsdp":
+            return cls(1, n_devices)
+        raise ValueError(f"unknown training_mode {mode!r}; expected one of {TRAINING_MODES}")
+
 
 def refuse_unported_axes(spec: MeshSpec) -> None:
-    """Raise ValueError for a degree this slice of the port does not run:
-    ``data``/``fsdp`` > 1 (the DDP/FSDP slice) or ``tp`` > 1 (the
-    tensor-parallel slice)."""
-    if spec.data > 1 or spec.fsdp > 1:
-        raise ValueError(
-            f"mesh {spec.to_str()}: data/fsdp degrees above 1 are not ported "
-            f"to PyTorch yet: they come in the DDP/FSDP slice of the port "
-            f"(this slice runs sp only)"
-        )
+    """Raise ValueError for a degree the port does not run yet: ``tp`` > 1
+    (the tensor-parallel slice)."""
     if spec.tp > 1:
         raise ValueError(
             f"mesh {spec.to_str()}: tp above 1 is not ported to PyTorch yet: "
-            f"it comes in the tensor-parallel slice of the port (this slice "
-            f"runs sp only)"
+            f"it comes in the tensor-parallel slice of the port (the port runs "
+            f"data, fsdp and sp)"
         )
 
 
@@ -121,6 +139,12 @@ def validate_mesh_for_config(spec: MeshSpec, config, model_name: str,
             f"sp={spec.sp} does not divide seq_len={seq_len}: ring attention "
             f"needs a whole T/sp sequence chunk per device"
         )
+
+
+# The flat-tensor collectives under their current names (older torch has
+# only the ``*_tensor`` spellings).
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
 class _RingShift(torch.autograd.Function):
@@ -145,7 +169,14 @@ class Mesh:
 
     ``shape`` maps each axis to its degree and :meth:`axis_index` gives
     this process's index along it, so ``ops/spmd.py``'s helpers read it as
-    they read a JAX mesh."""
+    they read a JAX mesh.
+
+    With ``torch.distributed`` initialized, :meth:`group_of` makes the
+    subgroup of a set of axes the first time it is asked for it:
+    ``new_group`` is collective, so every process must ask for the same
+    sets in the same order, as it does when it runs the same collectives.
+    Without it the mesh is a place on the grid only (a single process
+    standing in for one rank); its collectives then raise."""
 
     axis_names = AXES
 
@@ -158,14 +189,92 @@ class Mesh:
         self.group = group
         self.shape = {DATA_AXIS: spec.data, FSDP_AXIS: spec.fsdp,
                       SP_AXIS: spec.sp, TP_AXIS: spec.tp}
+        self._live = tuple(a for a in AXES if self.shape[a] > 1)
+        self._groups: dict[tuple[str, ...], object] = {}
+        self._distributed = (spec.n_devices > 1 and dist.is_available()
+                             and dist.is_initialized())
 
-    def axis_index(self, axis: str) -> int:
+    def _global_rank(self, mesh_rank: int) -> int:
+        return mesh_rank if self.group is None else dist.get_global_rank(self.group, mesh_rank)
+
+    def _make_group(self, axes: tuple[str, ...]):
+        """This process's subgroup over ``axes``: the processes that share
+        its index on every other axis, in rank order. ``new_group`` is
+        collective, so every process makes the groups of every index."""
+        rest = [a for a in AXES if a not in axes]
+        members: dict[tuple[int, ...], list[int]] = {}
+        for m in range(self.spec.n_devices):
+            members.setdefault(tuple(self._index_of(m, a) for a in rest), []).append(m)
+        mine = None
+        for ranks in members.values():
+            g = dist.new_group([self._global_rank(m) for m in ranks])
+            if self.rank in ranks:
+                mine = g
+        return mine
+
+    def _index_of(self, rank: int, axis: str) -> int:
         inner = 1
         for a in reversed(AXES):
             if a == axis:
-                return (self.rank // inner) % self.shape[a]
+                return (rank // inner) % self.shape[a]
             inner *= self.shape[a]
         raise KeyError(axis)
+
+    def axis_index(self, axis: str) -> int:
+        return self._index_of(self.rank, axis)
+
+    def axes_of(self, axes) -> tuple[str, ...]:
+        """``axes`` (names) in mesh order, with the degree-1 ones dropped."""
+        return tuple(a for a in self._live if a in axes)
+
+    def size_of(self, axes) -> int:
+        n = 1
+        for a in self.axes_of(axes):
+            n *= self.shape[a]
+        return n
+
+    def group_of(self, axes):
+        """The process group of this process over the mesh axes ``axes``
+        (the ranks that differ from it only there)."""
+        axes = self.axes_of(axes)
+        if not self._distributed:
+            raise RuntimeError(
+                f"mesh {self.spec.to_str()} has no process group: initialize "
+                f"torch.distributed before constructing it"
+            )
+        if axes == self._live:
+            return self.group
+        if axes not in self._groups:
+            self._groups[axes] = self._make_group(axes)
+        return self._groups[axes]
+
+    def all_reduce(self, t: torch.Tensor, axes=AXES) -> torch.Tensor:
+        """Sum ``t`` in place over ``axes`` (every process of the group holds
+        the same result); returns it."""
+        if self.size_of(axes) > 1:
+            dist.all_reduce(t, group=self.group_of(axes))
+        return t
+
+    def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The flat ``t`` of every process of the ``axes`` group, concatenated
+        in its rank order: ``[n * t.numel()]``."""
+        n = self.size_of(axes)
+        if n == 1:
+            return t.reshape(-1)
+        out = torch.empty(n * t.numel(), dtype=t.dtype, device=t.device)
+        _ALL_GATHER(out, t.reshape(-1).contiguous(), group=self.group_of(axes))
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Sum the flat ``[n * k]`` ``t`` over the ``axes`` group and return
+        this process's ``[k]`` chunk of the sum (its index in the group's
+        rank order)."""
+        n = self.size_of(axes)
+        if n == 1:
+            return t.reshape(-1)
+        out = torch.empty(t.numel() // n, dtype=t.dtype, device=t.device)
+        _REDUCE_SCATTER(out, t.reshape(-1).contiguous(), group=self.group_of(axes))
+        return out
 
     @property
     def sp(self) -> int:
@@ -176,7 +285,9 @@ class Mesh:
         return self.axis_index(SP_AXIS)
 
     def _sp_peer(self, hops: int) -> int:
-        """Global rank of the process ``hops`` steps along the sp ring."""
+        """Global rank of the process ``hops`` steps along this process's sp
+        ring (only 'tp' is inside 'sp', so the ring's ranks are ``tp``
+        apart whatever the data and fsdp degrees)."""
         inner = self.spec.tp
         peer = self.rank + ((self.sp_index + hops) % self.sp - self.sp_index) * inner
         return peer if self.group is None else dist.get_global_rank(self.group, peer)
@@ -197,12 +308,6 @@ class Mesh:
         gradients to their owners."""
         kv = _RingShift.apply(torch.stack([k, v]), self)
         return kv[0], kv[1]
-
-    def all_reduce_(self, tensors: list[torch.Tensor]) -> None:
-        """Sum each tensor in place over the mesh (every process holds the
-        result, the same on each)."""
-        for t in tensors:
-            dist.all_reduce(t, group=self.group)
 
 
 class _MeshStack(threading.local):
@@ -228,6 +333,12 @@ def active_mesh() -> Mesh | None:
     """The innermost :func:`activate_mesh` mesh of this thread, or None."""
     stack = _ACTIVE_MESH_STACK.stack
     return stack[-1] if stack else None
+
+
+def multi_mesh() -> Mesh | None:
+    """The active mesh when it has more than one process."""
+    m = active_mesh()
+    return m if m is not None and m.spec.n_devices > 1 else None
 
 
 def sp_mesh() -> Mesh | None:

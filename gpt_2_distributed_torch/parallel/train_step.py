@@ -1,6 +1,6 @@
 """The training step: loss -> grad -> accumulate -> AdamW update
 (``gpt_2_distributed_tpu/parallel/train_step.py``), eagerly, on one device
-or as one process of a sequence-parallel mesh.
+or as one process of a data / fsdp / sequence-parallel mesh.
 
 As in the JAX package:
 
@@ -22,15 +22,26 @@ As in the JAX package:
 * **Dropout keys** come from ``(seed, step_idx, micro-batch)``
   (``models/gpt2.py::hidden_states``), so a resumed run at step N redraws
   step N's masks.
-* **Sequence parallelism.** Under an active mesh with sp > 1
-  (``parallel/mesh.py``) each process holds every micro-batch's ``[B,
-  T/sp]`` block and the loss stays the GLOBAL token mean, as the JAX
-  package's global view computes it: one all-reduce of the valid-label
-  counts per step makes each micro-batch's loss ``local sum / global
-  count``; after accumulation the grads are summed over the mesh in a few
-  flat buckets, and the loss too. The grad norm is taken after that, so
-  the guard decides the same on every process and the params stay
-  bit-identical across them.
+* **Meshes.** Under an active mesh of more than one process
+  (``parallel/mesh.py``) each process holds its rows of every micro-batch
+  (the batch split over ('data', 'fsdp')) and its ``T/sp`` block of each
+  row, and the loss stays the GLOBAL token mean, as the JAX package's
+  global view computes it: one all-reduce of the valid-label counts per
+  step makes each micro-batch's loss ``local sum / global count``.
+  With the state replicated, autograd sums each micro-batch's grads into
+  the full fp32 ``.grad`` and the grads are summed over the mesh in a few
+  flat buckets (with the loss), and the grad norm is taken after that.
+  With a sharded state (:class:`ShardedUpdate`: 'fsdp' > 1, or
+  ``--shard_update`` on a 'data' axis) AdamW updates fp32 master shards
+  with moments of the same shape. Under 'fsdp' the shards are the params:
+  each forward gathers a tensor whole when the model reaches it and each
+  backward reduce-scatters its grad onto the shard. Under
+  ``--shard_update`` the whole params take the grads, which are
+  reduce-scattered onto the shards once a step, and the fresh shards are
+  gathered back into them. The guard decides on the global norm (each
+  shard's squares counted once over the mesh, in one all-reduce with the
+  loss), the per-leaf clip on each leaf's full norm. Either way every
+  process decides the same and ends the step with bit-identical params.
 
 The guarded step (``guard=True``) reads the loss and the grad norm on the
 host to decide whether to apply the update: one device sync per optimizer
@@ -44,6 +55,7 @@ layers) to L2 norm ``layer_clip_norm`` and applies.
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from typing import Callable, NamedTuple
 
 import torch
@@ -51,7 +63,13 @@ import torch
 from gpt_2_distributed_torch.config import GPT2Config
 from gpt_2_distributed_torch.models import gpt2
 from gpt_2_distributed_torch.ops.losses import IGNORE_INDEX
-from gpt_2_distributed_torch.parallel.mesh import sp_mesh
+from gpt_2_distributed_torch.parallel.mesh import AXES, DATA_AXIS, FSDP_AXIS, multi_mesh
+from gpt_2_distributed_torch.parallel.sharding import (
+    TOP_KEYS,
+    TensorLayout,
+    take_shard,
+    tensor_layouts,
+)
 from gpt_2_distributed_torch.resilience import (
     SKIP_NONFINITE_GRAD,
     SKIP_NONFINITE_LOSS,
@@ -61,7 +79,7 @@ from gpt_2_distributed_torch.resilience import (
 DEFAULT_WEIGHT_DECAY = 0.1
 DEFAULT_BETAS = (0.9, 0.95)
 DEFAULT_EPS = 1e-8
-# Elements per flat bucket of the sp gradient all-reduce (128 MB of fp32):
+# Elements per flat bucket of the gradient collectives (128 MB of fp32):
 # 124M's 148 grads go in 4 calls.
 GRAD_BUCKET_ELEMS = 1 << 25
 
@@ -112,6 +130,260 @@ class ScheduledAdamW(torch.optim.AdamW):
         self.count += 1
 
 
+def _buckets(items: list, numel) -> list[list]:
+    """``items`` in runs of at most GRAD_BUCKET_ELEMS elements (one item
+    alone may exceed it)."""
+    buckets, size = [], 0
+    for it in items:
+        n = numel(it)
+        if not buckets or (buckets[-1] and size + n > GRAD_BUCKET_ELEMS):
+            buckets.append([])
+            size = 0
+        buckets[-1].append(it)
+        size += n
+    return buckets
+
+
+class _Gather(torch.autograd.Function):
+    """Tensors ``idx`` of a :class:`ShardedUpdate` whole, all-gathered
+    from their shards; the backward reduce-scatters their whole grads back
+    onto the shards."""
+
+    @staticmethod
+    def forward(ctx, sharded, idx, *shards):
+        ctx.sharded, ctx.idx = sharded, idx
+        return tuple(w.reshape(sharded.shapes[i])
+                     for i, w in zip(idx, sharded.gather(idx, shards)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.sharded.scatter(ctx.idx, grads))
+
+
+class _Layers(Sequence):
+    """The blocks of a forward's params, each made when the forward reaches
+    it."""
+
+    def __init__(self, n: int, get: Callable[[int], dict]):
+        self.n, self.get = n, get
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, layer: int) -> dict:
+        if not 0 <= layer < self.n:
+            raise IndexError(layer)
+        return self.get(layer)
+
+
+class ShardedUpdate:
+    """This process's part of a sharded training state: for each tensor of
+    :func:`param_list`, its fp32 master shard in the layout of
+    ``parallel/sharding.py::tensor_layouts`` (this process's chunk along
+    every placed dim), which AdamW holds and updates. A tensor is one of:
+
+    * **placed on 'fsdp'** (the JAX fsdp layout: params sharded): the
+      shard is the only copy, and the tensor in ``params`` is emptied.
+      Each forward all-gathers it whole from the shard when the model
+      reaches it (:meth:`working`: a block's tensors at that block), the
+      graph holds the whole tensor (or its compute-dtype cast) until the
+      backward has used it, and the backward reduce-scatters its grad onto
+      the shard's ``.grad`` there and then. Between micro-batches a process
+      holds 1/N of these params, grads and moments.
+    * **placed on 'data' only** (``--shard_update``: params replicated, the
+      update sharded): the whole param stays the model's working copy and
+      takes the micro-batches' grads; :meth:`reduce_grads` reduce-scatters
+      them onto the shard once a step and :meth:`gather_params` copies the
+      updated shards back into it.
+    * **placed nowhere** (no degree divides a dim): the shard is the param.
+    """
+
+    def __init__(self, params: dict, mesh, layouts: list[TensorLayout]):
+        self.mesh = mesh
+        self.layouts = layouts
+        self.params = param_list(params)
+        self.n_layer = len(params["blocks"])
+        self.shapes = [p.shape for p in self.params]
+        self.gathered = [any(a == FSDP_AXIS for a, _ in lay.placement) for lay in layouts]
+        # The 'data'-only tensors: whole params, sharded update.
+        self.replicated = [i for i, lay in enumerate(layouts)
+                           if lay.placement and not self.gathered[i]]
+        self.shards = []
+        with torch.no_grad():
+            for p, lay, gathered in zip(self.params, layouts, self.gathered):
+                if not lay.placement:
+                    self.shards.append(p)
+                    continue
+                self.shards.append(take_shard(p, lay, mesh).clone().requires_grad_())
+                if gathered:
+                    p.data = p.new_empty(0)
+        self.n_leaves = max(lay.leaf for lay in layouts) + 1
+        # The grads are summed over every axis over which the processes hold
+        # different tokens: reduce-scattered over those that split a
+        # tensor, all-reduced over the rest.
+        sum_axes = mesh.axes_of(AXES)
+        self.rest = [tuple(a for a in sum_axes if a not in {x for x, _ in lay.placement})
+                     for lay in layouts]
+        # Make every subgroup the step uses now, in the same order on every
+        # process (a dict, not a set: set order follows the string hash,
+        # which differs between processes).
+        used = [(a,) for lay in layouts for a, _ in lay.placement] + self.rest
+        for axes in dict.fromkeys(used):
+            if mesh.size_of(axes) > 1:
+                mesh.group_of(axes)
+
+    @classmethod
+    def build(cls, params: dict, config, mesh, shard_update: bool) -> "ShardedUpdate | None":
+        """The sharded state of ``mesh``, or None where nothing is split (no
+        mesh, fsdp == 1 without ``shard_update``)."""
+        if mesh is None:
+            return None
+        layouts = tensor_layouts(config, mesh.spec, shard_update)
+        if not any(lay.placement for lay in layouts):
+            return None
+        return cls(params, mesh, layouts)
+
+    def _placed(self, idx: list[int], axis: str) -> list[tuple[int, int]]:
+        """``(position in idx, dim)`` of every tensor of ``idx`` that
+        ``axis`` splits."""
+        return [(j, d) for j, i in enumerate(idx)
+                for a, d in self.layouts[i].placement if a == axis]
+
+    def gather(self, idx: list[int], shards) -> list[torch.Tensor]:
+        """Tensors ``idx`` whole (in their views' shapes) from this
+        process's ``shards`` of them: one all-gather of their flat
+        concatenation per axis that splits them."""
+        ts = list(shards)
+        for axis in (DATA_AXIS, FSDP_AXIS):
+            placed = self._placed(idx, axis)
+            if not placed:
+                continue
+            n = self.mesh.shape[axis]
+            flat = torch.cat([ts[j].reshape(-1) for j, _ in placed])
+            full = self.mesh.all_gather(flat, (axis,)).view(n, -1)
+            off = 0
+            for j, d in placed:
+                t = ts[j]
+                parts = full[:, off:off + t.numel()].reshape(n, *t.shape)
+                ts[j] = parts.movedim(0, d).flatten(d, d + 1)
+                off += t.numel()
+        return ts
+
+    def scatter(self, idx: list[int], grads) -> list[torch.Tensor]:
+        """The whole grads of tensors ``idx`` summed over each axis that
+        splits them, cut to this process's shards: one reduce-scatter of
+        their chunks per axis."""
+        gs = [g.reshape(self.layouts[i].view) for i, g in zip(idx, grads)]
+        for axis in (DATA_AXIS, FSDP_AXIS):
+            placed = self._placed(idx, axis)
+            if not placed:
+                continue
+            n = self.mesh.shape[axis]
+            chunks = [gs[j].unflatten(d, (n, gs[j].shape[d] // n)).movedim(d, 0)
+                      for j, d in placed]
+            out = self.mesh.reduce_scatter(
+                torch.cat([c.reshape(n, -1) for c in chunks], dim=1), (axis,))
+            off = 0
+            for (j, _), c in zip(placed, chunks):
+                gs[j] = out[off:off + c[0].numel()].view(c.shape[1:])
+                off += c[0].numel()
+        return gs
+
+    def working(self, params: dict) -> dict:
+        """``params`` as one forward reads them: the 'fsdp'-placed tensors
+        gathered whole from their shards through :class:`_Gather`, the top
+        ones at once and a block's when the forward reaches that block, in
+        one collective per axis; the others as they are."""
+        top, n_layer = len(TOP_KEYS), self.n_layer
+
+        def get(idx: list[int], tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+            mine = [j for j, i in enumerate(idx) if self.gathered[i]]
+            if mine:
+                whole = _Gather.apply(self, [idx[j] for j in mine],
+                                      *(self.shards[idx[j]] for j in mine))
+                for j, w in zip(mine, whole):
+                    tensors[j] = w
+            return tensors
+
+        def block(layer: int) -> dict:
+            bp = params["blocks"][layer]
+            idx = [top + j * n_layer + layer for j in range(len(gpt2.BLOCK_KEYS))]
+            return dict(zip(gpt2.BLOCK_KEYS, get(idx, [bp[k] for k in gpt2.BLOCK_KEYS])))
+
+        out = dict(zip(TOP_KEYS, get(list(range(top)), [params[k] for k in TOP_KEYS])))
+        out["blocks"] = _Layers(n_layer, block)
+        return out
+
+    @torch.no_grad()
+    def full_params(self, params: dict) -> dict:
+        """A whole copy of the params (the 'fsdp'-placed tensors gathered)."""
+        w = self.working(params)
+        return {**{k: w[k] for k in TOP_KEYS}, "blocks": list(w["blocks"])}
+
+    def zero_grads(self) -> None:
+        for t in self.params + self.shards:
+            t.grad = None
+
+    def reduce_grads(self) -> None:
+        """This step's grads summed over the mesh onto the shards' ``.grad``:
+        the whole grads of the 'data'-only tensors reduce-scattered over
+        'data' in a few flat buckets (the 'fsdp'-placed ones are on their
+        shards already), then every shard's grad all-reduced over the axes
+        that do not split it."""
+        for bucket in _buckets(self.replicated, lambda i: self.params[i].numel()):
+            grads = self.scatter(bucket, [self.params[i].grad for i in bucket])
+            for i, g in zip(bucket, grads):
+                self.shards[i].grad = g
+                self.params[i].grad = None
+        by_axes: dict[tuple[str, ...], list[torch.Tensor]] = {}
+        for s, rest in zip(self.shards, self.rest):
+            if rest:
+                by_axes.setdefault(rest, []).append(s.grad)
+        for axes, grads in by_axes.items():
+            _all_reduce_buckets(self.mesh, grads, axes)
+
+    def leaf_sq_norms(self, loss: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(squared L2 norm of each JAX leaf's full grad, ``loss`` summed
+        over the mesh), in one all-reduce: each shard's squares count on
+        the one process of its replicas whose index is 0 on every axis that
+        does not split it."""
+        sq = [torch.zeros((), dtype=torch.float32, device=loss.device)
+              for _ in range(self.n_leaves)]
+        for s, lay, rest in zip(self.shards, self.layouts, self.rest):
+            if all(self.mesh.axis_index(a) == 0 for a in rest):
+                sq[lay.leaf] = sq[lay.leaf] + s.grad.square().sum()
+        vec = self.mesh.all_reduce(torch.stack(sq + [loss]))
+        return vec[:-1], vec[-1]
+
+    def clip_leaves(self, leaf_sq: torch.Tensor, layer_clip_norm: float) -> None:
+        """Clip each leaf's shards by the leaf's full norm."""
+        scale = torch.clamp(layer_clip_norm / torch.clamp(leaf_sq.sqrt(), min=1e-12), max=1.0)
+        for s, lay in zip(self.shards, self.layouts):
+            s.grad.mul_(scale[lay.leaf])
+
+    @torch.no_grad()
+    def gather_params(self) -> None:
+        """Copy the updated shards of the 'data'-only tensors, all-gathered
+        over 'data' in a few flat buckets, into their whole params."""
+        for bucket in _buckets(self.replicated, lambda i: self.params[i].numel()):
+            whole = self.gather(bucket, [self.shards[i] for i in bucket])
+            for i, w in zip(bucket, whole):
+                self.params[i].copy_(w.reshape(self.shapes[i]))
+
+
+def state_bytes(params: dict, optimizer, sharded: ShardedUpdate | None = None) -> dict:
+    """The bytes of training state this process holds: ``params`` (the
+    params and the master shards that are not params), ``grads`` (their
+    ``.grad``) and ``moments`` (AdamW's two)."""
+    held = {id(t): t for t in param_list(params) + (sharded.shards if sharded else [])}
+    return {
+        "params": sum(t.nbytes for t in held.values()),
+        "grads": sum(t.grad.nbytes for t in held.values() if t.grad is not None),
+        "moments": sum(st[k].nbytes for st in optimizer.state.values()
+                       for k in ("exp_avg", "exp_avg_sq")),
+    }
+
+
 def make_optimizer(
     params: dict,
     learning_rate: float | Callable[[int], float],
@@ -119,11 +391,13 @@ def make_optimizer(
     b1: float = DEFAULT_BETAS[0],
     b2: float = DEFAULT_BETAS[1],
     eps: float = DEFAULT_EPS,
+    sharded: ShardedUpdate | None = None,
 ) -> ScheduledAdamW:
     """AdamW over every param of ``params`` (the JAX ``make_optimizer``;
-    torch's optimizer holds its params, so it takes them here)."""
-    return ScheduledAdamW(param_list(params), learning_rate, weight_decay,
-                          (b1, b2), eps)
+    torch's optimizer holds its params, so it takes them here), or over
+    ``sharded``'s master shards."""
+    tensors = sharded.shards if sharded is not None else param_list(params)
+    return ScheduledAdamW(tensors, learning_rate, weight_decay, (b1, b2), eps)
 
 
 class StepMetrics(NamedTuple):
@@ -148,24 +422,16 @@ def _global_share(mesh, labels: torch.Tensor) -> torch.Tensor:
     global count is 0): a local token-mean loss times it is ``local sum /
     global count``."""
     local = (labels != IGNORE_INDEX).flatten(1).sum(1).float()
-    total = local.clone()
-    mesh.all_reduce_([total])
+    total = mesh.all_reduce(local.clone())
     return local / total.clamp(min=1.0)
 
 
-def _all_reduce_buckets(mesh, tensors: list[torch.Tensor]) -> None:
-    """Sum ``tensors`` in place over the mesh through flat buckets of at
-    most GRAD_BUCKET_ELEMS elements."""
-    buckets, size = [[]], 0
-    for t in tensors:
-        if buckets[-1] and size + t.numel() > GRAD_BUCKET_ELEMS:
-            buckets.append([])
-            size = 0
-        buckets[-1].append(t)
-        size += t.numel()
-    for bucket in buckets:
+def _all_reduce_buckets(mesh, tensors: list[torch.Tensor], axes=AXES) -> None:
+    """Sum ``tensors`` in place over the mesh ``axes`` through flat buckets
+    of at most GRAD_BUCKET_ELEMS elements."""
+    for bucket in _buckets(tensors, torch.Tensor.numel):
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        mesh.all_reduce_([flat])
+        mesh.all_reduce(flat, axes)
         offset = 0
         for t in bucket:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -173,20 +439,25 @@ def _all_reduce_buckets(mesh, tensors: list[torch.Tensor]) -> None:
 
 
 def _accumulate_grads(config, compute_dtype, params, x, y, seed, step_idx,
-                      loss_scale=None):
+                      loss_scale=None, sharded=None):
     """Forward + backward of every micro-batch of ``x, y`` ``[accum, B,
-    T]`` (``T/sp`` blocks under an sp mesh), summing ``g_i / accum`` into
-    each param's ``.grad`` (then over the mesh). Returns ``(mean loss,
-    grad norm)`` as device scalars."""
-    mesh = sp_mesh()
+    T]`` (this process's rows and ``T/sp`` blocks under a mesh), summing
+    ``g_i / accum`` into each param's ``.grad``, then over the mesh (onto
+    ``sharded``'s shards when given). Returns ``(mean loss, grad norm,
+    per-leaf squared norms or None)`` as device values."""
+    mesh = multi_mesh()
     accum = x.shape[0]
     inv_accum = 1.0 / accum
     share = None if mesh is None else _global_share(mesh, y)
-    for p in param_list(params):
-        p.grad = None
+    if sharded is not None:
+        sharded.zero_grads()
+    else:
+        for p in param_list(params):
+            p.grad = None
     loss_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(accum):
-        _, loss = gpt2.forward(params, config, x[i], y[i], rng=(seed, step_idx, i),
+        w = params if sharded is None else sharded.working(params)
+        _, loss = gpt2.forward(w, config, x[i], y[i], rng=(seed, step_idx, i),
                                deterministic=False, compute_dtype=compute_dtype)
         if share is not None:
             loss = loss * share[i]
@@ -195,11 +466,15 @@ def _accumulate_grads(config, compute_dtype, params, x, y, seed, step_idx,
         loss = loss * inv_accum
         loss.backward()
         loss_acc = loss_acc + loss.detach()
+    if sharded is not None:
+        sharded.reduce_grads()
+        leaf_sq, loss_acc = sharded.leaf_sq_norms(loss_acc)
+        return loss_acc, leaf_sq.sum().sqrt(), leaf_sq
     grads = [p.grad for p in param_list(params)]
     if mesh is not None:
         _all_reduce_buckets(mesh, grads + [loss_acc.view(1)])
     grad_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
-    return loss_acc, grad_norm
+    return loss_acc, grad_norm, None
 
 
 def _clip_leaves(params: dict, layer_clip_norm: float) -> None:
@@ -218,6 +493,7 @@ def make_train_step(
     guard: bool = False,
     clip_threshold: float | None = None,
     layer_clip_norm: float = 1.0,
+    sharded: ShardedUpdate | None = None,
 ) -> Callable:
     """Build the train step. It updates ``params`` (and ``optimizer``) in
     place::
@@ -234,12 +510,21 @@ def make_train_step(
 
     with ``loss_scale`` a ``[grad_accum]`` fp32 vector multiplied into each
     micro-batch's loss (all ones in production; ``--inject_nan_at`` poisons
-    one entry)."""
+    one entry).
+
+    With ``sharded`` (the :class:`ShardedUpdate` whose shards ``optimizer``
+    holds) the grads are reduced onto the shards, and the full params are
+    gathered from them after each applied update."""
+
+    def apply_update():
+        optimizer.step()
+        if sharded is not None:
+            sharded.gather_params()
 
     def train_step(params, x, y, seed, step_idx):
-        loss, grad_norm = _accumulate_grads(config, compute_dtype, params, x, y,
-                                            seed, step_idx)
-        optimizer.step()
+        loss, grad_norm, _ = _accumulate_grads(config, compute_dtype, params, x, y,
+                                               seed, step_idx, sharded=sharded)
+        apply_update()
         return StepMetrics(loss=loss, grad_norm=grad_norm)
 
     if not guard:
@@ -247,8 +532,8 @@ def make_train_step(
 
     def guarded_train_step(params, guard_state: GuardState, x, y, seed, step_idx,
                            loss_scale):
-        loss, grad_norm = _accumulate_grads(config, compute_dtype, params, x, y,
-                                            seed, step_idx, loss_scale)
+        loss, grad_norm, leaf_sq = _accumulate_grads(config, compute_dtype, params, x, y,
+                                                     seed, step_idx, loss_scale, sharded)
         # The one host sync of the step: the decision below needs both.
         loss_ok = bool(torch.isfinite(loss))
         finite = loss_ok and bool(torch.isfinite(grad_norm))
@@ -262,9 +547,12 @@ def make_train_step(
             reason = SKIP_NONFINITE_GRAD if loss_ok else SKIP_NONFINITE_LOSS
         else:
             if huge:
-                _clip_leaves(params, layer_clip_norm)
+                if sharded is not None:
+                    sharded.clip_leaves(leaf_sq, layer_clip_norm)
+                else:
+                    _clip_leaves(params, layer_clip_norm)
                 clipped = 1
-            optimizer.step()
+            apply_update()
         new_guard = GuardState(
             skipped_steps=guard_state.skipped_steps + skipped,
             last_skip_reason=reason if skipped else guard_state.last_skip_reason,
@@ -280,19 +568,21 @@ def make_train_step(
 
 
 def make_eval_step(config: GPT2Config,
-                   compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
-    """Eval loss on a ``[B, T]`` batch (no dropout, no update); under an sp
-    mesh ``x, y`` are this process's ``[B, T/sp]`` blocks and the loss is
-    the global token mean."""
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   sharded: ShardedUpdate | None = None) -> Callable:
+    """Eval loss on a ``[B, T]`` batch (no dropout, no update); under a
+    mesh ``x, y`` are this process's rows and ``T/sp`` blocks and the loss
+    is the global token mean. With ``sharded`` the 'fsdp'-placed params
+    are gathered from its shards, a block's at that block."""
 
     @torch.no_grad()
     def eval_step(params, x, y):
-        _, loss = gpt2.forward(params, config, x, y, deterministic=True,
+        w = params if sharded is None else sharded.working(params)
+        _, loss = gpt2.forward(w, config, x, y, deterministic=True,
                                compute_dtype=compute_dtype)
-        mesh = sp_mesh()
+        mesh = multi_mesh()
         if mesh is not None:
-            loss = loss * _global_share(mesh, y[None])[0]
-            mesh.all_reduce_([loss])
+            loss = mesh.all_reduce(loss * _global_share(mesh, y[None])[0])
         return loss
 
     return eval_step

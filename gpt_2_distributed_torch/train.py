@@ -1,10 +1,10 @@
 """Training CLI of the PyTorch port (``gpt_2_distributed_tpu/train.py``):
-one process on one device, or one process per device of a
+one process on one device, or one process per device of a data / fsdp /
 sequence-parallel mesh.
 
     python -m gpt_2_distributed_torch.train --data_dir <shards>
     torchrun --nproc_per_node 2 -m gpt_2_distributed_torch.train \
-        --data_dir <shards> --mesh sp=2
+        --data_dir <shards> --training_mode ddp     # or fsdp, --mesh data=2,sp=2
 
 The flag surface is the JAX CLI's. What this slice runs: the model and data
 flags, batch / grad-accum / epochs, the learning-rate schedule, AdamW
@@ -12,8 +12,10 @@ weight decay, periodic eval, the non-finite step guard with its per-layer
 clip fallback and ``--inject_nan_at``, ``--dropout``, ``--attention_impl``,
 ``--fused_layers``, ``--fused_matmul``, ``--device_prefetch`` (pinned host
 batches copied with ``non_blocking=True`` one optimizer step ahead),
-``--device`` and ``--mesh sp=S``, and observability: ``--trace_dir`` (span
-traces of the step loop, ``obs/trace.py``: ``step(n)`` holding
+``--device``, ``--training_mode {local,dp,ddp,fsdp}``, ``--mesh
+data=D,fsdp=F,sp=S`` and ``--shard_update {off,on,auto}``, and
+observability: ``--trace_dir`` (span traces of the step loop,
+``obs/trace.py``: ``step(n)`` holding
 ``data_fetch``, ``h2d``, ``step_dispatch``, ``h2d_prefetch``,
 ``device_sync``, ``collector`` and ``eval``, and the ``guard_skip`` event;
 ``scripts/obs_report.py`` folds them into per-phase shares of a step),
@@ -21,7 +23,7 @@ traces of the step loop, ``obs/trace.py``: ``step(n)`` holding
 tensorboardX), ``--profile`` (a ``torch.profiler`` trace of the whole run
 into ``<log_dir>/profile``) or ``--xla_profile_at STEP[:NSTEPS]`` (one
 over those optimizer steps into ``<log_dir>/xla_profile``). Every flag whose
-plane is not ported yet (DDP/FSDP and tp meshes, checkpoints and resume,
+plane is not ported yet (tp meshes, checkpoints and resume,
 the spike monitor's rollback, the multi-host control plane, the other
 fault injections, bf16 grad accumulation, remat) is refused with a "later
 slice" error instead of being ignored.
@@ -36,15 +38,27 @@ K2 (backward); ``--fused_layers`` runs the layer epilogues through K4
 Prints the JAX CLI's ``step N | loss: ...`` lines and
 ``training done: N optimizer steps``.
 
-``--mesh sp=S`` shards every sequence over S processes, one per device,
-started by ``torchrun`` (``RANK``, ``WORLD_SIZE`` = S, ``LOCAL_RANK``):
-NCCL between cards, gloo with ``--device cpu``. Every process reads the
-same global batch and trains on its ``[B, T/S]`` block; attention is ring
-attention over the mesh (K8 per ring step on the card), the loss the
-global token mean and the grads summed over the mesh
-(``parallel/train_step.py``). Only process 0 prints. Under sp > 1
-``--fused_layers``/``--fused_matmul`` other than ``off`` and
-``--attention_impl`` ``flash``/``dense`` are refused (later slices).
+A mesh runs one process per device, started by ``torchrun`` (``RANK``,
+``WORLD_SIZE`` = the mesh's device count, ``LOCAL_RANK``): NCCL between
+cards, gloo with ``--device cpu``. ``--training_mode`` picks the mesh
+when ``--mesh`` is not given (``MeshSpec.for_mode``: dp/ddp every process
+on 'data', fsdp every process on 'fsdp'). ``--batch`` is per device, so
+an optimizer step takes ``batch x data x fsdp`` rows per micro-batch:
+every process reads that global batch (the one the JAX package's
+single-process run reads) and trains on its own rows and, under sp > 1,
+its ``T/sp`` block of each (ring attention over the mesh, K8 per ring
+step on the card). The loss is the global token mean and the grads are
+summed over the mesh. Under 'fsdp' the fp32 params, their grads and the
+AdamW moments are sharded (each forward gathers a tensor whole when the
+model reaches it, each backward reduce-scatters its grad); with
+``--shard_update`` (on, or 'auto' for data > 1 with fsdp == 1, the JAX
+rule) the update is sharded over 'data' and the params stay whole
+(``parallel/sharding.py``, ``parallel/train_step.py::ShardedUpdate``).
+Only process 0 prints; the
+mesh line is the JAX CLI's (``mesh: data=D, fsdp=F[, sp=S, tp=T][,
+shard_update] | model: ...``). Under sp > 1 ``--fused_layers``/
+``--fused_matmul`` other than ``off`` and ``--attention_impl``
+``flash``/``dense`` are refused (later slices).
 """
 
 from __future__ import annotations
@@ -63,14 +77,13 @@ from gpt_2_distributed_torch.data.dataloader import (
     DEFAULT_NUM_WORKERS,
     DEFAULT_PREFETCH_FACTOR,
 )
-from gpt_2_distributed_torch.parallel.mesh import validate_mesh_for_config
+from gpt_2_distributed_torch.parallel.mesh import TRAINING_MODES, validate_mesh_for_config
 
 DEFAULT_SEED = 42
 
 # Flags whose planes come with later slices of the port, with the value
 # that leaves them off; any other value is refused.
 _UNPORTED = {
-    "training_mode": "local", "shard_update": "auto",
     "save_dir": None, "resume": False, "save_every": 1000, "async_save": "on",
     "keep_last_n": 0, "save_retries": 2, "save_retry_backoff": 0.5,
     "preempt_poll_url": None, "preempt_poll_interval": 5.0,
@@ -87,19 +100,20 @@ _UNPORTED = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gpt_2_distributed_torch.train",
-        description="GPT-2 pretraining with PyTorch on one GPU, or sequence-"
-        "parallel over several under torchrun (the port of "
-        "gpt_2_distributed_tpu.train)",
+        description="GPT-2 pretraining with PyTorch on one GPU, or data-, "
+        "fully-sharded- or sequence-parallel over several under torchrun (the "
+        "port of gpt_2_distributed_tpu.train)",
     )
     p.add_argument("--data_dir", required=True, help="directory of uint16 .bin token shards")
     p.add_argument("--split", default="train")
     p.add_argument("--training_mode", default="local",
-                   choices=["local", "dp", "ddp", "fsdp"],
-                   help="only 'local' is ported; the others come with DDP/FSDP")
+                   choices=TRAINING_MODES,
+                   help="the mesh when --mesh is not given: dp/ddp every process "
+                   "on 'data', fsdp every process on 'fsdp' (under torchrun)")
     p.add_argument("--mesh", default=None,
-                   help="mesh shape 'sp=S': the sequence sharded over S processes "
-                   "under torchrun (ring attention); data/fsdp/tp come with later "
-                   "slices")
+                   help="mesh shape 'data=D,fsdp=F,sp=S': one process per device "
+                   "under torchrun; sp shards the sequence (ring attention); tp "
+                   "comes with a later slice")
     p.add_argument("--attention_impl", default=None,
                    choices=["auto", "dense", "flash", "ring"],
                    help="'flash'/'auto': the CUDA kernels K1/K2 on the card, "
@@ -107,7 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "attention; 'ring' (and 'auto' under --mesh sp>1): ring "
                    "attention over the sp processes, K8 on the card")
     p.add_argument("--shard_update", default="auto", choices=["off", "on", "auto"],
-                   help="ZeRO-2 sharded update; one device: off")
+                   help="ZeRO-2 sharded update: grads reduce-scattered over "
+                   "'data', AdamW on a 1/data shard, params all-gathered; 'auto' "
+                   "is on for data>1 with fsdp=1; off at data=1")
     p.add_argument("--device_prefetch", default="on", choices=["on", "off"],
                    help="copy the next optimizer step's batch to the device "
                    "(pinned, non-blocking) while the current step runs")
@@ -118,7 +134,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab_size", type=int, default=None)
     p.add_argument("--seq_len", type=int, default=DEFAULT_CONTEXT_LENGTH)
     p.add_argument("--batch", type=int, default=DEFAULT_BATCH_SIZE,
-                   help="micro-batch size")
+                   help="micro-batch size per device")
     p.add_argument("--grad_accum_steps", type=int, default=4)
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -248,9 +264,6 @@ def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
         if value != off:
             p.error(f"--{dest} {value!r} is not ported to PyTorch yet: it comes "
                     f"in a later slice of the port")
-    if args.shard_update == "on":
-        p.error("--shard_update on needs a data-parallel mesh, which is not "
-                "ported to PyTorch yet: it comes in a later slice of the port")
 
 
 def main(argv: list[str] | None = None):
@@ -356,11 +369,12 @@ def _profile_spec(p: argparse.ArgumentParser, args):
 
 
 def _mesh_spec(p: argparse.ArgumentParser, args):
-    """``--mesh`` as a MeshSpec, with the combinations this slice refuses."""
+    """``--mesh`` (or ``--training_mode``'s mesh) as a MeshSpec, with the
+    combinations the port refuses."""
     from gpt_2_distributed_torch.parallel.mesh import MeshSpec, refuse_unported_axes
 
     try:
-        spec = MeshSpec.parse(args.mesh) if args.mesh else MeshSpec()
+        spec = MeshSpec.parse(args.mesh) if args.mesh else MeshSpec.for_mode(args.training_mode)
         refuse_unported_axes(spec)
     except ValueError as e:
         p.error(str(e))
@@ -379,11 +393,10 @@ def _mesh_spec(p: argparse.ArgumentParser, args):
 
 
 def _run(args, config, device, mesh, profile_spec):
-    """The training loop of :func:`main` on ``device``; under an sp mesh
-    every process reads the same global batches and trains on its
-    ``[B, T/sp]`` block of each, and only the first one prints (and
-    writes TensorBoard). Each process traces into its own
-    ``trace-p{rank}.jsonl``."""
+    """The training loop of :func:`main` on ``device``; under a mesh every
+    process reads the same global batches and trains on its rows (and
+    ``T/sp`` block) of each, and only the first one prints (and writes
+    TensorBoard). Each process traces into its own ``trace-p{rank}.jsonl``."""
     import torch
 
     from gpt_2_distributed_torch.data.dataloader import (
@@ -398,8 +411,11 @@ def _run(args, config, device, mesh, profile_spec):
         configure_tracing,
         get_tracer,
     )
-    from gpt_2_distributed_torch.parallel.mesh import is_primary
+    from gpt_2_distributed_torch.ops.spmd import batch_axes, shard_offset
+    from gpt_2_distributed_torch.parallel.mesh import MeshSpec, is_primary
+    from gpt_2_distributed_torch.parallel.sharding import resolve_shard_update
     from gpt_2_distributed_torch.parallel.train_step import (
+        ShardedUpdate,
         make_eval_step,
         make_optimizer,
         make_train_step,
@@ -422,24 +438,34 @@ def _run(args, config, device, mesh, profile_spec):
         if primary:
             print(*a, **kw)
 
+    spec = MeshSpec() if mesh is None else mesh.spec
+    # --batch is per device: the batch axes split a global batch of
+    # batch x data x fsdp rows.
+    global_batch = args.batch * spec.data * spec.fsdp
+    row0 = 0 if mesh is None else shard_offset(mesh, batch_axes(mesh, args.batch), args.batch)
+
     def local_block(a: np.ndarray) -> np.ndarray:
-        """This process's ``[..., T/sp]`` block of ``[..., T]`` tokens."""
+        """This process's ``[..., batch, T/sp]`` block of ``[..., B, T]``
+        tokens."""
         if mesh is None:
             return a
         tl = args.seq_len // mesh.sp
-        return np.ascontiguousarray(a[..., mesh.sp_index * tl:(mesh.sp_index + 1) * tl])
+        return np.ascontiguousarray(a[..., row0:row0 + args.batch,
+                                      mesh.sp_index * tl:(mesh.sp_index + 1) * tl])
 
-    local_batch = args.batch
+    use_shard_update = resolve_shard_update(args.shard_update, spec)
     dataset = TokenShardDataset(
         get_shard_paths(args.data_dir, args.split), seq_len=args.seq_len,
         num_workers=args.workers, vocab_size=config.vocab_size,
         data_read_retries=args.data_read_retries,
     )
-    steps_per_epoch = dataset.batches_per_epoch(local_batch) // args.grad_accum_steps
+    steps_per_epoch = dataset.batches_per_epoch(global_batch) // args.grad_accum_steps
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU"
-    where = "" if mesh is None else (f"mesh: data={mesh.spec.data}, fsdp={mesh.spec.fsdp}, "
-                                     f"sp={mesh.sp}, tp={mesh.spec.tp} | ")
-    say(f"device: {device} ({name}) | {where}model: {args.model} "
+    say(f"device: {device} ({name})", flush=True)
+    extra = f", sp={spec.sp}, tp={spec.tp}" if spec.sp > 1 or spec.tp > 1 else ""
+    if use_shard_update:
+        extra += ", shard_update"
+    say(f"mesh: data={spec.data}, fsdp={spec.fsdp}{extra} | model: {args.model} "
         f"({config.num_params() / 1e6:.1f}M params) | steps/epoch: "
         f"{steps_per_epoch}", flush=True)
 
@@ -448,12 +474,14 @@ def _run(args, config, device, mesh, profile_spec):
     except ValueError as e:
         sys.exit(f"error: {e}")
     params = trainable_params(gpt2.init_params(config, seed=args.seed), device)
-    optimizer = make_optimizer(params, schedule, weight_decay=args.weight_decay)
+    sharded = ShardedUpdate.build(params, config, mesh, use_shard_update)
+    optimizer = make_optimizer(params, schedule, weight_decay=args.weight_decay,
+                               sharded=sharded)
     use_guard = args.step_guard == "on"
     train_step = make_train_step(
         config, optimizer, guard=use_guard,
         clip_threshold=args.guard_max_grad_norm or None,
-        layer_clip_norm=args.guard_clip_norm,
+        layer_clip_norm=args.guard_clip_norm, sharded=sharded,
     )
     guard_state = init_guard_state() if use_guard else None
     ones_scale = torch.ones(args.grad_accum_steps, device=device)
@@ -462,7 +490,7 @@ def _run(args, config, device, mesh, profile_spec):
 
     try:
         tracker = StatsTracker(
-            batch_size=args.batch * args.grad_accum_steps, seq_len=args.seq_len,
+            batch_size=global_batch * args.grad_accum_steps, seq_len=args.seq_len,
             cli_every=args.cli_every, flops_per_token=flops_per_token(config, args.seq_len),
             peak_flops_per_chip=device_peak_flops(device), device=device,
             n_chips=1 if mesh is None else mesh.spec.n_devices, printing=primary,
@@ -485,13 +513,13 @@ def _run(args, config, device, mesh, profile_spec):
                 vocab_size=config.vocab_size, shard_windows=True,
                 data_read_retries=args.data_read_retries,
             )
-            n_eval = min(args.eval_batches, eval_dataset.batches_per_epoch(local_batch))
+            n_eval = min(args.eval_batches, eval_dataset.batches_per_epoch(global_batch))
             if n_eval == 0:
                 say("--eval_every: val split has fewer tokens than one batch "
-                    f"({local_batch}x{args.seq_len}); eval disabled")
+                    f"({global_batch}x{args.seq_len}); eval disabled")
             else:
-                eval_step = make_eval_step(config)
-                eval_loader = create_dataloader(eval_dataset, batch_size=local_batch,
+                eval_step = make_eval_step(config, sharded=sharded)
+                eval_loader = create_dataloader(eval_dataset, batch_size=global_batch,
                                                 prefetch_factor=args.prefetch_factor)
 
                 def run_eval() -> float:
@@ -594,7 +622,7 @@ def _run(args, config, device, mesh, profile_spec):
         for epoch in range(args.epochs):
             dataset.set_epoch(epoch)
             tracker.start_epoch()
-            loader_iter = iter(create_dataloader(dataset, batch_size=local_batch,
+            loader_iter = iter(create_dataloader(dataset, batch_size=global_batch,
                                                  prefetch_factor=args.prefetch_factor))
             step_in_epoch = 0
             micro: list = []

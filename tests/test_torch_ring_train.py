@@ -212,8 +212,11 @@ def test_cli_sp2_under_torchrun_descends(shard_dir):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--mesh", "data=2"], "DDP/FSDP slice"),
-    (["--mesh", "fsdp=2,sp=2"], "DDP/FSDP slice"),
+    # The DDP/FSDP slice's meshes run; with a tp axis they stay refused.
+    pytest.param(["--mesh", "data=2,tp=2"], "tensor-parallel slice",
+                 id="argv0-DDP/FSDP slice"),
+    pytest.param(["--mesh", "fsdp=2,sp=2,tp=2"], "tensor-parallel slice",
+                 id="argv1-DDP/FSDP slice"),
     (["--mesh", "tp=2"], "tensor-parallel slice"),
     (["--mesh", "sp=2", "--fused_layers", "all"], "later slice"),
     (["--mesh", "sp=2", "--fused_matmul", "mlp"], "later slice"),
@@ -251,8 +254,8 @@ def test_mesh_validation_and_refusals(tiny_config):
     validate_mesh_for_config(MeshSpec(sp=2), cfg, "tiny", 64)
     with pytest.raises(ValueError, match="does not divide seq_len"):
         validate_mesh_for_config(MeshSpec(sp=3), cfg, "tiny", 64)
-    with pytest.raises(ValueError, match="DDP/FSDP slice"):
-        Mesh(MeshSpec(data=2), 0)
+    with pytest.raises(ValueError, match="tensor-parallel slice"):
+        Mesh(MeshSpec(tp=2), 0)
     params = gpt2.init_params(cfg)
     x = torch.zeros(1, 32, dtype=torch.long)
     with activate_mesh(Mesh(MeshSpec(sp=2), 0)):

@@ -298,7 +298,7 @@ def test_train_cli_with_fused_matmul_on_the_cpu(shard_dir, capsys):
 
 @pytest.mark.parametrize("flags, message", [
     ([], "no CUDA device"),
-    (["--training_mode", "ddp", "--device", "cpu"], "later slice"),
+    (["--accum_dtype", "bf16", "--device", "cpu"], "later slice"),
     (["--save_dir", "ckpt", "--device", "cpu"], "later slice"),
     (["--remat", "block", "--device", "cpu"], "later slice"),
 ])

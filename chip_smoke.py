@@ -164,7 +164,22 @@ that does not hold:
    a layer and batch, its du pass, dgrad and wgrad once a leg and
    micro-batch; prints each run's ms/step, tok/s and MFU, and the
    ``fused_matmul all`` step beside the ``fused_layers all`` step;
-13. the front end (``phase_frontend``): the serving CLI
+13. checkpoints and exact resume (``phase_resume``), at 124M with
+   ``--fused_matmul all --fused_layers all`` as in 12: run A saves every 8
+   steps with ``--async_save on`` (its losses bit-equal to 12's
+   ``fused_matmul all`` run, no save failure, every checkpoint committed
+   and verified); run B the same with ``--inject_preempt_at 9`` (exit 143,
+   a committed emergency checkpoint of step 9, its losses A's first 9);
+   run C ``--resume`` on B's dir to step 16 (its losses A's last 7, its
+   final params, AdamW moments and step count bit-equal to A's final
+   checkpoint); B and C launch together what A launches; then the serve CLI
+   in this process with ``--ckpt`` on C's dir, greedy, 16 new tokens for
+   phase_serving's first 4 prompts, every stream equal to
+   ``generate_cached(batch=1)``'s on the params ``restore_params`` returns
+   and the launches of K1, K3, K7's forward and K4 those its decode steps
+   imply; prints a checkpoint's bytes, the step loop's stall for an async
+   and a sync save, the commit time and the restore time;
+14. the front end (``phase_frontend``): the serving CLI
    (``serving/serve.py`` on ``EngineDriver`` over a one-replica
    ``ReplicaRouter``) in subprocesses at 124M with random weights, greedy,
    64 new tokens for phase_serving's 8 prompts: untraced and SIGTERM'd
@@ -188,14 +203,14 @@ that does not hold:
    run of the "off" configuration: one ``step`` span an optimizer step,
    90% or more of the step wall attributed to named phases, the losses
    equal to the untraced run's bit for bit;
-14. with two or more cards, trains ``--mesh sp=2`` the same way through
+15. with two or more cards, trains ``--mesh sp=2`` the same way through
     ``torch.distributed.run`` (NCCL; two ranks of this script in
     ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
     launched 12 x 2 x (micro-batches + eval batches) forward and 12 x 2 x
     micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
     beside the local step's. On one card it prints that the NCCL ring
     needs two GPUs and that the CPU tests hold that path over gloo;
-15. data-parallel and fully-sharded training: every rank of a data=2 x
+16. data-parallel and fully-sharded training: every rank of a data=2 x
     fsdp=2 mesh in this process (``phase_ddp_ranks``), K1, K2 and K4-K7 on
     its rows at 124M shapes with the per-shard seed against their plain
     versions, the ranks' masks all different, the unfused dropout's rank
@@ -213,7 +228,7 @@ that does not hold:
     sheds; prints ms/step and tok/s beside the local steps'. On one card
     it prints that the NCCL runs need two GPUs and that the CPU tests hold
     them over gloo;
-16. prints the ``kernels`` JSON line, then the device line last.
+17. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` times K2's two kernels (dk/dv, dq) apart with
 ``torch.profiler`` and adds profiler windows over one serving admission
@@ -2530,6 +2545,267 @@ def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, 
     return counts, ms_steps, run_losses
 
 
+RESUME_PROMPTS = (1, 17, 100, 208)   # phase_serving's first 4 prompt lengths
+RESUME_NEW = 16
+
+
+class CheckpointProbe:
+    """Records, while active, what the checkpoint plane did inside
+    ``train.main()``: every ``StatsTracker`` made (a run that exits 143
+    returns none), each save's step-loop stall (``save`` async or sync,
+    ``ensure_committed_sync`` when it saved), each commit's write + commit
+    time and each resume's restore time."""
+
+    def __init__(self):
+        from gpt_2_distributed_torch import checkpoint as ck
+        from gpt_2_distributed_torch.metrics import tracker
+
+        self.ck, self.tracker = ck, tracker
+        self.trackers, self.stalls, self.commits, self.restores = [], [], [], []
+
+    def __enter__(self):
+        ck, probe = self.ck, self
+        saver = ck.CheckpointSaver
+        self.saved = (self.tracker.StatsTracker.__init__, saver.save,
+                      saver.ensure_committed_sync, saver._write_and_commit,
+                      ck.restore_latest_verified)
+        init, save, ensure, commit, restore = self.saved
+
+        def tracker_init(tr, *a, **kw):
+            init(tr, *a, **kw)
+            probe.trackers.append(tr)
+
+        def saver_save(sv, step, *a, **kw):
+            out = save(sv, step, *a, **kw)
+            probe.stalls.append(("async" if sv.policy.async_save else "sync", step,
+                                 sv.save_block_ms))
+            return out
+
+        def saver_ensure(sv, step, *a, **kw):
+            n = sv._seq
+            out = ensure(sv, step, *a, **kw)
+            if sv._seq > n:    # it saved (rather than found the step committed)
+                probe.stalls.append(("sync", step, sv.save_block_ms))
+            return out
+
+        def saver_commit(sv, path, step, *a, **kw):
+            ok = commit(sv, path, step, *a, **kw)
+            if ok:
+                probe.commits.append((step, sv.commit_ms))
+            return ok
+
+        def timed_restore(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = restore(*a, **kw)
+            torch.cuda.synchronize()
+            probe.restores.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.tracker.StatsTracker.__init__ = tracker_init
+        saver.save, saver.ensure_committed_sync = saver_save, saver_ensure
+        saver._write_and_commit = saver_commit
+        ck.restore_latest_verified = timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        init, save, ensure, commit, restore = self.saved
+        self.tracker.StatsTracker.__init__ = init
+        saver = self.ck.CheckpointSaver
+        saver.save, saver.ensure_committed_sync, saver._write_and_commit = save, ensure, commit
+        self.ck.restore_latest_verified = restore
+
+
+def first_difference(a: list[float], b: list[float]) -> str:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return f"step {i + 1}: {x!r} against {y!r}"
+    return f"lengths {len(a)} against {len(b)}"
+
+
+def phase_resume(fused_losses: list[float]) -> dict[str, int]:
+    """Checkpoints and exact resume at 124M (step 13 of the module
+    docstring); returns the launches of the runs and of the served
+    checkpoint by wrapper name."""
+    import contextlib
+    import hashlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from gpt_2_distributed_torch import checkpoint as ck
+    from gpt_2_distributed_torch import train
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+    from gpt_2_distributed_torch.models import decode
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
+    from gpt_2_distributed_torch.ops.paged_attention import paged_attention_kernel
+    from gpt_2_distributed_torch.resilience import PREEMPTED_EXIT_CODE, verify_checkpoint
+    from gpt_2_distributed_torch.serving import serve
+
+    wrappers = training_wrappers()
+    wrappers["paged_attention_kernel"] = paged_attention_kernel
+    half = TRAIN_STEPS // 2
+    want_train = {**training_launches("all", "all"), "paged_attention_kernel": 0}
+    t_phase = time.monotonic()
+    total: dict[str, int] = collections.Counter()
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        got = {name: w.launches for name, w in wrappers.items()}
+        total.update(got)
+        return out, got
+
+    def digest(path: str) -> dict[str, str]:
+        out = {}
+        for rel in ("params/rank_00000.bin", "opt_state/rank_00000.bin",
+                    "opt_state/state.json"):
+            with open(os.path.join(path, rel), "rb") as f:
+                out[rel] = hashlib.sha256(f.read()).hexdigest()
+        return out
+
+    def committed_and_verified(path: str) -> bool:
+        return ck._dir_state(path) == "committed" and verify_checkpoint(path) == []
+
+    with tempfile.TemporaryDirectory() as tmp, CheckpointProbe() as probe:
+        data_dir = os.path.join(tmp, "data")
+        write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
+        argv = train_argv(data_dir, "all", "all") + ["--save_every", str(half),
+                                                     "--async_save", "on"]
+        dir_a, dir_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+
+        # (a) the reference run
+        t0 = time.monotonic()
+        tracker_a, got_a = counted(lambda: train.main(argv + ["--save_dir", dir_a]))
+        wall_a = time.monotonic() - t0
+        losses_a = list(tracker_a.buffers["loss"])
+        failures = tracker_a.buffers.get("save_failures", [0])[-1]
+        ckpts_a = ck.list_checkpoints(dir_a)
+        print(f"resume A: {TRAIN_STEPS} steps, async saves every {half}, in {wall_a:.1f} s; "
+              f"losses bit-equal to phase 12's fused_matmul all run: "
+              f"{losses_a == fused_losses}; save_failures {failures:.0f}; checkpoints "
+              f"{[s for s, _ in ckpts_a]}, committed and verified: "
+              f"{[committed_and_verified(p) for _, p in ckpts_a]}", flush=True)
+        if losses_a != fused_losses:
+            fail("run A's losses differ from phase 12's fused_matmul all run's at "
+                 + first_difference(losses_a, fused_losses))
+        if failures or [s for s, _ in ckpts_a] != [half, TRAIN_STEPS] or not all(
+                committed_and_verified(p) for _, p in ckpts_a):
+            fail("run A's checkpoints are not all committed and verified")
+        if got_a != want_train:
+            fail(f"run A's launches {got_a} != {want_train}")
+
+        # (b) preempted after step half + 1
+        t0 = time.monotonic()
+        rc = None
+        try:
+            _, got_b = counted(lambda: train.main(argv + [
+                "--save_dir", dir_b, "--inject_preempt_at", str(half + 1)]))
+        except SystemExit as e:
+            rc = e.code
+            got_b = {name: w.launches for name, w in wrappers.items()}
+            total.update(got_b)
+        wall_b = time.monotonic() - t0
+        losses_b = list(probe.trackers[-1].buffers["loss"])
+        latest = ck.latest_checkpoint(dir_b)
+        print(f"resume B: --inject_preempt_at {half + 1}: exit code {rc} in {wall_b:.1f} s; "
+              f"newest checkpoint {os.path.basename(latest or 'none')}, committed and "
+              f"verified: {latest is not None and committed_and_verified(latest)}; losses "
+              f"bit-equal to A's first {half + 1}: {losses_b == losses_a[:half + 1]}",
+              flush=True)
+        if rc != PREEMPTED_EXIT_CODE:
+            fail(f"run B exited {rc}, not {PREEMPTED_EXIT_CODE}")
+        if latest is None or not latest.endswith(ck.step_dir_name(half + 1)) \
+                or not committed_and_verified(latest):
+            fail("run B left no committed emergency checkpoint of its last step")
+        if losses_b != losses_a[:half + 1]:
+            fail("run B's losses differ from A's at " + first_difference(losses_b, losses_a))
+
+        # (c) resumed to TRAIN_STEPS
+        t0 = time.monotonic()
+        tracker_c, got_c = counted(lambda: train.main(argv + ["--save_dir", dir_b,
+                                                              "--resume"]))
+        wall_c = time.monotonic() - t0
+        losses_c = list(tracker_c.buffers["loss"])
+        end_a, end_c = (os.path.join(d, ck.step_dir_name(TRAIN_STEPS)) for d in (dir_a, dir_b))
+        dig_a, dig_c = digest(end_a), digest(end_c)
+        print(f"resume C: --resume from step {half + 1} to {TRAIN_STEPS} in {wall_c:.1f} s; "
+              f"losses bit-equal to A's last {TRAIN_STEPS - half - 1}: "
+              f"{losses_c == losses_a[half + 1:]}; final checkpoint's params, AdamW moments "
+              f"and step count bit-equal to A's: {dig_a == dig_c} (sha256 "
+              + ", ".join(f"{k} {v[:16]}" for k, v in dig_c.items()) + ")", flush=True)
+        if losses_c != losses_a[half + 1:]:
+            fail("run C's losses differ from A's at "
+                 + first_difference(losses_c, losses_a[half + 1:]))
+        if dig_a != dig_c:
+            fail(f"run C's final state differs from A's: {dig_c} against {dig_a}")
+        both = {name: got_b[name] + got_c[name] for name in want_train}
+        if both != want_train:
+            fail(f"runs B and C launched {both} together, not A's {want_train}")
+
+        sizes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(end_a)
+                    for f in fs)
+        stalls = {kind: [round(ms, 1) for k, _, ms in probe.stalls if k == kind]
+                  for kind in ("async", "sync")}
+        commits = [round(ms, 1) for _, ms in probe.commits]
+        print(f"resume numbers: one 124M checkpoint {sizes:,} bytes (fp32 params and two "
+              f"moments, meta, index, manifest); step-loop stall of an async save "
+              f"{stalls['async']} ms, of a sync save {stalls['sync']} ms; write + commit "
+              f"{commits} ms; restore on resume {[round(v, 1) for v in probe.restores]} ms",
+              flush=True)
+        shutil.rmtree(dir_a)
+
+        # (d) the serve CLI on C's checkpoint
+        config = MODEL_PRESETS["124M"]
+        rng = torch.Generator().manual_seed(7)
+        prompts = [torch.randint(0, config.vocab_size, (p,), generator=rng).tolist()
+                   for p in RESUME_PROMPTS]
+        reqs = os.path.join(tmp, "reqs.jsonl")
+        with open(reqs, "w", encoding="utf-8") as f:
+            for i, p in enumerate(prompts):
+                f.write(json.dumps({"prompt_ids": p, "new": RESUME_NEW, "seed": i}) + "\n")
+        out, err = io.StringIO(), io.StringIO()
+        serve_wrappers = {"flash_attention_fwd": wrappers["flash_attention_fwd"],
+                          "paged_attention_kernel": paged_attention_kernel,
+                          "linear": fm.linear, "head_logits": fm.head_logits,
+                          "ln_residual_dropout_fwd": wrappers["ln_residual_dropout_fwd"]}
+        for w in serve_wrappers.values():
+            w.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            serve.main(["--ckpt", dir_b, "--model", "124M", "--requests", reqs,
+                        "--temperature", "0"])
+        wall_s = time.monotonic() - t0
+        got_s = {name: w.launches for name, w in serve_wrappers.items()}
+        total.update(got_s)
+        records = [json.loads(line) for line in out.getvalue().splitlines()]
+        params, meta = ck.restore_params(end_c, "cuda", config)
+        same = sum(r["generated"] == decode.generate_cached(
+            params, config, [p], seed=i, max_new_tokens=RESUME_NEW, temperature=0.0,
+            block_size=16)[0, len(p):].tolist() for i, (r, p) in enumerate(zip(records, prompts)))
+        m = re.search(r"(\d+) decode steps", err.getvalue())
+        steps = int(m.group(1)) if m else -1
+        fwd = steps + len(prompts)
+        want_s = {"flash_attention_fwd": 12 * len(prompts), "paged_attention_kernel": 12 * steps,
+                  "linear": 48 * fwd, "head_logits": fwd, "ln_residual_dropout_fwd": 25 * fwd}
+        print(f"resume serving: serve CLI --ckpt on C's dir (step {meta.step}) in "
+              f"{wall_s:.1f} s, {len(records)} requests x {RESUME_NEW} greedy tokens, {steps} "
+              f"decode steps; {same} of {len(prompts)} streams equal generate_cached(batch=1)'s "
+              f"on restore_params' weights; launches {got_s}", flush=True)
+        if "checkpoint: " not in err.getvalue() or meta.step != TRAIN_STEPS:
+            fail(f"serve --ckpt did not load the step-{TRAIN_STEPS} checkpoint: "
+                 f"{err.getvalue()[-1000:]}")
+        if same != len(prompts) or any(len(r["generated"]) != RESUME_NEW for r in records):
+            fail(f"serve --ckpt: {len(prompts) - same} streams differ from generate_cached's")
+        if got_s != want_s:
+            fail(f"serve --ckpt launches {got_s} != {want_s}")
+    print(f"resume phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return dict(total)
+
+
 # The front-end phase: phase_serving's prompt lengths, 64 new tokens, the
 # shared-prefix fleet (8 sharers of a 512-token prefix and 4 strangers),
 # and the profiler window of the traced CLI run.
@@ -3429,6 +3705,7 @@ def main() -> None:
     serving = phase_serving(profile)
     phase_model_paths()
     counts, ms_steps, train_losses = phase_training(profile)
+    resume = phase_resume(train_losses["fused_matmul all"])
     front = phase_frontend(train_losses["off"])
     k8_train = phase_sp_training(ms_steps["off"], profile)
     phase_ddp_ranks()
@@ -3449,14 +3726,16 @@ def main() -> None:
           + ("(the one-card ring)" if k8_train is None else "(sp=2 training, rank 0)")
           + "; prefix serving: " + ", ".join(f"{name} {n}" for name, n in prefix.items())
           + "; preempt serving: " + ", ".join(f"{name} {n}" for name, n in preempt.items())
-          + "; front end: " + ", ".join(f"{name} {n}" for name, n in front.items()),
-          flush=True)
+          + "; front end: " + ", ".join(f"{name} {n}" for name, n in front.items())
+          + "; resume (runs A, B, C and serve --ckpt): "
+          + ", ".join(f"{name} {n}" for name, n in resume.items() if n), flush=True)
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
-             launches=k1_serve + k1_train + front["flash_attention_fwd"], **k1_row),
+             launches=k1_serve + k1_train + front["flash_attention_fwd"]
+             + resume["flash_attention_fwd"], **k1_row),
         dict(name="flash_attention_fwd_offset", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
@@ -3466,24 +3745,27 @@ def main() -> None:
         dict(name="flash_attention_bwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",
-             launches=k2 + front["flash_attention_bwd"], **k2_row),
+             launches=k2 + front["flash_attention_bwd"] + resume["flash_attention_bwd"],
+             **k2_row),
         dict(name="paged_attention_kernel", route="cuda",
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",
-             launches=k3 + preempt["paged_attention_kernel"] + front["paged_attention_kernel"],
-             **k3_row),
+             launches=k3 + preempt["paged_attention_kernel"] + front["paged_attention_kernel"]
+             + resume["paged_attention_kernel"], **k3_row),
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
-             replaces=replaces, launches=counts["fused_layers all"][name] + front.get(name, 0),
-             **fused_rows[name])
+             replaces=replaces, launches=counts["fused_layers all"][name] + front.get(name, 0)
+             + resume.get(name, 0), **fused_rows[name])
         for name, replaces in FUSED_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
-             replaces=replaces, launches=counts["fused_matmul all"][name], **mm_rows[name])
+             replaces=replaces, launches=counts["fused_matmul all"][name] + resume[name],
+             **mm_rows[name])
         for name, replaces in MM_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
-             replaces=replaces, launches=serving[name] + front[name], **mm_rows[name])
+             replaces=replaces, launches=serving[name] + front[name] + resume[name],
+             **mm_rows[name])
         for name, replaces in MM_SERVE_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/flash_block.cu",

@@ -147,6 +147,40 @@ ATTN_IMPLS = ("auto", "kernel", "plain")
 
 
 @dataclass(frozen=True)
+class CheckpointPolicy:
+    """Checkpoint-lifecycle policy (``checkpoint.CheckpointSaver``), the JAX
+    package's.
+
+    * ``async_save`` — periodic saves copy the state to the host (the only
+      part the step loop waits for) and write and commit it on a background
+      thread. Emergency and final saves always finish before returning.
+    * ``keep_last_n`` — retention: keep only the newest N *committed*
+      checkpoints (0 = keep everything). The newest committed checkpoint is
+      never deleted; uncommitted (failed or interrupted) save dirs are
+      always pruned.
+    * ``save_retries`` / ``retry_backoff_s`` — a failed save is retried this
+      many times, the delay doubling each attempt; a save that exhausts its
+      retries becomes a warning and the ``save_failures`` metric instead of
+      ending the run.
+    """
+
+    async_save: bool = True
+    keep_last_n: int = 0
+    save_retries: int = 2
+    retry_backoff_s: float = 0.5
+
+    def __post_init__(self) -> None:
+        if self.keep_last_n < 0:
+            raise ValueError(f"keep_last_n={self.keep_last_n} must be >= 0")
+        if self.save_retries < 0:
+            raise ValueError(f"save_retries={self.save_retries} must be >= 0")
+        if self.retry_backoff_s < 0:
+            raise ValueError(
+                f"retry_backoff_s={self.retry_backoff_s} must be >= 0"
+            )
+
+
+@dataclass(frozen=True)
 class TracePolicy:
     """Structured-tracing policy (``obs/trace.py``), the JAX package's.
 

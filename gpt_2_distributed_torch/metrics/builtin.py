@@ -5,7 +5,8 @@ package's names and formats:
 
 * freq-1 ``train/``: loss, lr, grad_norm, epoch, batch, and the guard's
   skipped_steps / last_skip_reason / clipped_steps once nonzero, the
-  loader's data_read_retries once nonzero, eval_loss;
+  loader's data_read_retries and the saver's save_failures once nonzero,
+  eval_loss;
 * freq-1 ``perf/`` (collector): tokens_per_second, total_tokens, epoch_time,
   tokens_per_second_per_chip and mfu (only where the card's peak is known,
   ``utils/flops.py``);
@@ -16,8 +17,8 @@ package's names and formats:
   entry points push through ``EngineDriver`` every ``--metrics_every``
   engine steps (``ReplicaRouter.metrics_snapshot``).
 
-The metrics of planes not ported yet (checkpoint saves, the multi-host
-control plane, elastic resize) come with them.
+The metrics of planes not ported yet (the desync detector, elastic
+resize) come with them.
 """
 
 from __future__ import annotations
@@ -85,6 +86,14 @@ METRIC_REGISTRY.metric(
 METRIC_REGISTRY.metric(
     "data_read_retries", reduction=ReductionStrategy.CURRENT,
     cli_format="io_retry: {value:.0f}",
+)(lambda v: float(int(v)))
+
+# Checkpoint saves (checkpoint.CheckpointSaver) that failed for good
+# (retries exhausted, or a background write that died), once nonzero: the
+# run goes on, with gaps in its save cadence.
+METRIC_REGISTRY.metric(
+    "save_failures", reduction=ReductionStrategy.CURRENT,
+    cli_format="save_fail: {value:.0f}",
 )(lambda v: float(int(v)))
 
 # Periodic validation loss over the held-out shard (shard 0 is "val").

@@ -46,7 +46,7 @@ submits get 503, and the process exits 0.
 Usage::
 
     gpt2-torch-frontend --init_random --model 124M --replicas 2 \\
-        --prefix_cache --port 8000
+        --prefix_cache --port 8000    # or --ckpt <save_dir>, --params_npz
     curl -N localhost:8000/v1/completions -d \\
         '{"prompt_ids": [1, 2, 3], "max_tokens": 8, "stream": true}'
 

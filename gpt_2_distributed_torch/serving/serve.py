@@ -15,7 +15,9 @@ and always a final record per request with the JAX CLI's keys
 ``queue_wait_ms``, ``preempted``, ``prefix_cached_tokens``). All requests
 are submitted up front and served up to ``--max_batch`` at a time.
 
-Weights come from ``--params_npz`` (a JAX-layout tree saved with
+Weights come from ``--ckpt`` (a training run's ``--save_dir``, whose
+newest verified checkpoint is read onto the serving device, or one
+``step_*`` dir), ``--params_npz`` (a JAX-layout tree saved with
 ``models/convert.py::save_npz``) or ``--init_random`` (seeded init). The
 engine runs on CUDA; ``--device cpu`` runs it on the CPU, and without a
 visible GPU nothing else runs.
@@ -40,7 +42,7 @@ serving-load metrics to TensorBoard every ``--metrics_every`` engine steps
 (it needs ``tensorboardX``).
 
 The parser takes every flag of the JAX CLI, under the same names, types
-and defaults. Serving meshes, speculation, checkpoints, replica placement,
+and defaults. Serving meshes, speculation, replica placement,
 the step watchdog and fault injection come with later slices of the port:
 any other value than the default of those flags is refused.
 
@@ -60,7 +62,7 @@ import time
 # Flags of the JAX CLIs whose planes come with later slices of the port,
 # with the value that leaves them off; any other value is refused.
 _UNPORTED = {
-    "ckpt": None, "serve_mesh": "",
+    "serve_mesh": "",
     "draft_preset": None, "spec_k": None, "draft_ckpt": None,
     "placement": "inprocess", "worker_max_respawns": 3,
     "worker_respawn_backoff_s": 2.0, "worker_rpc_timeout_s": 300.0,
@@ -82,7 +84,8 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--init_random", action="store_true",
                    help="serve seeded-init weights instead of --params_npz")
     p.add_argument("--ckpt", default=None,
-                   help="checkpoint dir (later slice; use --params_npz)")
+                   help="weights: a training --save_dir (its newest verified "
+                   "checkpoint) or one step_* dir")
     p.add_argument("--model", default="124M", choices=sorted(MODEL_PRESETS))
     p.add_argument("--n_layer", type=int, default=None)
     p.add_argument("--n_embd", type=int, default=None)
@@ -310,7 +313,7 @@ def cli_device(args: argparse.Namespace):
 
 def engine_factory(p: argparse.ArgumentParser, args: argparse.Namespace, device):
     """A function building one in-process replica on ``device`` over one
-    copy of the weights (``--init_random`` or ``--params_npz``)."""
+    copy of the weights (``--init_random``, ``--ckpt`` or ``--params_npz``)."""
     from gpt_2_distributed_torch.models import gpt2
     from gpt_2_distributed_torch.models.convert import load_npz
     from gpt_2_distributed_torch.serving.engine import ServingEngine
@@ -320,8 +323,12 @@ def engine_factory(p: argparse.ArgumentParser, args: argparse.Namespace, device)
         serve = build_serve_config(args, config)
     except ValueError as e:
         p.error(str(e))
-    params = (gpt2.init_params(config) if args.init_random
-              else load_npz(args.params_npz))
+    if args.init_random:
+        params = gpt2.init_params(config)
+    elif args.ckpt:
+        params = load_checkpoint_params(args.ckpt, config, device)
+    else:
+        params = load_npz(args.params_npz)
 
     def make_engine():
         return ServingEngine(params, config, serve, temperature=args.temperature,
@@ -330,11 +337,30 @@ def engine_factory(p: argparse.ArgumentParser, args: argparse.Namespace, device)
     return make_engine
 
 
+def load_checkpoint_params(ckpt: str, config, device):
+    """The params of ``--ckpt`` on ``device``: the step dir itself, or the
+    newest checkpoint under a save dir that passes verification. Exits when
+    there is none or it holds another model."""
+    import os
+
+    from gpt_2_distributed_torch.checkpoint import latest_verified_checkpoint, restore_params
+
+    path = latest_verified_checkpoint(os.path.abspath(ckpt))
+    if path is None:
+        sys.exit(f"no verified checkpoint found under {ckpt!r}")
+    try:
+        params, meta = restore_params(path, device, config)
+    except ValueError as e:
+        sys.exit(f"--ckpt: {e}")
+    print(f"checkpoint: {path} (step {meta.step})", file=sys.stderr)
+    return params
+
+
 def check_common_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     """The refusals both serving CLIs share."""
     _refuse_unported(p, args)
-    if (args.params_npz is None) == (not args.init_random):
-        p.error("exactly one of --params_npz / --init_random is required")
+    if sum((args.params_npz is not None, args.init_random, args.ckpt is not None)) != 1:
+        p.error("exactly one of --ckpt / --params_npz / --init_random is required")
     if args.request_timeout_s is not None and args.request_timeout_s < 0:
         p.error(f"--request_timeout_s={args.request_timeout_s} must be >= 0")
 

@@ -22,11 +22,29 @@ observability: ``--trace_dir`` (span traces of the step loop,
 ``--log_dir`` (TensorBoard scalars every ``--tb_every`` steps, with
 tensorboardX), ``--profile`` (a ``torch.profiler`` trace of the whole run
 into ``<log_dir>/profile``) or ``--xla_profile_at STEP[:NSTEPS]`` (one
-over those optimizer steps into ``<log_dir>/xla_profile``). Every flag whose
-plane is not ported yet (tp meshes, checkpoints and resume,
-the spike monitor's rollback, the multi-host control plane, the other
-fault injections, bf16 grad accumulation, remat) is refused with a "later
-slice" error instead of being ignored.
+over those optimizer steps into ``<log_dir>/xla_profile``).
+
+Checkpoints and resilience (``checkpoint.py``, ``resilience.py``):
+``--save_dir`` with ``--save_every`` (async by default, ``--async_save``;
+``--keep_last_n``, ``--save_retries``, ``--save_retry_backoff``), a final
+save at the end of every run, and ``--resume``, which continues the newest
+verified checkpoint bit for bit (params, AdamW moments and step count,
+guard counters, spike baseline, data cursor, token count; a checkpoint of
+another global batch or device count is refused: resizing is the elastic
+slice's); the spike monitor's rollback to the last verified checkpoint
+(``--spike_sigma``, ``--max_consecutive_skips``, ``--max_rollbacks``);
+SIGTERM or a notice from ``--preempt_poll_url`` saves one emergency
+checkpoint at the next step boundary and exits 143
+(``scripts/supervise.sh`` relaunches with ``--resume``); and the fault
+injections ``--inject_fail_at`` (rc 13), ``--inject_preempt_at``,
+``--inject_preempt_notice_at`` and ``--inject_save_fail_at`` (with
+``--inject_save_fail_count``). Under a mesh every fault decision goes
+through the control word every ``--consensus_every`` steps
+(``coordination.py``), so all processes save, roll back or exit on the same
+step. Every flag whose plane is not ported yet (tp meshes, the desync
+detector and hang watchdog, elastic resize, the other fault injections,
+bf16 grad accumulation, remat) is refused with a "later slice" error
+instead of being ignored.
 
 Runs on CUDA unless ``--device cpu`` is given; without a visible GPU it
 exits with the "no CUDA device" message. On CUDA the attention runs
@@ -66,7 +84,10 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import signal
 import sys
+import threading
+import time
 
 import numpy as np
 
@@ -84,17 +105,29 @@ DEFAULT_SEED = 42
 # Flags whose planes come with later slices of the port, with the value
 # that leaves them off; any other value is refused.
 _UNPORTED = {
-    "save_dir": None, "resume": False, "save_every": 1000, "async_save": "on",
-    "keep_last_n": 0, "save_retries": 2, "save_retry_backoff": 0.5,
-    "preempt_poll_url": None, "preempt_poll_interval": 5.0,
-    "spike_sigma": 6.0, "max_consecutive_skips": 3, "max_rollbacks": 3,
-    "accum_dtype": "fp32", "desync_check_every": 0, "consensus_every": 1,
-    "hang_timeout_s": 0.0, "inject_fail_at": 0, "inject_preempt_at": 0,
-    "inject_save_fail_at": 0, "inject_save_fail_count": 1,
-    "inject_preempt_notice_at": 0, "inject_desync_at": 0, "inject_hang_at": 0,
-    "inject_world_size": 0, "inject_worker_fail_at": 0,
-    "coordinator_address": None, "num_processes": None, "process_id": None,
+    "accum_dtype": "fp32", "desync_check_every": 0, "hang_timeout_s": 0.0,
+    "inject_desync_at": 0, "inject_hang_at": 0, "inject_world_size": 0,
+    "inject_worker_fail_at": 0, "coordinator_address": None, "num_processes": None,
+    "process_id": None,
 }
+
+
+def _claim_one_shot(save_dir: str | None, name: str, fired: set) -> bool:
+    """True exactly once per resumable run for a named fault injection: a
+    marker file in ``save_dir`` (it outlives supervised relaunches), or
+    the in-process set ``fired`` without one."""
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        marker = os.path.join(save_dir, f".{name}")
+        if os.path.exists(marker):
+            return False
+        with open(marker, "w") as f:
+            f.write("1")
+        return True
+    if name in fired:
+        return False
+    fired.add(name)
+    return True
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -280,6 +313,7 @@ def main(argv: list[str] | None = None):
                 "fallback lives inside the guarded step)")
     if args.dropout is not None and not (0.0 <= args.dropout < 1.0):
         p.error(f"--dropout must be in [0, 1), got {args.dropout}")
+    _check_resilience_flags(p, args)
     profile_spec = _profile_spec(p, args)
     spec = _mesh_spec(p, args)
 
@@ -343,6 +377,27 @@ def main(argv: list[str] | None = None):
             return _run(args, config, device, mesh, profile_spec)
     finally:
         dist.destroy_process_group()
+
+
+def _check_resilience_flags(p: argparse.ArgumentParser, args) -> None:
+    """The checkpoint, spike-monitor and injection flags' refusals."""
+    from gpt_2_distributed_torch.config import CheckpointPolicy
+    from gpt_2_distributed_torch.resilience import SpikeMonitor
+
+    try:
+        CheckpointPolicy(keep_last_n=args.keep_last_n, save_retries=args.save_retries,
+                         retry_backoff_s=args.save_retry_backoff)
+        SpikeMonitor(sigma=args.spike_sigma, max_consecutive=args.max_consecutive_skips)
+    except ValueError as e:
+        p.error(str(e))
+    if args.consensus_every < 1:
+        p.error(f"--consensus_every={args.consensus_every} must be >= 1")
+    if args.save_every < 0:
+        p.error(f"--save_every={args.save_every} must be >= 0")
+    for flag in ("inject_fail_at", "inject_preempt_notice_at", "inject_save_fail_at"):
+        if getattr(args, flag) and not args.save_dir:
+            p.error(f"--{flag} needs --save_dir (its one-shot marker and the "
+                    f"checkpoint it exercises live there)")
 
 
 def _profile_spec(p: argparse.ArgumentParser, args):
@@ -421,7 +476,27 @@ def _run(args, config, device, mesh, profile_spec):
         make_train_step,
         trainable_params,
     )
-    from gpt_2_distributed_torch.resilience import SKIP_REASON_NAMES, init_guard_state
+    from gpt_2_distributed_torch.checkpoint import (
+        CheckpointMeta,
+        CheckpointSaver,
+        StateLayout,
+        gc_checkpoints,
+        restore_latest_verified,
+    )
+    from gpt_2_distributed_torch.config import CheckpointPolicy
+    from gpt_2_distributed_torch.coordination import (
+        ConsensusBus,
+        decode_control_word,
+        encode_control_word,
+    )
+    from gpt_2_distributed_torch.resilience import (
+        PREEMPTED_EXIT_CODE,
+        SKIP_REASON_NAMES,
+        PreemptionHandler,
+        PreemptionPoller,
+        SpikeMonitor,
+        init_guard_state,
+    )
     from gpt_2_distributed_torch.utils.flops import device_peak_flops, flops_per_token
 
     primary = is_primary()
@@ -484,9 +559,77 @@ def _run(args, config, device, mesh, profile_spec):
         layer_clip_norm=args.guard_clip_norm, sharded=sharded,
     )
     guard_state = init_guard_state() if use_guard else None
+    monitor = (SpikeMonitor(sigma=args.spike_sigma, max_consecutive=args.max_consecutive_skips)
+               if use_guard else None)
     ones_scale = torch.ones(args.grad_accum_steps, device=device)
     nan_scale = ones_scale.clone()
     nan_scale[0] = float("nan")
+
+    # --- multi-process control plane (coordination.py) ----------------------
+    # Fault decisions gate collectives, so under a mesh every process acts on
+    # the agreed control word at the same step; on one process the exchange
+    # is the identity and the single-process branches below run instead.
+    bus = ConsensusBus(mesh, device)
+    multihost = bus.process_count > 1
+    consensus_k = args.consensus_every
+
+    # --- checkpoint lifecycle -----------------------------------------------
+    layout = StateLayout(config, sharded, mesh)
+    saver = None
+    if args.save_dir:
+        policy = CheckpointPolicy(async_save=args.async_save == "on",
+                                  keep_last_n=args.keep_last_n, save_retries=args.save_retries,
+                                  retry_backoff_s=args.save_retry_backoff)
+        saver = CheckpointSaver(args.save_dir, layout, policy, barrier=bus.barrier)
+        if args.inject_save_fail_at and _claim_one_shot(
+                args.save_dir, f"save_fail_injected_{args.inject_save_fail_at}", set()):
+            saver.inject_fail_at = args.inject_save_fail_at
+            saver.inject_fail_count = args.inject_save_fail_count
+
+    # --- resume ---------------------------------------------------------------
+    world_record = {
+        "process_count": spec.n_devices, "device_count": spec.n_devices,
+        "mesh": spec.to_str(), "global_batch": args.batch * spec.n_devices * args.grad_accum_steps,
+        "grad_accum_steps": args.grad_accum_steps, "batch": args.batch,
+        "local_batch": args.batch, "workers": dataset.num_workers,
+    }
+    start_epoch, skip_steps, global_step, total_tokens = 0, 0, 0, 0
+    last_skip_reason_host = 0
+    if args.resume and args.save_dir:
+        # Prune uncommitted dirs (a crash mid-save leaves one) and apply
+        # retention before picking the checkpoint.
+        removed = gc_checkpoints(args.save_dir, args.keep_last_n)
+        if removed:
+            say("[ckpt] pruned on resume: " + ", ".join(os.path.basename(p) for p in removed))
+        bus.barrier()
+        t_restore = time.perf_counter()
+        restored = restore_latest_verified(args.save_dir, params, optimizer, layout)
+        if restored is not None:
+            meta, guard, latest = restored
+            mw = meta.world or {}
+            if mw and (int(mw["global_batch"]) != world_record["global_batch"]
+                       or int(mw["device_count"]) != world_record["device_count"]):
+                sys.exit(f"error: --resume: {latest} was saved at a global batch of "
+                         f"{mw['global_batch']} on {mw['device_count']} device(s) (mesh "
+                         f"{mw['mesh']}); this run has {world_record['global_batch']} on "
+                         f"{world_record['device_count']}: resuming at another world is "
+                         f"the elastic slice's work, a later slice of the port")
+            start_epoch, skip_steps = meta.epoch, meta.batches_in_epoch
+            global_step, total_tokens = meta.step, meta.total_tokens
+            if meta.rng_seed != args.seed:
+                say(f"warning: --seed {args.seed} differs from the checkpoint's seed "
+                    f"{meta.rng_seed}; using the checkpoint's so dropout resumes exactly")
+            args.seed = meta.rng_seed
+            if monitor is not None and meta.spike_monitor:
+                monitor.load_state_dict(meta.spike_monitor)
+            if use_guard and guard is not None:
+                guard_state = guard
+                last_skip_reason_host = guard.last_skip_reason
+            say(f"resumed from {latest}: step {global_step}, epoch {start_epoch}, "
+                f"{skip_steps} steps into the epoch (restore "
+                f"{(time.perf_counter() - t_restore) * 1e3:.1f} ms)", flush=True)
+        else:
+            say(f"--resume: no checkpoint found in {args.save_dir}; starting fresh")
 
     try:
         tracker = StatsTracker(
@@ -498,6 +641,13 @@ def _run(args, config, device, mesh, profile_spec):
         )
     except RuntimeError as e:
         sys.exit(f"--log_dir: {e}")
+    tracker.total_tokens = total_tokens
+
+    def make_meta(step: int, ep: int, batches: int) -> CheckpointMeta:
+        return CheckpointMeta(
+            step=step, epoch=ep, batches_in_epoch=batches, rng_seed=args.seed,
+            total_tokens=tracker.total_tokens,
+            spike_monitor=monitor.state_dict() if monitor else None, world=world_record)
 
     # --- evaluation ---------------------------------------------------------
     # The val split (shard 0), the epoch-0 permutation every time, so
@@ -544,17 +694,42 @@ def _run(args, config, device, mesh, profile_spec):
                     y.pin_memory().to(device, non_blocking=True))
         return x, y
 
+    # --- preemption (resilience layer 4) ------------------------------------
+    # SIGTERM only raises a flag; the loop reads it at a step boundary, saves
+    # one emergency checkpoint and exits rc 143 for a supervised --resume.
+    # --inject_preempt_notice_at points the poller at a file:// notice in
+    # --save_dir that the loop flips to TRUE.
+    preempt = PreemptionHandler()
+    on_main_thread = threading.current_thread() is threading.main_thread()
+    if on_main_thread:   # the signal module's contract
+        preempt.install()
+    poller, notice_path = None, None
+    if args.inject_preempt_notice_at:
+        notice_path = os.path.join(os.path.abspath(args.save_dir), "preempt_notice.txt")
+        # FALSE on every launch: a relaunch must not re-read the last TRUE.
+        os.makedirs(os.path.dirname(notice_path), exist_ok=True)
+        with open(notice_path, "w") as f:
+            f.write("FALSE")
+    if args.preempt_poll_url or notice_path:
+        poller = PreemptionPoller(
+            url=args.preempt_poll_url or f"file://{notice_path}",
+            interval_s=(min(args.preempt_poll_interval, 0.05) if notice_path
+                        else args.preempt_poll_interval),
+            handler=preempt,
+        ).start()
+
     # --- epoch/step loop ----------------------------------------------------
     # Unguarded, metrics are read one step late: step N+1 is issued before
     # step N's loss is read back, so the host never waits on the device
     # between steps. The guarded step reads its loss and grad norm on the
-    # host to decide (one sync per optimizer step), so it is flushed at once.
-    global_step = 0
+    # host to decide (one sync per optimizer step), so it is flushed at once,
+    # and its loss feeds the spike monitor there.
     pending = None
-    last_skip_reason_host = 0
+    rollback_requested = False
+    skip_observed_last = False
 
     def flush_pending() -> None:
-        nonlocal pending, last_skip_reason_host
+        nonlocal pending, last_skip_reason_host, rollback_requested, skip_observed_last
         if pending is None:
             return
         p_step, p_epoch, p_batch, m = pending
@@ -565,6 +740,9 @@ def _run(args, config, device, mesh, profile_spec):
             extra = {}
             skipped = False
             if use_guard:
+                # Latched for the next consensus exchange: several flushes
+                # can pass between exchanges.
+                skip_observed_last = skip_observed_last or bool(m.skip_reason)
                 if m.skip_reason:
                     skipped = True
                     last_skip_reason_host = m.skip_reason
@@ -583,6 +761,15 @@ def _run(args, config, device, mesh, profile_spec):
                         f"(total clipped: {m.clipped_steps})", flush=True)
                 if m.clipped_steps:
                     extra["clipped_steps"] = m.clipped_steps
+                verdict = monitor.observe(float(m.loss), skipped=skipped)
+                if verdict == "rollback":
+                    rollback_requested = True
+                elif verdict == "anomaly" and not skipped:
+                    say(f"[guard] step {p_step} loss spike: {float(m.loss):.4f} (EMA "
+                        f"{monitor.mean:.4f}, {monitor.consecutive} consecutive "
+                        f"anomalies)", flush=True)
+            if saver is not None and saver.failed_saves:
+                extra["save_failures"] = saver.failed_saves
             if dataset.read_retry_count:
                 extra["data_read_retries"] = dataset.read_retry_count
             values = dict(lr=float(lr_of(p_step - 1)), epoch=p_epoch, batch=p_batch)
@@ -612,96 +799,269 @@ def _run(args, config, device, mesh, profile_spec):
             step_span.__exit__(None, None, None)
             step_span = None
 
+    def save_now(step: int, ep: int, batches: int) -> None:
+        saver.save(step, optimizer, make_meta(step, ep, batches), guard_state)
+
+    def emergency_preempt_exit() -> None:
+        """Flush, commit one emergency checkpoint, exit rc 143 (which
+        supervise.sh relaunches without burning a restart attempt)."""
+        flush_pending()
+        end_step_span()
+        tracer.event("preempt_exit", step=global_step)
+        if saver is not None:
+            # Wait or supersede: an in-flight async save is drained first;
+            # never two writers in one step dir.
+            saver.ensure_committed_sync(global_step, optimizer,
+                                        make_meta(global_step, epoch, step_in_epoch),
+                                        guard_state)
+        say(f"[preempt] emergency checkpoint at step {global_step}; exiting rc "
+            f"{PREEMPTED_EXIT_CODE} for a supervised resume", flush=True)
+        raise SystemExit(PREEMPTED_EXIT_CODE)
+
     whole_run = None
     if args.profile:
         whole_run = ProfilerCapture((0, 1 << 62), args.log_dir, subdir="profile",
                                     rank=rank)
         whole_run.maybe_start(0)
     done = False
+    rollbacks_done = 0
+    fired: set = set()   # one-shot injections without a --save_dir
+    epoch, step_in_epoch = start_epoch, skip_steps
+    # Under a mesh periodic saves happen at the consensus boundary; this
+    # keeps a resume or rollback from re-saving the step it restored.
+    last_saved_step = global_step
     try:
-        for epoch in range(args.epochs):
-            dataset.set_epoch(epoch)
-            tracker.start_epoch()
-            loader_iter = iter(create_dataloader(dataset, batch_size=global_batch,
-                                                 prefetch_factor=args.prefetch_factor))
-            step_in_epoch = 0
-            micro: list = []
-            prefetched = None
-            while step_in_epoch < steps_per_epoch:
-                begin_step_span()
-                if prefetched is not None:
-                    x, y = prefetched
-                    prefetched = None
-                else:
-                    try:
-                        with tracer.span("data_fetch"):
-                            while len(micro) < args.grad_accum_steps:
-                                micro.append(next(loader_iter))
-                    except StopIteration:
+        while True:
+            rollback_requested = False
+            for epoch in range(start_epoch, args.epochs):
+                dataset.set_epoch(epoch)
+                tracker.start_epoch()
+                first_epoch = epoch == start_epoch
+                loader_iter = iter(create_dataloader(
+                    dataset, batch_size=global_batch, prefetch_factor=args.prefetch_factor,
+                    skip_batches=skip_steps * args.grad_accum_steps if first_epoch else 0))
+                step_in_epoch = skip_steps if first_epoch else 0
+                micro: list = []
+                prefetched = None
+                first_inner = True
+                while step_in_epoch < steps_per_epoch:
+                    begin_step_span()
+                    if prefetched is not None:
+                        x, y = prefetched
+                        prefetched = None
+                    else:
+                        try:
+                            with tracer.span("data_fetch"):
+                                while len(micro) < args.grad_accum_steps:
+                                    micro.append(next(loader_iter))
+                        except StopIteration:
+                            break
+                        with tracer.span("h2d"):
+                            x, y = to_device(micro)
+                    micro = []
+                    # The consensus exchange: the only place where fault flags
+                    # turn into actions under a mesh (every K steps and at
+                    # each epoch's first iteration; flags latch in between).
+                    if multihost and (first_inner or global_step % consensus_k == 0):
+                        agreed = decode_control_word(bus.exchange(encode_control_word(
+                            preempt=preempt.preempted(), rollback=rollback_requested,
+                            skip=skip_observed_last,
+                            save_now=bool(saver is not None and saver.failed_saves))))
+                        if agreed.preempt:
+                            emergency_preempt_exit()
+                        if agreed.skip and not skip_observed_last:
+                            print(f"[coord] step {global_step}: another process observed "
+                                  f"a guard skip this one did not: guard inputs may have "
+                                  f"diverged", flush=True)
+                        skip_observed_last = False
+                        if agreed.rollback:
+                            rollback_requested = True
+                            say(f"[coord] agreed rollback before step {global_step + 1}",
+                                flush=True)
+                            break
+                        if (saver is not None and global_step > 0
+                                and global_step != last_saved_step
+                                and (agreed.save_now
+                                     or (args.save_every and global_step % args.save_every == 0)
+                                     or (consensus_k > 1 and args.save_every
+                                         and global_step - last_saved_step >= args.save_every))):
+                            save_now(global_step, epoch, step_in_epoch)
+                            last_saved_step = global_step
+                    first_inner = False
+                    capture.maybe_start(global_step + 1)
+                    if use_guard:
+                        loss_scale = ones_scale
+                        if (args.inject_nan_at and global_step + 1 == args.inject_nan_at
+                                and _claim_one_shot(args.save_dir,
+                                                    f"nan_injected_{args.inject_nan_at}", fired)):
+                            loss_scale = nan_scale
+                            say(f"[inject] poisoning micro-batch 0 loss with NaN at "
+                                f"step {global_step + 1}", flush=True)
+                        with tracer.span("step_dispatch", step=global_step + 1):
+                            guard_state, m = train_step(params, guard_state, x, y, args.seed,
+                                                        global_step, loss_scale)
+                    else:
+                        with tracer.span("step_dispatch", step=global_step + 1):
+                            m = train_step(params, x, y, args.seed, global_step)
+                    global_step += 1
+                    step_in_epoch += 1
+                    # --device_prefetch: the next step's batch goes to the card
+                    # now, while this step's work is still queued on it.
+                    if (args.device_prefetch == "on" and step_in_epoch < steps_per_epoch
+                            and not (args.max_steps and global_step >= args.max_steps)):
+                        try:
+                            with tracer.span("h2d_prefetch"):
+                                while len(micro) < args.grad_accum_steps:
+                                    micro.append(next(loader_iter))
+                                prefetched = to_device(micro)
+                        except StopIteration:
+                            pass
+                    flush_pending()
+                    pending = (global_step, epoch, step_in_epoch, m)
+                    if use_guard:
+                        # The guarded step has already waited for its own
+                        # results; a lag would only charge the next step's
+                        # time to this one.
+                        flush_pending()
+                    # Stop the window once its last step has been flushed (its
+                    # device work is then in the trace, not just queued).
+                    capture.maybe_stop(global_step - 1)
+                    # Under a mesh every local decision waits for the next
+                    # exchange, so all processes act on the same step.
+                    if rollback_requested and not multihost:
                         break
-                    with tracer.span("h2d"):
-                        x, y = to_device(micro)
-                micro = []
-                capture.maybe_start(global_step + 1)
-                if use_guard:
-                    loss_scale = ones_scale
-                    if args.inject_nan_at and global_step + 1 == args.inject_nan_at:
-                        loss_scale = nan_scale
-                        say(f"[inject] poisoning micro-batch 0 loss with NaN at "
-                            f"step {global_step + 1}", flush=True)
-                    with tracer.span("step_dispatch", step=global_step + 1):
-                        guard_state, m = train_step(params, guard_state, x, y, args.seed,
-                                                    global_step, loss_scale)
-                else:
-                    with tracer.span("step_dispatch", step=global_step + 1):
-                        m = train_step(params, x, y, args.seed, global_step)
-                global_step += 1
-                step_in_epoch += 1
-                # --device_prefetch: the next step's batch goes to the card now,
-                # while this step's work is still queued on it.
-                if (args.device_prefetch == "on" and step_in_epoch < steps_per_epoch
-                        and not (args.max_steps and global_step >= args.max_steps)):
-                    try:
-                        with tracer.span("h2d_prefetch"):
-                            while len(micro) < args.grad_accum_steps:
-                                micro.append(next(loader_iter))
-                            prefetched = to_device(micro)
-                    except StopIteration:
-                        pass
-                flush_pending()
-                pending = (global_step, epoch, step_in_epoch, m)
-                if use_guard:
-                    # The guarded step has already waited for its own results;
-                    # a lag would only charge the next step's time to this one.
-                    flush_pending()
-                # Stop the window once its last step has been flushed (its
-                # device work is then in the trace, not just queued).
-                capture.maybe_stop(global_step - 1)
-                if run_eval is not None and global_step % args.eval_every == 0:
-                    flush_pending()
-                    with tracer.span("eval", step=global_step):
-                        tracker.update(global_step, count_tokens=False,
-                                       eval_loss=run_eval())
-                if args.max_steps and global_step >= args.max_steps:
-                    done = True
+                    if run_eval is not None and global_step % args.eval_every == 0:
+                        flush_pending()
+                        with tracer.span("eval", step=global_step):
+                            tracker.update(global_step, count_tokens=False,
+                                           eval_loss=run_eval())
+                    if (not multihost and saver is not None and args.save_every
+                            and global_step % args.save_every == 0):
+                        flush_pending()
+                        # Re-checked after the flush: never checkpoint a step
+                        # flagged for rollback (it would restore this one).
+                        if not rollback_requested:
+                            save_now(global_step, epoch, step_in_epoch)
+                    if rollback_requested and not multihost:
+                        break
+                    if args.inject_fail_at and global_step >= args.inject_fail_at:
+                        marker = os.path.join(args.save_dir,
+                                              f".fail_injected_{args.inject_fail_at}")
+                        if not os.path.exists(marker):
+                            flush_pending()
+                            tracker.close()
+                            if saver is not None:
+                                # A crash between steps: in-flight saves land
+                                # first (the commit race has its own tests).
+                                saver.wait()
+                            with open(marker, "w") as f:
+                                f.write(str(global_step))
+                            print(f"[inject] simulated failure after step {global_step}",
+                                  flush=True)
+                            sys.stderr.flush()
+                            # A hard exit, no teardown and no final save.
+                            os._exit(13)
+                    if (args.inject_preempt_at and global_step >= args.inject_preempt_at
+                            and _claim_one_shot(args.save_dir,
+                                                f"preempt_injected_{args.inject_preempt_at}",
+                                                fired)):
+                        say(f"[inject] simulated preemption (SIGTERM) after step "
+                            f"{global_step}", flush=True)
+                        if on_main_thread:
+                            os.kill(os.getpid(), signal.SIGTERM)
+                        else:
+                            preempt.trigger("injected preemption")
+                    if (args.inject_preempt_notice_at
+                            and global_step >= args.inject_preempt_notice_at
+                            and _claim_one_shot(
+                                args.save_dir,
+                                f"preempt_notice_injected_{args.inject_preempt_notice_at}",
+                                fired)):
+                        say(f"[inject] preemption notice after step {global_step}",
+                            flush=True)
+                        with open(notice_path, "w") as f:
+                            f.write("TRUE")
+                        # Wait for the poller (every 50 ms here) so the save
+                        # lands at this step boundary.
+                        deadline = time.monotonic() + 2.0
+                        while not preempt.preempted() and time.monotonic() < deadline:
+                            time.sleep(0.01)
+                    if not multihost and preempt.preempted():
+                        emergency_preempt_exit()
+                    if args.max_steps and global_step >= args.max_steps:
+                        done = True
+                        break
+                end_step_span()
+                loader_iter.close()
+                if multihost:
+                    # The epoch's (or run's) end: a rollback flag raised by the
+                    # last step's flush is agreed here, symmetrically.
+                    agreed = decode_control_word(bus.exchange(
+                        encode_control_word(rollback=rollback_requested)))
+                    rollback_requested = agreed.rollback
+                if done or rollback_requested:
                     break
-            end_step_span()
-            loader_iter.close()
-            if done:
-                break
+                skip_steps = 0   # later epochs start from batch 0
+
+            if rollback_requested and not done:
+                # Consecutive anomalies: restore the last verified checkpoint,
+                # keep the data cursor past the offending batches, reset the
+                # guard counters and the spike baseline, and go on.
+                pending = None
+                if monitor is not None:
+                    monitor.reset()
+                guard_state = init_guard_state() if use_guard else None
+                rollbacks_done += 1
+                tracer.event("rollback", step=global_step, count=rollbacks_done)
+                if rollbacks_done > args.max_rollbacks:
+                    sys.exit(f"error: loss diverged through {rollbacks_done} rollbacks "
+                             f"(--max_rollbacks {args.max_rollbacks}); stopping")
+                if saver is not None:
+                    # An in-flight save may be about to commit the very
+                    # checkpoint to restore.
+                    saver.wait()
+                restored = (restore_latest_verified(args.save_dir, params, optimizer, layout)
+                            if args.save_dir else None)
+                start_epoch, skip_steps = epoch, step_in_epoch
+                if restored is None:
+                    say("[resilience] rollback requested but no verified checkpoint is "
+                        "available; continuing in place with a reset spike baseline",
+                        flush=True)
+                    continue
+                meta, _guard, rpath = restored
+                global_step = meta.step
+                last_saved_step = global_step
+                tracker.total_tokens = meta.total_tokens
+                say(f"[resilience] rollback #{rollbacks_done}: restored {rpath} (step "
+                    f"{meta.step}); data cursor kept at epoch {epoch}, {step_in_epoch} opt "
+                    f"steps in: the offending batches are skipped", flush=True)
+                continue
+            break
 
         flush_pending()
+        if saver is not None:
+            # Every ending leaves a committed checkpoint of the final step:
+            # a sync save now, or the in-flight save of this step drained.
+            saver.ensure_committed_sync(
+                global_step, optimizer,
+                make_meta(global_step, min(epoch, args.epochs - 1) if args.epochs else 0,
+                          step_in_epoch),
+                guard_state)
     finally:
         end_step_span()
         capture.stop_if_active()
         if whole_run is not None:
             whole_run.stop_if_active()
         tracker.close()
+        if poller is not None:
+            poller.stop()
+        if saver is not None:
+            saver.close()
+        preempt.uninstall()
         if args.trace_dir:
             configure_tracing(None)   # closes the file; later runs trace nothing
     say(f"training done: {global_step} optimizer steps", flush=True)
     return tracker
-
 
 if __name__ == "__main__":
     main()

@@ -32,6 +32,8 @@ def _port_modules() -> list[str]:
 # Modules the poisoned import must cover by name (the list above is found
 # by walking the package; these pin the ones later slices added).
 REQUIRED = (
+    "gpt_2_distributed_torch.checkpoint",
+    "gpt_2_distributed_torch.coordination",
     "gpt_2_distributed_torch.obs.trace",
     "gpt_2_distributed_torch.resilience",
     "gpt_2_distributed_torch.serving.frontend.driver",

@@ -338,14 +338,27 @@ TRAIN = ["--seq_len", "32", "--batch", "4", "--max_steps", "4", "--eval_every", 
          "--cli_every", "1"]
 
 
+ATTRIBUTION_STEPS = 12
+
+
+def _attributed_pct_after_first(trace_dir) -> float:
+    """The share of the ``step`` spans' wall that their child spans cover,
+    over every step but the first (which carries the one-time set-up)."""
+    spans = [r for r in read_records(trace_dir / "trace-p0.jsonl") if r["ph"] == "span"]
+    steps = {r["sid"]: r for r in spans if r["name"] == "step" and r["attrs"]["n"] > 1}
+    covered = sum(r["dur"] for r in spans if r.get("parent") in steps)
+    return 100.0 * covered / sum(r["dur"] for r in steps.values())
+
+
 def test_training_trace_phases_and_attribution(shard_dir, tmp_path):
     """The port's step spans against a JAX training run's (the same
     flags): the same phase names, one ``step`` span an optimizer step, at
-    least 90% of the step wall attributed; and the losses equal an
-    untraced run's bit for bit."""
+    least 90% of the step wall attributed over the steps after the first
+    (12 steps, so that one stall of the host between two spans cannot
+    decide it); and the losses equal an untraced run's bit for bit."""
     flags = ["--data_dir", shard_dir, "--n_layer", "1", "--n_embd", "32", "--n_head", "2",
              "--vocab_size", "257", "--grad_accum_steps", "1", "--eval_batches", "1",
-             "--step_guard", "off"] + TRAIN
+             "--step_guard", "off"] + TRAIN + ["--max_steps", str(ATTRIBUTION_STEPS)]
     jax_train.main(flags + ["--trace_dir", str(tmp_path / "jax")])
     jax_trace.configure_tracing(None)
     traced = train.main(flags + ["--device", "cpu", "--trace_dir", str(tmp_path / "port")])
@@ -355,8 +368,8 @@ def test_training_trace_phases_and_attribution(shard_dir, tmp_path):
     assert set(mine["train_steps"]["phases"]) == set(theirs["train_steps"]["phases"]) == {
         "data_fetch", "h2d", "step_dispatch", "h2d_prefetch", "device_sync", "collector",
         "eval"}
-    assert mine["train_steps"]["n_steps"] == 4
-    assert mine["train_steps"]["attributed_pct"] >= 90.0
+    assert mine["train_steps"]["n_steps"] == ATTRIBUTION_STEPS
+    assert _attributed_pct_after_first(tmp_path / "port") >= 90.0
 
 
 def test_guard_skip_event_and_profiler_window(shard_dir, tmp_path):

@@ -299,7 +299,7 @@ def test_train_cli_with_fused_matmul_on_the_cpu(shard_dir, capsys):
 @pytest.mark.parametrize("flags, message", [
     ([], "no CUDA device"),
     (["--accum_dtype", "bf16", "--device", "cpu"], "later slice"),
-    (["--save_dir", "ckpt", "--device", "cpu"], "later slice"),
+    (["--desync_check_every", "1", "--device", "cpu"], "later slice"),
     (["--remat", "block", "--device", "cpu"], "later slice"),
 ])
 def test_train_cli_refusals(shard_dir, capsys, flags, message):

@@ -76,9 +76,9 @@ INPROGRESS_NAME = ".INPROGRESS"
 INDEX_NAME = "index.json"
 STATE_NAME = os.path.join("opt_state", "state.json")
 
-# Test seam: seconds the async commit thread sleeps between the tensor
-# write and the commit, so a test can see training steps go on while a
-# checkpoint is still uncommitted.
+# Test seam: seconds process 0 sleeps between the tensor write and the
+# commit, so a test can see a checkpoint that is written but uncommitted
+# (and, under a mesh, the other processes' writes done before it commits).
 COMMIT_DELAY_ENV = "GPT2_TORCH_INJECT_COMMIT_DELAY_S"
 # How long process 0 waits for the other writers' markers before the
 # commit attempt fails (and is retried).
@@ -450,23 +450,6 @@ def _await_writers(path: str, ranks: set[int], token: str, timeout: float) -> No
             pass
 
 
-def save_checkpoint(save_dir: str, step: int, optimizer, meta: CheckpointMeta,
-                    layout: StateLayout, guard: GuardState | None = None) -> str:
-    """Write and commit one checkpoint synchronously on one process.
-    Returns its dir. The training loop uses :class:`CheckpointSaver`,
-    which adds async writes, the writers' markers under a mesh, retries
-    and retention."""
-    if layout.mesh is not None:
-        raise ValueError("save_checkpoint is the one-process path; a mesh saves "
-                         "through CheckpointSaver")
-    path = os.path.join(os.path.abspath(save_dir), step_dir_name(step))
-    _mark_inprogress(path)
-    snap = snapshot_state(optimizer, layout, guard)
-    _write_snapshot(path, snap, 0)
-    _commit_files(path, step, meta, snap.index)
-    return path
-
-
 # --- reading ------------------------------------------------------------------
 
 
@@ -686,9 +669,6 @@ class CheckpointSaver:
         # `inject_fail_count` attempts of the save of step `inject_fail_at` raise.
         self.inject_fail_at = 0
         self.inject_fail_count = 0
-        # Test seam: called on the commit thread after the write, before
-        # the commit (e.g. an Event wait holding a save uncommitted).
-        self.pre_commit_hook: Callable[[str], None] | None = None
         self._commit_thread: threading.Thread | None = None
         self._api_lock = threading.RLock()
         self._pool: dict = {}
@@ -751,8 +731,6 @@ class CheckpointSaver:
         delay_s = float(os.environ.get(COMMIT_DELAY_ENV, "0") or 0)
         if delay_s > 0:
             time.sleep(delay_s)
-        if self.pre_commit_hook is not None:
-            self.pre_commit_hook(path)
 
         def commit() -> None:
             if self.multi:

@@ -123,6 +123,17 @@ class ConsensusBus:
             self.exchanges += 1
         return agreed
 
+    def same_on_every_process(self, value: int) -> bool:
+        """Whether every process passed the same ``value`` (one all-reduce
+        of ``[value, -value]`` with MAX; True on one process)."""
+        if self.mesh is None:
+            return True
+        both = torch.tensor([value, -value], dtype=torch.int64, device=self.device)
+        torch.distributed.all_reduce(both, op=torch.distributed.ReduceOp.MAX,
+                                     group=self.mesh.group)
+        high, neg_low = both.tolist()
+        return high == -neg_low
+
     def barrier(self) -> None:
         """Wait for every process of the mesh (one exchange of a zero word)."""
         if self.mesh is not None:

@@ -41,7 +41,8 @@ injections ``--inject_fail_at`` (rc 13), ``--inject_preempt_at``,
 ``--inject_save_fail_count``). Under a mesh every fault decision goes
 through the control word every ``--consensus_every`` steps
 (``coordination.py``), so all processes save, roll back or exit on the same
-step. Every flag whose plane is not ported yet (tp meshes, the desync
+step; a mesh run with no ``--save_dir``, no guard and no preemption notice
+exchanges nothing and leaves SIGTERM its default action. Every flag whose plane is not ported yet (tp meshes, the desync
 detector and hang watchdog, elastic resize, the other fault injections,
 bf16 grad accumulation, remat) is refused with a "later slice" error
 instead of being ignored.
@@ -572,6 +573,12 @@ def _run(args, config, device, mesh, profile_spec):
     bus = ConsensusBus(mesh, device)
     multihost = bus.process_count > 1
     consensus_k = args.consensus_every
+    # The exchange runs only where something can raise a flag for it: a
+    # saver, the guard (skips, rollbacks) or a preemption signal the loop
+    # catches. Without any, a mesh run installs no SIGTERM handler (the
+    # signal ends each process) and never exchanges the word.
+    consensus = multihost and bool(args.save_dir or use_guard or args.preempt_poll_url
+                                   or args.inject_preempt_at)
 
     # --- checkpoint lifecycle -----------------------------------------------
     layout = StateLayout(config, sharded, mesh)
@@ -594,6 +601,13 @@ def _run(args, config, device, mesh, profile_spec):
         "local_batch": args.batch, "workers": dataset.num_workers,
     }
     start_epoch, skip_steps, global_step, total_tokens = 0, 0, 0, 0
+
+    def check_same_restore(restored) -> None:
+        """Under a mesh every process must have restored the same step."""
+        step = -1 if restored is None else restored[0].step
+        if not bus.same_on_every_process(step):
+            sys.exit(f"error: the processes of the mesh restored different checkpoints "
+                     f"(this one: step {step}); their states would mix two steps")
     last_skip_reason_host = 0
     if args.resume and args.save_dir:
         # Prune uncommitted dirs (a crash mid-save leaves one) and apply
@@ -604,6 +618,7 @@ def _run(args, config, device, mesh, profile_spec):
         bus.barrier()
         t_restore = time.perf_counter()
         restored = restore_latest_verified(args.save_dir, params, optimizer, layout)
+        check_same_restore(restored)
         if restored is not None:
             meta, guard, latest = restored
             mw = meta.world or {}
@@ -701,7 +716,7 @@ def _run(args, config, device, mesh, profile_spec):
     # --save_dir that the loop flips to TRUE.
     preempt = PreemptionHandler()
     on_main_thread = threading.current_thread() is threading.main_thread()
-    if on_main_thread:   # the signal module's contract
+    if on_main_thread and (consensus or not multihost):   # the signal module's contract
         preempt.install()
     poller, notice_path = None, None
     if args.inject_preempt_notice_at:
@@ -862,7 +877,7 @@ def _run(args, config, device, mesh, profile_spec):
                     # The consensus exchange: the only place where fault flags
                     # turn into actions under a mesh (every K steps and at
                     # each epoch's first iteration; flags latch in between).
-                    if multihost and (first_inner or global_step % consensus_k == 0):
+                    if consensus and (first_inner or global_step % consensus_k == 0):
                         agreed = decode_control_word(bus.exchange(encode_control_word(
                             preempt=preempt.preempted(), rollback=rollback_requested,
                             skip=skip_observed_last,
@@ -885,6 +900,9 @@ def _run(args, config, device, mesh, profile_spec):
                                      or (args.save_every and global_step % args.save_every == 0)
                                      or (consensus_k > 1 and args.save_every
                                          and global_step - last_saved_step >= args.save_every))):
+                            # Unguarded, the last step's metrics are still
+                            # pending: the meta's token count needs them.
+                            flush_pending()
                             save_now(global_step, epoch, step_in_epoch)
                             last_saved_step = global_step
                     first_inner = False
@@ -993,7 +1011,7 @@ def _run(args, config, device, mesh, profile_spec):
                         break
                 end_step_span()
                 loader_iter.close()
-                if multihost:
+                if consensus:
                     # The epoch's (or run's) end: a rollback flag raised by the
                     # last step's flush is agreed here, symmetrically.
                     agreed = decode_control_word(bus.exchange(
@@ -1018,10 +1036,13 @@ def _run(args, config, device, mesh, profile_spec):
                              f"(--max_rollbacks {args.max_rollbacks}); stopping")
                 if saver is not None:
                     # An in-flight save may be about to commit the very
-                    # checkpoint to restore.
+                    # checkpoint to restore: every process waits for its
+                    # own writer, then for process 0's commit.
                     saver.wait()
+                    bus.barrier()
                 restored = (restore_latest_verified(args.save_dir, params, optimizer, layout)
                             if args.save_dir else None)
+                check_same_restore(restored)
                 start_epoch, skip_steps = epoch, step_in_epoch
                 if restored is None:
                     say("[resilience] rollback requested but no verified checkpoint is "

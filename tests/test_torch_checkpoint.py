@@ -27,7 +27,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import threading
 import time
 import types
 
@@ -302,10 +301,19 @@ def test_export_full_params_equals_jax_bit_for_bit():
 # --- save and restore ---------------------------------------------------------
 
 
+def _sync_save(save_dir, step: int, opt, layout, guard) -> str:
+    """One synchronous save through the saver; its step dir."""
+    saver = ck.CheckpointSaver(str(save_dir), layout, CheckpointPolicy(async_save=False))
+    try:
+        return saver.save(step, opt, _meta(step), guard)
+    finally:
+        saver.close()
+
+
 def test_restore_round_trip_is_bit_exact(tmp_path, trained):
     params, opt, guard = trained
     layout = ck.StateLayout(CFG)
-    path = ck.save_checkpoint(str(tmp_path), 2, opt, _meta(2), layout, guard)
+    path = _sync_save(tmp_path, 2, opt, layout, guard)
     assert res.verify_checkpoint(path) == [] and ck.is_committed_checkpoint(path)
     fresh = _fresh_state()
     meta, got_guard = ck.restore_checkpoint(path, *fresh, layout)
@@ -405,7 +413,7 @@ def test_restore_latest_verified_falls_back_past_corrupt(tmp_path, trained, caps
     params, opt, guard = trained
     layout = ck.StateLayout(CFG)
     for s in (1, 2, 3):
-        ck.save_checkpoint(str(tmp_path), s, opt, _meta(s), layout, guard)
+        _sync_save(tmp_path, s, opt, layout, guard)
     p3 = tmp_path / "step_0000003" / "params" / "rank_00000.bin"
     p3.write_bytes(p3.read_bytes()[:-4])
     (tmp_path / "step_0000002" / "meta.json").write_text("{not json")
@@ -420,24 +428,22 @@ def test_restore_latest_verified_falls_back_past_corrupt(tmp_path, trained, caps
 # --- the saver (tests/test_checkpoint.py's cases) -------------------------------
 
 
-def test_async_save_invisible_until_committed(tmp_path, trained):
+def test_async_save_invisible_until_committed(tmp_path, trained, monkeypatch):
     params, opt, guard = trained
+    # Process 0 holds the written checkpoint uncommitted for this long.
+    monkeypatch.setenv(ck.COMMIT_DELAY_ENV, "3.0")
     saver = ck.CheckpointSaver(str(tmp_path), ck.StateLayout(CFG), CheckpointPolicy())
-    gate, entered = threading.Event(), threading.Event()
-
-    def hold(_path):
-        entered.set()
-        gate.wait(timeout=30)
-
-    saver.pre_commit_hook = hold
     try:
         path = saver.save(1, opt, _meta(1), guard)
-        assert entered.wait(timeout=30), "the background write never finished"
+        state = os.path.join(path, ck.STATE_NAME)   # the write's last file
+        deadline = time.monotonic() + 30
+        while not os.path.exists(state) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert os.path.exists(state), "the background write never finished"
         assert os.path.exists(os.path.join(path, ck.INPROGRESS_NAME))
         assert not os.path.exists(os.path.join(path, ck.COMMITTED_NAME))
         assert ck.latest_checkpoint(str(tmp_path)) is None
         assert ck.list_uncommitted(str(tmp_path)) == [path]
-        gate.set()
         saver.wait(timeout=60)
         assert saver.committed_steps == [1] and saver.failed_saves == 0
         assert ck.latest_checkpoint(str(tmp_path)) == path
@@ -445,7 +451,6 @@ def test_async_save_invisible_until_committed(tmp_path, trained):
         ck.restore_checkpoint(path, *fresh, ck.StateLayout(CFG))
         assert _state_equal((params, opt), fresh)
     finally:
-        gate.set()
         saver.close()
 
 
@@ -488,10 +493,10 @@ def test_saver_exhausted_retries_degrade_without_raising(tmp_path, trained, caps
     assert "training continues without this checkpoint" in out
 
 
-def test_emergency_save_waits_out_in_flight_async_save(tmp_path, trained):
+def test_emergency_save_waits_out_in_flight_async_save(tmp_path, trained, monkeypatch):
     _, opt, guard = trained
+    monkeypatch.setenv(ck.COMMIT_DELAY_ENV, "0.3")
     saver = ck.CheckpointSaver(str(tmp_path), ck.StateLayout(CFG), CheckpointPolicy())
-    saver.pre_commit_hook = lambda _path: time.sleep(0.3)
     try:
         saver.save(2, opt, _meta(2), guard)
         path = saver.ensure_committed_sync(2, opt, _meta(2), guard)

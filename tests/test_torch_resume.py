@@ -21,6 +21,9 @@ serve CLI's ``--ckpt``), at a tiny size with dropout 0.1:
   losses within 5e-5 of the uninterrupted fsdp=2 run's (bit-equal when
   restored under fsdp=2 itself), and checkpoints saved on one process and
   under ``data=2 --shard_update on`` restore under fsdp=2 bit-equal;
+* the CLI under fsdp=2 (``torchrun``, gloo): a rollback while process 0's
+  commit is held back restores the same step on both processes, and
+  unguarded saves at the consensus boundary count every step's tokens;
 * ``serve --ckpt`` streams equal ``--params_npz`` streams of the same
   weights.
 """
@@ -39,7 +42,7 @@ import torch
 
 from gpt_2_distributed_torch import checkpoint as ck
 from gpt_2_distributed_torch import train
-from gpt_2_distributed_torch.config import GPT2Config
+from gpt_2_distributed_torch.config import CheckpointPolicy, GPT2Config
 from gpt_2_distributed_torch.models import gpt2
 from gpt_2_distributed_torch.parallel import train_step as ts
 from gpt_2_distributed_torch.resilience import init_guard_state
@@ -384,8 +387,10 @@ def _local(job, restore=None, save=None, first=0):
     losses = []
     for i in range(first, STEPS):
         if save is not None and i == K:
-            ck.save_checkpoint(save, i, opt, ck.CheckpointMeta(step=i, epoch=0,
-                               batches_in_epoch=i, rng_seed=0), layout, guard)
+            saver = ck.CheckpointSaver(save, layout, CheckpointPolicy(async_save=False))
+            saver.save(i, opt, ck.CheckpointMeta(step=i, epoch=0, batches_in_epoch=i,
+                                                 rng_seed=0), guard)
+            saver.close()
             at = [p.detach().clone() for p in ts.param_list(params)]
         guard, m = step(params, guard, job["x"][i], job["y"][i], 0, i, torch.ones(ACCUM))
         losses.append(m.loss.item())
@@ -450,13 +455,41 @@ def test_local_and_shard_update_checkpoints_restore_under_fsdp(gloo):
         assert _equal(r["from_su"]["restored"], r["su_save"]["at_save"])
 
 
-def _torchrun(shard_dir, *flags):
+def _torchrun(shard_dir, *flags, env=None):
     return subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
          "-m", "gpt_2_distributed_torch.train", "--training_mode", "fsdp", "--data_dir",
          shard_dir, *TINY, "--batch", "2", "--save_every", "2", "--max_steps", "6", *flags],
         cwd=REPO, capture_output=True, text=True, timeout=240,
-        env=dict(os.environ, OMP_NUM_THREADS="1"))
+        env=dict(os.environ, OMP_NUM_THREADS="1", **(env or {})))
+
+
+def test_cli_fsdp_rollback_waits_for_the_commit_on_every_rank(shard_dir, tmp_path):
+    """A spike rollback under fsdp=2 while process 0 still holds the step-4
+    checkpoint uncommitted (the commit-delay seam): every process waits for
+    that commit and restores step 4 (the CLI exits with an error when the
+    processes restore different steps)."""
+    out = _torchrun(shard_dir, "--save_dir", str(tmp_path), "--inject_nan_at", "5",
+                    "--max_consecutive_skips", "1", env={ck.COMMIT_DELAY_ENV: "1.0"})
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "skipped (nonfinite_loss)" in out.stdout
+    assert "rollback #1: restored" in out.stdout and "step_0000004 (step 4)" in out.stdout
+    assert "training done: 6 optimizer steps" in out.stdout
+    assert [s for s, _ in ck.list_checkpoints(str(tmp_path))] == [2, 4, 6]
+
+
+def test_cli_fsdp_unguarded_saves_count_every_step_s_tokens(shard_dir, tmp_path):
+    """Unguarded, the mesh loop reads a step's metrics one step late; a save
+    at the consensus boundary reads them first, so each checkpoint's
+    ``total_tokens`` is its step count times a step's global tokens."""
+    out = _torchrun(shard_dir, "--save_dir", str(tmp_path), "--step_guard", "off")
+    assert out.returncode == 0, out.stdout + out.stderr
+    per_step = 2 * 2 * 2 * 32   # --batch 2 x fsdp 2 rows, 2 micro-batches, seq 32
+    saved = ck.list_checkpoints(str(tmp_path))
+    assert [s for s, _ in saved] == [2, 4, 6]
+    for step, path in saved:
+        with open(os.path.join(path, "meta.json")) as f:
+            assert ck.CheckpointMeta.from_json(f.read()).total_tokens == step * per_step
 
 
 @pytest.mark.slow

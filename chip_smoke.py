@@ -179,7 +179,25 @@ that does not hold:
    and the launches of K1, K3, K7's forward and K4 those its decode steps
    imply; prints a checkpoint's bytes, the step loop's stall for an async
    and a sync save, the commit time and the restore time;
-14. the front end (``phase_frontend``): the serving CLI
+14. the fault detectors of a mesh run (``phase_detectors``): the
+   parameter fingerprint of the 124M params on the card, twice
+   bit-identical, moved by ``perturb_params`` x1.001, bit-identical after
+   x1.0, within 2^-20 sum|p| of the fp64 sum, and its median time over 20
+   calls (the cost of one ``--desync_check_every`` check but its one small
+   all-gather); then run A of 13 in a subprocess (``--detector_worker``)
+   with ``--hang_timeout_s 10 --inject_hang_at 9 --trace_dir``: exit 170,
+   a ``[watchdog]`` line naming the open spans, a committed and verified
+   checkpoint of step 8 written by the watchdog's emergency save, the
+   launches of 8 steps, the seconds from the last beat to the exit; then
+   ``--resume`` on that dir in this process to step 16: its losses A's
+   last 8 and its final params, AdamW moments and step count A's by
+   sha256. With two or more cards, two ranks as independent processes
+   over NCCL at data=2: ``--shard_update off --desync_check_every 2
+   --inject_desync_at 2 --max_rollbacks 0`` names rank 1 and ends both
+   ranks with rc 1, ``--inject_worker_fail_at 2`` ends both with rc 171 at
+   the same step; on one card it prints that these runs need two GPUs and
+   that the CPU tests hold them over gloo;
+15. the front end (``phase_frontend``): the serving CLI
    (``serving/serve.py`` on ``EngineDriver`` over a one-replica
    ``ReplicaRouter``) in subprocesses at 124M with random weights, greedy,
    64 new tokens for phase_serving's 8 prompts: untraced and SIGTERM'd
@@ -203,14 +221,14 @@ that does not hold:
    run of the "off" configuration: one ``step`` span an optimizer step,
    90% or more of the step wall attributed to named phases, the losses
    equal to the untraced run's bit for bit;
-15. with two or more cards, trains ``--mesh sp=2`` the same way through
+16. with two or more cards, trains ``--mesh sp=2`` the same way through
     ``torch.distributed.run`` (NCCL; two ranks of this script in
     ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
     launched 12 x 2 x (micro-batches + eval batches) forward and 12 x 2 x
     micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
     beside the local step's. On one card it prints that the NCCL ring
     needs two GPUs and that the CPU tests hold that path over gloo;
-16. data-parallel and fully-sharded training: every rank of a data=2 x
+17. data-parallel and fully-sharded training: every rank of a data=2 x
     fsdp=2 mesh in this process (``phase_ddp_ranks``), K1, K2 and K4-K7 on
     its rows at 124M shapes with the per-shard seed against their plain
     versions, the ranks' masks all different, the unfused dropout's rank
@@ -228,7 +246,7 @@ that does not hold:
     sheds; prints ms/step and tok/s beside the local steps'. On one card
     it prints that the NCCL runs need two GPUs and that the CPU tests hold
     them over gloo;
-17. prints the ``kernels`` JSON line, then the device line last.
+18. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` times K2's two kernels (dk/dv, dq) apart with
 ``torch.profiler`` and adds profiler windows over one serving admission
@@ -2459,9 +2477,10 @@ def training_wrappers() -> dict:
     return wrappers
 
 
-def training_launches(fused_layers: str, fused_matmul: str) -> dict[str, int]:
+def training_launches(fused_layers: str, fused_matmul: str, steps: int = TRAIN_STEPS,
+                      eval_batches: int = TRAIN_EVAL_BATCHES) -> dict[str, int]:
     """The launches per process of one training run of ``train_argv``:
-    TRAIN_STEPS x TRAIN_ACCUM micro-batches and TRAIN_EVAL_BATCHES eval
+    ``steps`` x TRAIN_ACCUM micro-batches and ``eval_batches`` eval
     batches through 12 layers. K1 runs in training and eval, K2 in
     training. The forward kernels of the fused legs run in both (at rate 0
     in eval), K5 (rate > 0 only) and every backward in training. With the
@@ -2470,8 +2489,8 @@ def training_launches(fused_layers: str, fused_matmul: str) -> dict[str, int]:
     twice, and one dgrad and one wgrad a leg."""
     from gpt_2_distributed_torch.config import MODEL_PRESETS
 
-    n_layer, micro = MODEL_PRESETS["124M"].n_layer, TRAIN_STEPS * TRAIN_ACCUM
-    fwd, bwd = n_layer * (micro + TRAIN_EVAL_BATCHES), n_layer * micro
+    n_layer, micro = MODEL_PRESETS["124M"].n_layer, steps * TRAIN_ACCUM
+    fwd, bwd = n_layer * (micro + eval_batches), n_layer * micro
     want = {name: 0 for name in training_wrappers()}
     want.update(flash_attention_fwd=fwd, flash_attention_bwd=bwd)
     if fused_matmul == "all":
@@ -2623,10 +2642,11 @@ def first_difference(a: list[float], b: list[float]) -> str:
     return f"lengths {len(a)} against {len(b)}"
 
 
-def phase_resume(fused_losses: list[float]) -> dict[str, int]:
+def phase_resume(fused_losses: list[float]) -> tuple[dict[str, int], dict[str, str]]:
     """Checkpoints and exact resume at 124M (step 13 of the module
     docstring); returns the launches of the runs and of the served
-    checkpoint by wrapper name."""
+    checkpoint by wrapper name, and the sha256 of run A's final params,
+    AdamW moments and step count."""
     import contextlib
     import hashlib
     import io
@@ -2803,6 +2823,287 @@ def phase_resume(fused_losses: list[float]) -> dict[str, int]:
         if got_s != want_s:
             fail(f"serve --ckpt launches {got_s} != {want_s}")
     print(f"resume phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return dict(total), dig_a
+
+
+# The fault detectors' phase: the hang is injected before step 9 of
+# phase_resume's run A, so the watchdog's emergency checkpoint is step 8.
+DETECT_HANG_AT = TRAIN_STEPS // 2 + 1
+DETECT_HANG_TIMEOUT_S = 10
+FINGERPRINT_CALLS = 20
+FINGERPRINT_TOL = 2.0 ** -20   # of sum |p|: fp32 sums of 124M terms
+
+
+def detector_worker(argv_json: str) -> None:
+    """One process of ``phase_detectors``' CLI runs (``chip_smoke.py
+    --detector_worker ARGV_JSON``): zeroes the training kernels' counts,
+    runs ``train.main()`` on the argv and prints one ``detector_worker``
+    JSON line (its exit code, launches, and the seconds from the hang
+    watchdog's last arm to its exit) when the run ends: from the
+    watchdog's exit, which then ends the process with its code as before,
+    or when ``train.main()`` returns or raises ``SystemExit``."""
+    import functools
+
+    from gpt_2_distributed_torch import coordination, train
+
+    wrappers = training_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    last_arm = []
+
+    def report(rc: int) -> None:
+        print("detector_worker " + json.dumps({
+            "rank": int(os.environ.get("RANK", "0")), "rc": rc,
+            "launches": {name: w.launches for name, w in wrappers.items()},
+            "beat_to_exit_s": time.monotonic() - last_arm[-1] if last_arm else None,
+        }), flush=True)
+
+    def exit_after_report(code: int) -> None:
+        report(code)
+        os._exit(code)
+
+    class Watchdog(coordination.HangWatchdog):
+        def arm(self) -> None:
+            last_arm.append(time.monotonic())
+            super().arm()
+
+    coordination.HangWatchdog = functools.partial(Watchdog, _exit=exit_after_report)
+    try:
+        train.main(json.loads(argv_json))
+    except SystemExit as e:
+        report(e.code if isinstance(e.code, int) else 1)
+        raise
+    report(0)
+
+
+def run_detector_workers(argv: list[str], world: int, log_dir: str) -> list[tuple[int, str, dict]]:
+    """``world`` independent processes of ``detector_worker`` (ranks of
+    one NCCL group over a local port when ``world`` > 1): each one's own
+    exit code, output and report, in rank order."""
+    import socket
+
+    env = dict(os.environ)
+    if world > 1:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env.update(WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    procs = []
+    for r in range(world):
+        log = os.path.join(log_dir, f"detector-rank{r}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, __file__, "--detector_worker", json.dumps(argv)],
+                env={**env, "RANK": str(r), "LOCAL_RANK": str(r)} if world > 1 else env,
+                stdout=f, stderr=subprocess.STDOUT, text=True), log))
+    out = []
+    try:
+        for p, log in procs:
+            rc = p.wait(timeout=600)
+            with open(log) as f:
+                text = f.read()
+            reports = [json.loads(line.split(" ", 1)[1]) for line in text.splitlines()
+                       if line.startswith("detector_worker ")]
+            out.append((rc, text, reports[-1] if reports else {}))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def detector_mesh_runs(card: str) -> dict[str, int]:
+    """``phase_detectors``' runs on two cards, where the machine has them:
+    two ranks of ``detector_worker`` as independent processes over NCCL at
+    data=2 with run A's flags, ``--shard_update off --desync_check_every 2
+    --inject_desync_at 2 --max_rollbacks 0`` (rank 1 named, rc 1 on both)
+    and ``--inject_worker_fail_at 2`` (rc 171 on both at the same step);
+    each rank's launches those of its steps. Returns rank 0's launches."""
+    import tempfile
+
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+    from gpt_2_distributed_torch.resilience import DATA_ABORT_EXIT_CODE, HANG_EXIT_CODE
+
+    total: dict[str, int] = collections.Counter()
+    if torch.cuda.device_count() < 2:
+        print(f"detectors, data=2: the NCCL desync and data-worker runs need two GPUs and "
+              f"this machine has {torch.cuda.device_count()}; "
+              f"tests/test_torch_coordination.py holds them over gloo (desync names "
+              f"rank 1, a worker failure ends both ranks with {DATA_ABORT_EXIT_CODE}, a "
+              f"hang ends both with {HANG_EXIT_CODE})", flush=True)
+        return {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data2 = os.path.join(tmp, "data2")
+        write_synthetic_shards(data2, num_shards=8, tokens_per_shard=262144, seed=0)
+        base = train_argv(data2, "all", "all") + ["--mesh", "data=2"]
+        runs = (
+            ("desync", ["--shard_update", "off", "--desync_check_every", "2",
+                        "--inject_desync_at", "2", "--max_rollbacks", "0"], 1),
+            ("data worker", ["--inject_worker_fail_at", "2"], DATA_ABORT_EXIT_CODE),
+        )
+        for label, flags, want_rc in runs:
+            t0 = time.monotonic()
+            ranks = run_detector_workers(base + flags, 2, tmp)
+            wall = time.monotonic() - t0
+            rcs = [rc for rc, _, _ in ranks]
+            out0, out1 = ranks[0][1], ranks[1][1]
+            if label == "desync":
+                ok = ("[coord] DESYNC at step 2: rank(s) [1]" in out0
+                      and all("loss diverged" in o for o in (out0, out1)))
+                steps = 2
+            else:
+                marks = [[line for line in o.splitlines()
+                          if "pod-wide coordinated abort at step" in line] for o in (out0, out1)]
+                at = [int(m[-1].split("at step ")[1].split(",")[0]) if m else -1
+                      for m in marks]
+                ok = at[0] == at[1] >= 1 and "[coord] local data worker failed" in out0
+                steps = at[0]
+            want = training_launches("all", "all", steps=steps, eval_batches=0)
+            print(f"detectors, data=2 {label} over NCCL ({card}): exit codes {rcs} in "
+                  f"{wall:.1f} s; " + ("rank 1 named, both stopped" if label == "desync"
+                                       else f"both aborted at step {steps}")
+                  + f": {ok}; launches per rank {[r.get('launches') for _, _, r in ranks]}",
+                  flush=True)
+            if rcs != [want_rc, want_rc] or not ok:
+                fail(f"data=2 {label}: exit codes {rcs}, expected {want_rc} on both:\n"
+                     f"{out0[-3000:]}\n{out1[-3000:]}")
+            for _, _, r in ranks:
+                if r.get("launches") != want:
+                    fail(f"data=2 {label} rank {r.get('rank')} launches "
+                         f"{r.get('launches')} != {want}")
+            total.update(ranks[0][2]["launches"])
+    return dict(total)
+
+
+def phase_detectors(fused_losses: list[float], digest_a: dict[str, str],
+                    card: str) -> dict[str, int]:
+    """The fault detectors of a mesh run (step 14 of the module docstring):
+    the parameter fingerprint at 124M on the card, the hang watchdog's
+    exit and emergency checkpoint in phase_resume's run A with a hang
+    injected, the resume from that checkpoint, and with two or more cards
+    the desync and data-worker runs over NCCL; returns the launches of the
+    runs on this card by wrapper name."""
+    import hashlib
+    import shutil
+    import statistics
+    import tempfile
+
+    from gpt_2_distributed_torch import checkpoint as ck
+    from gpt_2_distributed_torch import train
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+    from gpt_2_distributed_torch.coordination import fingerprint_params, perturb_params
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+    from gpt_2_distributed_torch.models import gpt2
+    from gpt_2_distributed_torch.parallel import train_step as ts
+    from gpt_2_distributed_torch.resilience import HANG_EXIT_CODE, verify_checkpoint
+
+    t_phase = time.monotonic()
+    total: dict[str, int] = collections.Counter()
+
+    # (a) the fingerprint of 124M params on the card
+    config = MODEL_PRESETS["124M"]
+    params = ts.trainable_params(gpt2.init_params(config, seed=0), torch.device("cuda"))
+    tensors = ts.param_list(params)
+    fp = fingerprint_params(params)
+    again = fingerprint_params(params)
+    with torch.no_grad():
+        ref = sum(float(t.double().sum()) for t in tensors)
+        abs_sum = sum(float(t.double().abs().sum()) for t in tensors)
+    times = []
+    for _ in range(FINGERPRINT_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fingerprint_params(params)
+        times.append((time.perf_counter() - t0) * 1e3)
+    fp_ms = statistics.median(times)
+    n_values = sum(t.numel() for t in tensors)
+    perturb_params(tensors, 1.0)
+    same = fingerprint_params(params)
+    perturb_params(tensors, 1.001)
+    moved = fingerprint_params(params)
+    del params, tensors
+    bound = FINGERPRINT_TOL * abs_sum
+    print(f"fingerprint 124M on the card ({card}): {fp!r} ({n_values:,} fp32 values), twice "
+          f"bit-identical: {fp == again}; after x1.0 bit-identical: {same == fp}; after "
+          f"x1.001 {moved!r}, moved: {moved != fp}; against the fp64 sum {ref!r}: "
+          f"|diff| {abs(fp - ref):.3g} <= 2^-20 sum|p| = {bound:.3g}: {abs(fp - ref) <= bound}; "
+          f"median {fp_ms:.3f} ms of {FINGERPRINT_CALLS} calls (min {min(times):.3f}, max "
+          f"{max(times):.3f}; one read of {4 * n_values / 1e6:.1f} MB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s takes "
+          f"{4 * n_values / HBM_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
+    if not (fp == again and same == fp and moved != fp and abs(fp - ref) <= bound):
+        fail("the fingerprint is not reproducible, not moved by x1.001, moved by x1.0 or "
+             "off its fp64 sum")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
+        save_dir, trace_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "trace")
+        argv = train_argv(data_dir, "all", "all") + ["--save_dir", save_dir]
+        half = DETECT_HANG_AT - 1
+
+        # (b) a hang before step 9: rc 170 and the watchdog's checkpoint of step 8
+        t0 = time.monotonic()
+        [(rc, out, rep)] = run_detector_workers(
+            argv + ["--hang_timeout_s", str(DETECT_HANG_TIMEOUT_S), "--inject_hang_at",
+                    str(DETECT_HANG_AT), "--trace_dir", trace_dir], 1, tmp)
+        wall_hang = time.monotonic() - t0
+        lines = out.splitlines()
+        spans = [lines[i + 1].strip() for i, line in enumerate(lines[:-1])
+                 if line.startswith("[watchdog] open spans (innermost last):")]
+        latest = ck.latest_checkpoint(save_dir)
+        committed = (latest is not None and latest.endswith(ck.step_dir_name(half))
+                     and ck._dir_state(latest) == "committed" and verify_checkpoint(latest) == [])
+        want_hang = training_launches("all", "all", steps=half, eval_batches=0)
+        print(f"detectors, hang: --hang_timeout_s {DETECT_HANG_TIMEOUT_S} --inject_hang_at "
+              f"{DETECT_HANG_AT}: exit code {rc} in {wall_hang:.1f} s (start-up included); "
+              f"{rep.get('beat_to_exit_s', float('nan')):.2f} s from the last beat to the "
+              f"exit; open spans {spans}; newest checkpoint "
+              f"{os.path.basename(latest or 'none')}, committed and verified: {committed}; "
+              f"launches {rep.get('launches')}", flush=True)
+        if rc != HANG_EXIT_CODE or rep.get("rc") != HANG_EXIT_CODE:
+            fail(f"the hang run exited {rc}, not {HANG_EXIT_CODE}:\n{out[-4000:]}")
+        if not spans or "step" not in spans[0]:
+            fail(f"the watchdog's line names no open span:\n{out[-4000:]}")
+        if not committed:
+            fail(f"the watchdog left no committed, verified checkpoint of step {half}")
+        if rep["launches"] != want_hang:
+            fail(f"the hang run's launches {rep['launches']} != {want_hang}")
+        total.update(rep["launches"])
+
+        # ... and --resume from it to TRAIN_STEPS: run A's losses and final state
+        wrappers = training_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.monotonic()
+        tracker = train.main(argv + ["--resume"])
+        wall_resume = time.monotonic() - t0
+        got = {name: w.launches for name, w in wrappers.items()}
+        losses = list(tracker.buffers["loss"])
+        end = os.path.join(save_dir, ck.step_dir_name(TRAIN_STEPS))
+        dig = {}
+        for rel in digest_a:
+            with open(os.path.join(end, rel), "rb") as f:
+                dig[rel] = hashlib.sha256(f.read()).hexdigest()
+        want_resume = training_launches("all", "all", steps=TRAIN_STEPS - half)
+        print(f"detectors, resume: --resume from the watchdog's step {half} to {TRAIN_STEPS} "
+              f"in {wall_resume:.1f} s; losses bit-equal to run A's last {TRAIN_STEPS - half}: "
+              f"{losses == fused_losses[half:]}; final params, AdamW moments and step count "
+              f"bit-equal to A's (sha256): {dig == digest_a}; launches {got}", flush=True)
+        if losses != fused_losses[half:]:
+            fail("the resumed run's losses differ from A's at "
+                 + first_difference(losses, fused_losses[half:]))
+        if dig != digest_a:
+            fail(f"the resumed run's final state differs from A's: {dig} against {digest_a}")
+        if got != want_resume:
+            fail(f"the resumed run's launches {got} != {want_resume}")
+        total.update(got)
+        shutil.rmtree(save_dir)
+
+    # (c) the desync and data-worker runs on two cards
+    total.update(detector_mesh_runs(card))
+    print(f"detectors phase: {time.monotonic() - t_phase:.1f} s", flush=True)
     return dict(total)
 
 
@@ -3661,6 +3962,9 @@ def main() -> None:
         i = sys.argv.index("--ddp_worker")
         ddp_worker(sys.argv[i + 1], int(sys.argv[i + 2]), "--profile" in sys.argv)
         return
+    if "--detector_worker" in sys.argv[1:]:
+        detector_worker(sys.argv[sys.argv.index("--detector_worker") + 1])
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     smi = subprocess.run(
@@ -3705,7 +4009,8 @@ def main() -> None:
     serving = phase_serving(profile)
     phase_model_paths()
     counts, ms_steps, train_losses = phase_training(profile)
-    resume = phase_resume(train_losses["fused_matmul all"])
+    resume, digest_a = phase_resume(train_losses["fused_matmul all"])
+    detectors = phase_detectors(train_losses["fused_matmul all"], digest_a, card)
     front = phase_frontend(train_losses["off"])
     k8_train = phase_sp_training(ms_steps["off"], profile)
     phase_ddp_ranks()
@@ -3728,14 +4033,16 @@ def main() -> None:
           + "; preempt serving: " + ", ".join(f"{name} {n}" for name, n in preempt.items())
           + "; front end: " + ", ".join(f"{name} {n}" for name, n in front.items())
           + "; resume (runs A, B, C and serve --ckpt): "
-          + ", ".join(f"{name} {n}" for name, n in resume.items() if n), flush=True)
+          + ", ".join(f"{name} {n}" for name, n in resume.items() if n)
+          + "; detectors (the hang run, its resume, rank 0 of the data=2 runs): "
+          + ", ".join(f"{name} {n}" for name, n in detectors.items() if n), flush=True)
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
              launches=k1_serve + k1_train + front["flash_attention_fwd"]
-             + resume["flash_attention_fwd"], **k1_row),
+             + resume["flash_attention_fwd"] + detectors["flash_attention_fwd"], **k1_row),
         dict(name="flash_attention_fwd_offset", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
@@ -3745,8 +4052,8 @@ def main() -> None:
         dict(name="flash_attention_bwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",
-             launches=k2 + front["flash_attention_bwd"] + resume["flash_attention_bwd"],
-             **k2_row),
+             launches=k2 + front["flash_attention_bwd"] + resume["flash_attention_bwd"]
+             + detectors["flash_attention_bwd"], **k2_row),
         dict(name="paged_attention_kernel", route="cuda",
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",
@@ -3755,17 +4062,17 @@ def main() -> None:
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
              replaces=replaces, launches=counts["fused_layers all"][name] + front.get(name, 0)
-             + resume.get(name, 0), **fused_rows[name])
+             + resume.get(name, 0) + detectors[name], **fused_rows[name])
         for name, replaces in FUSED_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
-             replaces=replaces, launches=counts["fused_matmul all"][name] + resume[name],
-             **mm_rows[name])
+             replaces=replaces, launches=counts["fused_matmul all"][name] + resume[name]
+             + detectors[name], **mm_rows[name])
         for name, replaces in MM_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
-             replaces=replaces, launches=serving[name] + front[name] + resume[name],
-             **mm_rows[name])
+             replaces=replaces, launches=serving[name] + front[name] + resume[name]
+             + detectors[name], **mm_rows[name])
         for name, replaces in MM_SERVE_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/flash_block.cu",

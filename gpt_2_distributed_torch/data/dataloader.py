@@ -15,10 +15,12 @@ The port's own copy of the JAX package's loader, batch for batch:
 * a resume skip that is arithmetic (file sizes and the deterministic
   offset lists; nothing before the cursor is read).
 
-Left out until the slices that need them: the JAX package's native gather
-fast path (it yields the same windows), the consumed-window plans of the
-elastic cursor migration, and data-worker fault injection. Process identity
-defaults to a single process (rank 0 of 1).
+Worker 0 can be made to fail after N batches (``--inject_worker_fail_at``),
+through the same worker-error path a real failure takes. Left out until
+the slices that need them: the JAX package's native gather fast path (it
+yields the same windows) and the consumed-window plans of the elastic
+cursor migration. Process identity defaults to a single process (rank 0
+of 1).
 """
 
 from __future__ import annotations
@@ -276,17 +278,23 @@ class _WorkerThread(threading.Thread):
         batch_size: int,
         prefetch_factor: int,
         skip_samples: int = 0,
+        inject_fail_after: int = 0,
     ) -> None:
         super().__init__(daemon=True, name=f"shard-loader-{worker_id}")
         self.dataset = dataset
         self.worker_id = worker_id
         self.batch_size = batch_size
         self.skip_samples = skip_samples
+        # Fault injection (--inject_worker_fail_at): raise in this thread
+        # after producing N batches, so the failure takes the real
+        # _WorkerError -> consumer re-raise path (0 = off).
+        self.inject_fail_after = int(inject_fail_after)
         self.queue: queue.Queue = queue.Queue(maxsize=max(1, prefetch_factor))
         self._stop_event = threading.Event()
 
     def run(self) -> None:
         try:
+            produced = 0
             buf: list[np.ndarray] = []
             for sample in self.dataset.iter_worker(
                 self.worker_id, skip_samples=self.skip_samples
@@ -297,6 +305,12 @@ class _WorkerThread(threading.Thread):
                 if len(buf) == self.batch_size:
                     self._put(np.stack(buf))
                     buf = []
+                    produced += 1
+                    if self.inject_fail_after and produced >= self.inject_fail_after:
+                        raise RuntimeError(
+                            f"injected data-worker failure after "
+                            f"{produced} batches"
+                        )
             # drop_last: a trailing partial batch is discarded.
             self._put(_STOP)
         except BaseException as exc:  # noqa: BLE001 — re-raised by the consumer
@@ -339,12 +353,15 @@ class DataLoader:
         batch_size: int = DEFAULT_BATCH_SIZE,
         prefetch_factor: int = DEFAULT_PREFETCH_FACTOR,
         skip_batches: int = 0,
+        inject_worker_fail_after: int = 0,
     ) -> None:
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.prefetch_factor = int(prefetch_factor)
         # One-shot resume skip, consumed by the first iteration only.
         self._pending_skip = int(skip_batches)
+        # Fault injection: worker 0 raises after producing N batches (0 = off).
+        self._inject_worker_fail_after = int(inject_worker_fail_after)
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         to_skip, self._pending_skip = self._pending_skip, 0
@@ -360,6 +377,9 @@ class DataLoader:
             _WorkerThread(
                 self.dataset, w, self.batch_size, self.prefetch_factor,
                 skip_samples=skipped[w] * self.batch_size,
+                inject_fail_after=(
+                    self._inject_worker_fail_after if w == 0 else 0
+                ),
             )
             for w in range(self.dataset.num_workers)
         ]
@@ -397,10 +417,12 @@ def create_dataloader(
     batch_size: int = DEFAULT_BATCH_SIZE,
     prefetch_factor: int = DEFAULT_PREFETCH_FACTOR,
     skip_batches: int = 0,
+    inject_worker_fail_after: int = 0,
 ) -> DataLoader:
     return DataLoader(
         dataset,
         batch_size=batch_size,
         prefetch_factor=prefetch_factor,
         skip_batches=skip_batches,
+        inject_worker_fail_after=inject_worker_fail_after,
     )

@@ -5,8 +5,8 @@ package's names and formats:
 
 * freq-1 ``train/``: loss, lr, grad_norm, epoch, batch, and the guard's
   skipped_steps / last_skip_reason / clipped_steps once nonzero, the
-  loader's data_read_retries and the saver's save_failures once nonzero,
-  eval_loss;
+  loader's data_read_retries, the saver's save_failures and the desync
+  detector's desync_detected once nonzero, eval_loss;
 * freq-1 ``perf/`` (collector): tokens_per_second, total_tokens, epoch_time,
   tokens_per_second_per_chip and mfu (only where the card's peak is known,
   ``utils/flops.py``);
@@ -17,8 +17,7 @@ package's names and formats:
   entry points push through ``EngineDriver`` every ``--metrics_every``
   engine steps (``ReplicaRouter.metrics_snapshot``).
 
-The metrics of planes not ported yet (the desync detector, elastic
-resize) come with them.
+The elastic-resize metrics come with that plane.
 """
 
 from __future__ import annotations
@@ -94,6 +93,14 @@ METRIC_REGISTRY.metric(
 METRIC_REGISTRY.metric(
     "save_failures", reduction=ReductionStrategy.CURRENT,
     cli_format="save_fail: {value:.0f}",
+)(lambda v: float(int(v)))
+
+# The desync detector (coordination.py): fingerprint checks in which some
+# process's parameter fingerprint disagreed with the mesh, once nonzero.
+# Each detection asks for the agreed rollback.
+METRIC_REGISTRY.metric(
+    "desync_detected", reduction=ReductionStrategy.CURRENT,
+    cli_format="desync: {value:.0f}",
 )(lambda v: float(int(v)))
 
 # Periodic validation loss over the held-out shard (shard 0 is "val").

@@ -11,8 +11,10 @@ loss: ... | ...``), with memory metrics on their own ``MEMORY:`` line, and
 the token-rate window resets.
 
 The TensorBoard sink needs ``tensorboardX``, imported only when a
-``tb_dir`` is given; without it the tracker refuses to start. Left out
-until the DDP slice: the cross-process reduction of metrics.
+``tb_dir`` is given; without it the tracker refuses to start. The
+tracker reduces nothing across processes: the step and the eval
+all-reduce loss, grad norm and eval loss themselves, and counters stay
+per process, as in the JAX package.
 """
 
 from __future__ import annotations

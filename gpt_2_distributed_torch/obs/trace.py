@@ -248,6 +248,15 @@ class Tracer:
                 if stack
             }
 
+    def format_open_spans(self) -> str:
+        snap = self.open_spans()
+        if not snap:
+            return "open spans: (none)"
+        lines = ["open spans (innermost last):"]
+        for tid, names in sorted(snap.items()):
+            lines.append(f"  thread {tid}: " + " > ".join(names))
+        return "\n".join(lines)
+
     # -- internals -----------------------------------------------------------
 
     def _stack(self) -> list[_Span]:

@@ -268,6 +268,12 @@ def verify_checkpoint(path: str) -> list[str]:
 
 PREEMPTED_EXIT_CODE = 143  # 128 + SIGTERM: the conventional "killed by TERM" rc
 
+# The mesh fault detectors' exit codes (coordination.py). Both are restarts
+# that burn a supervise.sh attempt, unlike preemption's free rc 143: a hang
+# or a data-worker death is a fault, not scheduled churn.
+HANG_EXIT_CODE = 170        # hang watchdog fired: no step within --hang_timeout_s
+DATA_ABORT_EXIT_CODE = 171  # coordinated abort: a data worker died on some process
+
 
 class PreemptionHandler:
     """SIGTERM -> flag, checked by the driver at each step boundary.

@@ -41,11 +41,23 @@ injections ``--inject_fail_at`` (rc 13), ``--inject_preempt_at``,
 ``--inject_save_fail_count``). Under a mesh every fault decision goes
 through the control word every ``--consensus_every`` steps
 (``coordination.py``), so all processes save, roll back or exit on the same
-step; a mesh run with no ``--save_dir``, no guard and no preemption notice
-exchanges nothing and leaves SIGTERM its default action. Every flag whose plane is not ported yet (tp meshes, the desync
-detector and hang watchdog, elastic resize, the other fault injections,
-bf16 grad accumulation, remat) is refused with a "later slice" error
-instead of being ignored.
+step; a mesh run with no ``--save_dir``, no guard, no preemption notice and
+no ``--desync_check_every`` exchanges nothing and leaves SIGTERM its
+default action.
+
+The fault detectors of a mesh run (``coordination.py``):
+``--desync_check_every N`` compares a parameter fingerprint across the
+processes every N steps and turns a mismatch into the agreed rollback
+(one value per data replica: at fsdp=2 with data=1 a drift cannot show);
+``--hang_timeout_s S`` starts the hang watchdog, which exits 170 after S
+seconds without a completed step, with an emergency save; a data worker
+that dies under a mesh ends every process with rc 171 at the next
+exchange. ``scripts/supervise.sh`` restarts after 170 and 171 and counts
+the attempt. Their injections: ``--inject_desync_at``,
+``--inject_hang_at`` and ``--inject_worker_fail_at``. Every flag whose
+plane is not ported yet (tp meshes, elastic resize and its injection, the
+multi-host launch flags, bf16 grad accumulation, remat) is refused with a
+"later slice" error instead of being ignored.
 
 Runs on CUDA unless ``--device cpu`` is given; without a visible GPU it
 exits with the "no CUDA device" message. On CUDA the attention runs
@@ -106,10 +118,8 @@ DEFAULT_SEED = 42
 # Flags whose planes come with later slices of the port, with the value
 # that leaves them off; any other value is refused.
 _UNPORTED = {
-    "accum_dtype": "fp32", "desync_check_every": 0, "hang_timeout_s": 0.0,
-    "inject_desync_at": 0, "inject_hang_at": 0, "inject_world_size": 0,
-    "inject_worker_fail_at": 0, "coordinator_address": None, "num_processes": None,
-    "process_id": None,
+    "accum_dtype": "fp32", "inject_world_size": 0, "coordinator_address": None,
+    "num_processes": None, "process_id": None,
 }
 
 
@@ -212,17 +222,43 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inject_save_fail_at", type=int, default=0)
     p.add_argument("--inject_save_fail_count", type=int, default=1)
     p.add_argument("--inject_preempt_notice_at", type=int, default=0)
-    p.add_argument("--desync_check_every", type=int, default=0)
+    p.add_argument("--desync_check_every", type=int, default=0,
+                   help="under a mesh, every N optimizer steps all-gather and compare "
+                   "a parameter fingerprint (one fp32 sum on the device); a mismatch "
+                   "names the ranks that differ, counts in desync_detected and rolls "
+                   "the mesh back to the last verified checkpoint. The value is one per "
+                   "data replica (an fsdp group sums its shards), so at fsdp=2 with "
+                   "data=1 a drift cannot show, and under --shard_update every step "
+                   "re-gathers the params from the one copy of each slice. 0 = off; "
+                   "nothing to compare on one process")
     p.add_argument("--consensus_every", type=int, default=1)
-    p.add_argument("--hang_timeout_s", type=float, default=0.0)
+    p.add_argument("--hang_timeout_s", type=float, default=0.0,
+                   help="hang watchdog: if no optimizer step completes within this "
+                   "many seconds, dump every thread's stack and the open trace spans, "
+                   "try a bounded emergency save and exit rc 170 (scripts/supervise.sh "
+                   "restarts the job and counts the attempt). It arms after the first "
+                   "completed step, so the kernels' first build is outside the budget. "
+                   "0 = off")
     p.add_argument("--data_read_retries", type=int, default=2)
-    p.add_argument("--inject_desync_at", type=int, default=0)
-    p.add_argument("--inject_hang_at", type=int, default=0)
+    p.add_argument("--inject_desync_at", type=int, default=0,
+                   help="fault injection: scale the last rank's fp32 master params by "
+                   "1.001 just before optimizer step N (every rank runs the scaling, "
+                   "by 1.0 elsewhere); needs --desync_check_every. One-shot")
+    p.add_argument("--inject_hang_at", type=int, default=0,
+                   help="fault injection: rank 0 sleeps just before optimizer step N; "
+                   "its watchdog fires from the missing step, its peers' from the "
+                   "collective it never joins (every rank exits 170); needs "
+                   "--hang_timeout_s. One-shot")
     p.add_argument("--inject_world_size", type=int, default=0)
     p.add_argument("--dropout", type=float, default=None,
                    help="override every dropout rate (embedding, attention, "
                    "residual) with one value")
-    p.add_argument("--inject_worker_fail_at", type=int, default=0)
+    p.add_argument("--inject_worker_fail_at", type=int, default=0,
+                   help="fault injection: data worker 0 on rank 0 raises after "
+                   "producing N batches. One process: the loader's RuntimeError, "
+                   "unchanged; a mesh: every process exits 171 at the next consensus "
+                   "exchange (alone, with the reason, where no exchange runs). "
+                   "One-shot")
     p.add_argument("--remat", nargs="?", const="block", default=False,
                    choices=["block", "mlp", "attn", "dots"])
     p.add_argument("--accum_dtype", default="fp32", choices=["fp32", "bf16"])
@@ -393,6 +429,16 @@ def _check_resilience_flags(p: argparse.ArgumentParser, args) -> None:
         p.error(str(e))
     if args.consensus_every < 1:
         p.error(f"--consensus_every={args.consensus_every} must be >= 1")
+    if args.desync_check_every < 0:
+        p.error(f"desync_check_every={args.desync_check_every} must be >= 0")
+    if args.hang_timeout_s < 0:
+        p.error(f"hang_timeout_s={args.hang_timeout_s} must be >= 0")
+    if args.inject_hang_at and args.hang_timeout_s <= 0:
+        p.error("--inject_hang_at requires --hang_timeout_s > 0 (otherwise the injected "
+                "hang sleeps unwatched)")
+    if args.inject_desync_at and not args.desync_check_every:
+        p.error("--inject_desync_at requires --desync_check_every > 0 (nothing would ever "
+                "detect the injected divergence)")
     if args.save_every < 0:
         p.error(f"--save_every={args.save_every} must be >= 0")
     for flag in ("inject_fail_at", "inject_preempt_notice_at", "inject_save_fail_at"):
@@ -487,10 +533,15 @@ def _run(args, config, device, mesh, profile_spec):
     from gpt_2_distributed_torch.config import CheckpointPolicy
     from gpt_2_distributed_torch.coordination import (
         ConsensusBus,
+        HangWatchdog,
+        check_fingerprints,
         decode_control_word,
         encode_control_word,
+        fingerprint_params,
+        perturb_params,
     )
     from gpt_2_distributed_torch.resilience import (
+        DATA_ABORT_EXIT_CODE,
         PREEMPTED_EXIT_CODE,
         SKIP_REASON_NAMES,
         PreemptionHandler,
@@ -574,11 +625,12 @@ def _run(args, config, device, mesh, profile_spec):
     multihost = bus.process_count > 1
     consensus_k = args.consensus_every
     # The exchange runs only where something can raise a flag for it: a
-    # saver, the guard (skips, rollbacks) or a preemption signal the loop
-    # catches. Without any, a mesh run installs no SIGTERM handler (the
-    # signal ends each process) and never exchanges the word.
+    # saver, the guard (skips, rollbacks), a preemption signal the loop
+    # catches or the desync check (rollbacks). Without any, a mesh run
+    # installs no SIGTERM handler (the signal ends each process) and never
+    # exchanges the word.
     consensus = multihost and bool(args.save_dir or use_guard or args.preempt_poll_url
-                                   or args.inject_preempt_at)
+                                   or args.inject_preempt_at or args.desync_check_every)
 
     # --- checkpoint lifecycle -----------------------------------------------
     layout = StateLayout(config, sharded, mesh)
@@ -742,6 +794,8 @@ def _run(args, config, device, mesh, profile_spec):
     pending = None
     rollback_requested = False
     skip_observed_last = False
+    desync_count = 0
+    watchdog = None
 
     def flush_pending() -> None:
         nonlocal pending, last_skip_reason_host, rollback_requested, skip_observed_last
@@ -785,6 +839,8 @@ def _run(args, config, device, mesh, profile_spec):
                         f"anomalies)", flush=True)
             if saver is not None and saver.failed_saves:
                 extra["save_failures"] = saver.failed_saves
+            if desync_count:
+                extra["desync_detected"] = desync_count
             if dataset.read_retry_count:
                 extra["data_read_retries"] = dataset.read_retry_count
             values = dict(lr=float(lr_of(p_step - 1)), epoch=p_epoch, batch=p_batch)
@@ -823,6 +879,8 @@ def _run(args, config, device, mesh, profile_spec):
         flush_pending()
         end_step_span()
         tracer.event("preempt_exit", step=global_step)
+        if watchdog is not None:
+            watchdog.disarm()
         if saver is not None:
             # Wait or supersede: an in-flight async save is drained first;
             # never two writers in one step dir.
@@ -832,6 +890,58 @@ def _run(args, config, device, mesh, profile_spec):
         say(f"[preempt] emergency checkpoint at step {global_step}; exiting rc "
             f"{PREEMPTED_EXIT_CODE} for a supervised resume", flush=True)
         raise SystemExit(PREEMPTED_EXIT_CODE)
+
+    def coordinated_worker_abort(exc: BaseException | None) -> None:
+        """The agreed abort after a data worker died on some process: every
+        process gets here from the same exchange, so the emergency save's
+        collectives pair up; then exit rc 171, which supervise.sh counts as
+        a failed attempt."""
+        flush_pending()
+        end_step_span()
+        tracer.event("worker_abort", step=global_step)
+        if watchdog is not None:
+            watchdog.disarm()
+        if saver is not None:
+            saver.ensure_committed_sync(global_step, optimizer,
+                                        make_meta(global_step, epoch, step_in_epoch),
+                                        guard_state)
+        detail = f" ({exc})" if exc is not None else " (on another process)"
+        print(f"[coord] data worker failed{detail}; pod-wide coordinated abort at step "
+              f"{global_step}, exiting rc {DATA_ABORT_EXIT_CODE}", flush=True)
+        raise SystemExit(DATA_ABORT_EXIT_CODE)
+
+    def worker_failed(exc: RuntimeError, during: str) -> RuntimeError:
+        """A loader error under a mesh: latched for the next exchange, which
+        turns it into :func:`coordinated_worker_abort` on every process.
+        Where no exchange runs, this process exits 171 alone."""
+        cause = exc.__cause__
+        detail = f"{exc}: {cause}" if cause else str(exc)
+        print(f"[coord] local data worker failed{during} ({detail}); requesting pod-wide "
+              f"abort", flush=True)
+        if not consensus:
+            print(f"[coord] no consensus exchange runs in this configuration (no "
+                  f"--save_dir, --step_guard off, no preemption source, no "
+                  f"--desync_check_every), so the other processes cannot be told: "
+                  f"exiting rc {DATA_ABORT_EXIT_CODE} alone at step {global_step}",
+                  flush=True)
+            end_step_span()
+            raise SystemExit(DATA_ABORT_EXIT_CODE)
+        return exc
+
+    def hang_meta() -> CheckpointMeta:
+        """The emergency save's meta, read from the watchdog's thread: the
+        last step's metrics may still be pending (unguarded), and it must
+        not flush them, so their tokens are counted here."""
+        meta = make_meta(global_step, epoch, step_in_epoch)
+        if pending is not None:
+            meta.total_tokens += tracker.tokens_per_step
+        return meta
+
+    def watchdog_emergency_save() -> None:
+        # Best effort: a peer that is wedged may never join the commit's
+        # barrier; the watchdog abandons the save after its grace window.
+        if saver is not None:
+            saver.ensure_committed_sync(global_step, optimizer, hang_meta(), guard_state)
 
     whole_run = None
     if args.profile:
@@ -845,6 +955,9 @@ def _run(args, config, device, mesh, profile_spec):
     # Under a mesh periodic saves happen at the consensus boundary; this
     # keeps a resume or rollback from re-saving the step it restored.
     last_saved_step = global_step
+    if args.hang_timeout_s > 0:
+        watchdog = HangWatchdog(args.hang_timeout_s, on_hang=watchdog_emergency_save)
+        watchdog.start()
     try:
         while True:
             rollback_requested = False
@@ -852,11 +965,19 @@ def _run(args, config, device, mesh, profile_spec):
                 dataset.set_epoch(epoch)
                 tracker.start_epoch()
                 first_epoch = epoch == start_epoch
+                fail_after = (args.inject_worker_fail_at
+                              if args.inject_worker_fail_at and rank == 0 and _claim_one_shot(
+                                  args.save_dir,
+                                  f"worker_fail_injected_{args.inject_worker_fail_at}", fired)
+                              else 0)
                 loader_iter = iter(create_dataloader(
                     dataset, batch_size=global_batch, prefetch_factor=args.prefetch_factor,
-                    skip_batches=skip_steps * args.grad_accum_steps if first_epoch else 0))
+                    skip_batches=skip_steps * args.grad_accum_steps if first_epoch else 0,
+                    inject_worker_fail_after=fail_after))
                 step_in_epoch = skip_steps if first_epoch else 0
                 micro: list = []
+                last_micro: list = []
+                worker_error: RuntimeError | None = None
                 prefetched = None
                 first_inner = True
                 while step_in_epoch < steps_per_epoch:
@@ -865,23 +986,58 @@ def _run(args, config, device, mesh, profile_spec):
                         x, y = prefetched
                         prefetched = None
                     else:
-                        try:
-                            with tracer.span("data_fetch"):
-                                while len(micro) < args.grad_accum_steps:
-                                    micro.append(next(loader_iter))
-                        except StopIteration:
-                            break
-                        with tracer.span("h2d"):
-                            x, y = to_device(micro)
+                        # Host-local, never a collective: a process whose data
+                        # worker died still reaches the exchange below, so the
+                        # mesh agrees to abort instead of waiting in the step.
+                        if worker_error is None:
+                            try:
+                                with tracer.span("data_fetch"):
+                                    while len(micro) < args.grad_accum_steps:
+                                        micro.append(next(loader_iter))
+                            except StopIteration:
+                                break
+                            except RuntimeError as exc:
+                                if not multihost:
+                                    raise
+                                worker_error = worker_failed(exc, "")
+                        if worker_error is not None and len(micro) < args.grad_accum_steps:
+                            # Until the next exchange every process must keep
+                            # stepping in lockstep: replay the last full set
+                            # (the grads are still summed over the mesh).
+                            micro = [last_micro[i % len(last_micro)]
+                                     for i in range(args.grad_accum_steps)] if last_micro else []
+                        if micro:
+                            with tracer.span("h2d"):
+                                x, y = to_device(micro)
+                    if micro:
+                        last_micro = micro
                     micro = []
+                    # The desync check: every process agrees on global_step, so
+                    # the all-gather pairs up, even on a process carrying a
+                    # worker error to the exchange.
+                    if (multihost and args.desync_check_every and global_step > 0
+                            and global_step % args.desync_check_every == 0):
+                        t_fp = time.perf_counter()
+                        with tracer.span("desync_check", step=global_step):
+                            bad_ranks = check_fingerprints(
+                                fingerprint_params(params, sharded), mesh)
+                        if bad_ranks:
+                            desync_count += 1
+                            rollback_requested = True
+                            say(f"[coord] DESYNC at step {global_step}: rank(s) {bad_ranks} "
+                                f"disagree with the mesh's parameter fingerprint (check took "
+                                f"{(time.perf_counter() - t_fp) * 1e3:.1f} ms); rolling back "
+                                f"to the last verified checkpoint", flush=True)
                     # The consensus exchange: the only place where fault flags
                     # turn into actions under a mesh (every K steps and at
                     # each epoch's first iteration; flags latch in between).
                     if consensus and (first_inner or global_step % consensus_k == 0):
                         agreed = decode_control_word(bus.exchange(encode_control_word(
                             preempt=preempt.preempted(), rollback=rollback_requested,
-                            skip=skip_observed_last,
+                            skip=skip_observed_last, worker_error=worker_error is not None,
                             save_now=bool(saver is not None and saver.failed_saves))))
+                        if agreed.worker_error:
+                            coordinated_worker_abort(worker_error)
                         if agreed.preempt:
                             emergency_preempt_exit()
                         if agreed.skip and not skip_observed_last:
@@ -906,6 +1062,31 @@ def _run(args, config, device, mesh, profile_spec):
                             save_now(global_step, epoch, step_in_epoch)
                             last_saved_step = global_step
                     first_inner = False
+                    # Fault injections of the detectors themselves.
+                    if (args.inject_desync_at and global_step + 1 == args.inject_desync_at
+                            and _claim_one_shot(args.save_dir,
+                                                f"desync_injected_{args.inject_desync_at}",
+                                                fired)):
+                        factor = 1.001 if rank == spec.n_devices - 1 else 1.0
+                        perturb_params(optimizer.param_groups[0]["params"], factor)
+                        print(f"[inject] desync perturbation x{factor:g} on rank {rank} "
+                              f"before step {global_step + 1}", flush=True)
+                    if (args.inject_hang_at and global_step + 1 == args.inject_hang_at
+                            and rank == 0
+                            and _claim_one_shot(args.save_dir,
+                                                f"hang_injected_{args.inject_hang_at}", fired)):
+                        print(f"[inject] simulated hang before step {global_step + 1}; the "
+                              f"watchdog should fire within {args.hang_timeout_s:g}s",
+                              flush=True)
+                        # The watchdog's exit ends the process during this
+                        # wait; an exit that returns (an injected one) ends
+                        # the run here, as the real one would have.
+                        horizon = time.monotonic() + args.hang_timeout_s * 20 + 30
+                        while not watchdog.fired and time.monotonic() < horizon:
+                            time.sleep(0.05)
+                        if watchdog.fired:
+                            watchdog.stop()
+                            raise SystemExit(watchdog.exit_code)
                     capture.maybe_start(global_step + 1)
                     if use_guard:
                         loss_scale = ones_scale
@@ -925,7 +1106,8 @@ def _run(args, config, device, mesh, profile_spec):
                     step_in_epoch += 1
                     # --device_prefetch: the next step's batch goes to the card
                     # now, while this step's work is still queued on it.
-                    if (args.device_prefetch == "on" and step_in_epoch < steps_per_epoch
+                    if (args.device_prefetch == "on" and worker_error is None
+                            and step_in_epoch < steps_per_epoch
                             and not (args.max_steps and global_step >= args.max_steps)):
                         try:
                             with tracer.span("h2d_prefetch"):
@@ -934,6 +1116,10 @@ def _run(args, config, device, mesh, profile_spec):
                                 prefetched = to_device(micro)
                         except StopIteration:
                             pass
+                        except RuntimeError as exc:
+                            if not multihost:
+                                raise
+                            worker_error = worker_failed(exc, " during prefetch")
                     flush_pending()
                     pending = (global_step, epoch, step_in_epoch, m)
                     if use_guard:
@@ -941,6 +1127,11 @@ def _run(args, config, device, mesh, profile_spec):
                         # results; a lag would only charge the next step's
                         # time to this one.
                         flush_pending()
+                    if watchdog is not None:
+                        # Arm-as-beat: the deadline moves only when a step
+                        # completes, and the first arm comes after the first
+                        # step (the kernels' first build is not a hang).
+                        watchdog.arm()
                     # Stop the window once its last step has been flushed (its
                     # device work is then in the trace, not just queued).
                     capture.maybe_stop(global_step - 1)
@@ -950,9 +1141,13 @@ def _run(args, config, device, mesh, profile_spec):
                         break
                     if run_eval is not None and global_step % args.eval_every == 0:
                         flush_pending()
+                        if watchdog is not None:
+                            watchdog.disarm()   # eval has no step cadence
                         with tracer.span("eval", step=global_step):
                             tracker.update(global_step, count_tokens=False,
                                            eval_loss=run_eval())
+                        if watchdog is not None:
+                            watchdog.arm()
                     if (not multihost and saver is not None and args.save_every
                             and global_step % args.save_every == 0):
                         flush_pending()
@@ -1013,9 +1208,12 @@ def _run(args, config, device, mesh, profile_spec):
                 loader_iter.close()
                 if consensus:
                     # The epoch's (or run's) end: a rollback flag raised by the
-                    # last step's flush is agreed here, symmetrically.
-                    agreed = decode_control_word(bus.exchange(
-                        encode_control_word(rollback=rollback_requested)))
+                    # last step's flush, or a worker error latched after the
+                    # last exchange, is agreed here, symmetrically.
+                    agreed = decode_control_word(bus.exchange(encode_control_word(
+                        rollback=rollback_requested, worker_error=worker_error is not None)))
+                    if agreed.worker_error:
+                        coordinated_worker_abort(worker_error)
                     rollback_requested = agreed.rollback
                 if done or rollback_requested:
                     break
@@ -1026,6 +1224,8 @@ def _run(args, config, device, mesh, profile_spec):
                 # keep the data cursor past the offending batches, reset the
                 # guard counters and the spike baseline, and go on.
                 pending = None
+                if watchdog is not None:
+                    watchdog.disarm()   # the restore has no step cadence
                 if monitor is not None:
                     monitor.reset()
                 guard_state = init_guard_state() if use_guard else None
@@ -1060,6 +1260,8 @@ def _run(args, config, device, mesh, profile_spec):
             break
 
         flush_pending()
+        if watchdog is not None:
+            watchdog.disarm()   # the final save has no step cadence
         if saver is not None:
             # Every ending leaves a committed checkpoint of the final step:
             # a sync save now, or the in-flight save of this step drained.
@@ -1069,6 +1271,11 @@ def _run(args, config, device, mesh, profile_spec):
                           step_in_epoch),
                 guard_state)
     finally:
+        # First, on every way out (exceptions, SystemExit, rollbacks
+        # exhausted): a watchdog that outlived this call would hard-exit
+        # the process that called it.
+        if watchdog is not None:
+            watchdog.stop()
         end_step_span()
         capture.stop_if_active()
         if whole_run is not None:

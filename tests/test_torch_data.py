@@ -58,3 +58,26 @@ def test_corrupt_token_fails_loudly(tmp_path):
     with pytest.raises(RuntimeError, match="data worker 0 failed") as exc:
         list(dataloader.create_dataloader(ds, batch_size=2))
     assert "vocab_size" in str(exc.value.__cause__)
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_injected_worker_failure_matches_jax(shard_dir, workers):
+    """``inject_worker_fail_after=2``: worker 0 raises after its second
+    batch, through the worker-error path a real failure takes; the batches
+    before it are the JAX loader's, and so are the error and its cause."""
+
+    def run(mod):
+        ds = mod.TokenShardDataset(mod.get_shard_paths(shard_dir, "train"), seq_len=32,
+                                   num_workers=workers, vocab_size=257)
+        got = []
+        with pytest.raises(RuntimeError, match="data worker 0 failed") as exc:
+            for x, _ in mod.create_dataloader(ds, batch_size=3, inject_worker_fail_after=2):
+                got.append(x)
+        return got, str(exc.value), str(exc.value.__cause__)
+
+    ours, theirs = run(dataloader), run(jax_loader)
+    assert ours[1:] == theirs[1:]
+    assert ours[2] == "injected data-worker failure after 2 batches"
+    assert len(ours[0]) == len(theirs[0]) == 2 * workers
+    for a, b in zip(ours[0], theirs[0]):
+        np.testing.assert_array_equal(a, b)

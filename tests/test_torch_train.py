@@ -299,8 +299,10 @@ def test_train_cli_with_fused_matmul_on_the_cpu(shard_dir, capsys):
 @pytest.mark.parametrize("flags, message", [
     ([], "no CUDA device"),
     (["--accum_dtype", "bf16", "--device", "cpu"], "later slice"),
-    (["--desync_check_every", "1", "--device", "cpu"], "later slice"),
+    (["--coordinator_address", "localhost:1234", "--device", "cpu"], "later slice"),
     (["--remat", "block", "--device", "cpu"], "later slice"),
+    (["--inject_hang_at", "2", "--device", "cpu"], "requires --hang_timeout_s > 0"),
+    (["--inject_desync_at", "2", "--device", "cpu"], "requires --desync_check_every > 0"),
 ])
 def test_train_cli_refusals(shard_dir, capsys, flags, message):
     if not flags and torch.cuda.is_available():

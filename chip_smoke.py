@@ -197,7 +197,26 @@ that does not hold:
    ranks with rc 1, ``--inject_worker_fail_at 2`` ends both with rc 171 at
    the same step; on one card it prints that these runs need two GPUs and
    that the CPU tests hold them over gloo;
-15. the front end (``phase_frontend``): the serving CLI
+15. elastic resume (``phase_elastic``), at 124M with ``--fused_matmul all
+   --fused_layers all``, dropout 0 and one loader worker: run E0 (batch
+   4, accum 4, 16 steps, a save at step 8) and run E1, ``--resume`` on a
+   copy of E0's step-8 checkpoint at batch 2, accum 8 (the same global
+   batch, another loader shape): the ``[elastic] data cursor migrated``
+   line, E1's final ``cursor_plan`` digest equal to
+   ``replay_cursor_history``'s recomputed here (its milliseconds
+   printed), E1's 8 losses within ELASTIC_LOSS_TOL of E0's last 8 (the
+   largest difference printed), E1's launches those of its 64
+   micro-batches. With two or more cards: a shrink, run S saving step 8
+   at ``--mesh data=2 --batch 4 --grad_accum_steps 2`` as two independent
+   processes over NCCL, resumed in this process on one card with ``--mesh
+   data=2 --inject_world_size 1`` (``world resized: 2 -> 1``,
+   ``--grad_accum_steps 2 -> 4``, the migrated cursor, losses within the
+   bound of E0's last 8), and a grow, E0's step 8 resumed under
+   ``--training_mode ddp`` on two cards (``--grad_accum_steps 4 -> 2``,
+   equal losses on both ranks within the bound of E0's last 8); on one
+   card it prints that these runs need two GPUs and that the CPU tests
+   hold them over gloo; prints the phase's wall time;
+16. the front end (``phase_frontend``): the serving CLI
    (``serving/serve.py`` on ``EngineDriver`` over a one-replica
    ``ReplicaRouter``) in subprocesses at 124M with random weights, greedy,
    64 new tokens for phase_serving's 8 prompts: untraced and SIGTERM'd
@@ -221,14 +240,14 @@ that does not hold:
    run of the "off" configuration: one ``step`` span an optimizer step,
    90% or more of the step wall attributed to named phases, the losses
    equal to the untraced run's bit for bit;
-16. with two or more cards, trains ``--mesh sp=2`` the same way through
+17. with two or more cards, trains ``--mesh sp=2`` the same way through
     ``torch.distributed.run`` (NCCL; two ranks of this script in
     ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
     launched 12 x 2 x (micro-batches + eval batches) forward and 12 x 2 x
     micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
     beside the local step's. On one card it prints that the NCCL ring
     needs two GPUs and that the CPU tests hold that path over gloo;
-17. data-parallel and fully-sharded training: every rank of a data=2 x
+18. data-parallel and fully-sharded training: every rank of a data=2 x
     fsdp=2 mesh in this process (``phase_ddp_ranks``), K1, K2 and K4-K7 on
     its rows at 124M shapes with the per-shard seed against their plain
     versions, the ranks' masks all different, the unfused dropout's rank
@@ -246,7 +265,7 @@ that does not hold:
     sheds; prints ms/step and tok/s beside the local steps'. On one card
     it prints that the NCCL runs need two GPUs and that the CPU tests hold
     them over gloo;
-18. prints the ``kernels`` JSON line, then the device line last.
+19. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` times K2's two kernels (dk/dv, dq) apart with
 ``torch.profiler`` and adds profiler windows over one serving admission
@@ -2478,9 +2497,10 @@ def training_wrappers() -> dict:
 
 
 def training_launches(fused_layers: str, fused_matmul: str, steps: int = TRAIN_STEPS,
-                      eval_batches: int = TRAIN_EVAL_BATCHES) -> dict[str, int]:
+                      eval_batches: int = TRAIN_EVAL_BATCHES,
+                      accum: int = TRAIN_ACCUM) -> dict[str, int]:
     """The launches per process of one training run of ``train_argv``:
-    ``steps`` x TRAIN_ACCUM micro-batches and ``eval_batches`` eval
+    ``steps`` x ``accum`` micro-batches and ``eval_batches`` eval
     batches through 12 layers. K1 runs in training and eval, K2 in
     training. The forward kernels of the fused legs run in both (at rate 0
     in eval), K5 (rate > 0 only) and every backward in training. With the
@@ -2489,7 +2509,7 @@ def training_launches(fused_layers: str, fused_matmul: str, steps: int = TRAIN_S
     twice, and one dgrad and one wgrad a leg."""
     from gpt_2_distributed_torch.config import MODEL_PRESETS
 
-    n_layer, micro = MODEL_PRESETS["124M"].n_layer, steps * TRAIN_ACCUM
+    n_layer, micro = MODEL_PRESETS["124M"].n_layer, steps * accum
     fwd, bwd = n_layer * (micro + eval_batches), n_layer * micro
     want = {name: 0 for name in training_wrappers()}
     want.update(flash_attention_fwd=fwd, flash_attention_bwd=bwd)
@@ -2835,11 +2855,12 @@ FINGERPRINT_TOL = 2.0 ** -20   # of sum |p|: fp32 sums of 124M terms
 
 
 def detector_worker(argv_json: str) -> None:
-    """One process of ``phase_detectors``' CLI runs (``chip_smoke.py
-    --detector_worker ARGV_JSON``): zeroes the training kernels' counts,
-    runs ``train.main()`` on the argv and prints one ``detector_worker``
-    JSON line (its exit code, launches, and the seconds from the hang
-    watchdog's last arm to its exit) when the run ends: from the
+    """One process of ``phase_detectors``' and ``phase_elastic``'s CLI runs
+    (``chip_smoke.py --detector_worker ARGV_JSON``): zeroes the training
+    kernels' counts, runs ``train.main()`` on the argv and prints one
+    ``detector_worker`` JSON line (its exit code, launches, the seconds
+    from the hang watchdog's last arm to its exit, and the losses of a run
+    that returned) when the run ends: from the
     watchdog's exit, which then ends the process with its code as before,
     or when ``train.main()`` returns or raises ``SystemExit``."""
     import functools
@@ -2851,11 +2872,12 @@ def detector_worker(argv_json: str) -> None:
         w.launches = 0
     last_arm = []
 
-    def report(rc: int) -> None:
+    def report(rc: int, losses: list[float] | None = None) -> None:
         print("detector_worker " + json.dumps({
             "rank": int(os.environ.get("RANK", "0")), "rc": rc,
             "launches": {name: w.launches for name, w in wrappers.items()},
             "beat_to_exit_s": time.monotonic() - last_arm[-1] if last_arm else None,
+            "losses": losses,
         }), flush=True)
 
     def exit_after_report(code: int) -> None:
@@ -2869,11 +2891,11 @@ def detector_worker(argv_json: str) -> None:
 
     coordination.HangWatchdog = functools.partial(Watchdog, _exit=exit_after_report)
     try:
-        train.main(json.loads(argv_json))
+        tracker = train.main(json.loads(argv_json))
     except SystemExit as e:
         report(e.code if isinstance(e.code, int) else 1)
         raise
-    report(0)
+    report(0, list(tracker.buffers["loss"]))
 
 
 def run_detector_workers(argv: list[str], world: int, log_dir: str) -> list[tuple[int, str, dict]]:
@@ -3104,6 +3126,200 @@ def phase_detectors(fused_losses: list[float], digest_a: dict[str, str],
     # (c) the desync and data-worker runs on two cards
     total.update(detector_mesh_runs(card))
     print(f"detectors phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return dict(total)
+
+
+# The elastic phase: every run at 124M with the fused paths, dropout 0 and
+# one loader worker, so that each resized run reads E0's windows in E0's
+# order; E0 saves at step 8. A resized run sums the same terms in another
+# grouping (micro-batches of 2 or 8 rows in place of 4, the mesh's
+# all-reduce), and AdamW's m / sqrt(v) turns that roundoff into lr-sized
+# moves of the weights whose grads are near zero. On an H100 (lr 6e-4) E1
+# drifted 2.86e-5 from E0 over its 8 steps, the grow 3.43e-5 and the
+# shrink, whose first 8 steps ran at data=2 under the sharded update,
+# 7.45e-4; a step read twice or skipped moves the loss by E0's
+# step-to-step change (0.0026 to 0.061 there). The bound is the one the
+# JAX package's elastic test holds the same comparison to.
+ELASTIC_SAVE_AT = TRAIN_STEPS // 2
+ELASTIC_LOSS_TOL = 2e-3
+
+
+def elastic_argv(data_dir: str, save_dir: str, batch: int, accum: int,
+                 *flags: str) -> list[str]:
+    """``train_argv``'s fused run with dropout 0, one loader worker, no eval
+    and checkpoints in ``save_dir``."""
+    return train_argv(data_dir, "all", "all") + [
+        "--dropout", "0", "--workers", "1", "--eval_every", "0", "--batch", str(batch),
+        "--grad_accum_steps", str(accum), "--save_dir", save_dir, *flags]
+
+
+def phase_elastic(card: str) -> dict[str, int]:
+    """Elastic resume at 124M (step 15 of the module docstring); returns the
+    launches of the runs on this card and of rank 0 of the two-card runs by
+    wrapper name."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from gpt_2_distributed_torch import checkpoint as ck
+    from gpt_2_distributed_torch import train
+    from gpt_2_distributed_torch.data import dataloader as dl
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+
+    t_phase = time.monotonic()
+    total: dict[str, int] = collections.Counter()
+    wrappers = training_wrappers()
+    half = ELASTIC_SAVE_AT
+
+    def run_here(argv: list[str]) -> tuple[list[float], dict[str, int], str, float]:
+        """``train.main(argv)`` in this process: its losses, launches,
+        standard output and wall seconds."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            tracker = train.main(argv)
+        torch.cuda.synchronize()
+        got = {name: w.launches for name, w in wrappers.items()}
+        total.update(got)
+        return list(tracker.buffers["loss"]), got, out.getvalue(), time.monotonic() - t0
+
+    def elastic_lines(out: str) -> list[str]:
+        return [line for line in out.splitlines() if line.startswith("[elastic]")]
+
+    def drift(label: str, losses: list[float], ref: list[float]) -> float:
+        if len(losses) != len(ref) or not all(math.isfinite(v) for v in losses):
+            fail(f"{label}: losses {losses} do not match the {len(ref)} steps of E0's")
+        worst = max(abs(a - b) for a, b in zip(losses, ref))
+        if worst > ELASTIC_LOSS_TOL:
+            fail(f"{label}: losses {losses} drift {worst:.3g} from E0's {ref} (bound "
+                 f"{ELASTIC_LOSS_TOL:g})")
+        return worst
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
+
+        # (a) E0, then E1 on a copy of its step-8 checkpoint at another loader shape
+        dir_e0 = os.path.join(tmp, "e0")
+        losses_e0, got_e0, _, wall_e0 = run_here(elastic_argv(
+            data_dir, dir_e0, 4, TRAIN_ACCUM, "--save_every", str(half)))
+        want_e0 = training_launches("all", "all", eval_batches=0)
+        steps = [abs(b - a) for a, b in zip(losses_e0[half - 1:], losses_e0[half:])]
+        print(f"elastic E0: batch 4, accum {TRAIN_ACCUM}, {TRAIN_STEPS} steps in {wall_e0:.1f} "
+              f"s, saved at step {half}; losses {[round(v, 4) for v in losses_e0]}; "
+              f"step-to-step change after step {half}: {min(steps):.4f} to {max(steps):.4f}; "
+              f"launches {got_e0}", flush=True)
+        if len(losses_e0) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses_e0):
+            fail(f"E0 produced missing or non-finite losses: {losses_e0}")
+        if got_e0 != want_e0:
+            fail(f"E0's launches {got_e0} != {want_e0}")
+        step_dir = os.path.join(dir_e0, ck.step_dir_name(half))
+
+        def copy_of(name: str) -> str:
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            shutil.copytree(step_dir, os.path.join(d, os.path.basename(step_dir)))
+            return d
+
+        dir_e1 = copy_of("e1")
+        losses_e1, got_e1, out_e1, wall_e1 = run_here(elastic_argv(
+            data_dir, dir_e1, 2, 2 * TRAIN_ACCUM, "--resume"))
+        lines = elastic_lines(out_e1)
+        meta = ck.peek_latest_meta(dir_e1)
+        t0 = time.perf_counter()
+        plan = dl.replay_cursor_history(dl.get_shard_paths(data_dir, "train"), 1024,
+                                        meta.epoch, meta.cursor_plan["resizes"])
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        digest = dl.cursor_plan_digest(plan)
+        worst_e1 = drift("E1", losses_e1, losses_e0[half:])
+        want_e1 = training_launches("all", "all", steps=TRAIN_STEPS - half, eval_batches=0,
+                                    accum=2 * TRAIN_ACCUM)
+        print(f"elastic E1: --resume at batch 2, accum {2 * TRAIN_ACCUM} in {wall_e1:.1f} s; "
+              f"{lines}; final step {meta.step}, cursor_plan digest "
+              f"{meta.cursor_plan['digest'][:16]} equal to replay_cursor_history's here: "
+              f"{meta.cursor_plan['digest'] == digest} ({meta.cursor_plan['windows']} windows, "
+              f"plan rebuilt from file sizes in {plan_ms:.2f} ms); largest loss difference "
+              f"to E0's last {TRAIN_STEPS - half}: {worst_e1:.3g} (bound "
+              f"{ELASTIC_LOSS_TOL:g}); launches {got_e1}", flush=True)
+        if not any("data cursor migrated" in line for line in lines) \
+                or any("world resized" in line for line in lines):
+            fail(f"E1 printed {lines}, not the cursor migration alone:\n{out_e1[-3000:]}")
+        if meta.step != TRAIN_STEPS or meta.cursor_plan["digest"] != digest:
+            fail(f"E1's final checkpoint (step {meta.step}) holds a cursor plan whose digest "
+                 f"{meta.cursor_plan['digest']} != the recomputed {digest}")
+        if got_e1 != want_e1:
+            fail(f"E1's launches {got_e1} != {want_e1}")
+
+        # (b) the shrink and the grow, on two cards
+        if torch.cuda.device_count() < 2:
+            print(f"elastic, two cards: the shrink (data=2 saved over NCCL, resumed on one "
+                  f"card with --inject_world_size 1) and the grow (E0's step {half} resumed "
+                  f"under --training_mode ddp) need two GPUs and this machine has "
+                  f"{torch.cuda.device_count()}; tests/test_torch_elastic.py holds both over "
+                  f"gloo", flush=True)
+        else:
+            want_rank = training_launches("all", "all", steps=half, eval_batches=0, accum=2)
+            dir_s = os.path.join(tmp, "s")
+            t0 = time.monotonic()
+            ranks = run_detector_workers(elastic_argv(
+                data_dir, dir_s, 4, 2, "--mesh", "data=2", "--max_steps", str(half),
+                "--save_every", str(half)), 2, tmp)
+            wall_s = time.monotonic() - t0
+            if [rc for rc, _, _ in ranks] != [0, 0] or any(
+                    r.get("launches") != want_rank for _, _, r in ranks):
+                fail(f"run S at data=2: exit codes {[rc for rc, _, _ in ranks]}, launches "
+                     f"{[r.get('launches') for _, _, r in ranks]} (want {want_rank}):\n"
+                     + "\n".join(text[-3000:] for _, text, _ in ranks))
+            total.update(ranks[0][2]["launches"])
+            losses_sr, got_sr, out_sr, wall_sr = run_here(elastic_argv(
+                data_dir, dir_s, 4, 2, "--mesh", "data=2", "--resume", "--inject_world_size",
+                "1"))
+            lines = elastic_lines(out_sr)
+            worst_sr = drift("the shrink", losses_sr, losses_e0[half:])
+            want_sr = training_launches("all", "all", steps=TRAIN_STEPS - half,
+                                        eval_batches=0, accum=4)
+            print(f"elastic shrink ({card}): run S, 2 ranks over NCCL at data=2, batch 4, "
+                  f"accum 2, {half} steps in {wall_s:.1f} s; resumed on one card with "
+                  f"--inject_world_size 1 in {wall_sr:.1f} s: {lines}; largest loss "
+                  f"difference to E0's last {TRAIN_STEPS - half}: {worst_sr:.3g}; launches "
+                  f"{got_sr}", flush=True)
+            if not (any("world resized: 2 -> 1 device(s)" in line
+                        and "--grad_accum_steps 2 -> 4" in line for line in lines)
+                    and any("data cursor migrated" in line for line in lines)):
+                fail(f"the shrink printed {lines}:\n{out_sr[-3000:]}")
+            if got_sr != want_sr:
+                fail(f"the shrink's launches {got_sr} != {want_sr}")
+
+            dir_g = copy_of("g")
+            t0 = time.monotonic()
+            ranks = run_detector_workers(elastic_argv(
+                data_dir, dir_g, 4, TRAIN_ACCUM, "--training_mode", "ddp", "--resume"), 2, tmp)
+            wall_g = time.monotonic() - t0
+            out0 = ranks[0][1]
+            lines = elastic_lines(out0)
+            losses_g = [r.get("losses") for _, _, r in ranks]
+            if [rc for rc, _, _ in ranks] != [0, 0] or losses_g[0] != losses_g[1]:
+                fail(f"the grow: exit codes {[rc for rc, _, _ in ranks]}, losses {losses_g}:\n"
+                     + "\n".join(text[-3000:] for _, text, _ in ranks))
+            worst_g = drift("the grow", losses_g[0], losses_e0[half:])
+            print(f"elastic grow ({card}): E0's step {half} resumed under --training_mode ddp "
+                  f"on 2 cards in {wall_g:.1f} s: {lines}; losses equal on both ranks: "
+                  f"{losses_g[0] == losses_g[1]}; largest loss difference to E0's last "
+                  f"{TRAIN_STEPS - half}: {worst_g:.3g}; launches per rank "
+                  f"{[r.get('launches') for _, _, r in ranks]}", flush=True)
+            if not (any("world resized: 1 -> 2 device(s)" in line
+                        and f"--grad_accum_steps {TRAIN_ACCUM} -> 2" in line for line in lines)
+                    and any("data cursor migrated" in line for line in lines)):
+                fail(f"the grow printed {lines}:\n{out0[-3000:]}")
+            for _, _, r in ranks:
+                if r.get("launches") != want_rank:
+                    fail(f"the grow's rank {r.get('rank')} launches {r.get('launches')} != "
+                         f"{want_rank}")
+            total.update(ranks[0][2]["launches"])
+    print(f"elastic phase: {time.monotonic() - t_phase:.1f} s", flush=True)
     return dict(total)
 
 
@@ -4011,6 +4227,7 @@ def main() -> None:
     counts, ms_steps, train_losses = phase_training(profile)
     resume, digest_a = phase_resume(train_losses["fused_matmul all"])
     detectors = phase_detectors(train_losses["fused_matmul all"], digest_a, card)
+    elastic = phase_elastic(card)
     front = phase_frontend(train_losses["off"])
     k8_train = phase_sp_training(ms_steps["off"], profile)
     phase_ddp_ranks()
@@ -4035,14 +4252,18 @@ def main() -> None:
           + "; resume (runs A, B, C and serve --ckpt): "
           + ", ".join(f"{name} {n}" for name, n in resume.items() if n)
           + "; detectors (the hang run, its resume, rank 0 of the data=2 runs): "
-          + ", ".join(f"{name} {n}" for name, n in detectors.items() if n), flush=True)
+          + ", ".join(f"{name} {n}" for name, n in detectors.items() if n)
+          + "; elastic (E0, E1 and, on two cards, the shrink's resume and rank 0 of S and "
+          "the grow): " + ", ".join(f"{name} {n}" for name, n in elastic.items() if n),
+          flush=True)
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
              launches=k1_serve + k1_train + front["flash_attention_fwd"]
-             + resume["flash_attention_fwd"] + detectors["flash_attention_fwd"], **k1_row),
+             + resume["flash_attention_fwd"] + detectors["flash_attention_fwd"]
+             + elastic["flash_attention_fwd"], **k1_row),
         dict(name="flash_attention_fwd_offset", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
@@ -4053,7 +4274,7 @@ def main() -> None:
              source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",
              launches=k2 + front["flash_attention_bwd"] + resume["flash_attention_bwd"]
-             + detectors["flash_attention_bwd"], **k2_row),
+             + detectors["flash_attention_bwd"] + elastic["flash_attention_bwd"], **k2_row),
         dict(name="paged_attention_kernel", route="cuda",
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",
@@ -4062,17 +4283,17 @@ def main() -> None:
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
              replaces=replaces, launches=counts["fused_layers all"][name] + front.get(name, 0)
-             + resume.get(name, 0) + detectors[name], **fused_rows[name])
+             + resume.get(name, 0) + detectors[name] + elastic[name], **fused_rows[name])
         for name, replaces in FUSED_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
              replaces=replaces, launches=counts["fused_matmul all"][name] + resume[name]
-             + detectors[name], **mm_rows[name])
+             + detectors[name] + elastic[name], **mm_rows[name])
         for name, replaces in MM_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
              replaces=replaces, launches=serving[name] + front[name] + resume[name]
-             + detectors[name], **mm_rows[name])
+             + detectors[name] + elastic[name], **mm_rows[name])
         for name, replaces in MM_SERVE_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/flash_block.cu",

@@ -105,9 +105,11 @@ class CheckpointMeta:
     spike_monitor: dict | None = None
     # The world the checkpoint was saved at: process_count, device_count,
     # mesh ("data=D,fsdp=F,sp=S,tp=T"), global_batch, grad_accum_steps,
-    # batch, local_batch, workers.
+    # batch, local_batch, workers (an elastic resume re-meshes from it).
     world: dict | None = None
-    # The elastic slice's data-cursor history; always None in the port.
+    # The elastic cursor migration's record while its epoch lasts: epoch,
+    # digest (dataloader.cursor_plan_digest), windows, and resizes (one
+    # entry per world that trained part of the epoch); None otherwise.
     cursor_plan: dict | None = None
 
     def to_json(self) -> str:

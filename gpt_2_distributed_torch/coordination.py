@@ -37,6 +37,11 @@ loop arms after each completed step; if no step completes within
 joins), it dumps every thread's stack, prints the open trace spans, runs
 a bounded emergency save and exits :data:`resilience.HANG_EXIT_CODE`,
 which ``scripts/supervise.sh`` turns into a full-job restart.
+
+**4. Pod agreement** (:func:`assert_pod_agreement`). The start-up barrier
+of an elastic resume: every process all-gathers the device count and the
+grad-accum count it re-derived from the checkpoint, and a disagreement
+fails the launch, naming the ranks that differ.
 """
 
 from __future__ import annotations
@@ -209,13 +214,20 @@ def fingerprint_params(params: dict, sharded=None) -> float:
     return float(total)
 
 
-def _collective_device(mesh) -> torch.device:
-    """Where the mesh's collectives take their tensors: the current card
-    under NCCL, the CPU under gloo."""
-    backend = str(torch.distributed.get_backend(mesh.group))
-    if "nccl" in backend:
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def _gather_f64(value: float, group=None) -> list[float]:
+    """Every process's ``value`` (as float64) over ``group`` (the default
+    group when None), in rank order; on the current card under NCCL, on the
+    CPU under gloo."""
+    import torch.distributed as dist
+
+    from gpt_2_distributed_torch.parallel.mesh import _ALL_GATHER
+
+    on_card = "nccl" in str(dist.get_backend(group))
+    device = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+    mine = torch.tensor([value], dtype=torch.float64, device=device)
+    out = torch.empty(dist.get_world_size(group), dtype=torch.float64, device=device)
+    _ALL_GATHER(out, mine, group=group)
+    return [float(v) for v in out.tolist()]
 
 
 def check_fingerprints(fingerprint: float, mesh=None) -> list[int]:
@@ -227,10 +239,34 @@ def check_fingerprints(fingerprint: float, mesh=None) -> list[int]:
     same bits, so any difference is a real divergence."""
     if mesh is None or mesh.spec.n_devices == 1:
         return []
-    from gpt_2_distributed_torch.parallel.mesh import AXES
+    return mismatched_ranks(_gather_f64(fingerprint, mesh.group))
 
-    mine = torch.tensor([fingerprint], dtype=torch.float64, device=_collective_device(mesh))
-    return mismatched_ranks([float(v) for v in mesh.all_gather(mine, AXES).tolist()])
+
+def assert_pod_agreement(name: str, value: float) -> None:
+    """Start-up barrier of an elastic resume: every process all-gathers
+    ``value`` over the default group, and a disagreement raises, naming the
+    minority ranks.
+
+    After a world resize each process peeks the checkpoint's world record
+    and re-derives the mesh and the grad-accum rescale on its own; a process
+    that read a stale save dir (or was launched with other flags) must fail
+    here, not desync the mesh at its first collective. No-op with one
+    process; with several it is also the new world's first rendezvous.
+    """
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return
+    with get_tracer().span("pod_barrier", barrier=name):
+        gathered = _gather_f64(value)
+    bad = mismatched_ranks(gathered)
+    if bad:
+        raise RuntimeError(
+            f"pod disagrees on {name} at startup: rank(s) "
+            f"{', '.join(str(r) for r in bad)} differ "
+            f"(gathered {gathered}); all hosts must "
+            f"observe the same checkpoint world record and launch flags"
+        )
 
 
 def mismatched_ranks(values: list[float]) -> list[int]:

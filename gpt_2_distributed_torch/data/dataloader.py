@@ -13,14 +13,19 @@ The port's own copy of the JAX package's loader, batch for batch:
 * worker threads each assemble whole batches of their own shards, and the
   loader round-robins batches across workers (drop_last per worker);
 * a resume skip that is arithmetic (file sizes and the deterministic
-  offset lists; nothing before the cursor is read).
+  offset lists; nothing before the cursor is read);
+* the elastic cursor migration: :func:`plan_cursor_migration` rebuilds,
+  from file sizes and seeds alone, the windows a world of another loader
+  shape consumed this epoch, :func:`replay_cursor_history` folds a
+  same-epoch resize history into one such plan,
+  :func:`cursor_plan_digest` fingerprints it (equal to the JAX package's
+  digest of the same plan), and :meth:`TokenShardDataset.set_consumed`
+  makes a dataset of any shape resume on exactly the complement.
 
 Worker 0 can be made to fail after N batches (``--inject_worker_fail_at``),
-through the same worker-error path a real failure takes. Left out until
-the slices that need them: the JAX package's native gather fast path (it
-yields the same windows) and the consumed-window plans of the elastic
-cursor migration. Process identity defaults to a single process (rank 0
-of 1).
+through the same worker-error path a real failure takes. Left out: the
+JAX package's native gather fast path (it yields the same windows).
+Process identity defaults to a single process (rank 0 of 1).
 """
 
 from __future__ import annotations
@@ -96,6 +101,22 @@ class TokenShardDataset:
         self.read_retry_count = 0
         self._retry_lock = threading.Lock()
         self._epoch = 0
+        # Elastic cursor migration (set_consumed): per-shard sets of window
+        # offsets an earlier world already trained on this epoch; active
+        # only for the epoch it was installed for.
+        self._consumed: dict[str, frozenset] | None = None
+        self._consumed_epoch: int | None = None
+
+    def set_consumed(self, consumed: dict[str, set], epoch: int) -> None:
+        """Install a consumed-window plan (:func:`plan_cursor_migration`)
+        for ``epoch``: the listed ``{shard_path: {offset, ...}}`` windows are
+        left out of iteration and of every window count, so a world of any
+        shape resumes the epoch on exactly the complement. Shard-stride mode
+        only (the eval loader has no resume cursor)."""
+        if self.shard_windows:
+            raise ValueError("set_consumed is only supported in shard-stride mode")
+        self._consumed = {p: frozenset(offs) for p, offs in consumed.items()}
+        self._consumed_epoch = int(epoch)
 
     def _retry_io(self, fn, what: str):
         """Run ``fn``, retrying transient ``OSError`` up to
@@ -120,6 +141,11 @@ class TokenShardDataset:
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
+        if self._consumed is not None and self._epoch != self._consumed_epoch:
+            # Only the checkpointed epoch was partly consumed by the old
+            # world; any other epoch starts from its full window set.
+            self._consumed = None
+            self._consumed_epoch = None
 
     def worker_shards(self, worker_id: int, epoch: int | None = None) -> list[str]:
         """The shard slice owned by ``(self.process_index, worker_id)`` this
@@ -162,6 +188,11 @@ class TokenShardDataset:
             random.Random(
                 _offset_seed(epoch, self.process_index, worker_id)
             ).shuffle(offsets)
+            consumed = self._consumed.get(path) if self._consumed else None
+            if consumed:
+                # The migration: windows the old world trained on are left
+                # out, after the shuffle, the survivors in shuffled order.
+                offsets = [o for o in offsets if o not in consumed]
         window_len = self.seq_len + 1
         for off in offsets[start_offset_index:]:
             window = self._retry_io(
@@ -181,8 +212,12 @@ class TokenShardDataset:
     def _shard_num_windows(self, path: str, worker_id: int = 0) -> int:
         """This (process, worker)'s window count of one shard from its file
         size alone."""
-        n = os.path.getsize(path) // 2  # uint16
+        n = _shard_token_count(path)
         total = len(range(0, n - self.seq_len - 1, self.seq_len))
+        if not self.shard_windows and self._consumed:
+            # Consumed offsets come from the same enumeration, so the count
+            # shrinks one for one.
+            total -= min(len(self._consumed.get(path, ())), total)
         start, stride = self._window_slice(worker_id)
         return len(range(start, total, stride))
 
@@ -218,6 +253,10 @@ class TokenShardDataset:
     def batches_per_epoch(self, batch_size: int) -> int:
         """Exact number of batches the loader yields this epoch."""
         return sum(self.worker_batches(batch_size))
+
+
+def _shard_token_count(path: str) -> int:
+    return os.path.getsize(path) // 2  # uint16
 
 
 _STOP = object()
@@ -266,6 +305,122 @@ def _simulate_round_robin_skip(
         n += 1
         i = pos + 1
     return skipped, live, i
+
+
+def plan_cursor_migration(
+    shard_paths: Sequence[str],
+    seq_len: int,
+    epoch: int,
+    old_process_count: int,
+    old_num_workers: int,
+    old_batch_size: int,
+    consumed_batches: int,
+    consumed: dict[str, set] | None = None,
+) -> dict[str, set]:
+    """The windows an OLD world consumed this epoch, ``{shard_path:
+    {offset, ...}}``, rebuilt from file sizes and seeds alone (no token
+    reads).
+
+    A resize changes the ``(process, worker)`` partitioning: the owned
+    shard slices and the ``epoch ^ rank ^ worker`` offset seeds, and the
+    batch a worker assembles. So the arithmetic prefix skip of another
+    loader shape reads other streams. For each old process the round-robin
+    replay splits ``consumed_batches`` (per process: optimizer steps into
+    the epoch x the old grad-accum) over its workers, and each worker's
+    share maps to the head of its shuffled offset lists, shard by shard in
+    owned order. The plan feeds :meth:`TokenShardDataset.set_consumed` on a
+    dataset of any new shape.
+
+    ``consumed`` is an earlier plan the old world itself resumed on (a
+    second resize in one epoch): the replay then walks the same filtered
+    offset lists and counts that world's loader walked
+    (:func:`replay_cursor_history`).
+    """
+    plan: dict[str, set] = {}
+    for p in range(old_process_count):
+        old = TokenShardDataset(
+            shard_paths,
+            seq_len=seq_len,
+            process_index=p,
+            process_count=old_process_count,
+            num_workers=old_num_workers,
+        )
+        old.set_epoch(epoch)
+        if consumed:
+            old.set_consumed(consumed, epoch)
+        counts = old.worker_batches(old_batch_size)
+        skipped, _, _ = _simulate_round_robin_skip(counts, consumed_batches)
+        for w in range(old.num_workers):
+            samples = skipped[w] * old_batch_size
+            for path in old.worker_shards(w, epoch):
+                if samples <= 0:
+                    break
+                n = _shard_token_count(path)
+                offsets = list(range(0, n - seq_len - 1, seq_len))
+                random.Random(_offset_seed(epoch, p, w)).shuffle(offsets)
+                if consumed:
+                    # As _iter_one_shard: shuffle first, then drop the
+                    # consumed windows, keeping the survivors' order.
+                    gone = consumed.get(path, ())
+                    offsets = [o for o in offsets if o not in gone]
+                take = min(samples, len(offsets))
+                if take:
+                    plan.setdefault(path, set()).update(offsets[:take])
+                samples -= take
+    return plan
+
+
+def cursor_plan_digest(plan: dict[str, set]) -> str:
+    """The sha256 of a consumed-window plan, keyed by shard basename (a
+    data root may move between machines) with sorted offsets: two
+    reconstructions agree iff they name the same windows. Byte for byte the
+    JAX package's digest. Persisted in ``CheckpointMeta.cursor_plan`` and
+    re-verified on the next same-epoch resize."""
+    import hashlib
+    import json
+
+    canon = sorted(
+        (os.path.basename(path), sorted(int(o) for o in offs))
+        for path, offs in plan.items()
+        if offs
+    )
+    return hashlib.sha256(json.dumps(canon, separators=(",", ":")).encode()).hexdigest()
+
+
+def replay_cursor_history(
+    shard_paths: Sequence[str],
+    seq_len: int,
+    epoch: int,
+    resizes: Sequence[dict],
+) -> dict[str, set]:
+    """Fold a same-epoch resize history into one consumed-window plan.
+
+    ``resizes`` is the record ``CheckpointMeta.cursor_plan`` carries: one
+    entry per world that trained part of this epoch, in order, each with
+    its loader shape (``process_count``, ``workers``, ``local_batch``),
+    ``grad_accum_steps`` and ``steps``, the optimizer steps into the epoch
+    at which it handed over. Each world's consumption is replayed on the
+    complement of everything consumed before it, so the union is exact at
+    any resize depth.
+    """
+    plan: dict[str, set] = {}
+    prev_steps = 0
+    for r in resizes:
+        steps = int(r["steps"])
+        step_plan = plan_cursor_migration(
+            shard_paths,
+            seq_len=seq_len,
+            epoch=epoch,
+            old_process_count=int(r["process_count"]),
+            old_num_workers=int(r["workers"]),
+            old_batch_size=int(r["local_batch"]),
+            consumed_batches=(steps - prev_steps) * int(r["grad_accum_steps"]),
+            consumed=plan or None,
+        )
+        for path, offs in step_plan.items():
+            plan.setdefault(path, set()).update(offs)
+        prev_steps = steps
+    return plan
 
 
 class _WorkerThread(threading.Thread):

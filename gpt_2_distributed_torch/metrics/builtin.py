@@ -6,7 +6,9 @@ package's names and formats:
 * freq-1 ``train/``: loss, lr, grad_norm, epoch, batch, and the guard's
   skipped_steps / last_skip_reason / clipped_steps once nonzero, the
   loader's data_read_retries, the saver's save_failures and the desync
-  detector's desync_detected once nonzero, eval_loss;
+  detector's desync_detected once nonzero, eval_loss; elastic_resizes and
+  resume_world_delta (TensorBoard only) in a run that resumed at another
+  device count than its checkpoint's;
 * freq-1 ``perf/`` (collector): tokens_per_second, total_tokens, epoch_time,
   tokens_per_second_per_chip and mfu (only where the card's peak is known,
   ``utils/flops.py``);
@@ -16,8 +18,6 @@ package's names and formats:
 * ``serve/`` (TensorBoard only): the serving-load metrics both serving
   entry points push through ``EngineDriver`` every ``--metrics_every``
   engine steps (``ReplicaRouter.metrics_snapshot``).
-
-The elastic-resize metrics come with that plane.
 """
 
 from __future__ import annotations
@@ -101,6 +101,18 @@ METRIC_REGISTRY.metric(
 METRIC_REGISTRY.metric(
     "desync_detected", reduction=ReductionStrategy.CURRENT,
     cli_format="desync: {value:.0f}",
+)(lambda v: float(int(v)))
+
+# Elastic resume (train.py): pushed only by a run that resumed at another
+# device count than its checkpoint was saved at. elastic_resizes is 1 for
+# the life of such a run; resume_world_delta is the new minus the old
+# device count, so a shrink plots negative. TensorBoard only: the
+# [elastic] line narrates the resize once.
+METRIC_REGISTRY.metric(
+    "elastic_resizes", reduction=ReductionStrategy.CURRENT, cli_format=None,
+)(lambda v: float(int(v)))
+METRIC_REGISTRY.metric(
+    "resume_world_delta", reduction=ReductionStrategy.CURRENT, cli_format=None,
 )(lambda v: float(int(v)))
 
 # Periodic validation loss over the held-out shard (shard 0 is "val").

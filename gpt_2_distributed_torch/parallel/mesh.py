@@ -20,10 +20,13 @@ named set of its axes (the 'data' ranks, the 'fsdp' ranks, the (data,
 fsdp) batch group, ...), through a process subgroup per set, made on
 first use, its ranks ordered as :meth:`Mesh.axis_index` orders them.
 
-The port keeps its own copies of ``MeshSpec`` and of the JAX CLI's
-``validate_mesh_for_config``; :func:`activate_mesh` / :func:`active_mesh`
-are the registry the attention dispatch and the model read, as in the JAX
-package.
+The port keeps its own copies of ``MeshSpec``, of the JAX CLI's
+``validate_mesh_for_config`` and of ``elastic_respec`` (the mesh of a
+resized world: only 'data' moves); :func:`activate_mesh` /
+:func:`active_mesh` are the registry the attention dispatch and the model
+read, as in the JAX package. :func:`init_distributed` is the multi-host
+bootstrap: the JAX package's flags and environment fallbacks, one process
+per device.
 """
 
 from __future__ import annotations
@@ -108,6 +111,87 @@ class MeshSpec:
         if mode == "fsdp":
             return cls(1, n_devices)
         raise ValueError(f"unknown training_mode {mode!r}; expected one of {TRAINING_MODES}")
+
+
+def elastic_respec(saved: MeshSpec, n_devices: int) -> MeshSpec:
+    """Re-derive a mesh for a resized world by shrinking/growing the ``data``
+    axis and keeping the model-parallel axes (fsdp/sp/tp) fixed.
+
+    The model axes are pinned because their degrees are baked into the
+    per-tensor shardings and (for sp/tp) the attention/matmul partitioning
+    itself; only the batch axis can absorb a world change. Raises
+    ValueError naming the fixed axes and the nearest valid device counts
+    when ``n_devices`` is not a positive multiple of their product.
+    """
+    fixed = saved.fsdp * saved.sp * saved.tp
+    data, rem = divmod(n_devices, fixed)
+    if data < 1 or rem:
+        below = (n_devices // fixed) * fixed
+        valid = [v for v in (below, below + fixed) if v >= fixed]
+        raise ValueError(
+            f"cannot re-mesh {saved.to_str()} onto {n_devices} device(s): the "
+            f"model-parallel axes (fsdp={saved.fsdp}, sp={saved.sp}, "
+            f"tp={saved.tp}) are fixed across an elastic resize, so the "
+            f"device count must be a positive multiple of {fixed}; nearest "
+            f"valid device counts: {' or '.join(str(v) for v in valid)}"
+        )
+    return MeshSpec(data=data, fsdp=saved.fsdp, sp=saved.sp, tp=saved.tp)
+
+
+def process_env(coordinator_address: str | None = None, num_processes: int | None = None,
+                process_id: int | None = None) -> tuple[str | None, int, int]:
+    """``(coordinator "host:port" or None, process count, process id)``:
+    each argument given, else the JAX package's environment fallbacks in
+    its order: ``COORDINATOR_ADDRESS``, or ``MASTER_ADDR`` with
+    ``MASTER_PORT`` (default 12355); ``NUM_PROCESSES`` or ``WORLD_SIZE``;
+    ``PROCESS_ID`` or ``RANK``. One process (id 0) when no count is found.
+    Raises ValueError for a process id outside the count."""
+    if coordinator_address is None:
+        addr = os.environ.get("COORDINATOR_ADDRESS") or os.environ.get("MASTER_ADDR")
+        port = os.environ.get("MASTER_PORT", "12355")
+        coordinator_address = f"{addr}:{port}" if addr and ":" not in addr else addr
+    if num_processes is None:
+        ws = os.environ.get("NUM_PROCESSES") or os.environ.get("WORLD_SIZE")
+        num_processes = int(ws) if ws else 1
+    if process_id is None:
+        r = os.environ.get("PROCESS_ID") or os.environ.get("RANK")
+        process_id = int(r) if r else 0
+    if num_processes > 1 and not 0 <= process_id < num_processes:
+        raise ValueError(f"--process_id {process_id} is outside the {num_processes} "
+                         f"processes (0 to {num_processes - 1})")
+    return coordinator_address, max(1, num_processes), process_id
+
+
+def init_distributed(coordinator_address: str | None = None, num_processes: int | None = None,
+                     process_id: int | None = None,
+                     device: torch.device | None = None) -> torch.device | None:
+    """Multi-host bootstrap (the JAX package's ``init_distributed``): one
+    process per device, over ``torch.distributed``.
+
+    The arguments and their environment fallbacks are :func:`process_env`'s,
+    so a ``torchrun`` launch (``MASTER_ADDR``/``MASTER_PORT``,
+    ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) works unchanged. One process
+    (``num_processes <= 1``) initializes nothing. Otherwise a process on a
+    card takes card ``LOCAL_RANK`` when it is set, else ``process_id %
+    torch.cuda.device_count()``, and joins ``init_process_group`` with NCCL
+    (gloo when ``device`` is the CPU) at ``tcp://<coordinator>``; without a
+    coordinator the rendezvous is ``init_process_group``'s default.
+    Idempotent: a process group that exists already is kept. The JAX
+    function's Cloud-TPU auto-detection (``TPU_WORKER_HOSTNAMES``) has no
+    counterpart on a GPU. Returns the device this process runs on.
+    """
+    addr, n, rank = process_env(coordinator_address, num_processes, process_id)
+    if n <= 1:
+        return device
+    if device is not None and device.type == "cuda":
+        local = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda", int(local) if local else rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        kw = {"init_method": f"tcp://{addr}"} if addr else {}
+        dist.init_process_group("nccl" if device is not None and device.type == "cuda"
+                                else "gloo", rank=rank, world_size=n, **kw)
+    return device
 
 
 def refuse_unported_axes(spec: MeshSpec) -> None:

@@ -29,9 +29,8 @@ Checkpoints and resilience (``checkpoint.py``, ``resilience.py``):
 ``--keep_last_n``, ``--save_retries``, ``--save_retry_backoff``), a final
 save at the end of every run, and ``--resume``, which continues the newest
 verified checkpoint bit for bit (params, AdamW moments and step count,
-guard counters, spike baseline, data cursor, token count; a checkpoint of
-another global batch or device count is refused: resizing is the elastic
-slice's); the spike monitor's rollback to the last verified checkpoint
+guard counters, spike baseline, data cursor, token count); the spike
+monitor's rollback to the last verified checkpoint
 (``--spike_sigma``, ``--max_consecutive_skips``, ``--max_rollbacks``);
 SIGTERM or a notice from ``--preempt_poll_url`` saves one emergency
 checkpoint at the next step boundary and exits 143
@@ -54,10 +53,32 @@ seconds without a completed step, with an emergency save; a data worker
 that dies under a mesh ends every process with rc 171 at the next
 exchange. ``scripts/supervise.sh`` restarts after 170 and 171 and counts
 the attempt. Their injections: ``--inject_desync_at``,
-``--inject_hang_at`` and ``--inject_worker_fail_at``. Every flag whose
-plane is not ported yet (tp meshes, elastic resize and its injection, the
-multi-host launch flags, bf16 grad accumulation, remat) is refused with a
-"later slice" error instead of being ignored.
+``--inject_hang_at`` and ``--inject_worker_fail_at``.
+
+Elastic resume (the JAX CLI's): ``--resume`` on a checkpoint saved at
+another device count re-derives the mesh from the saved one (only 'data'
+moves: ``parallel/mesh.py::elastic_respec``) when ``--inject_world_size``
+differs from the saved count or the requested mesh does not fit the
+processes, rescales ``--grad_accum_steps`` so the global batch (``batch x
+data x fsdp x accum``) is the saved one (:func:`elastic_rescale_accum`),
+and, whenever the loader's shape (its batch of rows, its workers) differs
+from the saved run's, migrates the data cursor: the windows the old world
+consumed this epoch are rebuilt from file sizes and left out
+(``data/dataloader.py::replay_cursor_history``), so no window is read
+twice or dropped. The port runs one process per device, so the world is
+the process count and ``--inject_world_size N`` pretends it is N when the
+checkpoint's world is compared; the re-derived mesh must then have as many
+devices as there are processes. At an unchanged device count another
+``--batch`` or ``--grad_accum_steps`` is taken as given. Every process
+peeks the checkpoint on its own and all of them must agree on the new
+device count and grad-accum count (``coordination.assert_pod_agreement``).
+The multi-host launch flags ``--coordinator_address``, ``--num_processes``
+and ``--process_id`` (falling back on ``COORDINATOR_ADDRESS`` or
+``MASTER_ADDR``:``MASTER_PORT``, ``NUM_PROCESSES`` or ``WORLD_SIZE``,
+``PROCESS_ID`` or ``RANK``; ``parallel/mesh.py::init_distributed``) start a
+mesh without ``torchrun``. Every flag whose plane is not ported yet (tp
+meshes, bf16 grad accumulation, remat) is refused with a "later slice"
+error instead of being ignored.
 
 Runs on CUDA unless ``--device cpu`` is given; without a visible GPU it
 exits with the "no CUDA device" message. On CUDA the attention runs
@@ -70,10 +91,11 @@ Prints the JAX CLI's ``step N | loss: ...`` lines and
 ``training done: N optimizer steps``.
 
 A mesh runs one process per device, started by ``torchrun`` (``RANK``,
-``WORLD_SIZE`` = the mesh's device count, ``LOCAL_RANK``): NCCL between
-cards, gloo with ``--device cpu``. ``--training_mode`` picks the mesh
-when ``--mesh`` is not given (``MeshSpec.for_mode``: dp/ddp every process
-on 'data', fsdp every process on 'fsdp'). ``--batch`` is per device, so
+``WORLD_SIZE`` = the mesh's device count, ``LOCAL_RANK``) or by the
+multi-host flags: NCCL between cards, gloo with ``--device cpu``.
+``--training_mode`` picks the mesh when ``--mesh`` is not given
+(``MeshSpec.for_mode``: dp/ddp every process on 'data', fsdp every
+process on 'fsdp'). ``--batch`` is per device, so
 an optimizer step takes ``batch x data x fsdp`` rows per micro-batch:
 every process reads that global batch (the one the JAX package's
 single-process run reads) and trains on its own rows and, under sp > 1,
@@ -117,10 +139,7 @@ DEFAULT_SEED = 42
 
 # Flags whose planes come with later slices of the port, with the value
 # that leaves them off; any other value is refused.
-_UNPORTED = {
-    "accum_dtype": "fp32", "inject_world_size": 0, "coordinator_address": None,
-    "num_processes": None, "process_id": None,
-}
+_UNPORTED = {"accum_dtype": "fp32"}
 
 
 def _claim_one_shot(save_dir: str | None, name: str, fired: set) -> bool:
@@ -291,6 +310,99 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def elastic_rescale_accum(saved_global_batch: int, batch: int, n_devices: int) -> int:
+    """The grad-accum count that holds the global batch constant across an
+    elastic world resize: ``global_batch = batch x n_devices x grad_accum``
+    (the JAX package's function; the port passes ``data x fsdp`` as
+    ``n_devices``, the devices that split the batch).
+
+    Raises ValueError when no integer rescale exists, naming the offending
+    values and the nearest valid operating points: exact
+    ``--batch``/``--grad_accum_steps`` pairs when the device count divides
+    the saved global batch, the nearest achievable global batches otherwise.
+    """
+    per_step = batch * n_devices
+    if saved_global_batch % per_step == 0:
+        return saved_global_batch // per_step
+    if saved_global_batch % n_devices == 0:
+        # The world can hold the global batch, just not with this --batch.
+        q = saved_global_batch // n_devices
+        pairs = sorted(
+            ((b, q // b) for b in range(1, q + 1) if q % b == 0),
+            key=lambda p: (abs(p[0] - batch), p[0]),
+        )
+        near = ", ".join(
+            f"--batch {b} --grad_accum_steps {a}" for b, a in pairs[:3]
+        )
+        raise ValueError(
+            f"global batch {saved_global_batch} (saved in the checkpoint) is "
+            f"not reconstructible with --batch {batch} at {n_devices} "
+            f"device(s): {saved_global_batch} / ({batch} x {n_devices}) = "
+            f"{saved_global_batch / per_step:.4g} grad-accum steps. Nearest "
+            f"valid operating points at {n_devices} device(s): {near}"
+        )
+    a_lo = max(1, saved_global_batch // per_step)
+    raise ValueError(
+        f"no --batch/--grad_accum_steps pair reproduces global batch "
+        f"{saved_global_batch} (saved in the checkpoint) at {n_devices} "
+        f"device(s) — {saved_global_batch} is not divisible by {n_devices}. "
+        f"Nearest achievable with --batch {batch}: --grad_accum_steps "
+        f"{a_lo} (global {a_lo * per_step}) or --grad_accum_steps "
+        f"{a_lo + 1} (global {(a_lo + 1) * per_step})"
+    )
+
+
+def saved_loader(world: dict) -> tuple[tuple[int, int, int], int]:
+    """The loader shape ``(process_count, workers, local_batch)`` and the
+    global batch of a port checkpoint's world record, derived from its
+    ``mesh``, ``batch``, ``grad_accum_steps`` and ``workers``.
+
+    Every process of a port run reads the global micro-batch of ``batch x
+    data x fsdp`` rows through one loader of its own and keeps its rows,
+    so the loader is one process's at ``local_batch = batch x data x fsdp``
+    and the global batch is ``local_batch x grad_accum_steps``. Records
+    written before this function existed stated ``process_count`` as the
+    device count, ``local_batch`` as ``batch`` and the global batch with
+    ``sp`` and ``tp`` in it; the fields read here are right in every
+    record."""
+    from gpt_2_distributed_torch.parallel.mesh import MeshSpec
+
+    spec = MeshSpec.parse(world["mesh"])
+    local_batch = int(world["batch"]) * spec.data * spec.fsdp
+    return (1, int(world["workers"]), local_batch), local_batch * int(world["grad_accum_steps"])
+
+
+# The world record's fields saved_loader reads.
+_WORLD_KEYS = ("mesh", "batch", "grad_accum_steps", "workers")
+
+
+def elastic_remesh(args, spec, saved_world: dict, n_processes: int):
+    """The JAX CLI's elastic hook, before any process group exists: the
+    mesh re-derived from the saved one (``elastic_respec``) when
+    ``--inject_world_size`` differs from the saved device count or the
+    requested mesh does not fit ``n_processes``, and, at another device
+    count, ``args.grad_accum_steps`` rescaled to hold the saved global
+    batch. Returns ``(spec, new minus saved device count, the [elastic]
+    line or None)``; raises ValueError where no mesh or accum fits."""
+    from gpt_2_distributed_torch.parallel.mesh import MeshSpec, elastic_respec
+
+    saved_devices = int(saved_world["device_count"])
+    capacity = args.inject_world_size or n_processes
+    if (args.inject_world_size and args.inject_world_size != saved_devices) \
+            or spec.n_devices > capacity:
+        spec = elastic_respec(MeshSpec.parse(saved_world["mesh"]), capacity)
+    if spec.n_devices == saved_devices:
+        return spec, 0, None
+    saved_global = saved_loader(saved_world)[1]
+    old_accum = args.grad_accum_steps
+    args.grad_accum_steps = elastic_rescale_accum(saved_global, args.batch,
+                                                  spec.data * spec.fsdp)
+    return spec, spec.n_devices - saved_devices, (
+        f"[elastic] world resized: {saved_devices} -> {spec.n_devices} device(s) "
+        f"(saved mesh {saved_world['mesh']} -> {spec.to_str()}); --grad_accum_steps "
+        f"{old_accum} -> {args.grad_accum_steps} holds the global batch at {saved_global}")
+
+
 def _linear(init: float, end: float, steps: int):
     """optax.linear_schedule."""
     if steps <= 0:
@@ -350,15 +462,36 @@ def main(argv: list[str] | None = None):
                 "fallback lives inside the guarded step)")
     if args.dropout is not None and not (0.0 <= args.dropout < 1.0):
         p.error(f"--dropout must be in [0, 1), got {args.dropout}")
+    if args.inject_world_size and not (args.resume and args.save_dir):
+        p.error("--inject_world_size needs --resume and --save_dir (it overrides the "
+                "observed world at resume; there is nothing to resize without a "
+                "checkpoint)")
+    if args.inject_world_size < 0:
+        p.error(f"--inject_world_size must be >= 1 device, got {args.inject_world_size}")
     _check_resilience_flags(p, args)
     profile_spec = _profile_spec(p, args)
-    spec = _mesh_spec(p, args)
 
     import torch
     import torch.distributed as dist
 
-    from gpt_2_distributed_torch.parallel.mesh import Mesh, activate_mesh
+    from gpt_2_distributed_torch.checkpoint import peek_latest_meta
+    from gpt_2_distributed_torch.coordination import assert_pod_agreement
+    from gpt_2_distributed_torch.parallel.mesh import (
+        Mesh,
+        activate_mesh,
+        init_distributed,
+        process_env,
+    )
     from gpt_2_distributed_torch.utils.device import resolve_device
+
+    # One process per device: the multi-host flags, else torchrun's
+    # environment (parallel/mesh.py::process_env).
+    try:
+        coordinator, n_processes, process_id = process_env(
+            args.coordinator_address, args.num_processes, args.process_id)
+    except ValueError as e:
+        p.error(str(e))
+    spec = _mesh_spec(p, args, n_processes)
 
     try:
         device = resolve_device(args.device)
@@ -392,28 +525,45 @@ def main(argv: list[str] | None = None):
     except ValueError as e:
         sys.exit(f"error: {e}")
 
+    # --- elastic resume: survive a world resize ----------------------------
+    # Before any process group: the newest checkpoint's world record
+    # re-derives the mesh and the grad-accum count, and only then is the
+    # mesh held against the processes (a shrunk world must reach here).
+    saved_world, elastic_delta = None, 0
+    if args.resume and args.save_dir:
+        peeked = peek_latest_meta(args.save_dir)
+        saved_world = peeked.world if peeked is not None else None
+    if saved_world:
+        try:
+            spec, elastic_delta, line = elastic_remesh(args, spec, saved_world, n_processes)
+            validate_mesh_for_config(spec, config, args.model, args.seq_len)
+        except ValueError as e:
+            sys.exit(f"error: elastic resume: {e}")
+        if line and process_id == 0:
+            print(line, flush=True)
+
     # --- processes ----------------------------------------------------------
-    # One process per device: torchrun's RANK / WORLD_SIZE / LOCAL_RANK and
-    # MASTER_ADDR / MASTER_PORT; NCCL between cards, gloo on the CPU.
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world != spec.n_devices:
+    if n_processes != spec.n_devices:
         sys.exit(f"error: --mesh {spec.to_str()} runs {spec.n_devices} process(es), one "
-                 f"per device, but WORLD_SIZE is {world}: launch it with torchrun "
-                 f"--nproc_per_node {spec.n_devices}")
-    if world == 1:
-        return _run(args, config, device, None, profile_spec)
-    rank = int(os.environ["RANK"])
-    if device.type == "cuda":
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
-        torch.cuda.set_device(device)
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            rank=rank, world_size=world)
+                 f"per device, but {n_processes} were launched (WORLD_SIZE or "
+                 f"--num_processes): launch it with torchrun --nproc_per_node "
+                 f"{spec.n_devices}")
+    if n_processes == 1:
+        return _run(args, config, device, None, profile_spec, saved_world, elastic_delta)
+    owns_group = not dist.is_initialized()
+    device = init_distributed(coordinator, n_processes, process_id, device)
     try:
-        mesh = Mesh(spec, rank)
+        if saved_world:
+            # Every process peeked and re-derived on its own: one that read
+            # another save dir or was launched with other flags fails here.
+            assert_pod_agreement("elastic device count", float(spec.n_devices))
+            assert_pod_agreement("elastic grad_accum_steps", float(args.grad_accum_steps))
+        mesh = Mesh(spec, process_id)
         with activate_mesh(mesh):
-            return _run(args, config, device, mesh, profile_spec)
+            return _run(args, config, device, mesh, profile_spec, saved_world, elastic_delta)
     finally:
-        dist.destroy_process_group()
+        if owns_group:
+            dist.destroy_process_group()
 
 
 def _check_resilience_flags(p: argparse.ArgumentParser, args) -> None:
@@ -470,13 +620,14 @@ def _profile_spec(p: argparse.ArgumentParser, args):
     return spec
 
 
-def _mesh_spec(p: argparse.ArgumentParser, args):
-    """``--mesh`` (or ``--training_mode``'s mesh) as a MeshSpec, with the
-    combinations the port refuses."""
+def _mesh_spec(p: argparse.ArgumentParser, args, n_processes: int):
+    """``--mesh`` (or ``--training_mode``'s mesh over ``n_processes``) as a
+    MeshSpec, with the combinations the port refuses."""
     from gpt_2_distributed_torch.parallel.mesh import MeshSpec, refuse_unported_axes
 
     try:
-        spec = MeshSpec.parse(args.mesh) if args.mesh else MeshSpec.for_mode(args.training_mode)
+        spec = (MeshSpec.parse(args.mesh) if args.mesh
+                else MeshSpec.for_mode(args.training_mode, n_processes))
         refuse_unported_axes(spec)
     except ValueError as e:
         p.error(str(e))
@@ -494,17 +645,21 @@ def _mesh_spec(p: argparse.ArgumentParser, args):
     return spec
 
 
-def _run(args, config, device, mesh, profile_spec):
+def _run(args, config, device, mesh, profile_spec, saved_world=None, elastic_delta=0):
     """The training loop of :func:`main` on ``device``; under a mesh every
     process reads the same global batches and trains on its rows (and
     ``T/sp`` block) of each, and only the first one prints (and writes
-    TensorBoard). Each process traces into its own ``trace-p{rank}.jsonl``."""
+    TensorBoard). Each process traces into its own ``trace-p{rank}.jsonl``.
+    ``saved_world`` is the world record :func:`main` peeked for an elastic
+    resume, ``elastic_delta`` the new minus the saved device count."""
     import torch
 
     from gpt_2_distributed_torch.data.dataloader import (
         TokenShardDataset,
         create_dataloader,
+        cursor_plan_digest,
         get_shard_paths,
+        replay_cursor_history,
     )
     from gpt_2_distributed_torch.metrics.tracker import StatsTracker
     from gpt_2_distributed_torch.models import gpt2
@@ -566,8 +721,11 @@ def _run(args, config, device, mesh, profile_spec):
             print(*a, **kw)
 
     spec = MeshSpec() if mesh is None else mesh.spec
-    # --batch is per device: the batch axes split a global batch of
-    # batch x data x fsdp rows.
+    if elastic_delta:
+        tracer.event("elastic_resize", old_devices=spec.n_devices - elastic_delta,
+                     new_devices=spec.n_devices)
+    # --batch is per device: the batch axes split a global micro-batch of
+    # batch x data x fsdp rows (an optimizer step takes grad_accum_steps).
     global_batch = args.batch * spec.data * spec.fsdp
     row0 = 0 if mesh is None else shard_offset(mesh, batch_axes(mesh, args.batch), args.batch)
 
@@ -646,13 +804,21 @@ def _run(args, config, device, mesh, profile_spec):
             saver.inject_fail_count = args.inject_save_fail_count
 
     # --- resume ---------------------------------------------------------------
+    # The world every checkpoint of this run is saved at: what an elastic
+    # resume re-meshes from, the global batch it holds and the loader shape
+    # its cursor migration replays (one loader a process, reading the
+    # global micro-batch: saved_loader).
     world_record = {
-        "process_count": spec.n_devices, "device_count": spec.n_devices,
-        "mesh": spec.to_str(), "global_batch": args.batch * spec.n_devices * args.grad_accum_steps,
+        "process_count": 1, "device_count": spec.n_devices,
+        "mesh": spec.to_str(), "global_batch": global_batch * args.grad_accum_steps,
         "grad_accum_steps": args.grad_accum_steps, "batch": args.batch,
-        "local_batch": args.batch, "workers": dataset.num_workers,
+        "local_batch": global_batch, "workers": dataset.num_workers,
     }
     start_epoch, skip_steps, global_step, total_tokens = 0, 0, 0, 0
+    # The cursor migration's state: cursor_base is the optimizer-step count
+    # the consumed-window plan accounts for in epoch cursor_epoch; the
+    # loader skips only the steps taken since the resize.
+    cursor_base, cursor_epoch, cursor_record = 0, -1, None
 
     def check_same_restore(restored) -> None:
         """Under a mesh every process must have restored the same step."""
@@ -674,13 +840,16 @@ def _run(args, config, device, mesh, profile_spec):
         if restored is not None:
             meta, guard, latest = restored
             mw = meta.world or {}
-            if mw and (int(mw["global_batch"]) != world_record["global_batch"]
-                       or int(mw["device_count"]) != world_record["device_count"]):
-                sys.exit(f"error: --resume: {latest} was saved at a global batch of "
-                         f"{mw['global_batch']} on {mw['device_count']} device(s) (mesh "
-                         f"{mw['mesh']}); this run has {world_record['global_batch']} on "
-                         f"{world_record['device_count']}: resuming at another world is "
-                         f"the elastic slice's work, a later slice of the port")
+            if (elastic_delta and all(k in mw for k in _WORLD_KEYS)
+                    and saved_loader(mw)[1] != saved_loader(saved_world)[1]):
+                # The restore fell back past a corrupt newest checkpoint onto
+                # one of yet another world: the mesh and accum derived from
+                # the peeked record no longer match what was restored.
+                sys.exit(f"error: elastic resume: restored {latest} was saved at global "
+                         f"batch {saved_loader(mw)[1]} but the newest checkpoint's world "
+                         f"record said {saved_loader(saved_world)[1]} (restore fell back "
+                         f"past a corrupt checkpoint); delete the corrupt newest step dir "
+                         f"and relaunch")
             start_epoch, skip_steps = meta.epoch, meta.batches_in_epoch
             global_step, total_tokens = meta.step, meta.total_tokens
             if meta.rng_seed != args.seed:
@@ -692,6 +861,52 @@ def _run(args, config, device, mesh, profile_spec):
             if use_guard and guard is not None:
                 guard_state = guard
                 last_skip_reason_host = guard.last_skip_reason
+            # The data-cursor migration: another loader shape reads other
+            # streams, so the arithmetic prefix skip would re-read some
+            # windows and drop others. Rebuild the windows the old world(s)
+            # consumed this epoch and leave them out instead.
+            prior = meta.cursor_plan
+            if prior and int(prior.get("epoch", -1)) != meta.epoch:
+                prior = None   # that epoch finished; its history is settled
+            if skip_steps > 0 and all(k in mw for k in _WORLD_KEYS):
+                old_shape, _ = saved_loader(mw)
+                # A prior plan forces the migration even at an unchanged
+                # shape: the restored world trained on its complement.
+                if old_shape != (1, dataset.num_workers, global_batch) or prior is not None:
+                    resizes = list(prior["resizes"]) if prior else []
+                    resizes.append({"process_count": old_shape[0], "workers": old_shape[1],
+                                    "local_batch": old_shape[2],
+                                    "grad_accum_steps": int(mw["grad_accum_steps"]),
+                                    "steps": skip_steps})
+                    if prior is not None:
+                        # A second resize in one epoch: the plan the last
+                        # resume persisted must reproduce from the shards.
+                        got = cursor_plan_digest(replay_cursor_history(
+                            dataset.shard_paths, seq_len=args.seq_len, epoch=meta.epoch,
+                            resizes=resizes[:-1]))
+                        if got != prior["digest"]:
+                            sys.exit(
+                                f"error: elastic resume: the consumed-window plan persisted "
+                                f"at the previous same-epoch resize (digest "
+                                f"{prior['digest'][:12]}..., {prior.get('windows')} windows) "
+                                f"does not reproduce from the current shards (digest "
+                                f"{got[:12]}...) — the data files changed under a "
+                                f"half-consumed epoch, so the exact resume cursor is "
+                                f"unrecoverable; restart the epoch or restore the original "
+                                f"shards")
+                        say(f"[elastic] prior cursor plan verified (digest {got[:12]}..., "
+                            f"{len(resizes) - 1} earlier resize(s) this epoch)")
+                    plan = replay_cursor_history(dataset.shard_paths, seq_len=args.seq_len,
+                                                 epoch=meta.epoch, resizes=resizes)
+                    dataset.set_consumed(plan, epoch=meta.epoch)
+                    cursor_base, cursor_epoch = skip_steps, meta.epoch
+                    n_win = sum(len(v) for v in plan.values())
+                    cursor_record = {"epoch": meta.epoch, "digest": cursor_plan_digest(plan),
+                                     "windows": n_win, "resizes": resizes}
+                    say(f"[elastic] data cursor migrated: old world (processes="
+                        f"{old_shape[0]}, workers={old_shape[1]}, local_batch={old_shape[2]}) "
+                        f"consumed {n_win} windows over {len(plan)} shard(s) this epoch; "
+                        f"the new world resumes on the complement", flush=True)
             say(f"resumed from {latest}: step {global_step}, epoch {start_epoch}, "
                 f"{skip_steps} steps into the epoch (restore "
                 f"{(time.perf_counter() - t_restore) * 1e3:.1f} ms)", flush=True)
@@ -714,7 +929,10 @@ def _run(args, config, device, mesh, profile_spec):
         return CheckpointMeta(
             step=step, epoch=ep, batches_in_epoch=batches, rng_seed=args.seed,
             total_tokens=tracker.total_tokens,
-            spike_monitor=monitor.state_dict() if monitor else None, world=world_record)
+            spike_monitor=monitor.state_dict() if monitor else None, world=world_record,
+            # The same-epoch resize history travels with every checkpoint
+            # of the partly consumed epoch, and is dropped after it.
+            cursor_plan=cursor_record if ep == cursor_epoch else None)
 
     # --- evaluation ---------------------------------------------------------
     # The val split (shard 0), the epoch-0 permutation every time, so
@@ -843,6 +1061,10 @@ def _run(args, config, device, mesh, profile_spec):
                 extra["desync_detected"] = desync_count
             if dataset.read_retry_count:
                 extra["data_read_retries"] = dataset.read_retry_count
+            if elastic_delta:
+                # Constant for a run that resumed at another device count.
+                extra["elastic_resizes"] = 1
+                extra["resume_world_delta"] = elastic_delta
             values = dict(lr=float(lr_of(p_step - 1)), epoch=p_epoch, batch=p_batch)
             # A skipped step's loss and grad norm are the rejected values: the
             # [guard] line reports them; the windowed averages stay clean.
@@ -970,17 +1192,25 @@ def _run(args, config, device, mesh, profile_spec):
                                   args.save_dir,
                                   f"worker_fail_injected_{args.inject_worker_fail_at}", fired)
                               else 0)
+                in_cursor = epoch == cursor_epoch
                 loader_iter = iter(create_dataloader(
                     dataset, batch_size=global_batch, prefetch_factor=args.prefetch_factor,
-                    skip_batches=skip_steps * args.grad_accum_steps if first_epoch else 0,
+                    skip_batches=((skip_steps - (cursor_base if in_cursor else 0))
+                                  * args.grad_accum_steps) if first_epoch else 0,
                     inject_worker_fail_after=fail_after))
                 step_in_epoch = skip_steps if first_epoch else 0
+                epoch_steps = steps_per_epoch
+                if in_cursor:
+                    # The loader counts only the complement of the migrated
+                    # windows; the old world's steps still belong to the epoch.
+                    epoch_steps = (dataset.batches_per_epoch(global_batch)
+                                   // args.grad_accum_steps + cursor_base)
                 micro: list = []
                 last_micro: list = []
                 worker_error: RuntimeError | None = None
                 prefetched = None
                 first_inner = True
-                while step_in_epoch < steps_per_epoch:
+                while step_in_epoch < epoch_steps:
                     begin_step_span()
                     if prefetched is not None:
                         x, y = prefetched
@@ -1107,7 +1337,7 @@ def _run(args, config, device, mesh, profile_spec):
                     # --device_prefetch: the next step's batch goes to the card
                     # now, while this step's work is still queued on it.
                     if (args.device_prefetch == "on" and worker_error is None
-                            and step_in_epoch < steps_per_epoch
+                            and step_in_epoch < epoch_steps
                             and not (args.max_steps and global_step >= args.max_steps)):
                         try:
                             with tracer.span("h2d_prefetch"):

@@ -12,8 +12,9 @@ serve CLI's ``--ckpt``), at a tiny size with dropout 0.1:
 * ``--inject_nan_at`` with ``--max_consecutive_skips 1`` rolls back to the
   last checkpoint and completes; resume falls back past two corrupt
   checkpoints; ``--inject_save_fail_at`` retries, or leaves the
-  ``save_failures`` metric; ``--keep_last_n``; a resume at another global
-  batch is refused, naming the elastic slice;
+  ``save_failures`` metric; ``--keep_last_n``; a resume at another world
+  whose global batch no ``--batch``/``--grad_accum_steps`` pair rebuilds is
+  refused with the JAX package's text;
 * in one gloo launch (2 processes over a ``FileStore``, dropout 0): fsdp=2 saves at
   step k without any rank holding more fp32 param bytes than its shard; the
   checkpoint restores on one process and under ``data=2 --shard_update on``
@@ -213,11 +214,18 @@ def test_keep_last_n_retention(shard_dir, tmp_path):
 
 
 def test_resume_at_another_global_batch_is_refused(shard_dir, tmp_path):
+    """Saved at a global batch of 8 (batch 4 x accum 2) on one device; at
+    three devices (``--inject_world_size 3``) no grad-accum count rebuilds
+    it from --batch 4, and no --batch would either."""
     _run(shard_dir, "--max_steps", "2", "--save_dir", str(tmp_path))
     with pytest.raises(SystemExit) as e:
         _run(shard_dir, "--max_steps", "4", "--save_dir", str(tmp_path), "--resume",
-             "--grad_accum_steps", "4")
-    assert "elastic slice" in str(e.value.code) and "global batch of 8" in str(e.value.code)
+             "--inject_world_size", "3")
+    assert str(e.value.code) == (
+        "error: elastic resume: no --batch/--grad_accum_steps pair reproduces global batch "
+        "8 (saved in the checkpoint) at 3 device(s) — 8 is not divisible by 3. Nearest "
+        "achievable with --batch 4: --grad_accum_steps 1 (global 12) or --grad_accum_steps "
+        "2 (global 24)")
 
 
 def test_cli_refuses_injections_without_a_save_dir(shard_dir, capsys):

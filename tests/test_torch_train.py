@@ -299,7 +299,10 @@ def test_train_cli_with_fused_matmul_on_the_cpu(shard_dir, capsys):
 @pytest.mark.parametrize("flags, message", [
     ([], "no CUDA device"),
     (["--accum_dtype", "bf16", "--device", "cpu"], "later slice"),
-    (["--coordinator_address", "localhost:1234", "--device", "cpu"], "later slice"),
+    # The multi-host flags run now; a process id outside the count is refused.
+    pytest.param(["--coordinator_address", "localhost:1234", "--num_processes", "2",
+                  "--process_id", "2", "--device", "cpu"],
+                 "--process_id 2 is outside the 2 processes", id="flags2-later slice"),
     (["--remat", "block", "--device", "cpu"], "later slice"),
     (["--inject_hang_at", "2", "--device", "cpu"], "requires --hang_timeout_s > 0"),
     (["--inject_desync_at", "2", "--device", "cpu"], "requires --desync_check_every > 0"),

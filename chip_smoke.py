@@ -146,12 +146,27 @@ that does not hold:
    first differing step and the logits there; then holds one prefill and
    one decode step of the kernel attention against the plain attention on
    the same pool state (fp32 logits);
-11. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
+11. speculative serving (``phase_spec_serving``): the serve CLI in this
+   process with ``--model 345M --init_random --draft_preset 124M
+   --spec_k 4``, greedy, 64 new tokens for the 8 prompts of 10 (the
+   960-token one ends at position 1024, so its last round straddles the
+   context end), and the same requests through an engine whose draft is
+   the 345M's first 12 layers with its embeddings and final LayerNorm,
+   which must accept at least one token: every stream equal to the 345M
+   ``generate_cached(batch=1)``'s, and the launches the stats imply (K3
+   24 a verify round and 12 a draft step, K+1 draft steps a round; K1 24
+   a target prefill; K1's offset form 12 a draft catch-up; K7's forward
+   and K4 for every forward); the kernel path against the plain path at
+   16 heads and C 1024 (the 960-token 345M prefill, the sliced draft's
+   catch-up of 8 rows, one verify window of 8 x 5 rows); a sampled run
+   (temperature 1.0, 16 tokens) twice, equal; then the acceptance rate, the draft and verify ms a
+   round and tok/s beside the plain 345M engine's on the same requests;
+12. one 124M training micro-batch [4, 1024] with dropout 0.1 through the
    kernel path (K1/K2) and the plain path (dense attention), same params,
    batch and seeds, then at dropout 0 with ``fused_layers`` "all" (K4-K6)
    and with ``fused_matmul`` "all" over it (K7), each against "off": the
    loss and every grad;
-12. trains: ``train.main()`` on synthetic shards at 124M full width, seq
+13. trains: ``train.main()`` on synthetic shards at 124M full width, seq
    1024, batch 4, accum 4, dropout 0.1, 16 steps and one eval of 4
    batches, with ``--fused_layers off``, with ``all``, and with
    ``--fused_matmul all --fused_layers all``; checks finite losses, a
@@ -164,9 +179,9 @@ that does not hold:
    a layer and batch, its du pass, dgrad and wgrad once a leg and
    micro-batch; prints each run's ms/step, tok/s and MFU, and the
    ``fused_matmul all`` step beside the ``fused_layers all`` step;
-13. checkpoints and exact resume (``phase_resume``), at 124M with
-   ``--fused_matmul all --fused_layers all`` as in 12: run A saves every 8
-   steps with ``--async_save on`` (its losses bit-equal to 12's
+14. checkpoints and exact resume (``phase_resume``), at 124M with
+   ``--fused_matmul all --fused_layers all`` as in 13: run A saves every 8
+   steps with ``--async_save on`` (its losses bit-equal to 13's
    ``fused_matmul all`` run, no save failure, every checkpoint committed
    and verified); run B the same with ``--inject_preempt_at 9`` (exit 143,
    a committed emergency checkpoint of step 9, its losses A's first 9);
@@ -179,12 +194,12 @@ that does not hold:
    and the launches of K1, K3, K7's forward and K4 those its decode steps
    imply; prints a checkpoint's bytes, the step loop's stall for an async
    and a sync save, the commit time and the restore time;
-14. the fault detectors of a mesh run (``phase_detectors``): the
+15. the fault detectors of a mesh run (``phase_detectors``): the
    parameter fingerprint of the 124M params on the card, twice
    bit-identical, moved by ``perturb_params`` x1.001, bit-identical after
    x1.0, within 2^-20 sum|p| of the fp64 sum, and its median time over 20
    calls (the cost of one ``--desync_check_every`` check but its one small
-   all-gather); then run A of 13 in a subprocess (``--detector_worker``)
+   all-gather); then run A of 14 in a subprocess (``--detector_worker``)
    with ``--hang_timeout_s 10 --inject_hang_at 9 --trace_dir``: exit 170,
    a ``[watchdog]`` line naming the open spans, a committed and verified
    checkpoint of step 8 written by the watchdog's emergency save, the
@@ -197,7 +212,7 @@ that does not hold:
    ranks with rc 1, ``--inject_worker_fail_at 2`` ends both with rc 171 at
    the same step; on one card it prints that these runs need two GPUs and
    that the CPU tests hold them over gloo;
-15. elastic resume (``phase_elastic``), at 124M with ``--fused_matmul all
+16. elastic resume (``phase_elastic``), at 124M with ``--fused_matmul all
    --fused_layers all``, dropout 0 and one loader worker: run E0 (batch
    4, accum 4, 16 steps, a save at step 8) and run E1, ``--resume`` on a
    copy of E0's step-8 checkpoint at batch 2, accum 8 (the same global
@@ -216,7 +231,7 @@ that does not hold:
    equal losses on both ranks within the bound of E0's last 8); on one
    card it prints that these runs need two GPUs and that the CPU tests
    hold them over gloo; prints the phase's wall time;
-16. the front end (``phase_frontend``): the serving CLI
+17. the front end (``phase_frontend``): the serving CLI
    (``serving/serve.py`` on ``EngineDriver`` over a one-replica
    ``ReplicaRouter``) in subprocesses at 124M with random weights, greedy,
    64 new tokens for phase_serving's 8 prompts: untraced and SIGTERM'd
@@ -240,19 +255,19 @@ that does not hold:
    run of the "off" configuration: one ``step`` span an optimizer step,
    90% or more of the step wall attributed to named phases, the losses
    equal to the untraced run's bit for bit;
-17. with two or more cards, trains ``--mesh sp=2`` the same way through
+18. with two or more cards, trains ``--mesh sp=2`` the same way through
     ``torch.distributed.run`` (NCCL; two ranks of this script in
     ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
     launched 12 x 2 x (micro-batches + eval batches) forward and 12 x 2 x
     micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
     beside the local step's. On one card it prints that the NCCL ring
     needs two GPUs and that the CPU tests hold that path over gloo;
-18. data-parallel and fully-sharded training: every rank of a data=2 x
+19. data-parallel and fully-sharded training: every rank of a data=2 x
     fsdp=2 mesh in this process (``phase_ddp_ranks``), K1, K2 and K4-K7 on
     its rows at 124M shapes with the per-shard seed against their plain
     versions, the ranks' masks all different, the unfused dropout's rank
     blocks equal to the global draw; then, with two or more cards, three
-    runs of ``train.main()`` as in 12 through ``torch.distributed.run``
+    runs of ``train.main()`` as in 13 through ``torch.distributed.run``
     (NCCL; ``--ddp_worker`` mode): ``--training_mode ddp`` (the update
     sharded by ``auto``) with ``--fused_layers all --fused_matmul all``,
     ``--training_mode fsdp`` and ``--mesh data=2 --shard_update off``:
@@ -265,7 +280,7 @@ that does not hold:
     sheds; prints ms/step and tok/s beside the local steps'. On one card
     it prints that the NCCL runs need two GPUs and that the CPU tests hold
     them over gloo;
-19. prints the ``kernels`` JSON line, then the device line last.
+20. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` times K2's two kernels (dk/dv, dq) apart with
 ``torch.profiler`` and adds profiler windows over one serving admission
@@ -1664,6 +1679,9 @@ def print_first_difference(label: str, w: dict, config, p: list[int], got: list[
           flush=True)
 
 
+SERVING_LENGTHS = (1, 17, 100, 208, 400, 512, 777, 960)
+
+
 def phase_serving(profile_steps: bool) -> dict[str, int]:
     """Serves the 8 requests greedily and sampled; returns the launches of
     the serving path's kernels by wrapper name."""
@@ -1691,9 +1709,8 @@ def phase_serving(profile_steps: bool) -> dict[str, int]:
         e.submit([1, 2, 3], 2)
         e.run_until_idle()
 
-    lengths = [1, 17, 100, 208, 400, 512, 777, 960]
     prompts = [torch.randint(0, config.vocab_size, (p,), generator=rng).tolist()
-               for p in lengths]
+               for p in SERVING_LENGTHS]
 
     def run(e, label, new_tokens, seed0):
         before = dict(e.stats)
@@ -1804,6 +1821,266 @@ def phase_serving(profile_steps: bool) -> dict[str, int]:
     if not (finite and err_prefill <= LOGITS_TOL and err_decode <= LOGITS_TOL):
         fail("kernel path logits disagree with the plain path")
     return got
+
+
+# Speculative serving: the serve CLI's 345M target with a 124M draft, K
+# draft tokens a round, phase_serving's prompts; greedy then sampled.
+SPEC_K = 4
+SPEC_NEW = (64, 16)
+SPEC_SLICE = 12   # layers of the 345M target that make the self-sliced draft
+
+
+def spec_launches(n_layer: int, d_layer: int, k: int, prefills: int, rounds: int,
+                  catchups: int) -> dict[str, int]:
+    """The launches a speculative engine's stats imply: a target
+    whole-prompt prefill is one K1 launch a layer; a round is K+1 draft
+    decode steps and one verify, each one K3 launch a layer of its model;
+    a catch-up one K1 offset launch a draft layer. Each of these forwards
+    runs 4 products a layer and the head through K7's forward and 2
+    LayerNorms a layer and the final one through K4."""
+    target = prefills + rounds             # target forwards
+    draft = (k + 1) * rounds + catchups    # draft forwards
+    return {"flash_attention_fwd": n_layer * prefills,
+            "flash_attention_fwd_offset": d_layer * catchups,
+            "paged_attention_kernel": n_layer * rounds + d_layer * (k + 1) * rounds,
+            "linear": 4 * n_layer * target + 4 * d_layer * draft,
+            "head_logits": target + draft,
+            "ln_residual_dropout_fwd": (2 * n_layer + 1) * target + (2 * d_layer + 1) * draft}
+
+
+def phase_spec_serving(card: str) -> dict[str, int]:
+    """Speculative decoding at full width: (a) the serve CLI in this
+    process, ``--model 345M --init_random --draft_preset 124M --spec_k 4``,
+    greedy, 64 new tokens for phase_serving's 8 prompts (the 960-token one
+    ends at position 1024, so its last round straddles the context end);
+    (b) the same requests through an engine whose draft is the target's
+    first 12 of 24 layers with its embeddings and final LayerNorm, which
+    must accept; both against the 345M ``generate_cached(batch=1)``, their
+    launches against those the stats imply; then the kernel path against
+    the plain path at these shapes: a 345M prefill, a draft catch-up and a
+    verify window. (c) A sampled run (temperature
+    1.0, 16 tokens) twice with the same seeds. (d) The acceptance rate,
+    draft and verify ms a round and tok/s beside the plain 345M engine's on
+    the same requests, warm, one pass of each engine in turn. Returns the
+    launches of (a) and (b) by wrapper name."""
+    import contextlib
+    import io
+    import tempfile
+
+    from gpt_2_distributed_torch.config import MODEL_PRESETS, ServeConfig
+    from gpt_2_distributed_torch.models import decode, gpt2
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
+    from gpt_2_distributed_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_fwd_offset,
+    )
+    from gpt_2_distributed_torch.ops.fused_layer import ln_residual_dropout_fwd
+    from gpt_2_distributed_torch.ops.paged_attention import paged_attention_kernel
+    from gpt_2_distributed_torch.serving import engine as engine_mod
+    from gpt_2_distributed_torch.serving import serve
+    from gpt_2_distributed_torch.serving.engine import chunk_prefill
+
+    t_phase = time.monotonic()
+    config = MODEL_PRESETS["345M"]
+    rng = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, config.vocab_size, (p,), generator=rng).tolist()
+               for p in SERVING_LENGTHS]
+    wrappers = {"flash_attention_fwd": flash_attention_fwd,
+                "flash_attention_fwd_offset": flash_attention_fwd_offset,
+                "paged_attention_kernel": paged_attention_kernel,
+                "linear": fm.linear, "head_logits": fm.head_logits,
+                "ln_residual_dropout_fwd": ln_residual_dropout_fwd}
+    total: collections.Counter = collections.Counter()
+
+    # (a) the CLI; the engine it builds is caught for its stats.
+    made = []
+
+    class Caught(engine_mod.ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    tmp = tempfile.mkdtemp(prefix="spec_smoke_")
+    reqs = os.path.join(tmp, "reqs.jsonl")
+    with open(reqs, "w", encoding="utf-8") as f:
+        for i, p in enumerate(prompts):
+            f.write(json.dumps({"prompt_ids": p, "new": SPEC_NEW[0], "seed": i}) + "\n")
+    out, err = io.StringIO(), io.StringIO()
+    real = engine_mod.ServingEngine
+    engine_mod.ServingEngine = Caught
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            serve.main(["--model", "345M", "--init_random", "--draft_preset", "124M",
+                        "--spec_k", str(SPEC_K), "--temperature", "0", "--requests", reqs])
+        cli_s = time.monotonic() - t0
+        got = {name: w.launches for name, w in wrappers.items()}
+    finally:
+        engine_mod.ServingEngine = real
+        os.remove(reqs)
+        os.rmdir(tmp)
+    eng = made[0]
+    records = [json.loads(line) for line in out.getvalue().splitlines()]
+    st = eng.stats
+    want = spec_launches(config.n_layer, eng.draft_config.n_layer, SPEC_K, st["prefills"],
+                         st["decode_steps"], st["spec_catchups"])
+    print(f"spec serving (a): serve CLI --model 345M --init_random --draft_preset 124M "
+          f"--spec_k {SPEC_K} in {cli_s:.1f} s with set-up, {len(records)} requests x "
+          f"{SPEC_NEW[0]} greedy tokens, {st['decode_steps']} rounds, {st['spec_catchups']} "
+          f"catch-ups, {st['spec_accepted_tokens']} of {st['spec_draft_tokens']} draft tokens "
+          f"accepted; launches {got}", flush=True)
+    if got != want:
+        fail(f"spec serving (a) launches {got} != {want}")
+    total.update(got)
+
+    # The 345M oracle, from the engine's own compute weights.
+    w = eng.w
+    oracle = {}
+
+    def reference(i, p, new, temperature=0.0):
+        if (i, new, temperature) not in oracle:
+            oracle[i, new, temperature] = decode.generate_cached(
+                w, config, [p], seed=i, max_new_tokens=new, temperature=temperature,
+                block_size=eng.serve.block_size)[0, len(p):].tolist()
+        return oracle[i, new, temperature]
+
+    def held(label, streams, e):
+        same = 0
+        for i, (got_ids, p) in enumerate(zip(streams, prompts)):
+            want_ids = reference(i, p, SPEC_NEW[0])
+            if got_ids == want_ids:
+                same += 1
+                continue
+            print_first_difference(f"spec serving {label} request {i}", e.w, config, p,
+                                   got_ids, want_ids)
+        print(f"spec serving {label}: {same} of {len(prompts)} greedy streams equal the 345M "
+              f"generate_cached(batch=1)'s", flush=True)
+        if same != len(prompts):
+            fail(f"spec serving {label}: {len(prompts) - same} streams differ")
+
+    if [r["finish_reason"] for r in records] != ["length"] * len(prompts):
+        fail(f"spec serving (a): finish reasons {[r['finish_reason'] for r in records]}")
+    held("(a)", [r["generated"] for r in records], eng)
+
+    # (b) the self-sliced draft: the target's first layers, its embeddings
+    # and final LayerNorm.
+    draft_config = config.replace(n_layer=SPEC_SLICE)
+    sliced = real(w, config, eng.serve, temperature=0.0,
+                  draft_params=dict(w, blocks=w["blocks"][:SPEC_SLICE]),
+                  draft_config=draft_config)
+    plain = real(w, config, ServeConfig(**{f: getattr(eng.serve, f) for f in (
+        "max_batch", "block_size", "num_blocks")}), temperature=0.0)
+    for e in (sliced, plain):
+        e.submit([1, 2, 3], 2)
+        e.run_until_idle()
+    before = dict(sliced.stats)
+    for wr in wrappers.values():
+        wr.launches = 0
+    hs = [sliced.submit(p, SPEC_NEW[0], seed=i) for i, p in enumerate(prompts)]
+    sliced.run_until_idle()
+    got = {name: wr.launches for name, wr in wrappers.items()}
+    d = {k: sliced.stats[k] - before[k] for k in sliced.stats}
+    want = spec_launches(config.n_layer, SPEC_SLICE, SPEC_K, d["prefills"], d["decode_steps"],
+                         d["spec_catchups"])
+    print(f"spec serving (b): draft = the 345M's first {SPEC_SLICE} layers, {d['decode_steps']} "
+          f"rounds, {d['spec_accepted_tokens']} of {d['spec_draft_tokens']} draft tokens "
+          f"accepted; launches {got}", flush=True)
+    if got != want:
+        fail(f"spec serving (b) launches {got} != {want}")
+    total.update(got)
+    held("(b)", [h.generated for h in hs], sliced)
+    if d["spec_accepted_tokens"] < 1:
+        fail("spec serving (b): the self-sliced draft accepted no token")
+
+    # Kernel path against plain path at this phase's own shapes (H 16,
+    # C 1024), outside the counted runs: the 960-token prompt's 345M
+    # prefill (K1); then, with 8 requests admitted into the sliced engine
+    # and one round run, every row's draft catch-up from position 0 over
+    # cloned draft pools (K1's offset form) and one verify window of
+    # 8 x (K+1) flattened rows over the target pools (K3).
+    with torch.no_grad():
+        pt = torch.tensor([prompts[-1]], device=sliced.device)
+        hid = {impl: decode.prefill(w, config, pt, pt.shape[1], impl)[0][:, -1]
+               for impl in ("kernel", "plain")}
+        logits = {"prefill": {impl: gpt2.logits_fp32(w, h) for impl, h in hid.items()}}
+        for i, p in enumerate(prompts):
+            sliced.submit(p, 8, seed=100 + i)
+        sliced.step()
+        act = np.flatnonzero(sliced.active)
+        clen = sliced.pos[act]
+        bs = sliced._draft_serve.block_size
+        chunk = np.zeros((len(act), -(-int(clen.max()) // bs) * bs), np.int64)
+        for j, slot in enumerate(act):
+            req = sliced._slots[slot]
+            chunk[j, :clen[j]] = (req.prompt + req.generated)[:clen[j]]
+        logits["catch-up"] = {impl: chunk_prefill(
+            sliced.draft_w, sliced.draft_config, sliced.dk_pool.clone(), sliced.dv_pool.clone(),
+            sliced.draft_table[act], chunk, np.zeros_like(clen), clen, impl)
+            for impl in ("kernel", "plain")}
+        drafts = torch.randint(0, config.vocab_size, (len(act), SPEC_K), generator=rng)
+        vtoks = np.concatenate([sliced.tokens[act, None], drafts.numpy()], axis=1)
+        logits["verify"] = {impl: sliced._verify_logits(act, vtoks, impl)
+                            for impl in ("kernel", "plain")}
+    sliced.run_until_idle()
+    errs = {name: (o["kernel"] - o["plain"]).abs().max().item() for name, o in logits.items()}
+    finite = all(bool(torch.isfinite(o["kernel"]).all()) for o in logits.values())
+    print(f"spec serving: kernel vs plain fp32 logits at H {config.n_head}, C {config.n_embd}: "
+          f"prefill (K1, T {pt.shape[1]}) max|diff| {errs['prefill']:.3e}, draft catch-up "
+          f"(K1 offset, {len(act)} rows to {int(clen.max())}) {errs['catch-up']:.3e}, verify window "
+          f"(K3, {vtoks.size} rows) {errs['verify']:.3e} (tol {LOGITS_TOL}, logits std "
+          f"{logits['verify']['plain'].std().item():.3f}), finite {finite}", flush=True)
+    if not (finite and max(errs.values()) <= LOGITS_TOL):
+        fail("spec serving: kernel path logits disagree with the plain path")
+
+    # (c) sampled, twice with the same seeds.
+    eng.temperature = 1.0
+    runs = []
+    for _ in range(2):
+        hs = [eng.submit(p, SPEC_NEW[1], seed=50 + i) for i, p in enumerate(prompts)]
+        eng.run_until_idle()
+        runs.append([h.generated for h in hs])
+    eng.temperature = 0.0
+    ok = all(len(t) == SPEC_NEW[1] and all(0 <= x < config.vocab_size for x in t)
+             for t in runs[0])
+    print(f"spec serving (c): sampled at temperature 1.0, {len(prompts)} x {SPEC_NEW[1]} "
+          f"tokens: lengths and vocab {ok}, two runs with the same seeds equal "
+          f"{runs[0] == runs[1]}", flush=True)
+    if not (ok and runs[0] == runs[1]):
+        fail("spec serving (c): sampled streams malformed or not deterministic")
+
+    # (d) warm timings, one pass of each engine in turn, greedy (one pass
+    # keeps the phase within a minute).
+    toks = len(prompts) * SPEC_NEW[0]
+    base = None
+    engines = {"plain": plain, "spec 124M draft": eng, f"spec {SPEC_SLICE}-layer slice": sliced}
+    for name, e in engines.items():
+        b = dict(e.stats)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        hs = [e.submit(p, SPEC_NEW[0], seed=i) for i, p in enumerate(prompts)]
+        e.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if [h.generated for h in hs] != [reference(i, p, SPEC_NEW[0])
+                                          for i, p in enumerate(prompts)]:
+            fail(f"spec serving (d): {name} streams differ from generate_cached's")
+        r = {k: e.stats[k] - b[k] for k in e.stats}
+        base = base or toks / wall
+        line = (f"spec serving (d) [{card}]: {name}: {toks} tokens in {wall:.3f} s "
+                f"({toks / wall:.1f} tok/s, {toks / wall / base:.3f}x plain), "
+                f"{r['decode_steps']} steps at {r['decode_ms'] / r['decode_steps']:.3f} ms")
+        if r["spec_draft_tokens"]:
+            line += (f"; acceptance {r['spec_accepted_tokens'] / r['spec_draft_tokens']:.3f}, "
+                     f"{(toks - len(prompts)) * SPEC_K / r['spec_draft_tokens']:.3f} tokens a "
+                     f"row a round, draft {r['draft_ms'] / r['decode_steps']:.3f} ms + verify "
+                     f"{r['verify_ms'] / r['decode_steps']:.3f} ms a round")
+        print(line, flush=True)
+    del eng, sliced, plain, made
+    torch.cuda.empty_cache()
+    print(f"spec serving phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return dict(total)
 
 
 # K1's query-offset form: (start, chunk) cases at H 12, D 64 over S = 1024
@@ -2725,12 +3002,12 @@ def phase_resume(fused_losses: list[float]) -> tuple[dict[str, int], dict[str, s
         failures = tracker_a.buffers.get("save_failures", [0])[-1]
         ckpts_a = ck.list_checkpoints(dir_a)
         print(f"resume A: {TRAIN_STEPS} steps, async saves every {half}, in {wall_a:.1f} s; "
-              f"losses bit-equal to phase 12's fused_matmul all run: "
+              f"losses bit-equal to phase 13's fused_matmul all run: "
               f"{losses_a == fused_losses}; save_failures {failures:.0f}; checkpoints "
               f"{[s for s, _ in ckpts_a]}, committed and verified: "
               f"{[committed_and_verified(p) for _, p in ckpts_a]}", flush=True)
         if losses_a != fused_losses:
-            fail("run A's losses differ from phase 12's fused_matmul all run's at "
+            fail("run A's losses differ from phase 13's fused_matmul all run's at "
                  + first_difference(losses_a, fused_losses))
         if failures or [s for s, _ in ckpts_a] != [half, TRAIN_STEPS] or not all(
                 committed_and_verified(p) for _, p in ckpts_a):
@@ -4223,6 +4500,7 @@ def main() -> None:
     prefix = phase_prefix_serving(profile)
     preempt = phase_preempt_serving()
     serving = phase_serving(profile)
+    spec = phase_spec_serving(card)
     phase_model_paths()
     counts, ms_steps, train_losses = phase_training(profile)
     resume, digest_a = phase_resume(train_losses["fused_matmul all"])
@@ -4246,6 +4524,7 @@ def main() -> None:
                                       for name, _ in MM_SERVE_WRAPPERS)
           + f"; K8 {k8['flash_block_fwd']} forward, {k8['flash_block_bwd']} backward "
           + ("(the one-card ring)" if k8_train is None else "(sp=2 training, rank 0)")
+          + "; spec serving: " + ", ".join(f"{name} {n}" for name, n in spec.items())
           + "; prefix serving: " + ", ".join(f"{name} {n}" for name, n in prefix.items())
           + "; preempt serving: " + ", ".join(f"{name} {n}" for name, n in preempt.items())
           + "; front end: " + ", ".join(f"{name} {n}" for name, n in front.items())
@@ -4263,13 +4542,14 @@ def main() -> None:
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
              launches=k1_serve + k1_train + front["flash_attention_fwd"]
              + resume["flash_attention_fwd"] + detectors["flash_attention_fwd"]
-             + elastic["flash_attention_fwd"], **k1_row),
+             + elastic["flash_attention_fwd"] + spec["flash_attention_fwd"], **k1_row),
         dict(name="flash_attention_fwd_offset", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
              launches=prefix["flash_attention_fwd_offset"]
              + preempt["flash_attention_fwd_offset"]
-             + front["flash_attention_fwd_offset"], **offset_row),
+             + front["flash_attention_fwd_offset"] + spec["flash_attention_fwd_offset"],
+             **offset_row),
         dict(name="flash_attention_bwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",
@@ -4279,11 +4559,12 @@ def main() -> None:
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",
              launches=k3 + preempt["paged_attention_kernel"] + front["paged_attention_kernel"]
-             + resume["paged_attention_kernel"], **k3_row),
+             + resume["paged_attention_kernel"] + spec["paged_attention_kernel"], **k3_row),
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
              replaces=replaces, launches=counts["fused_layers all"][name] + front.get(name, 0)
-             + resume.get(name, 0) + detectors[name] + elastic[name], **fused_rows[name])
+             + resume.get(name, 0) + spec.get(name, 0) + detectors[name] + elastic[name],
+             **fused_rows[name])
         for name, replaces in FUSED_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
@@ -4293,7 +4574,7 @@ def main() -> None:
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
              replaces=replaces, launches=serving[name] + front[name] + resume[name]
-             + detectors[name] + elastic[name], **mm_rows[name])
+             + spec[name] + detectors[name] + elastic[name], **mm_rows[name])
         for name, replaces in MM_SERVE_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/flash_block.cu",

@@ -241,10 +241,12 @@ class ServeConfig:
       recomputing its prefill).
     * ``watermark_blocks`` — watermark mode: blocks an admission leaves
       free while any slot is occupied, for the decoding rows to grow into.
+    * ``spec`` — speculative decoding, ``"draft:<preset>,k:<K>"`` (see
+      :func:`parse_serve_spec`; ``""`` = off): a draft model proposes K
+      tokens a round and the target verifies them in one pass.
 
-    ``mesh`` and ``spec`` mirror the JAX engine's options and are validated
-    as there; only their defaults (one device, no speculation) are ported
-    so far.
+    ``mesh`` mirrors the JAX engine's option; only its default (one
+    device) is ported so far.
     """
 
     max_batch: int = 8
@@ -296,10 +298,19 @@ class ServeConfig:
                 f"prefill_batch={self.prefill_batch} must be in "
                 f"[1, max_batch={self.max_batch}]"
             )
-        for field, default in (("mesh", ""), ("spec", "")):
-            value = getattr(self, field)
-            if value != default:
-                raise _later_slice("ServeConfig", field, value)
+        self.spec_axes()  # raises on a malformed spec
+        if self.mesh != "":
+            raise _later_slice("ServeConfig", "mesh", self.mesh)
+
+    def spec_axes(self) -> tuple[str | None, int]:
+        """Parse ``spec`` into ``(draft_preset, k)`` (``""`` -> (None, 0));
+        see :func:`parse_serve_spec`."""
+        return parse_serve_spec(self.spec)
+
+    @property
+    def spec_k(self) -> int:
+        """Draft run length per verify pass (0 = speculation off)."""
+        return self.spec_axes()[1]
 
     def max_blocks_per_seq(self, n_positions: int) -> int:
         """Static block-table width: enough blocks for a full-context
@@ -310,6 +321,102 @@ class ServeConfig:
     def mesh_devices(self) -> int:
         """Devices one replica spans: 1 (serving meshes are not ported)."""
         return 1
+
+
+def parse_serve_spec(spec: str) -> tuple[str | None, int]:
+    """Parse a speculative-decoding spec into ``(draft_preset, k)``
+    (``""`` -> (None, 0): speculation off).
+
+    Accepts ``"draft:<preset>,k:<K>"`` (``=`` also accepted as the
+    separator). Both keys are required when the spec is non-empty: a draft
+    model with no run length (or the reverse) is a configuration bug, not
+    a default. The preset name is validated against :data:`MODEL_PRESETS`
+    here; the draft-smaller-than-target check needs the target's config
+    and lives in :func:`validate_spec_flags` and the engine constructor."""
+    if not spec:
+        return None, 0
+    draft: str | None = None
+    k: int | None = None
+    seen: set[str] = set()
+    for part in spec.split(","):
+        name, _, val = part.replace("=", ":").partition(":")
+        name = name.strip()
+        val = val.strip()
+        if name not in ("draft", "k"):
+            raise ValueError(
+                f"spec={spec!r}: unknown key {name!r} (speculation specs "
+                f"use 'draft' and 'k' only)"
+            )
+        if name in seen:
+            raise ValueError(f"spec={spec!r}: duplicate key {name!r}")
+        seen.add(name)
+        if name == "draft":
+            if val not in MODEL_PRESETS:
+                raise ValueError(
+                    f"spec={spec!r}: unknown draft preset {val!r} "
+                    f"(expected one of {', '.join(MODEL_PRESETS)})"
+                )
+            draft = val
+        else:
+            try:
+                k = int(val)
+            except ValueError:
+                raise ValueError(
+                    f"spec={spec!r}: key 'k' needs an integer, got {val!r}"
+                ) from None
+            if k < 1:
+                raise ValueError(
+                    f"spec={spec!r}: k={k} must be >= 1 (use spec='' to "
+                    f"disable speculation)"
+                )
+    if draft is None or k is None:
+        raise ValueError(
+            f"spec={spec!r}: both 'draft' and 'k' are required "
+            f"(e.g. 'draft:124M,k:4')"
+        )
+    return draft, k
+
+
+def validate_spec_flags(p, args) -> None:
+    """The serving CLIs' checks of ``--spec_k``, ``--draft_preset`` and
+    ``--draft_ckpt``, after parsing: ``--spec_k >= 1``; ``--spec_k`` and
+    ``--draft_ckpt`` need ``--draft_preset``; the preset is known; the
+    draft has strictly fewer params than the target after the model
+    overrides. Exits through ``p.error`` with the JAX CLIs' texts."""
+    spec_k = args.spec_k
+    if spec_k is not None and spec_k < 1:
+        p.error(f"--spec_k must be >= 1, got {spec_k}")
+    draft = args.draft_preset
+    if draft is None:
+        if spec_k is not None:
+            p.error("--spec_k needs --draft_preset (speculation is opt-in "
+                    "via the draft model)")
+        if args.draft_ckpt:
+            p.error("--draft_ckpt needs --draft_preset")
+        return
+    if draft not in MODEL_PRESETS:
+        p.error(
+            f"--draft_preset must be one of "
+            f"{'|'.join(MODEL_PRESETS)}, got {draft!r}"
+        )
+    target = MODEL_PRESETS.get(args.model)
+    if target is not None:
+        overrides = {field: getattr(args, flag) for flag, field in (
+            ("n_layer", "n_layer"), ("n_embd", "n_embd"), ("n_head", "n_head"),
+            ("vocab_size", "vocab_size"), ("seq_len", "n_positions"),
+        ) if getattr(args, flag) is not None}
+        try:
+            target = target.replace(**overrides)
+        except ValueError:
+            target = None  # malformed model flags fail elsewhere
+    if target is not None and MODEL_PRESETS[draft].num_params() >= target.num_params():
+        p.error(
+            f"--draft_preset {draft} "
+            f"({MODEL_PRESETS[draft].num_params():,} params) must be "
+            f"smaller than the target model "
+            f"({target.num_params():,} params): a draft at least as "
+            f"large as the target cannot speed up verification"
+        )
 
 
 # The standard GPT-2 family.

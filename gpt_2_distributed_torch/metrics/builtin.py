@@ -128,8 +128,8 @@ METRIC_REGISTRY.metric(
 # metrics_snapshot() as of now (the wait is a running mean, the counters
 # are cumulative). The names are the JAX package's, the keys of
 # serving/frontend/router.py::ReplicaRouter.metrics_snapshot plus the
-# driver's watchdog_trips; those of planes not ported yet (speculation,
-# worker processes, remote hosts, the step watchdog) read 0.
+# EngineDriver's watchdog_trips; those of planes not ported yet (worker
+# processes, remote hosts, the step watchdog) read 0.
 
 for _name in (
     "queue_wait_ms",            # mean enqueue->admission gap per admission

@@ -124,10 +124,15 @@ def paged_decode_step(
     K/V at its position's slot (``block_table[b, pos // bs]``, ``pos %
     bs``), in place, BEFORE attending (the row attends to itself), then
     attends over its ``lengths[b]`` positions. An idle row, whose table row
-    is zeros, scribbles on block 0. Returns logits [B, V] fp32."""
+    is zeros, scribbles on block 0. The block index is clamped to the
+    table's last column, as the JAX draft step does: a row at a position
+    past the table (a speculative draft step past the context end) writes
+    into its last block and never indexes out of range. Returns logits
+    [B, V] fp32."""
     b = tokens.shape[0]
     bs = k_pool.shape[3]
-    blk = block_table.long().gather(1, (positions // bs)[:, None])[:, 0]
+    col = (positions // bs).clamp(max=block_table.shape[1] - 1)
+    blk = block_table.long().gather(1, col[:, None])[:, 0]
     off = positions % bs
     x = gpt2.embed(w, config, tokens[:, None], positions[:, None])   # [B, 1, C]
     for layer, bp in enumerate(w["blocks"]):

@@ -76,7 +76,9 @@
   (watermark mode) and ``decode(rows)``, and the request lifecycle events
   ``submit``, ``admit``, ``prefill_chunk``, ``prefix_hit``, ``cow``,
   ``preempt``, ``resume``, ``first_token`` and ``finish`` carry the JAX
-  engine's names and attributes. The handle's events reuse its own
+  engine's names and attributes (a speculative step holds ``draft(rows,
+  k)`` and ``verify(rows, k)`` in place of ``decode``, and emits one
+  ``spec_accept`` event a row a round). The handle's events reuse its own
   ``time.monotonic()`` stamps (the tracer's ``perf_counter`` is the same
   clock on Linux), so a TTFT rebuilt from the trace equals the handle's
   exactly. No span closes on a device sync of its own: ``decode`` ends
@@ -100,8 +102,28 @@ cache hits leave its draws where ``generate_cached(batch=1)`` makes them;
 every op of the chunk path gives a row the bits the whole-prompt path (or,
 for a decode-written position, the decode step) gives it on the card.
 
-Not ported yet (refused by ``ServeConfig``): serving meshes and
-speculative decoding.
+**Speculative decoding** (``ServeConfig.spec = "draft:<preset>,k:<K>"``,
+with ``draft_params=``/``draft_config=``): each step is a round of
+:meth:`ServingEngine._spec_round` in place of the decode step. A smaller
+draft model keeps its own pool (``paged_cache.draft_serve_view``: full
+capacity for every slot, so a draft grant never fails), rebuilt from the
+committed tokens after admission, preemption or migration by one chunk
+pass (the draft catch-up), and proposes K tokens by K+1 decode steps over
+that pool (the last writes K/V only). The target verifies the K+1-token
+window in one ``paged_decode_step``-shaped pass over the window's rows
+flattened, so on the card every window query attends through the paged
+kernel (K3) and gets the decode step's bits: the verify's logits at a
+position are, bit for bit, what the decode step would give there, and a
+greedy stream equals ``generate_cached(batch=1)``'s for any K. The host
+accepts in fp64 (``_spec_accept``: greedy, the verify argmax; sampled, the
+accept/resample rule, whose emitted tokens are distributed as the
+target's). A sampled round draws its ``3K + 1`` uniforms from the
+request's generator, so sampled streams are distributed as plain
+decoding's but not equal to them. Draft K/V is never serialized: the wire
+form is unchanged and requests migrate between speculative and plain
+engines both ways.
+
+Not ported yet (refused by ``ServeConfig``): serving meshes.
 """
 
 from __future__ import annotations
@@ -129,6 +151,7 @@ from gpt_2_distributed_torch.serving.paged_cache import (
     BlockAllocator,
     PrefixCache,
     copy_block,
+    draft_serve_view,
     init_pools,
     pool_bytes,
     scatter_prefill,
@@ -369,6 +392,88 @@ def chunk_prefill(
     return gpt2.logits_fp32(w, h)
 
 
+def _spec_probs(logits, temperature: float, top_k: int | None) -> np.ndarray:
+    """fp64 next-token distribution(s) from fp32 logits with
+    ``sample_token``'s semantics: the k-th largest value as the threshold,
+    a strict-less mask (ties at the threshold stay), then temperature. On
+    the host, because the acceptance rule needs the draft's and the
+    target's probabilities of given tokens, and in fp64 so its arithmetic
+    adds no rounding of its own."""
+    l = np.asarray(logits, np.float64)
+    if top_k is not None:
+        kth = np.partition(l, -top_k, axis=-1)[..., -top_k][..., None]
+        l = np.where(l < kth, -np.inf, l)
+    l = l / temperature
+    l = l - l.max(axis=-1, keepdims=True)
+    e = np.exp(l)
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def _spec_cdf_sample(probs: np.ndarray, u: float) -> int:
+    """Inverse-CDF draw from one fp64 distribution with uniform ``u``;
+    ``u`` scales by the actual mass (fp64 sums are not exactly 1) and the
+    index clamps to the vocab."""
+    c = np.cumsum(probs)
+    return min(int(np.searchsorted(c, u * c[-1], side="right")), len(c) - 1)
+
+
+def _greedy_accept(argmaxes, d_toks) -> tuple[list[int], int]:
+    """Greedy acceptance from the verify window's argmaxes ``[K+1]``:
+    accept while the draft token equals the argmax; the first mismatch
+    emits the argmax itself (the correction), a clean sweep the bonus
+    argmax. Every emitted token is a target argmax."""
+    emit: list[int] = []
+    for i, d in enumerate(d_toks):
+        emit.append(int(argmaxes[i]))
+        if emit[-1] != int(d):
+            return emit, i
+    emit.append(int(argmaxes[len(d_toks)]))
+    return emit, len(d_toks)
+
+
+def _spec_accept(
+    vlogits: np.ndarray,            # [K+1, V] fp32 target verify logits
+    d_toks: np.ndarray,             # [K] int draft proposals
+    q_dists: list[np.ndarray] | None,  # K fp64 draft distributions (None = greedy)
+    unis: np.ndarray | None,        # [3K+1] fp64 round uniforms (None = greedy)
+    temperature: float,
+    top_k: int | None,
+) -> tuple[list[int], int]:
+    """One row's acceptance rule -> (emitted tokens, accepted count).
+
+    Greedy (``q_dists`` None): :func:`_greedy_accept` on the window's
+    argmaxes; the engine calls that itself with ``sample_token``'s
+    argmaxes, so this branch is kept for the exact comparison with the
+    JAX package's function, which takes both forms. Sampled (the
+    Leviathan/Chen rule): accept draft token ``d`` with probability
+    ``min(1, p(d)/q(d))``; on rejection resample from ``max(p - q, 0)``
+    renormalized; after a clean sweep the bonus token comes from the last
+    target distribution. Each decision takes the round uniform reserved
+    for it (accept coins at ``[K, 2K)``, residual draws at ``[2K, 3K)``,
+    the bonus at ``3K``; the draft's own draws take ``[0, K)``), so the
+    emitted tokens are distributed as sequential target sampling."""
+    k = len(d_toks)
+    if q_dists is None:
+        return _greedy_accept(np.asarray(vlogits).argmax(axis=-1), d_toks)
+    emit: list[int] = []
+    for i in range(k):
+        p = _spec_probs(vlogits[i], temperature, top_k)
+        d = int(d_toks[i])
+        if unis[k + i] * q_dists[i][d] < p[d]:
+            emit.append(d)
+            continue
+        r = np.maximum(p - q_dists[i], 0.0)
+        z = float(r.sum())
+        # z == 0 only where q dominates p everywhere it lost (an fp64
+        # corner of measure zero); p keeps the draw in the target support.
+        r = r / z if z > 0.0 else p
+        emit.append(_spec_cdf_sample(r, unis[2 * k + i]))
+        return emit, i
+    p = _spec_probs(vlogits[k], temperature, top_k)
+    emit.append(_spec_cdf_sample(p, unis[3 * k]))
+    return emit, k
+
+
 class ServingEngine:
     """Continuous-batching serving engine. See the module docstring.
 
@@ -381,7 +486,10 @@ class ServingEngine:
 
     ``params`` are the fp32 master weights (``models/gpt2.py``); the engine
     keeps its own compute-dtype copy on ``device``, which defaults to CUDA
-    (there the compute dtype is bf16, the kernels' type).
+    (there the compute dtype is bf16, the kernels' type). With
+    ``serve.spec`` set, ``draft_params``/``draft_config`` are the draft
+    model's (strictly fewer params than the target, the same vocab, at
+    least its context).
     """
 
     def __init__(
@@ -394,9 +502,43 @@ class ServingEngine:
         top_k: int | None = None,
         compute_dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device | None = None,
+        draft_params: dict | None = None,
+        draft_config: GPT2Config | None = None,
     ):
         serve = serve if serve is not None else ServeConfig()
         check_generation_args(config, 1, 1, top_k, batch=serve.max_batch)
+        _, self._spec_k = serve.spec_axes()
+        if self._spec_k:
+            if draft_params is None or draft_config is None:
+                raise ValueError(
+                    f"spec={serve.spec!r} enables speculative decoding but "
+                    f"no draft model was provided "
+                    f"(draft_params= / draft_config=)"
+                )
+            if draft_config.num_params() >= config.num_params():
+                raise ValueError(
+                    f"draft model ({draft_config.num_params():,} params) "
+                    f"must be smaller than the target "
+                    f"({config.num_params():,} params)"
+                )
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size={draft_config.vocab_size} must match "
+                    f"the target's {config.vocab_size}: acceptance compares "
+                    f"distributions over one token space"
+                )
+            if draft_config.n_positions < config.n_positions:
+                raise ValueError(
+                    f"draft n_positions={draft_config.n_positions} must "
+                    f"cover the target's {config.n_positions}: the draft "
+                    f"re-encodes the full committed prefix"
+                )
+        elif draft_params is not None or draft_config is not None:
+            raise ValueError(
+                "draft model provided but serve.spec is empty — "
+                "speculation is opt-in via ServeConfig.spec "
+                "('draft:<preset>,k:<K>')"
+            )
         self.device = resolve_device(device)
         # fp32 products in full fp32 on the card, stated rather than left
         # to defaults: the fp32 logits that sampling reads must not pass
@@ -418,6 +560,25 @@ class ServingEngine:
                                               self.device)
         self.allocator = BlockAllocator(serve.num_blocks)
         self._cache = PrefixCache(serve.block_size) if serve.prefix_cache else None
+        self.draft_config = draft_config
+        if self._spec_k:
+            # The draft's own weights, pool and tables. Its pool holds a
+            # full-context sequence in every slot, so a draft grant never
+            # fails. Draft K/V is disposable: rebuilt from the committed
+            # tokens (the catch-up) after admission, preemption and
+            # adoption, never serialized.
+            self.draft_w = gpt2.compute_weights(draft_params, compute_dtype, self.device)
+            self._draft_serve = draft_serve_view(serve, config.n_positions)
+            self._draft_m = self._draft_serve.max_blocks_per_seq(config.n_positions)
+            self.dk_pool, self.dv_pool = init_pools(draft_config, self._draft_serve,
+                                                    compute_dtype, self.device)
+            self._draft_alloc = BlockAllocator(self._draft_serve.num_blocks)
+            self.draft_table = np.zeros((serve.max_batch, self._draft_m), np.int32)
+            self._draft_blocks: list[list[int] | None] = [None] * serve.max_batch
+            # Positions [0, _draft_pos) of a slot hold draft K/V of its
+            # committed tokens; every round ends with it equal to ``pos``,
+            # and 0 means a catch-up is due.
+            self._draft_pos = np.zeros((serve.max_batch,), np.int64)
         # Scheduler state lives on the host as numpy; each decode step
         # ships it to the device in a few small copies.
         self.block_table = np.zeros((serve.max_batch, self._m), np.int32)
@@ -439,6 +600,13 @@ class ServingEngine:
             # Chunk dispatches whose decode-written rows attend through
             # the paged attention (K3 once a layer on the card).
             "resume_dispatches": 0,
+            # Speculation: proposals, accepted proposals, rounds that
+            # rejected one, and the draft and verify walls.
+            "spec_draft_tokens": 0, "spec_accepted_tokens": 0,
+            "spec_rollbacks": 0, "draft_ms": 0.0, "verify_ms": 0.0,
+            # Speculative rounds whose draft catch-up ran (K1's offset
+            # form once a draft layer on the card).
+            "spec_catchups": 0,
         }
         get_tracer().event("engine_mesh", mesh="single", devices=1, data=1, tp=1)
 
@@ -779,6 +947,12 @@ class ServingEngine:
         self.block_table[slot, :] = 0
         self.pos[slot] = 0
         self.active[slot] = False
+        if self._spec_k and self._draft_blocks[slot] is not None:
+            # Draft K/V dies with the slot; the next occupant catches up.
+            self._draft_alloc.release(self._draft_blocks[slot])
+            self._draft_blocks[slot] = None
+            self.draft_table[slot, :] = 0
+            self._draft_pos[slot] = 0
 
     def _evict(self, slot: int, reason: str) -> None:
         self._slots[slot]._finish(reason)
@@ -816,9 +990,12 @@ class ServingEngine:
             req = self._slots[slot]
             if req is None or not self.active[slot]:
                 continue    # preempted by an older row's growth
-            # The last position the request can ever write: the final
-            # block count equals the reserve grant's.
-            last = min(int(self.pos[slot]), len(req.prompt) + req.max_new_tokens - 2)
+            # The last position the request can ever write bounds the
+            # grant, so the final block count equals the reserve grant's;
+            # a speculative round writes up to spec_k positions past pos
+            # before the next grow.
+            last = min(int(self.pos[slot]) + self._spec_k,
+                       len(req.prompt) + req.max_new_tokens - 2)
             while last // bs >= len(req._blocks):
                 ids = self._alloc_blocks(1)
                 if ids is not None:
@@ -970,6 +1147,9 @@ class ServingEngine:
                 self._grow_tables()
             if not self.active.any():
                 return self.stats["tokens_out"] - emitted_before
+        if self._spec_k:
+            self._spec_round(tracer)
+            return self.stats["tokens_out"] - emitted_before
 
         was_active = self.active.copy()
         with tracer.span("decode", rows=int(was_active.sum())):
@@ -1005,6 +1185,179 @@ class ServingEngine:
                 self._evict(slot, "length")
         return self.stats["tokens_out"] - emitted_before
 
+    def _spec_round(self, tracer) -> None:
+        """One speculative round for every active row (K = ``spec_k``):
+
+        1. the draft catch-up, for rows whose draft K/V trails ``pos``
+           (fresh admissions, resumes, adoptions): their committed tokens
+           through :func:`chunk_prefill` over the draft pool, its logits discarded;
+        2. K+1 draft decode steps: step i takes the token at ``pos + i``
+           (the pending token, then each proposal) and proposes the next;
+           the last one only writes ``d_K``'s K/V, so the draft frontier
+           lands on the new ``pos`` whatever is accepted;
+        3. one target verify of the window ``[pending, d_1 .. d_K]`` at
+           ``pos ..``: :meth:`_verify_logits`, whose logits at a position
+           are the decode step's there;
+        4. acceptance on the host (``_spec_accept``), then the emit loop
+           with the EOS and length gates. A later emission after a stop is
+           dropped: sequential decoding never makes it.
+
+        Target K/V written past the accepted prefix stays in the pool,
+        past every length that attends to it, until overwritten."""
+        k_spec = self._spec_k
+        dev = self.device
+        act = np.flatnonzero(self.active)        # slot order
+        rows = len(act)
+        for slot in act:
+            if self._draft_blocks[slot] is None:
+                ids = self._draft_alloc.alloc(self._draft_m)
+                self._draft_blocks[slot] = ids
+                self.draft_table[slot, :] = ids
+        sampled = self.temperature > 0
+        if sampled:
+            # 3K+1 uniforms a row, from its request's generator, once a
+            # round in slot order: K draft draws, K accept coins, K
+            # residual draws and the bonus.
+            unis = torch.stack([
+                torch.rand(3 * k_spec + 1, dtype=torch.float64, device=dev,
+                           generator=self._slots[s]._gen) for s in act]).cpu().numpy()
+
+        t0 = time.monotonic()
+        with tracer.span("draft", rows=rows, k=k_spec):
+            lag = self.pos[act] - self._draft_pos[act]
+            if (lag > 0).any():
+                self._draft_catch_up(act[lag > 0])
+            pos0 = self.pos[act]
+            cap = self._draft_m * self._draft_serve.block_size
+            table = torch.from_numpy(self.draft_table[act]).to(dev)
+            cur = torch.from_numpy(self.tokens[act]).to(dev)
+            d_toks = torch.zeros((rows, k_spec), dtype=torch.long, device=dev)
+            q_list: list[np.ndarray] = []
+            for i in range(k_spec + 1):
+                # Past the context a step writes into the last draft block
+                # (paged_decode_step clamps the column) and attends to the
+                # whole table, as the JAX draft step does.
+                lengths = np.minimum(pos0 + i + 1, cap).astype(np.int32)
+                logits = decode.paged_decode_step(
+                    self.draft_w, self.draft_config, cur, torch.from_numpy(pos0 + i).to(dev),
+                    self.dk_pool, self.dv_pool, table, torch.from_numpy(lengths).to(dev),
+                    self.serve.attn_impl)
+                if i == k_spec:
+                    break     # K/V only: its proposal is never used
+                if sampled:
+                    q = _spec_probs(logits.cpu().numpy(), self.temperature, self.top_k)
+                    q_list.append(q)
+                    cur = torch.tensor([_spec_cdf_sample(q[j], unis[j, i])
+                                        for j in range(rows)], device=dev)
+                else:
+                    cur = sample_token(logits, None, 0.0, self.top_k)
+                d_toks[:, i] = cur
+            d_host = d_toks.cpu().numpy()        # the draft's device sync
+        t1 = time.monotonic()
+        self.stats["draft_ms"] += (t1 - t0) * 1e3
+        self.stats["spec_draft_tokens"] += k_spec * rows
+
+        with tracer.span("verify", rows=rows, k=k_spec):
+            vtoks = np.concatenate([self.tokens[act, None], d_host], axis=1)
+            logits = self._verify_logits(act, vtoks)
+            if sampled:
+                vlogits = logits.view(rows, k_spec + 1, -1).cpu().numpy()
+            else:
+                # The argmax generate_cached takes, ties broken alike.
+                argmaxes = sample_token(logits, None, 0.0, self.top_k).view(
+                    rows, k_spec + 1).cpu().numpy()          # the device sync
+        t2 = time.monotonic()
+        self.stats["verify_ms"] += (t2 - t1) * 1e3
+        self.stats["decode_ms"] += (t2 - t0) * 1e3
+        self.stats["decode_steps"] += 1
+
+        now = time.monotonic()
+        for j, slot in enumerate(act):
+            req = self._slots[slot]
+            if sampled:
+                emit, accepted = _spec_accept(vlogits[j], d_host[j],
+                                              [q[j] for q in q_list], unis[j],
+                                              self.temperature, self.top_k)
+            else:
+                emit, accepted = _greedy_accept(argmaxes[j], d_host[j])
+            self.stats["spec_accepted_tokens"] += accepted
+            if accepted < k_spec:
+                self.stats["spec_rollbacks"] += 1
+            tracer.event("spec_accept", ts=now, rid=req.id, drafted=k_spec,
+                         accepted=accepted)
+            done = None
+            n_emitted = 0
+            for t in emit:
+                req.generated.append(t)
+                n_emitted += 1
+                self.stats["tokens_out"] += 1
+                req._emit(t)
+                if self.serve.eos_id is not None and t == self.serve.eos_id:
+                    done = "eos"
+                    break
+                if len(req.generated) >= req.max_new_tokens:
+                    done = "length"
+                    break
+            if done is not None:
+                self._evict(slot, done)
+                continue
+            self.pos[slot] += n_emitted
+            self.tokens[slot] = emit[n_emitted - 1]
+            self._draft_pos[slot] = self.pos[slot]
+
+    def _draft_catch_up(self, slots: np.ndarray) -> None:
+        """Rebuild the draft K/V of ``slots`` from ``_draft_pos`` up to
+        ``pos`` in one chunk pass over the draft pool (its logits
+        discarded), the chunk as wide as the longest lag, in whole draft
+        blocks."""
+        bs = self._draft_serve.block_size
+        start = self._draft_pos[slots]
+        clen = self.pos[slots] - start
+        width = min(-(-int(clen.max()) // bs) * bs, self._draft_m * bs)
+        chunk = np.zeros((len(slots), width), np.int64)
+        for i, slot in enumerate(slots):
+            req = self._slots[slot]
+            seq = req.prompt + req.generated
+            chunk[i, :clen[i]] = seq[start[i]:start[i] + clen[i]]
+        chunk_prefill(self.draft_w, self.draft_config, self.dk_pool, self.dv_pool,
+                      self.draft_table[slots], chunk, start, clen, self.serve.attn_impl)
+        self.stats["spec_catchups"] += 1
+
+    def _verify_logits(self, slots: np.ndarray, vtoks: np.ndarray,
+                       attn_impl: str | None = None) -> torch.Tensor:
+        """The target's logits ``[R * (K+1), V]`` fp32 over each slot's
+        window ``vtoks[r]`` at positions ``pos_r ..``, in one
+        ``paged_decode_step`` over the R x (K+1) rows flattened: row (r, i)
+        carries ``vtoks[r, i]`` at ``pos_r + i`` with its slot's table row
+        and length ``pos_r + i + 1``. Every row's K/V are written before
+        the layer's one paged attention, and a row's result does not
+        depend on its batch mates (K3, K7's forward and K4 are
+        row-invariant on the card), so each row's logits are, bit for
+        bit, the decode step's at that position.
+
+        Rows past the request's grant (a zero table entry) write into the
+        null block and attend through it, as the JAX verify does; they
+        predict tokens past the request's last one, so they move only the
+        acceptance counters. Rows at or past ``n_positions`` idle: length
+        0 over the null block (a write at the clamped column would land in
+        the last real block; JAX drops it and attends the row over the
+        whole table, so a round that reaches the context end may count
+        its acceptances differently). ``attn_impl`` overrides
+        ``ServeConfig.attn_impl``, as in :meth:`decode_logits`."""
+        impl = self.serve.attn_impl if attn_impl is None else attn_impl
+        r, t = vtoks.shape
+        vpos = self.pos[slots, None] + np.arange(t)[None]             # [R, K+1]
+        tab = self.block_table[slots]                                 # [R, M]
+        live = vpos < self.config.n_positions
+        table = np.where(live[..., None], tab[:, None], 0).reshape(r * t, self._m)
+        lengths = np.where(live, vpos + 1, 0).reshape(-1).astype(np.int32)
+        dev = self.device
+        return decode.paged_decode_step(
+            self.w, self.config, torch.from_numpy(vtoks.reshape(-1)).to(dev),
+            torch.from_numpy(vpos.reshape(-1)).to(dev), self.k_pool, self.v_pool,
+            torch.from_numpy(np.ascontiguousarray(table)).to(dev),
+            torch.from_numpy(lengths).to(dev), impl)
+
     def run_until_idle(self, max_steps: int | None = None) -> int:
         """Drive ``step`` until the queue and every slot drain. Returns
         total tokens emitted. Terminates: ``submit`` only accepts requests
@@ -1036,6 +1389,11 @@ class ServingEngine:
             "prefill_batched": float(self.stats["prefill_batched"]),
             "decode_steps": float(self.stats["decode_steps"]),
             "tokens_out": float(self.stats["tokens_out"]),
+            "spec_draft_tokens": float(self.stats["spec_draft_tokens"]),
+            "spec_accepted_tokens": float(self.stats["spec_accepted_tokens"]),
+            "spec_rollbacks": float(self.stats["spec_rollbacks"]),
+            "draft_ms": float(self.stats["draft_ms"]),
+            "verify_ms": float(self.stats["verify_ms"]),
         }
 
     @property

@@ -392,7 +392,7 @@ class ReplicaRouter:
         """Fleet-level serving-load metrics; single-replica keys aggregate
         so the ``--tb_dir`` sink reads the same names either way (each is
         registered in ``metrics/builtin.py``). The keys are the JAX
-        router's; speculation's read 0 (not ported)."""
+        router's; the worker and host planes' read 0 (not ported)."""
         admitted = sum(e.stats["admitted"] for e in self.engines)
         return {
             "queue_wait_ms": sum(
@@ -424,12 +424,11 @@ class ReplicaRouter:
             "prefill_batched": float(
                 sum(e.stats["prefill_batched"] for e in self.engines)
             ),
-            # Speculative decoding is not ported: no replica drafts.
-            "spec_draft_tokens": 0.0,
-            "spec_accepted_tokens": 0.0,
-            "spec_rollbacks": 0.0,
-            "draft_ms": 0.0,
-            "verify_ms": 0.0,
+            # Speculative decoding, summed over the replicas (0 where
+            # none drafts).
+            **{key: float(sum(e.stats[key] for e in self.engines))
+               for key in ("spec_draft_tokens", "spec_accepted_tokens",
+                           "spec_rollbacks", "draft_ms", "verify_ms")},
             # Worker processes and remote hosts come with the process-
             # isolation slice: in-process replicas have neither.
             "worker_restarts": 0.0,

@@ -15,6 +15,7 @@ back; here every write updates the pools in place.
 from __future__ import annotations
 
 import collections
+import dataclasses
 from typing import Iterable
 
 import numpy as np
@@ -186,6 +187,28 @@ def init_pools(
              serve.block_size, config.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def draft_serve_view(
+    serve: ServeConfig,
+    n_positions: int,
+    block_size: int | None = None,
+) -> ServeConfig:
+    """The ServeConfig of the draft model's KV pool under speculation.
+
+    Same slots as the target (the draft's table rows pair 1:1 with the
+    target's), an independent block size, and a block count that holds a
+    full-context draft sequence in every slot: ``max_batch *
+    max_blocks_per_seq + 1`` (the null block). Draft KV is disposable,
+    rebuilt after preemption and migration, so full per-slot capacity
+    gives the engine a draft allocator that never fails mid-round. ``spec``
+    is cleared (the draft never speculates) and so is ``prefix_cache``.
+    The engine keeps the target's block size; ``block_size`` is the JAX
+    function's parameter, kept so the two views can be compared whole."""
+    bs = serve.block_size if block_size is None else block_size
+    m = -(-n_positions // bs)
+    return dataclasses.replace(serve, spec="", block_size=bs,
+                               num_blocks=serve.max_batch * m + 1, prefix_cache=False)
 
 
 def pool_bytes(config: GPT2Config, serve: ServeConfig, itemsize: int = 2) -> int:

@@ -30,6 +30,14 @@ decode steps, ``--prefill_batch B`` of them a step in one dispatch.
 when the pool runs out; it resumes later by recomputing its prefill, with
 no token emitted twice. The summary line on stderr counts the preemptions.
 
+``--draft_preset P [--spec_k K] [--draft_ckpt D]`` serves speculatively: a
+draft model of preset P (strictly fewer params than the target; it takes
+the target's vocab and context) proposes K tokens a round (default 4) and
+the target verifies them in one pass. Greedy streams stay those of plain
+decoding, sampled streams stay distributed as the target's. The draft's
+weights come from ``--draft_ckpt`` (read as ``--ckpt`` is), else from a
+seeded init, which is correct but rarely accepted.
+
 The step loop is ``serving/frontend/driver.py``'s ``EngineDriver`` over a
 one-replica ``ReplicaRouter``, the loop the HTTP front end
 (``gpt2-torch-frontend``) runs too. SIGTERM drains: the requests in
@@ -42,9 +50,9 @@ serving-load metrics to TensorBoard every ``--metrics_every`` engine steps
 (it needs ``tensorboardX``).
 
 The parser takes every flag of the JAX CLI, under the same names, types
-and defaults. Serving meshes, speculation, replica placement,
-the step watchdog and fault injection come with later slices of the port:
-any other value than the default of those flags is refused.
+and defaults. Serving meshes, replica placement, the step watchdog and
+fault injection come with later slices of the port: any other value than
+the default of those flags is refused.
 
 Usage::
 
@@ -63,7 +71,6 @@ import time
 # with the value that leaves them off; any other value is refused.
 _UNPORTED = {
     "serve_mesh": "",
-    "draft_preset": None, "spec_k": None, "draft_ckpt": None,
     "placement": "inprocess", "worker_max_respawns": 3,
     "worker_respawn_backoff_s": 2.0, "worker_rpc_timeout_s": 300.0,
     "worker_heartbeat_s": 1.0, "worker_connect_timeout_s": 120.0,
@@ -128,11 +135,17 @@ def add_engine_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--watermark_blocks", type=int, default=1,
                    help="free-block floor for --admission watermark")
     p.add_argument("--draft_preset", default=None,
-                   help="speculative decoding: draft-model preset (later slice)")
+                   help="speculative decoding: draft-model preset (must be "
+                        "smaller than --model); greedy streams stay "
+                        "bit-identical, sampled streams stay "
+                        "target-distributed")
     p.add_argument("--spec_k", type=int, default=None,
-                   help="draft tokens per verify pass (later slice)")
+                   help="draft tokens per verify pass (default 4; needs "
+                        "--draft_preset)")
     p.add_argument("--draft_ckpt", default=None,
-                   help="draft-model checkpoint dir (later slice)")
+                   help="draft-model checkpoint dir; seeded init when "
+                        "omitted (a random draft is correct, just "
+                        "rarely accepted)")
 
 
 def add_obs_flags(p: argparse.ArgumentParser) -> None:
@@ -225,13 +238,14 @@ def build_serve_config(args: argparse.Namespace, config):
     num_blocks = args.num_blocks or (
         1 + args.max_batch * probe.max_blocks_per_seq(config.n_positions)
     )
+    spec = f"draft:{args.draft_preset},k:{args.spec_k or 4}" if args.draft_preset else ""
     return ServeConfig(max_batch=args.max_batch, block_size=args.block_size,
                        num_blocks=num_blocks, attn_impl=args.attn_impl,
                        eos_id=args.eos, prefill_chunk=args.prefill_chunk,
                        prefix_cache=args.prefix_cache,
                        prefill_batch=args.prefill_batch,
                        admission=args.admission,
-                       watermark_blocks=args.watermark_blocks)
+                       watermark_blocks=args.watermark_blocks, spec=spec)
 
 
 def read_requests(path: str, args: argparse.Namespace) -> list[tuple]:
@@ -313,7 +327,8 @@ def cli_device(args: argparse.Namespace):
 
 def engine_factory(p: argparse.ArgumentParser, args: argparse.Namespace, device):
     """A function building one in-process replica on ``device`` over one
-    copy of the weights (``--init_random``, ``--ckpt`` or ``--params_npz``)."""
+    copy of the weights (``--init_random``, ``--ckpt`` or ``--params_npz``)
+    and of the draft model's, under ``--draft_preset``."""
     from gpt_2_distributed_torch.models import gpt2
     from gpt_2_distributed_torch.models.convert import load_npz
     from gpt_2_distributed_torch.serving.engine import ServingEngine
@@ -329,36 +344,64 @@ def engine_factory(p: argparse.ArgumentParser, args: argparse.Namespace, device)
         params = load_checkpoint_params(args.ckpt, config, device)
     else:
         params = load_npz(args.params_npz)
+    draft_config, draft_params = load_draft_model(args, config, device)
 
     def make_engine():
         return ServingEngine(params, config, serve, temperature=args.temperature,
-                             top_k=args.top_k, device=device)
+                             top_k=args.top_k, device=device,
+                             draft_params=draft_params, draft_config=draft_config)
 
     return make_engine
 
 
-def load_checkpoint_params(ckpt: str, config, device):
-    """The params of ``--ckpt`` on ``device``: the step dir itself, or the
-    newest checkpoint under a save dir that passes verification. Exits when
-    there is none or it holds another model."""
+def load_draft_model(args: argparse.Namespace, config, device):
+    """``(draft_config, draft_params)`` of ``--draft_preset``, or ``(None,
+    None)`` when speculation is off. The draft takes the target's vocab
+    and context (acceptance compares distributions over one token space;
+    the draft re-encodes the whole committed prefix) and keeps its
+    preset's depth and width. Its weights come from ``--draft_ckpt``, else
+    from a seeded init: a random draft is still correct, it is just rarely
+    accepted."""
+    if args.draft_preset is None:
+        return None, None
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+    from gpt_2_distributed_torch.models import gpt2
+
+    draft_config = MODEL_PRESETS[args.draft_preset].replace(
+        vocab_size=config.vocab_size, n_positions=config.n_positions)
+    if args.draft_ckpt:
+        return draft_config, load_checkpoint_params(args.draft_ckpt, draft_config, device,
+                                                    "draft checkpoint", "--draft_ckpt")
+    return draft_config, gpt2.init_params(draft_config)
+
+
+def load_checkpoint_params(ckpt: str, config, device, label: str = "checkpoint",
+                           flag: str = "--ckpt"):
+    """The params of ``--ckpt`` (or the draft's ``--draft_ckpt``) on
+    ``device``: the step dir itself, or the newest checkpoint under a save
+    dir that passes verification. Exits when there is none or it holds
+    another model."""
     import os
 
     from gpt_2_distributed_torch.checkpoint import latest_verified_checkpoint, restore_params
 
     path = latest_verified_checkpoint(os.path.abspath(ckpt))
     if path is None:
-        sys.exit(f"no verified checkpoint found under {ckpt!r}")
+        sys.exit(f"no verified {label} found under {ckpt!r}")
     try:
         params, meta = restore_params(path, device, config)
     except ValueError as e:
-        sys.exit(f"--ckpt: {e}")
-    print(f"checkpoint: {path} (step {meta.step})", file=sys.stderr)
+        sys.exit(f"{flag}: {e}")
+    print(f"{label}: {path} (step {meta.step})", file=sys.stderr)
     return params
 
 
 def check_common_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     """The refusals both serving CLIs share."""
+    from gpt_2_distributed_torch.config import validate_spec_flags
+
     _refuse_unported(p, args)
+    validate_spec_flags(p, args)
     if sum((args.params_npz is not None, args.init_random, args.ckpt is not None)) != 1:
         p.error("exactly one of --ckpt / --params_npz / --init_random is required")
     if args.request_timeout_s is not None and args.request_timeout_s < 0:

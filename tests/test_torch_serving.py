@@ -1,6 +1,6 @@
 """The port's serving path on the CPU: allocator and pool units, the
-unported ``ServeConfig`` options refused loudly and the watermark options
-accepted, engine greedy streams
+unported ``ServeConfig`` options refused loudly and the watermark and
+speculation options accepted, engine greedy streams
 equal to the JAX engine's, engine streams equal to the port's own
 ``generate_cached(batch=1)`` (greedy and sampled, any batch mix), and the
 JSONL CLI."""
@@ -114,13 +114,23 @@ def test_scatter_prefill_and_copy_block_write_in_place():
 
 
 @pytest.mark.parametrize("option", [
-    {"mesh": "data:2,tp:2"}, {"spec": "draft:124M,k:2"}, {"mesh": "tp:2"},
-    {"mesh": "data:2"}, {"spec": "draft:124M,k:4"}, {"spec": "draft:345M,k:3"},
+    {"mesh": "data:2,tp:2"}, {"mesh": "tp:2"}, {"mesh": "data:2"},
     {"mesh": "data:2", "spec": "draft:124M,k:2"},
 ])
 def test_unported_serve_options_are_refused(option):
     with pytest.raises(ValueError, match="later slice"):
         ServeConfig(**option)
+
+
+@pytest.mark.parametrize("option", [
+    {"spec": "draft:124M,k:2"}, {"spec": "draft:124M,k:4"}, {"spec": "draft:345M,k:3"},
+])
+def test_spec_serve_options_are_accepted(option):
+    """Speculation is ported: the spec options once refused here parse as
+    the JAX ServeConfig parses them."""
+    serve = ServeConfig(**option)
+    assert serve.spec_axes() == JaxServeConfig(**option).spec_axes()
+    assert serve.spec_k == int(option["spec"][-1])
 
 
 @pytest.mark.parametrize("option", [
@@ -200,8 +210,9 @@ def test_cli_refuses_each_unported_flag(capsys):
     port_actions = {a.dest: a for a in serve.build_argparser()._actions}
     # 23 until the tracing and metric sinks were ported (tb_dir,
     # metrics_every, trace_dir, trace_max_file_bytes and xla_profile_at),
-    # 18 until checkpoints were (ckpt).
-    assert len(serve._UNPORTED) == 17
+    # 18 until checkpoints were (ckpt), 17 until speculation was
+    # (draft_preset, spec_k, draft_ckpt).
+    assert len(serve._UNPORTED) == 14
     for dest in serve._UNPORTED:
         with pytest.raises(SystemExit) as e:
             serve.main(["--requests", "r.jsonl", "--init_random"]

@@ -255,14 +255,39 @@ that does not hold:
    run of the "off" configuration: one ``step`` span an optimizer step,
    90% or more of the step wall attributed to named phases, the losses
    equal to the untraced run's bit for bit;
-18. with two or more cards, trains ``--mesh sp=2`` the same way through
+18. process isolation (``phase_workers``): a frontend in a child process
+   (``--workers_frontend``) drives worker processes of this script
+   (``--serve_worker``, the worker CLI with its launches and stats
+   reported at its exit) at 124M on cuda, the 8 prompts of 10, max_batch
+   8: a greedy fleet of two workers (the first building the serving
+   kernels into an empty directory: the cold spawn) SIGKILLs worker 0 at
+   fleet step 10 through ``FaultInjector(kill_at, kill_fn)``, an
+   Autoscaler with a floor of 2 spawns the replacement (``worker_restarts``
+   1), then hangs replica 1 at step 5 under a 3 s ``watchdog_timeout_s``
+   (one trip, the replica failed and its streams migrated), then times
+   the step RPC at batch 8 on the last worker; a sampled fleet
+   (temperature 0.9, top-k 40) the same SIGKILL, then a SIGSTOP of worker
+   1 found as heartbeat loss (two attempts of a 1 s
+   ``--worker_heartbeat_timeout_s``) and the frozen process reaped; two TCP
+   workers on hosts A and B (``--advertise``, an auth token) behind
+   ``ChaosProxy``s, host A partitioned at step 10 (one host death,
+   ``host_failures`` 1) and re-admitted after ``heal()``. Every stream
+   equal to ``generate_cached(batch=1)``'s computed in this process, each
+   token emitted once, ``scripts/obs_report.py``'s worker lifecycle rows
+   (8 spawns, 3 respawns, a host lost and joined), one ``watchdog_fired``
+   event, ``torch.cuda.is_initialized()`` false in the frontend at its end,
+   and each reporting worker's launches those its stats imply; prints the
+   median step wall through a worker against in process at batch 8 (the
+   RPC's cost a step), spawn-to-ready cold and warm, and the ms from each
+   fault to the migrated streams' next token;
+19. with two or more cards, trains ``--mesh sp=2`` the same way through
     ``torch.distributed.run`` (NCCL; two ranks of this script in
     ``--sp_worker`` mode): finite, falling losses equal on both ranks, K8
     launched 12 x 2 x (micro-batches + eval batches) forward and 12 x 2 x
     micro-batches backward per rank, K1 = K2 = 0; prints its ms/step
     beside the local step's. On one card it prints that the NCCL ring
     needs two GPUs and that the CPU tests hold that path over gloo;
-19. data-parallel and fully-sharded training: every rank of a data=2 x
+20. data-parallel and fully-sharded training: every rank of a data=2 x
     fsdp=2 mesh in this process (``phase_ddp_ranks``), K1, K2 and K4-K7 on
     its rows at 124M shapes with the per-shard seed against their plain
     versions, the ranks' masks all different, the unfused dropout's rank
@@ -280,7 +305,7 @@ that does not hold:
     sheds; prints ms/step and tok/s beside the local steps'. On one card
     it prints that the NCCL runs need two GPUs and that the CPU tests hold
     them over gloo;
-20. prints the ``kernels`` JSON line, then the device line last.
+21. prints the ``kernels`` JSON line, then the device line last.
 
 ``--profile`` times K2's two kernels (dk/dv, dq) apart with
 ``torch.profiler`` and adds profiler windows over one serving admission
@@ -3982,6 +4007,529 @@ def phase_frontend(train_losses_off: list[float]) -> dict[str, int]:
     return got
 
 
+# Process isolation: worker processes under subprocess and remote placement,
+# killed, stopped, hung and partitioned mid-decode.
+WORKER_NEW = (64, 32)          # greedy, sampled
+WORKER_SAMPLING = (0.9, 40)    # temperature, top-k of the sampled fleets
+WORKER_SEED0 = 700
+WORKER_KILL_STEP = 10          # fleet step of the SIGKILL, the SIGSTOP and the partition
+WORKER_HANG_STEP = 5
+WORKER_WATCHDOG_S = 3.0       # far above any step: the hang is the only trip
+WORKER_HEARTBEAT = (0.05, 1.0)   # --worker_heartbeat_s, --worker_heartbeat_timeout_s
+WORKER_WRAPPERS = ("flash_attention_fwd", "flash_attention_fwd_offset",
+                   "paged_attention_kernel", "linear", "head_logits",
+                   "ln_residual_dropout_fwd")
+
+
+def serve_worker(argv: list[str]) -> None:
+    """One serving worker of ``phase_workers`` (``chip_smoke.py
+    --serve_worker [--cold_build DIR] WORKER_ARGS``): the worker CLI's
+    ``main`` on WORKER_ARGS, with its kernels built into DIR (empty: a cold
+    build) when given. When ``main`` returns (its frontend shut it down) or
+    on SIGTERM (a TCP worker, which outlives its frontends), it prints one
+    ``serve_worker`` JSON line: its pid, its engine's stats and the serving
+    kernels' launches. A SIGKILLed worker prints none."""
+    import pathlib
+
+    if argv[:1] == ["--cold_build"]:
+        from gpt_2_distributed_torch.kernels import build
+
+        build.BUILD_DIR = pathlib.Path(argv[1])
+        argv = argv[2:]
+    from gpt_2_distributed_torch.serving import serve
+    from gpt_2_distributed_torch.serving.frontend import worker
+
+    engines = []
+    make_factory = serve.engine_factory
+
+    def engine_factory(p, args, device):
+        make = make_factory(p, args, device)
+
+        def make_and_keep():
+            engines.append(make())
+            return engines[-1]
+
+        return make_and_keep
+
+    serve.engine_factory = engine_factory
+
+    def report() -> None:
+        from gpt_2_distributed_torch.ops import flash_attention as fa
+        from gpt_2_distributed_torch.ops import fused_layer, fused_matmul, paged_attention
+
+        wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                    "flash_attention_fwd_offset": fa.flash_attention_fwd_offset,
+                    "paged_attention_kernel": paged_attention.paged_attention_kernel,
+                    "linear": fused_matmul.linear, "head_logits": fused_matmul.head_logits,
+                    "ln_residual_dropout_fwd": fused_layer.ln_residual_dropout_fwd}
+        line = "serve_worker " + json.dumps({
+            "pid": os.getpid(),
+            "stats": engines[0].stats if engines else None,
+            "launches": {name: w.launches for name, w in wrappers.items()},
+        }) + "\n"
+        # One write(2): the workers of a fleet share the frontend's log,
+        # and a print's pieces could interleave with another process's.
+        sys.stdout.flush()
+        os.write(sys.stdout.fileno(), line.encode())
+
+    def on_term(*_):
+        report()
+        os._exit(0)
+
+    signal.signal(signal.SIGTERM, on_term)
+    worker.main(argv)
+    report()
+
+
+def worker_launches_from_stats(stats: dict, n_layer: int) -> dict[str, int]:
+    """The launches a whole-prompt engine's stats imply (as in
+    ``phase_preempt_serving``): fresh admissions prefill whole through K1,
+    resumes and adoptions through the chunk path (K1's offset form, and K3
+    once a layer more for a dispatch with decode-written rows)."""
+    whole = stats["admitted"] - stats["resumes"]
+    dispatches = stats["prefill_dispatches"] - whole
+    steps, resumed = stats["decode_steps"], stats["resume_dispatches"]
+    return {"flash_attention_fwd": n_layer * whole,
+            "flash_attention_fwd_offset": n_layer * dispatches,
+            "paged_attention_kernel": n_layer * (steps + resumed),
+            "linear": 4 * n_layer * (whole + dispatches + steps),
+            "head_logits": whole + dispatches + steps,
+            "ln_residual_dropout_fwd": (2 * n_layer + 1) * (whole + dispatches + steps)}
+
+
+def workers_frontend(spec_path: str, out_path: str) -> None:
+    """The frontend of ``phase_workers`` (``chip_smoke.py
+    --workers_frontend SPEC OUT``), a process that never touches the card:
+    fleets of ``--serve_worker`` processes at 124M on cuda, faults injected
+    mid-decode, every fact the parent checks written to OUT as JSON."""
+    import statistics
+
+    from gpt_2_distributed_torch.obs.trace import configure_tracing
+    from gpt_2_distributed_torch.resilience import FaultInjector, worker_env
+    from gpt_2_distributed_torch.serving import serve
+    from gpt_2_distributed_torch.serving.frontend import (
+        Autoscaler,
+        ChaosProxy,
+        EngineDriver,
+        RemoteSpawner,
+        ReplicaRouter,
+        read_worker_pool,
+        worker,
+    )
+    from gpt_2_distributed_torch.serving.frontend.rpc import load_auth_token
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    prompts, tmp = spec["prompts"], spec["tmp"]
+    configure_tracing(os.path.join(tmp, "trace"))
+    ready: list[list] = []      # [seconds from Popen to hello, cold]
+    entry = [sys.executable, os.path.abspath(__file__), "--serve_worker"]
+
+    class TimedSpawner(worker.WorkerSpawner):
+        cold_dir = None
+
+        def __call__(self):
+            base, cold = self.argv, self.cold_dir is not None and self.spawns == 0
+            if cold:
+                self.argv = base[:3] + ["--cold_build", self.cold_dir] + base[3:]
+            t0 = time.monotonic()
+            try:
+                return super().__call__()
+            finally:
+                self.argv = base
+                ready.append([time.monotonic() - t0, cold])
+
+    worker.WorkerSpawner = TimedSpawner
+    hb, hb_timeout = WORKER_HEARTBEAT
+
+    def args_for(temperature: float, top_k: int | None, placement: str):
+        flags = ["--init_random", "--model", "124M", "--max_batch", "8", "--block_size", "16",
+                 "--device", "cuda", "--requests", "-", "--placement", placement,
+                 "--temperature", str(temperature), "--worker_respawn_backoff_s", "0",
+                 "--worker_heartbeat_s", str(hb), "--worker_heartbeat_timeout_s", str(hb_timeout)]
+        if top_k is not None:
+            flags += ["--top_k", str(top_k)]
+        if placement == "remote":
+            flags += ["--worker_pool", os.path.join(tmp, "pool")]
+        args = serve.build_argparser().parse_args(flags)
+        return args, serve.build_serve_config(args, serve.model_config_from_args(args))
+
+    def fleet(temperature: float, top_k: int | None, cold_dir: str | None = None):
+        args, sc = args_for(temperature, top_k, "subprocess")
+        sp = worker.spawner_from_args(args, sc, initial_replicas=2)
+        sp.argv = entry + sp.argv[3:]
+        sp.cold_dir = cold_dir
+        router = ReplicaRouter(sp, replicas=2, max_replicas=3, policy="round_robin")
+        sp.router = router
+        return router, sp
+
+    def run(driver, new: int, hook=None) -> dict:
+        """The 8 prompts through ``driver``; ``hook(driver)`` before each step."""
+        counts: dict[int, int] = {}
+        stamps: dict[int, list[float]] = {}
+
+        def on_token(h, _tok):
+            counts[h.id] = counts.get(h.id, 0) + 1
+            stamps.setdefault(h.id, []).append(time.monotonic())
+
+        hs = [driver.submit(p, new, seed=WORKER_SEED0 + i, on_token=on_token)
+              for i, p in enumerate(prompts)]
+        placed = {h.id: h.replica for h in hs}
+        while driver.has_work():
+            if hook is not None:
+                hook(driver)
+            driver.step()
+        return {"streams": [h.generated for h in hs],
+                "reasons": [h.finish_reason for h in hs],
+                "emitted_once": all(counts.get(h.id, 0) == len(h.generated) for h in hs),
+                "placed": [placed[h.id] for h in hs], "replicas": [h.replica for h in hs],
+                "stamps": [stamps.get(h.id, []) for h in hs]}
+
+    def next_token_ms(res: dict, t_fault: float, victim: int) -> float:
+        """The longest wait of a stream that was on ``victim`` for its first
+        token after ``t_fault``."""
+        waits = [min(t for t in s if t > t_fault) - t_fault
+                 for s, r in zip(res["stamps"], res["placed"]) if r == victim
+                 and any(t > t_fault for t in s)]
+        return max(waits) * 1e3
+
+    def kill_run(router, new: int) -> dict:
+        fault = {}
+
+        def kill(r):
+            fault["t"] = time.monotonic()
+            router.engines[r].kill(signal.SIGKILL)
+
+        inj = FaultInjector(kill_at=(WORKER_KILL_STEP, 0), kill_fn=kill)
+        driver = EngineDriver(router, injector=inj, autoscale_every=8,
+                              autoscaler=Autoscaler(router, min_replicas=2, max_replicas=3))
+        res = run(driver, new)
+        res.update(kill_fired=inj.kill_fired, kill_rc=router.engines[0].proc.returncode,
+                   kill_to_next_token_ms=next_token_ms(res, fault["t"], 0),
+                   failed=router.failed_indices(), migrated=router.migrated,
+                   worker_restarts=router.metrics_snapshot()["worker_restarts"])
+        return res
+
+    out: dict = {}
+    greedy_new, sampled_new = WORKER_NEW
+    temperature, top_k = WORKER_SAMPLING
+
+    # Fleet G, greedy: its first worker builds the kernels into an empty
+    # directory (the cold spawn). G1 a SIGKILL, G2 a hang under the
+    # watchdog, G3 the RPC's cost a step on the one worker left.
+    router, _ = fleet(0.0, None, cold_dir=os.path.join(tmp, "cold_build"))
+    out["G1"] = kill_run(router, greedy_new)
+    inj = FaultInjector(hang_at=(WORKER_HANG_STEP, 1))
+    driver = EngineDriver(router, watchdog_timeout_s=WORKER_WATCHDOG_S, injector=inj)
+    out["G2"] = run(driver, greedy_new)
+    out["G2"].update(hang_fired=inj.hang_fired, watchdog_trips=driver.watchdog_trips,
+                     failed=router.failed_indices())
+    h = router.engines[2]
+    hs = [h.submit(p, greedy_new, seed=i) for i, p in enumerate(prompts)]
+    walls, spans = [], []
+    while h.has_work():
+        decoding = all(r.generated for r in hs)    # 8 rows decode, none prefills
+        before = h.stats["decode_ms"]
+        t0 = time.monotonic()
+        h.step()
+        if decoding and h.occupancy == len(prompts):
+            walls.append(time.monotonic() - t0)
+            spans.append(h.stats["decode_ms"] - before)
+    beats = []
+    for _ in range(50):
+        t0 = time.monotonic()
+        h._rpc({"op": "heartbeat"})
+        beats.append(time.monotonic() - t0)
+    out["G3"] = {"streams": [r.generated for r in hs], "step_walls": walls,
+                 "median_step_ms": statistics.median(walls) * 1e3,
+                 "median_decode_ms": statistics.median(spans),
+                 "median_heartbeat_ms": statistics.median(beats) * 1e3}
+    driver.close()
+
+    # Fleet S, sampled: S1 a SIGKILL, S2 a SIGSTOP between two steps.
+    router, _ = fleet(temperature, top_k)
+    out["S1"] = kill_run(router, sampled_new)
+
+    class StopProbe(EngineDriver):
+        t_stop = t_detect = None
+
+        def _check_worker_health(self):
+            failed = super()._check_worker_health()
+            if failed and self.t_stop is not None and self.t_detect is None:
+                self.t_detect = time.monotonic()
+            return failed
+
+    def stop(driver):
+        if driver.steps == WORKER_KILL_STEP and driver.t_stop is None:
+            router.engines[1].kill(signal.SIGSTOP)
+            driver.t_stop = time.monotonic()
+            time.sleep(2 * hb)      # past --worker_heartbeat_s: the sweep probes
+
+    driver = StopProbe(router)
+    out["S2"] = run(driver, sampled_new, stop)
+    victim = router.engines[1]
+    out["S2"].update(detect_s=driver.t_detect - driver.t_stop, dead=victim._dead,
+                     victim_rc=victim.proc.returncode, failed=router.failed_indices(),
+                     stop_to_next_token_ms=next_token_ms(out["S2"], driver.t_stop, 1))
+    driver.close()
+
+    # Remote placement: TCP workers on hosts A and B behind chaos proxies;
+    # host A partitioned mid-decode, healed after.
+    args, sc = args_for(temperature, top_k, "remote")
+    ledger, token = os.path.join(tmp, "ledger"), os.path.join(tmp, "token")
+    with open(token, "w") as f:
+        f.write("phase-workers-secret\n")
+    flags = worker.worker_argv(args, sc)[3:] + ["--socket", "tcp://127.0.0.1:0",
+                                                "--advertise", ledger,
+                                                "--auth_token_file", token]
+    t0 = time.monotonic()
+    tcp = [subprocess.Popen(entry + flags + ["--host_id", host], env=worker_env("cuda"))
+           for host in ("A", "B")]
+    proxies = []
+    try:
+        while True:
+            try:
+                if len(read_worker_pool(ledger)) == 2:
+                    break
+            except (OSError, ValueError):
+                pass    # not written yet
+            if any(p.poll() is not None for p in tcp) or time.monotonic() - t0 > 300:
+                raise RuntimeError("the TCP workers did not advertise")
+            time.sleep(0.1)
+        pool = []
+        for e in sorted(read_worker_pool(ledger), key=lambda e: e["host_id"]):
+            proxies.append(ChaosProxy(e["addr"]))
+            pool.append({"host_id": e["host_id"], "addr": proxies[-1].addr, "handle": None})
+        with open(args.worker_pool, "w") as f:
+            f.writelines(f"{e['host_id']} {e['addr']}\n" for e in pool)
+        sp = RemoteSpawner(read_worker_pool(args.worker_pool), sc, initial_replicas=1,
+                           respawn_backoff_s=0.0, heartbeat_s=hb, heartbeat_timeout_s=hb_timeout,
+                           connect_timeout_s=300.0, auth_token=load_auth_token(token))
+        router = ReplicaRouter(sp, replicas=1, max_replicas=2, policy="round_robin")
+        sp.router = router
+        out["remote_ready_s"] = time.monotonic() - t0
+        partition = {}
+
+        def cut(driver):
+            if driver.steps == WORKER_KILL_STEP and not partition:
+                proxies[0].partition()
+                partition["t"] = time.monotonic()
+                time.sleep(2 * hb)
+
+        driver = EngineDriver(router)
+        out["R"] = run(driver, sampled_new, cut)
+        out["R"].update(host_failures=router.host_failures, failed=router.failed_indices(),
+                        hosts=[e.host_id for e in router.engines], respawns=sp.respawns,
+                        dead_hosts=sorted(sp.dead_hosts),
+                        cut_to_next_token_ms=next_token_ms(out["R"], partition["t"], 0))
+        proxies[0].heal()
+        t_heal = time.monotonic()
+        while sp.dead_hosts and time.monotonic() - t_heal < 30:
+            router.poll_hosts()
+            time.sleep(0.1)
+        out["R"]["readmitted_s"] = (time.monotonic() - t_heal) if not sp.dead_hosts else None
+        driver.close()
+    finally:
+        for px in proxies:
+            px.close()
+        for p in tcp:
+            p.terminate()       # the worker's SIGTERM report, then exit
+        for p in tcp:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+    configure_tracing(None)
+    trace = os.path.join(tmp, "trace")
+    report = subprocess.run([sys.executable, "scripts/obs_report.py", "--json", trace],
+                            cwd=REPO_DIR, capture_output=True, text=True, timeout=300)
+    out["lifecycle"] = json.loads(report.stdout)["workers"] if report.returncode == 0 else None
+    events = collections.Counter()
+    for name in os.listdir(trace):
+        with open(os.path.join(trace, name)) as f:
+            events.update(json.loads(line).get("name") for line in f if line.strip())
+    out["watchdog_fired_events"] = events["watchdog_fired"]
+    out["spawn_ready_s"] = ready
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_workers(card: str) -> dict[str, int]:
+    """Process isolation on the card: ``workers_frontend`` in a child
+    process (which must end with no CUDA context) drives fleets of worker
+    processes at 124M; every stream equal to ``generate_cached(batch=1)``'s
+    computed here, the faults contained, and the workers' own launch counts
+    those their stats imply. Returns the launches the workers reported."""
+    import statistics
+    import tempfile
+
+    from gpt_2_distributed_torch.config import MODEL_PRESETS, ServeConfig
+    from gpt_2_distributed_torch.models import decode, gpt2
+    from gpt_2_distributed_torch.serving import ServingEngine
+
+    config = MODEL_PRESETS["124M"]
+    params = gpt2.init_params(config)   # the workers' --init_random weights
+    rng = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, config.vocab_size, (p,), generator=rng).tolist()
+               for p in SERVING_LENGTHS]
+    greedy_new, sampled_new = WORKER_NEW
+    temperature, top_k = WORKER_SAMPLING
+    t0 = time.monotonic()
+    refs = {"greedy": [], "sampled": []}
+    for i, p in enumerate(prompts):
+        for label, new, temp, k in (("greedy", greedy_new, 0.0, None),
+                                    ("sampled", sampled_new, temperature, top_k)):
+            refs[label].append(decode.generate_cached(
+                params, config, [p], seed=WORKER_SEED0 + i, max_new_tokens=new,
+                temperature=temp, top_k=k, block_size=16)[0, len(p):].tolist())
+    # The in-process step wall at batch 8, the counterpart of G3's.
+    eng = ServingEngine(params, config, ServeConfig(max_batch=8, block_size=16, num_blocks=513),
+                        temperature=0.0)
+    eng.submit(prompts[0], 2)
+    eng.run_until_idle()
+    hs = [eng.submit(p, greedy_new, seed=i) for i, p in enumerate(prompts)]
+    walls, spans = [], []
+    while eng.has_work():
+        decoding = all(h.generated for h in hs)
+        before = eng.stats["decode_ms"]
+        t1 = time.monotonic()
+        eng.step()
+        if decoding and eng.occupancy == len(prompts):
+            walls.append(time.monotonic() - t1)
+            spans.append(eng.stats["decode_ms"] - before)
+    inproc_ms, inproc_decode_ms = statistics.median(walls) * 1e3, statistics.median(spans)
+    if [h.generated for h in hs] != refs["greedy"]:
+        fail("workers: the in-process engine's greedy streams differ from generate_cached's")
+    del eng
+    torch.cuda.empty_cache()
+    print(f"workers: references and the in-process step walls in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip-workers-") as tmp:
+        spec, out_path = os.path.join(tmp, "spec.json"), os.path.join(tmp, "out.json")
+        with open(spec, "w") as f:
+            json.dump({"prompts": prompts, "tmp": tmp}, f)
+        log = os.path.join(tmp, "frontend.log")
+        t0 = time.monotonic()
+        # A session of its own: on a timeout the frontend and every worker
+        # it started (they stay in its process group) are killed together.
+        with open(log, "w") as f:
+            child = subprocess.Popen([sys.executable, __file__, "--workers_frontend", spec,
+                                      out_path], stdout=f, stderr=subprocess.STDOUT,
+                                     start_new_session=True)
+            try:
+                rc = child.wait(timeout=900)
+            except subprocess.TimeoutExpired:
+                rc = None
+            try:
+                os.killpg(child.pid, signal.SIGKILL)   # stragglers, if any
+            except ProcessLookupError:
+                pass
+            if rc is None:
+                rc = child.wait()
+        wall = time.monotonic() - t0
+        with open(log) as f:
+            text = f.read()
+        if rc != 0 or not os.path.exists(out_path):
+            print(text[-8000:], flush=True)
+            fail(f"workers: the frontend process exited {rc}")
+        with open(out_path) as f:
+            out = json.load(f)
+    decoder = json.JSONDecoder()
+    reports = [decoder.raw_decode(line, line.index("serve_worker {") + 13)[0]
+               for line in text.splitlines() if "serve_worker {" in line]
+
+    def streams_equal(res: dict, label: str) -> int:
+        return sum(a == b for a, b in zip(res["streams"], refs[label]))
+
+    problems = []
+    for name, label, new in (("G1", "greedy", greedy_new), ("G2", "greedy", greedy_new),
+                             ("S1", "sampled", sampled_new), ("S2", "sampled", sampled_new),
+                             ("R", "sampled", sampled_new)):
+        res = out[name]
+        same = streams_equal(res, label)
+        print(f"workers {name} ({label}): {same} of {len(prompts)} streams equal "
+              f"generate_cached(batch=1)'s; each token emitted once: {res['emitted_once']}; "
+              f"finish reasons {sorted(set(res['reasons']))}", flush=True)
+        if same != len(prompts) or not res["emitted_once"] or set(res["reasons"]) != {"length"}:
+            problems.append(f"{name}: {same} streams equal, emitted once {res['emitted_once']}")
+    g1, g2, s1, s2, r = (out[k] for k in ("G1", "G2", "S1", "S2", "R"))
+    for name, res in (("G1", g1), ("S1", s1)):
+        print(f"workers {name}: SIGKILL of worker 0 at fleet step {WORKER_KILL_STEP} (rc "
+              f"{res['kill_rc']}): failed {res['failed']}, {res['migrated']} requests migrated, "
+              f"worker_restarts {res['worker_restarts']:g}; kill to the migrated streams' next "
+              f"token {res['kill_to_next_token_ms']:.1f} ms", flush=True)
+        if not (res["kill_fired"] and res["kill_rc"] == -signal.SIGKILL and res["failed"] == [0]
+                and res["migrated"] >= 1 and res["worker_restarts"] == 1):
+            problems.append(f"{name}: the SIGKILL was not contained as one replica failure")
+    print(f"workers G2: a hang at fleet step {WORKER_HANG_STEP} on replica 1 under a "
+          f"{WORKER_WATCHDOG_S:g} s watchdog: {g2['watchdog_trips']} trip, failed {g2['failed']}, "
+          f"watchdog_fired events {out['watchdog_fired_events']}", flush=True)
+    if not (g2["hang_fired"] and g2["watchdog_trips"] == 1 and g2["failed"] == [0, 1]
+            and out["watchdog_fired_events"] == 1):
+        problems.append("G2: the watchdog did not trip once and fail replica 1")
+    print(f"workers S2: SIGSTOP of worker 1 found {s2['detect_s']:.2f} s later ({s2['dead']!r}; "
+          f"--worker_heartbeat_s {WORKER_HEARTBEAT[0]:g}, two attempts of "
+          f"--worker_heartbeat_timeout_s {WORKER_HEARTBEAT[1]:g}), the frozen process reaped "
+          f"(rc {s2['victim_rc']}); stop to the migrated streams' next token "
+          f"{s2['stop_to_next_token_ms']:.1f} ms", flush=True)
+    if not (s2["dead"] == "heartbeat loss" and s2["victim_rc"] == -signal.SIGKILL
+            and s2["detect_s"] <= 2 * WORKER_HEARTBEAT[0] + 2 * WORKER_HEARTBEAT[1] + 1.0
+            and s2["failed"] == [0, 1]):
+        problems.append("S2: the SIGSTOP was not found as heartbeat loss in time")
+    print(f"workers R: two TCP workers ready in {out['remote_ready_s']:.1f} s; host A "
+          f"partitioned at fleet step {WORKER_KILL_STEP}: host_failures {r['host_failures']}, "
+          f"failed {r['failed']}, hosts {r['hosts']}, partition to the migrated streams' next "
+          f"token {r['cut_to_next_token_ms']:.1f} ms; after heal() host A re-admitted in "
+          f"{r['readmitted_s'] if r['readmitted_s'] is None else round(r['readmitted_s'], 2)} s",
+          flush=True)
+    if not (r["host_failures"] == 1 and r["failed"] == [0] and r["hosts"] == ["A", "B"]
+            and r["respawns"] == 1 and r["readmitted_s"] is not None):
+        problems.append("R: the partition was not one host death, or host A never rejoined")
+    life = out["lifecycle"] or {}
+    want_life = {"n_spawns": 8, "n_respawns": 3, "n_hosts_lost": 1, "n_hosts_joined": 1}
+    got_life = {k: life.get(k) for k in want_life}
+    print(f"workers: obs_report lifecycle rows {got_life}, heartbeat losses "
+          f"{life.get('n_heartbeat_losses')}", flush=True)
+    if got_life != want_life or (life.get("n_heartbeat_losses") or 0) < 2:
+        problems.append(f"lifecycle rows {got_life} != {want_life}")
+    g3 = out["G3"]
+    if [list(s) for s in g3["streams"]] != refs["greedy"]:
+        problems.append("G3: the single worker's greedy streams differ")
+    cold = [s for s, c in out["spawn_ready_s"] if c]
+    warm = sorted(s for s, c in out["spawn_ready_s"] if not c)
+    print(f"workers: median step wall at batch 8 (greedy, 124M): {g3['median_step_ms']:.3f} ms "
+          f"through a worker (the step RPC, {len(g3['step_walls'])} steps; the worker's decode "
+          f"span {g3['median_decode_ms']:.3f} ms) against {inproc_ms:.3f} ms in process (its "
+          f"decode span {inproc_decode_ms:.3f} ms): the RPC costs "
+          f"{g3['median_step_ms'] - inproc_ms:.3f} ms a step; a heartbeat round trip "
+          f"{g3['median_heartbeat_ms']:.3f} ms; spawn to ready {cold[0] if cold else float('nan'):.1f} s cold (nvcc of "
+          f"the serving kernels into an empty build dir), warm median "
+          f"{statistics.median(warm):.1f} s (min {warm[0]:.1f}, max {warm[-1]:.1f}, "
+          f"{len(warm)} spawns); the frontend process {wall:.1f} s; {card}", flush=True)
+    if out["cuda_initialized"]:
+        problems.append("the frontend process opened a CUDA context")
+    print(f"workers: torch.cuda.is_initialized() in the frontend process at its end: "
+          f"{out['cuda_initialized']}", flush=True)
+
+    got = {name: 0 for name in WORKER_WRAPPERS}
+    for rep in reports:
+        want = worker_launches_from_stats(rep["stats"], config.n_layer)
+        if rep["launches"] != want:
+            problems.append(f"worker pid {rep['pid']}: launches {rep['launches']} != {want}")
+        for name in WORKER_WRAPPERS:
+            got[name] += rep["launches"][name]
+    print(f"workers: launches {got}, reported by {len(reports)} of the 8 workers at their "
+          f"exit (the SIGKILLed, SIGSTOPped and watchdog-failed workers are killed and report "
+          f"none), each equal to what its stats imply", flush=True)
+    if not all(got.values()):
+        problems.append(f"a serving kernel was never launched in the workers: {got}")
+    if problems:
+        fail("workers: " + "; ".join(problems))
+    return got
+
+
 SP_ARGS = ("--model", "124M", "--seq_len", "1024", "--batch", "4", "--grad_accum_steps", "4",
            "--dropout", str(DROPOUT), "--lr", "6e-4", "--max_steps", "16", "--eval_every", "16",
            "--eval_batches", "4", "--cli_every", "1", "--mesh", "sp=2")
@@ -4448,6 +4996,12 @@ def profile_train_step(fused_layers: str, fused_matmul: str) -> None:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--serve_worker"]:
+        serve_worker(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--workers_frontend"]:
+        workers_frontend(sys.argv[2], sys.argv[3])
+        return
     if "--sp_worker" in sys.argv[1:]:
         sp_worker(sys.argv[sys.argv.index("--sp_worker") + 1], "--profile" in sys.argv)
         return
@@ -4507,6 +5061,7 @@ def main() -> None:
     detectors = phase_detectors(train_losses["fused_matmul all"], digest_a, card)
     elastic = phase_elastic(card)
     front = phase_frontend(train_losses["off"])
+    workers = phase_workers(card)
     k8_train = phase_sp_training(ms_steps["off"], profile)
     phase_ddp_ranks()
     phase_ddp_training(ms_steps, card, profile)
@@ -4533,7 +5088,9 @@ def main() -> None:
           + "; detectors (the hang run, its resume, rank 0 of the data=2 runs): "
           + ", ".join(f"{name} {n}" for name, n in detectors.items() if n)
           + "; elastic (E0, E1 and, on two cards, the shrink's resume and rank 0 of S and "
-          "the grow): " + ", ".join(f"{name} {n}" for name, n in elastic.items() if n),
+          "the grow): " + ", ".join(f"{name} {n}" for name, n in elastic.items() if n)
+          + "; worker processes (those that reported at their exit; a killed worker reports "
+          "none): " + ", ".join(f"{name} {n}" for name, n in workers.items()),
           flush=True)
 
     kernels = [
@@ -4542,14 +5099,15 @@ def main() -> None:
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
              launches=k1_serve + k1_train + front["flash_attention_fwd"]
              + resume["flash_attention_fwd"] + detectors["flash_attention_fwd"]
-             + elastic["flash_attention_fwd"] + spec["flash_attention_fwd"], **k1_row),
+             + elastic["flash_attention_fwd"] + spec["flash_attention_fwd"]
+             + workers["flash_attention_fwd"], **k1_row),
         dict(name="flash_attention_fwd_offset", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
              launches=prefix["flash_attention_fwd_offset"]
              + preempt["flash_attention_fwd_offset"]
-             + front["flash_attention_fwd_offset"] + spec["flash_attention_fwd_offset"],
-             **offset_row),
+             + front["flash_attention_fwd_offset"] + spec["flash_attention_fwd_offset"]
+             + workers["flash_attention_fwd_offset"], **offset_row),
         dict(name="flash_attention_bwd", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",
@@ -4559,12 +5117,13 @@ def main() -> None:
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",
              launches=k3 + preempt["paged_attention_kernel"] + front["paged_attention_kernel"]
-             + resume["paged_attention_kernel"] + spec["paged_attention_kernel"], **k3_row),
+             + resume["paged_attention_kernel"] + spec["paged_attention_kernel"]
+             + workers["paged_attention_kernel"], **k3_row),
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
              replaces=replaces, launches=counts["fused_layers all"][name] + front.get(name, 0)
-             + resume.get(name, 0) + spec.get(name, 0) + detectors[name] + elastic[name],
-             **fused_rows[name])
+             + resume.get(name, 0) + spec.get(name, 0) + detectors[name] + elastic[name]
+             + workers.get(name, 0), **fused_rows[name])
         for name, replaces in FUSED_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
@@ -4574,7 +5133,7 @@ def main() -> None:
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
              replaces=replaces, launches=serving[name] + front[name] + resume[name]
-             + spec[name] + detectors[name] + elastic[name], **mm_rows[name])
+             + spec[name] + detectors[name] + elastic[name] + workers[name], **mm_rows[name])
         for name, replaces in MM_SERVE_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/flash_block.cu",

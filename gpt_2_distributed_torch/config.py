@@ -14,6 +14,7 @@ at construction instead of being ignored: ``GPT2Config.remat`` and the
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 # Row-chunk default for the blocked cross-entropy (``ops/losses.py``).
@@ -375,6 +376,58 @@ def parse_serve_spec(spec: str) -> tuple[str | None, int]:
             f"(e.g. 'draft:124M,k:4')"
         )
     return draft, k
+
+
+# Replica placement modes of the serving front ends: ``inprocess`` builds
+# every ServingEngine inside the frontend process (the default: no RPC,
+# shared fate); ``subprocess`` hosts one engine per worker process behind
+# the RPC supervision plane (a process's blast radius); ``remote`` adopts
+# pre-started workers listening on tcp://host:port (named by a
+# --worker_pool file), whose hosts are failure domains of their own.
+PLACEMENTS = ("inprocess", "subprocess", "remote")
+
+
+def validate_worker_flags(p, args) -> None:
+    """The serving CLIs' checks of ``--placement`` and the ``--worker_*``
+    flags, after parsing and before anything imports torch, with the JAX
+    CLIs' texts (the speculation half of the JAX function is
+    :func:`validate_spec_flags`). A bad auth token file is refused here
+    too: a fleet that cannot authenticate must not get as far as spawning."""
+    if args.placement not in PLACEMENTS:
+        p.error(f"--placement must be one of {'|'.join(PLACEMENTS)}, got {args.placement!r}")
+    for flag, value, floor in (
+        ("worker_max_respawns", args.worker_max_respawns, ">= 0"),
+        ("worker_respawn_backoff_s", args.worker_respawn_backoff_s, ">= 0"),
+        ("worker_rpc_timeout_s", args.worker_rpc_timeout_s, "> 0"),
+        ("worker_heartbeat_s", args.worker_heartbeat_s, "> 0"),
+        ("worker_connect_timeout_s", args.worker_connect_timeout_s, "> 0"),
+    ):
+        if value < 0 or (floor == "> 0" and value == 0):
+            p.error(f"--{flag} must be {floor}, got {value}")
+    hb_timeout = args.worker_heartbeat_timeout_s
+    if hb_timeout is not None and hb_timeout <= 0:
+        p.error(f"--worker_heartbeat_timeout_s must be > 0, got {hb_timeout}")
+    if args.worker_auth_token_file is not None:
+        from gpt_2_distributed_torch.serving.frontend.rpc import load_auth_token
+
+        try:
+            load_auth_token(args.worker_auth_token_file)
+        except (OSError, ValueError) as e:
+            p.error(f"--worker_auth_token_file: {e}")
+    pool = args.worker_pool
+    if args.placement == "remote":
+        if not pool:
+            p.error(
+                "--placement remote needs --worker_pool (a file of "
+                "'host_id address' lines naming the fleet; workers "
+                "append themselves with the worker CLI's --advertise: "
+                "python -m gpt_2_distributed_torch.serving.frontend.worker)"
+            )
+        if not os.path.exists(pool):
+            p.error(f"--worker_pool {pool!r}: file not found")
+    elif pool:
+        p.error(f"--worker_pool only makes sense with --placement remote, "
+                f"not {args.placement!r}")
 
 
 def validate_spec_flags(p, args) -> None:

@@ -20,8 +20,10 @@ keep a long training run alive.
   (a ``file://`` path, or an ``http`` URL that the operator names). The
   serving entry points use the handler for their graceful drain.
 
-The serving fleet's fault injector and its worker environments come with
-the process-isolation slice.
+The serving fleet's side: :func:`worker_env` builds a serving worker
+process's environment, and :class:`FaultInjector` (with
+:func:`parse_fault_spec`, the ``--inject_replica_*`` flag grammar) fires
+deterministic replica faults inside the driver's containment path.
 """
 
 from __future__ import annotations
@@ -397,3 +399,130 @@ class PreemptionPoller:
 
     def preempted(self) -> bool:
         return self._flag
+
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def worker_env(device: str, extra: dict | None = None) -> dict:
+    """The environment of a serving worker process
+    (``forced_host_device_env`` of the JAX package, which pins virtual CPU
+    devices; a torch worker has none to pin): this process's environment
+    with the repo on ``PYTHONPATH``, so ``python -m`` finds the package
+    from any working directory. On the CPU (``device`` "cpu") the worker's
+    intra-op thread pool is pinned to one thread unless ``OMP_NUM_THREADS``
+    already says otherwise: N workers each with torch's default pool (one
+    thread a core) oversubscribe the host N times. ``extra`` overlays
+    additional variables last. Imports no torch: the spawner builds worker
+    environments before the frontend ever imports it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (_REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
+    if device.startswith("cpu"):
+        env.setdefault("OMP_NUM_THREADS", "1")
+    if extra:
+        env.update(extra)
+    return env
+
+
+class InjectedFault(RuntimeError):
+    """Raised by :class:`FaultInjector` at its configured trigger point."""
+
+
+def parse_fault_spec(spec: str, flag: str) -> tuple[int, int | None]:
+    """Parse ``"STEP"`` or ``"STEP:REPLICA"`` (the ``--inject_*`` flag
+    grammar, as ``--xla_profile_at``'s ``STEP[:N]``). Returns ``(step,
+    replica)`` with ``replica=None`` meaning "first replica stepped at or
+    after STEP". Raises ValueError with the JAX package's texts."""
+    parts = str(spec).split(":")
+    if len(parts) > 2:
+        raise ValueError(f"{flag}={spec!r}: expected STEP or STEP:REPLICA")
+    try:
+        step = int(parts[0])
+        replica = int(parts[1]) if len(parts) == 2 else None
+    except ValueError:
+        raise ValueError(f"{flag}={spec!r}: STEP and REPLICA must be integers") from None
+    if step < 1:
+        raise ValueError(f"{flag}={spec!r}: STEP must be >= 1")
+    if replica is not None and replica < 0:
+        raise ValueError(f"{flag}={spec!r}: REPLICA must be >= 0")
+    return step, replica
+
+
+class FaultInjector:
+    """Deterministic fault injection for the serving fleet (tests and chaos
+    runs; never constructed in production).
+
+    The driver calls :meth:`tick(step, replica)` immediately before each
+    replica's ``step()``, inside the containment wrapper and the watchdog
+    window. Each configured fault fires ONCE, at the first tick whose fleet
+    step is >= the spec's STEP and whose replica matches (``>=``, not
+    ``==``: a replica with no work that tick would otherwise dodge the
+    fault forever):
+
+    * ``fail_at`` — raise :class:`InjectedFault`: the "replica crashed"
+      scenario (containment + migration).
+    * ``hang_at`` — block cooperatively until :meth:`release_hangs` (the
+      watchdog's trip path calls it) or ``hang_max_s``, then raise: the
+      "replica wedged" scenario, driven through the whole detect ->
+      condemn -> migrate chain deterministically.
+    * ``exception_at`` — replica-agnostic raise in whichever replica steps
+      first at or after the step.
+    * ``kill_at`` + ``kill_fn`` — call ``kill_fn(replica)`` and return
+      WITHOUT raising: the "process killed from outside" scenario for
+      worker placements. The kill (a SIGKILL or SIGSTOP of the worker, a
+      network partition) must then be DETECTED, as a broken or timed-out
+      RPC on the very step the injector let proceed, or by heartbeat loss.
+    """
+
+    def __init__(
+        self,
+        fail_at: tuple[int, int | None] | None = None,
+        hang_at: tuple[int, int | None] | None = None,
+        exception_at: int | None = None,
+        hang_max_s: float = 120.0,
+        kill_at: tuple[int, int | None] | None = None,
+        kill_fn=None,
+    ) -> None:
+        self.fail_at = fail_at
+        self.hang_at = hang_at
+        self.exception_at = exception_at
+        self.hang_max_s = float(hang_max_s)
+        self.kill_at = kill_at
+        self.kill_fn = kill_fn
+        self.fail_fired = False
+        self.hang_fired = False
+        self.exception_fired = False
+        self.kill_fired = False
+        self._release = threading.Event()
+
+    @staticmethod
+    def _match(spec, step: int, replica: int) -> bool:
+        return step >= spec[0] and (spec[1] is None or replica == spec[1])
+
+    def release_hangs(self) -> None:
+        """Unblock any in-progress (and all future) injected hangs."""
+        self._release.set()
+
+    def tick(self, step: int, replica: int) -> None:
+        if (self.kill_at is not None and not self.kill_fired
+                and self.kill_fn is not None
+                and self._match(self.kill_at, step, replica)):
+            self.kill_fired = True
+            self.kill_fn(replica)
+        if (self.fail_at is not None and not self.fail_fired
+                and self._match(self.fail_at, step, replica)):
+            self.fail_fired = True
+            raise InjectedFault(f"injected replica failure (step {step}, replica {replica})")
+        if (self.exception_at is not None and not self.exception_fired
+                and step >= self.exception_at):
+            self.exception_fired = True
+            raise InjectedFault(f"injected step exception (step {step})")
+        if (self.hang_at is not None and not self.hang_fired
+                and self._match(self.hang_at, step, replica)):
+            self.hang_fired = True
+            released = self._release.wait(self.hang_max_s)
+            raise InjectedFault(
+                f"injected replica hang (step {step}, replica {replica}) "
+                + ("released by watchdog" if released
+                   else f"expired after {self.hang_max_s:g}s")
+            )

@@ -220,6 +220,11 @@ class RequestHandle:
         self.prefix_cached_tokens = 0  # prompt tokens skipped at 1st admission
         self.replica: int | None = None  # set by the replica router on route
         self._gen: torch.Generator | None = None
+        # A mirror's generator (``serving/frontend/worker.py``): the state
+        # dict in the wire form's "generator" shape, as the worker last
+        # reported it. The frontend keeps no live generator (a CUDA one
+        # would open a CUDA context there); an adopting engine builds one.
+        self._gen_state: dict | None = None
         self._blocks: list[int] | None = None
         self._enqueue_time: float | None = None
         self._admit_order = -1        # monotone per admission; newest = victim
@@ -261,7 +266,8 @@ class RequestHandle:
             "prompt": list(self.prompt),
             "max_new_tokens": self.max_new_tokens,
             "generated": list(self.generated),
-            "generator": _generator_state(self._gen),
+            "generator": (_generator_state(self._gen) if self._gen is not None
+                          else self._gen_state),
             "pending_token": self._pending_token,
             "deadline": self.deadline,
             "submit_time": self.submit_time,
@@ -1073,7 +1079,13 @@ class ServingEngine:
         """Queue a request extracted from another engine (with the same
         ``ServeConfig``; it already passed ``submit``'s gates there). The
         handle carries over whole: id, callback, emitted tokens and
-        generator, which must live on this engine's device type."""
+        generator, which must live on this engine's device type. A worker's
+        mirror carries its generator as state (``_gen_state``): it is built
+        on this engine's device here, and a state of another device type
+        raises ValueError."""
+        if req._gen is None and req._gen_state is not None:
+            req._gen = _generator_from_state(req._gen_state, self.device)
+            req._gen_state = None
         if req._gen is not None and req._gen.device.type != self.device.type:
             raise ValueError(
                 f"adopt: request {req.id}'s generator is on {req._gen.device.type}, "

@@ -8,20 +8,29 @@ Layering (each importable alone; the server composes all of them)::
     driver.py     the ONE submit/step/drain loop (also used by serve.py)
     autoscale.py  grow/shrink decisions from queue-depth + SLO signals
     router.py     prefix-affinity routing + SLO-aware admission
-
-Worker processes, their RPC plane and remote hosts come with the
-process-isolation slice.
+    worker.py     process placement (WorkerHandle/WorkerSpawner/RemoteSpawner)
+    rpc.py        length-prefixed JSON framing for the worker RPC plane
+    netchaos.py   the in-path TCP proxy that breaks links on cue
 """
 
 # Lazy exports (PEP 562): importing the package imports no engine (torch)
-# until a name is used.
+# until a name is used; rpc, netchaos and worker stay torch-free, so the
+# worker CLI binds its socket before the torch import and the CLIs check
+# their flags before paying for it.
 _EXPORTS = {
     "Autoscaler": "autoscale",
     "DrainingError": "driver",
     "EngineDriver": "driver",
+    "StepWatchdog": "driver",
     "ROUTE_POLICIES": "router",
     "ReplicaRouter": "router",
     "ShedError": "router",
+    "WireError": "rpc",
+    "ChaosProxy": "netchaos",
+    "RemoteSpawner": "worker",
+    "WorkerHandle": "worker",
+    "WorkerSpawner": "worker",
+    "read_worker_pool": "worker",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -24,9 +24,15 @@ drift in metrics cadence, capture windows or drain semantics:
   ``preempted()`` at step boundaries and flips to ``draining``: in-flight
   requests run to completion, new submits are refused, and the caller
   exits 0.
-
-The health checks of worker processes and remote hosts, the step
-watchdog and fault injection come with the process-isolation slice.
+* **supervise** — under worker placements (``worker.py``) every step
+  first sweeps the workers' health (a dead process, heartbeat loss): a
+  failure is contained like a raising step, and when every replica of a
+  remote host failed in one sweep the host is contained as one batch
+  (``router.fail_host``). Quarantined hosts are dial-probed for
+  re-admission at most every 2 s. ``watchdog_timeout_s`` arms a
+  :class:`StepWatchdog` around each replica's step, and ``injector``
+  (``resilience.FaultInjector``, tests and chaos runs only) fires its
+  faults inside the same containment.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import collections
 import concurrent.futures
 import sys
 import threading
+import time
 from typing import TYPE_CHECKING, Callable, Sequence
 
 from gpt_2_distributed_torch.obs.trace import get_tracer
@@ -48,6 +55,94 @@ if TYPE_CHECKING:   # annotation-only: keeps this module importable
 
 class DrainingError(RuntimeError):
     """Submit refused: the driver is draining toward shutdown."""
+
+
+class StepWatchdog:
+    """Daemon thread bounding how long one replica's ``step()`` may run.
+
+    The ``coordination.HangWatchdog`` idiom (arm/disarm around the guarded
+    region, a lock-protected deadline, a check interval of
+    ``min(timeout/4, 0.5)``) with one deliberate difference: firing does
+    NOT kill the process. Serving a fleet, a wedged replica costs one
+    replica — the watchdog dumps all-thread stacks plus the tracer's open
+    spans (the "which phase hung" post-mortem), then hands the replica
+    index to ``on_trip``, which condemns it so the driver fails and
+    migrates it the moment (if ever) the stuck call returns. One trip per
+    arm: after firing the watchdog disarms itself and keeps watching the
+    NEXT armed step.
+    """
+
+    def __init__(self, timeout_s: float, on_trip: Callable[[int], None]) -> None:
+        if timeout_s <= 0:
+            raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
+        self.timeout_s = float(timeout_s)
+        self.on_trip = on_trip
+        self.trips = 0
+        self._armed = False
+        self._replica = -1
+        self._deadline = 0.0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> "StepWatchdog":
+        if self._thread is None or not self._thread.is_alive():
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._run, name="step-watchdog",
+                                            daemon=True)
+            self._thread.start()
+        return self
+
+    def arm(self, replica: int) -> None:
+        with self._lock:
+            self._armed = True
+            self._replica = replica
+            self._deadline = time.monotonic() + self.timeout_s
+
+    def disarm(self) -> None:
+        with self._lock:
+            self._armed = False
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    def _run(self) -> None:
+        interval = min(self.timeout_s / 4.0, 0.5)
+        while not self._stop.wait(interval):
+            with self._lock:
+                expired = self._armed and time.monotonic() > self._deadline
+                replica = self._replica
+                if expired:
+                    self._armed = False
+            if expired:
+                self._fire(replica)
+
+    def _fire(self, replica: int) -> None:
+        self.trips += 1
+        print(f"[serve] watchdog: replica {replica} step exceeded "
+              f"{self.timeout_s:g}s; dumping stacks, condemning the replica",
+              file=sys.stderr, flush=True)
+        try:
+            import faulthandler
+            faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        except Exception:
+            pass
+        try:
+            tracer = get_tracer()
+            if tracer.enabled:
+                print("[serve] watchdog: " + tracer.format_open_spans(),
+                      file=sys.stderr, flush=True)
+            tracer.event("watchdog_fired", replica=replica, timeout_s=self.timeout_s)
+        except Exception:
+            pass
+        try:
+            self.on_trip(replica)
+        except Exception as e:   # the watchdog must keep watching
+            print(f"[serve] watchdog: on_trip raised {type(e).__name__}: {e}",
+                  file=sys.stderr, flush=True)
 
 
 class EngineDriver:
@@ -64,6 +159,8 @@ class EngineDriver:
         autoscaler=None,
         autoscale_every: int = 1,
         request_timeout_s: float | None = None,
+        watchdog_timeout_s: float | None = None,
+        injector=None,
     ):
         self.router = router
         self.tracker = tracker
@@ -74,11 +171,17 @@ class EngineDriver:
         self.autoscale_every = max(int(autoscale_every), 1)
         # Default deadline for every submit (per-request timeout_s wins).
         self.request_timeout_s = request_timeout_s
+        # resilience.FaultInjector (tests, chaos runs): consulted before
+        # each replica's step; None in production.
+        self.injector = injector
         self.steps = 0
         self.draining = False
-        # The JAX driver's step-watchdog count, pushed under its metric
-        # name; no watchdog runs in this slice.
         self.watchdog_trips = 0
+        self._last_host_poll = 0.0
+        self._condemned: set[int] = set()
+        self._watchdog: StepWatchdog | None = None
+        if watchdog_timeout_s is not None:
+            self._watchdog = StepWatchdog(watchdog_timeout_s, self._on_watchdog_trip).start()
         self._watch: list[tuple[RequestHandle, Callable | None]] = []
         self._inbox: collections.deque = collections.deque()
         self._wake = threading.Event()
@@ -179,6 +282,59 @@ class EngineDriver:
     def has_work(self) -> bool:
         return bool(self._inbox) or self.router.has_work()
 
+    def _on_watchdog_trip(self, replica: int) -> None:
+        """Watchdog-thread callback: condemn the stuck replica (the step
+        loop fails and migrates it the moment the stuck call returns) and
+        release any injected hang so tests and chaos runs make progress."""
+        self.watchdog_trips += 1
+        self._condemned.add(replica)
+        if self.injector is not None:
+            self.injector.release_hangs()
+
+    def _check_worker_health(self) -> bool:
+        """Out-of-band liveness sweep for process-isolated replicas: a
+        worker that died BETWEEN steps (SIGKILL while idle, a crash during
+        someone else's step) or stopped answering heartbeats is contained
+        here instead of waiting for traffic to trip over the corpse.
+        Duck-typed: in-process engines have no ``check_health``. Returns
+        whether any replica failed.
+
+        Host classification (remote placement): the sweep first COLLECTS
+        every failure, then groups the ones whose handles carry a
+        ``host_id``. When every live worker on a host failed in this one
+        sweep, that is host death, contained as a single batch through
+        ``router.fail_host`` (one migration wave, never onto a dying
+        sibling). A partial failure on a host stays per-replica, and
+        handles without a host_id (local placements) always are."""
+        already = set(self.router.failed_indices())
+        failures: list[tuple[int, str, str | None]] = []
+        for idx, eng in enumerate(self.router.engines):
+            if idx in already:
+                continue
+            probe = getattr(eng, "check_health", None)
+            if probe is None:
+                continue
+            reason = probe()
+            if reason is not None:
+                failures.append((idx, reason, getattr(eng, "host_id", None)))
+        if not failures:
+            return False
+        by_host: dict[str, list[tuple[int, str]]] = {}
+        for idx, reason, host in failures:
+            if host is None:
+                self._fail_replica(idx, reason)
+            else:
+                by_host.setdefault(host, []).append((idx, reason))
+        for host, items in by_host.items():
+            live = {i for i, eng in enumerate(self.router.engines)
+                    if i not in already and getattr(eng, "host_id", None) == host}
+            if {i for i, _ in items} >= live:
+                self._fail_host(host, items[0][1])
+            else:
+                for idx, reason in items:
+                    self._fail_replica(idx, reason)
+        return True
+
     def _fail_replica(self, idx: int, reason: str) -> None:
         """Containment: eject replica ``idx`` from the fleet, migrate its
         in-flight requests to healthy replicas, keep the loop running."""
@@ -194,6 +350,15 @@ class EngineDriver:
             file=sys.stderr, flush=True,
         )
 
+    def _fail_host(self, host_id: str, reason: str) -> None:
+        """Containment, host-domain edition: every worker on ``host_id``
+        goes down together, their streams migrate in one wave."""
+        print(f"[serve] host {host_id} LOST ({reason}); containing its "
+              f"replicas as one batch", file=sys.stderr, flush=True)
+        moved = self.router.fail_host(host_id, reason=reason)
+        print(f"[serve] host {host_id}: {moved} request(s) migrated; "
+              f"{self.router.n_active} replica(s) active", file=sys.stderr, flush=True)
+
     def _metrics(self) -> dict[str, float]:
         return dict(watchdog_trips=float(self.watchdog_trips),
                     **self.router.metrics_snapshot())
@@ -204,19 +369,40 @@ class EngineDriver:
         -> metrics flush.
 
         Each replica's ``step()`` runs inside a containment wrapper: an
-        exception fails THAT replica — ejected from routing, its requests
-        migrated — and the fleet loop keeps going."""
+        exception (or a watchdog condemnation) fails THAT replica —
+        ejected from routing, its requests migrated — and the fleet loop
+        keeps going."""
         self._check_preemption()
         self._consume_inbox()
+        self._check_worker_health()
+        # Quarantined-host probes are dial attempts (up to 1 s each on a
+        # blackholed link), so under load they run at most every 2 s:
+        # re-admission latency stays bounded without stalling decode.
+        now = time.monotonic()
+        if now - self._last_host_poll >= 2.0:
+            self._last_host_poll = now
+            self.router.poll_hosts()
         self.steps += 1
         if self.profiler_capture is not None:
             self.profiler_capture.maybe_start(self.steps)
         emitted = 0
+        wd = self._watchdog
         for idx, eng in self.router.steppable():
+            if wd is not None:
+                wd.arm(idx)
             try:
+                if self.injector is not None:
+                    self.injector.tick(self.steps, idx)
                 emitted += eng.step()
             except Exception as e:
                 self._fail_replica(idx, f"{type(e).__name__}: {e}")
+                continue
+            finally:
+                if wd is not None:
+                    wd.disarm()
+            if idx in self._condemned:
+                self._condemned.discard(idx)
+                self._fail_replica(idx, f"watchdog: step exceeded {wd.timeout_s:g}s")
         if self.profiler_capture is not None:
             self.profiler_capture.maybe_stop(self.steps)
         if (self.autoscaler is not None
@@ -260,6 +446,15 @@ class EngineDriver:
             self._check_preemption()
             if self.draining or self._stop:
                 break
+            # An idle fleet still supervises its workers: a replica that
+            # dies with no traffic is replaced BEFORE the next burst, so a
+            # detected failure also ticks the autoscaler (below-min
+            # replacement) without waiting for a step. The same sweep
+            # probes quarantined hosts: a healed partition re-admits the
+            # host so replacements can land there again.
+            if self._check_worker_health() and self.autoscaler is not None:
+                self.autoscaler.tick()
+            self.router.poll_hosts()
             self._wake.wait(idle_wait)
             self._wake.clear()
         # Drain whatever raced in while breaking out.
@@ -270,9 +465,17 @@ class EngineDriver:
         self.close()
 
     def close(self) -> None:
-        """Release what the driver owns (idempotent): an open profiler
-        window and the metrics sink's TensorBoard writer. ``run_forever``
-        calls it on exit; the JSONL path calls it after its final drain."""
+        """Release what the driver owns (idempotent): the step watchdog's
+        thread, the worker processes (or remote connections) of the
+        fleet, an open profiler window and the metrics sink's TensorBoard
+        writer. ``run_forever`` calls it on exit; the JSONL path calls it
+        after its final drain."""
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        for eng in self.router.engines:
+            closer = getattr(eng, "close", None)
+            if closer is not None:
+                closer()
         if self.profiler_capture is not None:
             self.profiler_capture.stop_if_active()
         if self.tracker is not None:

@@ -32,7 +32,8 @@ against the target and violations are counted (``slo_violations``) — the
 autoscaler treats sheds and violations as grow pressure, closing the loop.
 
 Failure containment: ``fail_replica`` permanently ejects a replica whose
-``step()`` raised, extracts its in-flight requests with their preemption
+``step()`` raised (or whose watchdog tripped, or whose worker process or
+host was lost), extracts its in-flight requests with their preemption
 state, and re-submits them to healthy replicas as recompute-prefill
 resumes — the streams continue bit-identically with zero re-emitted
 tokens, because migration is the engine's preemption with a different
@@ -45,12 +46,18 @@ the fleet inherits it unchanged. ``tests/test_torch_frontend.py`` asserts
 it, and that every request lands on the replica the JAX router picks.
 
 Requests carry the port engine's ``seed`` (the JAX router's ``rng``).
-Host-domain failures and worker processes come with the process-isolation
-slice; their metrics read 0 here.
+
+**Host failure domains** (``--placement remote``): replicas whose engines
+carry a ``host_id`` belong to that host. ``fail_host`` contains a lost
+host as ONE batch: every replica of the host is marked FAILED before the
+single adopt wave, so no stream lands on a dying sibling, and the spawner
+quarantines the host first, so replacements land on survivors;
+``poll_hosts`` re-admits a quarantined host once a dial reaches it.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import TYPE_CHECKING, Callable, Sequence
 
@@ -117,6 +124,7 @@ class ReplicaRouter:
         # "degraded" while failures hold n_active below this.
         self.target_replicas = int(replicas)
         self.replica_failures = 0   # replicas marked FAILED, ever
+        self.host_failures = 0      # whole host domains lost, ever
         self.migrated = 0           # requests moved off failed replicas
         self._sticky: dict[bytes, int] = {}
         self._rr_next = 0
@@ -144,6 +152,9 @@ class ReplicaRouter:
 
     def active_indices(self) -> list[int]:
         return [i for i, a in enumerate(self._active) if a]
+
+    def failed_indices(self) -> list[int]:
+        return [i for i, f in enumerate(self._failed) if f]
 
     def grow(self) -> int | None:
         """Activate one replica (reviving a parked one before building a
@@ -185,10 +196,37 @@ class ReplicaRouter:
         """
         if self._failed[idx]:
             return 0
-        return self._adopt_wave(self._eject(idx, reason), idx)
+        return self._adopt_wave(self._eject(idx, reason))
+
+    def fail_host(self, host_id: str, reason: str = "host death") -> int:
+        """Contain a whole host failure domain as ONE batch: every
+        not-yet-failed replica whose worker carries ``host_id`` is marked
+        FAILED *before* any migration happens, so the single adopt wave
+        below can never re-place a stream onto a sibling that is about to
+        die with the same host. The spawner (if it understands hosts) is
+        told first, quarantining the host so last-resort growth and the
+        autoscaler's replacements land on survivors only. Returns the
+        number of requests migrated."""
+        idxs = [i for i, e in enumerate(self.engines)
+                if not self._failed[i] and getattr(e, "host_id", None) == host_id]
+        if not idxs:
+            return 0
+        self.host_failures += 1
+        quarantine = getattr(self._make_engine, "mark_host_dead", None)
+        if quarantine is not None:
+            quarantine(host_id)
+        get_tracer().event(
+            "host_lost", host_id=host_id, replicas=idxs, reason=reason,
+            hosts_active=getattr(self._make_engine, "hosts_active", 0),
+        )
+        reqs = []
+        for i in idxs:
+            reqs.extend(self._eject(i, f"{reason} (host {host_id})"))
+        return self._adopt_wave(reqs)
 
     def _eject(self, idx: int, reason: str) -> list:
-        """Mark one replica FAILED and pull its in-flight requests out."""
+        """Mark one replica FAILED and pull its in-flight requests out (no
+        migration yet: callers batch the adopt wave)."""
         self._failed[idx] = True
         was_active = self._active[idx]
         self._active[idx] = False
@@ -204,14 +242,24 @@ class ReplicaRouter:
             reqs = self.engines[idx].extract_inflight()
         except Exception:
             reqs = []   # engine too corrupt even for host-side extraction
+        for req in reqs:
+            req._eject_src = idx    # labels the migrate trace event below
         return reqs
 
-    def _adopt_wave(self, reqs: list, src: int) -> int:
-        """Re-place requests ejected from replica ``src`` onto healthy
-        replicas as recompute-prefill resumes — bit-identical
-        continuation, zero re-emitted tokens."""
+    def _adopt_wave(self, reqs: list) -> int:
+        """Re-place ejected requests onto healthy replicas as
+        recompute-prefill resumes — bit-identical continuation, zero
+        re-emitted tokens."""
         if reqs and not self.active_indices():
-            self.grow()   # last resort; None at max_replicas
+            try:
+                self.grow()   # last resort; None at max_replicas
+            except RuntimeError as e:
+                # A worker spawner raises once its respawn budget is spent.
+                # Last-resort growth failing must not escape the
+                # containment path: the requests below finish "failed",
+                # which is the honest outcome.
+                print(f"[router] last-resort grow failed: {e}",
+                      file=sys.stderr, flush=True)
         moved = 0
         tracer = get_tracer()
         for req in reqs:
@@ -220,7 +268,16 @@ class ReplicaRouter:
                 req._finish("failed")
                 continue
             dst = min(active, key=lambda i: (self._load(i), i))
-            self.engines[dst].adopt(req)
+            src = getattr(req, "_eject_src", -1)
+            try:
+                self.engines[dst].adopt(req)
+            except Exception:
+                # The destination died between health checks (only worker
+                # handles can raise here; in-process adopt is a queue
+                # append). No recursion into fail_replica mid-migration:
+                # the driver's next health sweep contains dst properly.
+                req._finish("failed")
+                continue
             req.replica = dst
             self.migrated += 1
             moved += 1
@@ -362,17 +419,31 @@ class ReplicaRouter:
 
     # ------------------------------------------------------------ queries
 
+    def poll_hosts(self) -> list[str]:
+        """Dial-probe quarantined hosts for re-admission (remote
+        placement; a no-op for spawners without a host concept). Returns
+        the host_ids re-admitted this call."""
+        probe = getattr(self._make_engine, "poll_hosts", None)
+        if probe is None or not getattr(self._make_engine, "dead_hosts", None):
+            return []
+        return probe()
+
     def has_work(self) -> bool:
         return any(
             e.has_work() for i, e in enumerate(self.engines)
             if not self._failed[i]
         )
 
+    def engines_with_work(self) -> list[ServingEngine]:
+        """Every engine with queued or in-flight requests — retired
+        replicas included, so parked engines still drain; FAILED replicas
+        excluded, so the step loop never touches a dead engine."""
+        return [e for _, e in self.steppable()]
+
     def steppable(self) -> list[tuple[int, ServingEngine]]:
-        """(index, engine) pairs the driver should step this tick: every
-        engine with queued or in-flight requests — retired replicas
-        included, so parked engines still drain; FAILED replicas excluded,
-        so the step loop never touches a dead engine."""
+        """(index, engine) pairs the driver should step this tick —
+        ``engines_with_work`` plus the indices the failure-containment
+        wrapper needs to name a crashing replica."""
         return [
             (i, e) for i, e in enumerate(self.engines)
             if not self._failed[i] and e.has_work()
@@ -392,7 +463,7 @@ class ReplicaRouter:
         """Fleet-level serving-load metrics; single-replica keys aggregate
         so the ``--tb_dir`` sink reads the same names either way (each is
         registered in ``metrics/builtin.py``). The keys are the JAX
-        router's; the worker and host planes' read 0 (not ported)."""
+        router's."""
         admitted = sum(e.stats["admitted"] for e in self.engines)
         return {
             "queue_wait_ms": sum(
@@ -429,11 +500,14 @@ class ReplicaRouter:
             **{key: float(sum(e.stats[key] for e in self.engines))
                for key in ("spec_draft_tokens", "spec_accepted_tokens",
                            "spec_rollbacks", "draft_ms", "verify_ms")},
-            # Worker processes and remote hosts come with the process-
-            # isolation slice: in-process replicas have neither.
-            "worker_restarts": 0.0,
-            "host_failures": 0.0,
-            "hosts_active": 0.0,
+            # Worker placements: replacement workers spawned after a
+            # failure (the spawner counts them); always 0 in-process.
+            "worker_restarts": float(getattr(self._make_engine, "respawns", 0)),
+            # Remote placement: whole host domains lost / still serving
+            # (the RemoteSpawner tracks quarantine; 0 when the placement
+            # has no host concept).
+            "host_failures": float(self.host_failures),
+            "hosts_active": float(getattr(self._make_engine, "hosts_active", 0)),
         }
 
     def aggregate_hit_rate(self) -> float:

@@ -54,9 +54,14 @@ Scaling knobs: ``--replicas`` fixed fleet, ``--route`` policy
 (affinity | least_loaded | round_robin), ``--ttft_slo_ms`` /
 ``--queue_slo_ms`` SLO targets, and ``--autoscale`` to let queue depth
 and SLO pressure grow/shrink the fleet between ``--min_replicas`` and
-``--max_replicas`` (see autoscale.py). The flags are the JAX server's;
-``--device`` defaults to cuda, and placement, watchdog and fault flags
-other than their defaults are refused (later slices), as in ``serve.py``.
+``--max_replicas`` (see autoscale.py). ``--placement subprocess`` runs
+each replica in a worker process of its own (``worker.py``) and
+``--placement remote`` adopts workers from a ``--worker_pool`` fleet, each
+host a failure domain: a dead worker or host costs its replicas, whose
+streams migrate, never the server. ``--watchdog_timeout_s`` and the
+``--inject_*`` flags are ``serve.py``'s. The flags are the JAX server's;
+``--device`` defaults to cuda, and ``--serve_mesh`` other than its default
+is refused (a later slice), as in ``serve.py``.
 """
 
 from __future__ import annotations
@@ -564,25 +569,25 @@ def main(argv: list[str] | None = None) -> None:
     args = p.parse_args(argv)
     from gpt_2_distributed_torch.serving.serve import (
         check_common_args,
-        cli_device,
-        engine_factory,
+        make_engine_source,
         make_tracker,
         setup_observability,
     )
 
-    check_common_args(p, args)
+    injector = check_common_args(p, args)
     from gpt_2_distributed_torch.obs.trace import configure_tracing
     from gpt_2_distributed_torch.resilience import PreemptionHandler
     from gpt_2_distributed_torch.serving.frontend.autoscale import Autoscaler
     from gpt_2_distributed_torch.serving.frontend.router import ReplicaRouter
 
-    device = cli_device(args)
     capture = setup_observability(p, args)
     tracker = make_tracker(args)
     max_replicas = args.max_replicas
     if max_replicas is None:
         max_replicas = args.replicas
-    make_engine = engine_factory(p, args, device)
+    # Under a worker placement the HTTP process loads no weights and
+    # touches no device: a replica's crash cannot take the server down.
+    make_engine, _ = make_engine_source(p, args, initial_replicas=args.replicas)
     try:
         router = ReplicaRouter(
             make_engine,
@@ -590,6 +595,8 @@ def main(argv: list[str] | None = None) -> None:
             policy=args.route, ttft_slo_ms=args.ttft_slo_ms,
             queue_slo_ms=args.queue_slo_ms,
         )
+        if args.placement != "inprocess":
+            make_engine.router = router   # respawn-vs-scale-up attribution
         autoscaler = Autoscaler(
             router, min_replicas=args.min_replicas,
             max_replicas=max_replicas,
@@ -610,6 +617,7 @@ def main(argv: list[str] | None = None) -> None:
         profiler_capture=capture, preemption=handler, autoscaler=autoscaler,
         autoscale_every=args.autoscale_every,
         request_timeout_s=args.request_timeout_s,
+        watchdog_timeout_s=args.watchdog_timeout_s, injector=injector,
     )
     server = FrontendServer(
         driver, host=args.host, port=args.port, model_name=args.model,

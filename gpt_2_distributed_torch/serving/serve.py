@@ -49,10 +49,21 @@ under ``<trace_dir or tb_dir>/xla_profile``), and ``--tb_dir`` writes the
 serving-load metrics to TensorBoard every ``--metrics_every`` engine steps
 (it needs ``tensorboardX``).
 
+``--placement subprocess`` serves from a worker process
+(``serving/frontend/worker.py``: one engine a process, the frontend talking
+to it over a local socket, a killed worker's streams migrating to its
+replacement with no token emitted twice); ``--placement remote`` adopts a
+worker listed in ``--worker_pool`` over authenticated TCP. Under either the
+CLI loads no weights and touches no device: the workers do. The
+``--worker_*`` flags set the respawn budget, the RPC and heartbeat
+deadlines and the shared secret. ``--watchdog_timeout_s`` fails a replica
+whose step runs longer; ``--inject_replica_fail_at``,
+``--inject_replica_hang_at`` and ``--inject_step_exception`` inject faults
+(tests and chaos runs).
+
 The parser takes every flag of the JAX CLI, under the same names, types
-and defaults. Serving meshes, replica placement, the step watchdog and
-fault injection come with later slices of the port: any other value than
-the default of those flags is refused.
+and defaults. Serving meshes come with a later slice of the port: any
+other ``--serve_mesh`` than the default is refused.
 
 Usage::
 
@@ -69,17 +80,7 @@ import time
 
 # Flags of the JAX CLIs whose planes come with later slices of the port,
 # with the value that leaves them off; any other value is refused.
-_UNPORTED = {
-    "serve_mesh": "",
-    "placement": "inprocess", "worker_max_respawns": 3,
-    "worker_respawn_backoff_s": 2.0, "worker_rpc_timeout_s": 300.0,
-    "worker_heartbeat_s": 1.0, "worker_connect_timeout_s": 120.0,
-    "worker_heartbeat_timeout_s": None, "worker_auth_token_file": None,
-    "worker_pool": None, "watchdog_timeout_s": None,
-    "inject_replica_fail_at": None, "inject_replica_hang_at": None,
-    "inject_step_exception": None,
-}
-PLACEMENTS = ("inprocess", "subprocess", "remote")
+_UNPORTED = {"serve_mesh": ""}
 
 
 def add_model_flags(p: argparse.ArgumentParser) -> None:
@@ -169,31 +170,98 @@ def add_obs_flags(p: argparse.ArgumentParser) -> None:
 
 
 def add_placement_flags(p: argparse.ArgumentParser) -> None:
-    """Replica placement and worker supervision flags (later slice)."""
+    """Replica placement and worker supervision flags, shared with the
+    front end; checked torch-free by ``config.validate_worker_flags``."""
+    from gpt_2_distributed_torch.config import PLACEMENTS
+
     p.add_argument("--placement", default="inprocess", choices=list(PLACEMENTS),
-                   help="replica placement")
-    p.add_argument("--worker_max_respawns", type=int, default=3)
-    p.add_argument("--worker_respawn_backoff_s", type=float, default=2.0)
-    p.add_argument("--worker_rpc_timeout_s", type=float, default=300.0)
-    p.add_argument("--worker_heartbeat_s", type=float, default=1.0)
-    p.add_argument("--worker_connect_timeout_s", type=float, default=120.0)
-    p.add_argument("--worker_heartbeat_timeout_s", type=float, default=None)
-    p.add_argument("--worker_auth_token_file", default=None)
-    p.add_argument("--worker_pool", default=None)
+                   help="replica placement: engines inside this process "
+                        "(default), one worker process per replica behind "
+                        "the RPC supervision plane, or remote workers "
+                        "adopted over authenticated TCP from a "
+                        "--worker_pool fleet")
+    p.add_argument("--worker_max_respawns", type=int, default=3,
+                   help="replacement workers spawned after failures before "
+                        "the fleet degrades loudly (supervise.sh "
+                        "MAX_RESTARTS semantics)")
+    p.add_argument("--worker_respawn_backoff_s", type=float, default=2.0,
+                   help="base respawn backoff; doubles per respawn "
+                        "(supervise.sh RESTART_DELAY semantics)")
+    p.add_argument("--worker_rpc_timeout_s", type=float, default=300.0,
+                   help="per-RPC reply deadline; a worker that blows it is "
+                        "failed and its requests migrated")
+    p.add_argument("--worker_heartbeat_s", type=float, default=1.0,
+                   help="idle gap after which the driver heartbeats a "
+                        "worker; heartbeat loss fails the replica")
+    p.add_argument("--worker_connect_timeout_s", type=float, default=120.0,
+                   help="worker spawn-to-hello deadline (covers the child's "
+                        "torch import, CUDA context, weight load and, on a "
+                        "cold build dir, the kernels' nvcc)")
+    p.add_argument("--worker_heartbeat_timeout_s", type=float, default=None,
+                   help="per-attempt heartbeat reply deadline; default "
+                        "max(5 x --worker_heartbeat_s, 2.0) — set it for "
+                        "cross-host fleets")
+    p.add_argument("--worker_auth_token_file", default=None,
+                   help="shared-secret file for the worker hello's mutual "
+                        "HMAC challenge-response; unauthenticated or "
+                        "wrong-token peers are refused before any engine "
+                        "state moves (give workers the same file via "
+                        "--auth_token_file)")
+    p.add_argument("--worker_pool", default=None,
+                   help="--placement remote: file of 'host_id address' "
+                        "lines naming the worker fleet (workers append "
+                        "themselves with the worker CLI's --advertise)")
 
 
 def add_fault_flags(p: argparse.ArgumentParser) -> None:
-    """Request deadlines; the watchdog and fault injection (later slice)."""
+    """Request deadlines, the step watchdog and fault injection, shared
+    with the front end; checked by :func:`make_injector`."""
     p.add_argument("--request_timeout_s", type=float, default=None,
                    help="per-request deadline from submission (queue wait "
                         "included) for requests without their own "
                         "'timeout_s'; overdue requests are evicted with "
                         "finish reason 'timeout' and their KV blocks freed")
     p.add_argument("--watchdog_timeout_s", type=float, default=None,
-                   help="fail a replica whose single step exceeds this")
-    p.add_argument("--inject_replica_fail_at", default=None, metavar="STEP[:REPLICA]")
-    p.add_argument("--inject_replica_hang_at", default=None, metavar="STEP[:REPLICA]")
-    p.add_argument("--inject_step_exception", type=int, default=None, metavar="STEP")
+                   help="fail a replica whose single step() exceeds this "
+                        "(stacks + open trace spans dumped, in-flight "
+                        "requests migrated to healthy replicas)")
+    p.add_argument("--inject_replica_fail_at", default=None, metavar="STEP[:REPLICA]",
+                   help="fault injection: raise inside the given replica's "
+                        "step (default replica 0) at fleet step STEP")
+    p.add_argument("--inject_replica_hang_at", default=None, metavar="STEP[:REPLICA]",
+                   help="fault injection: hang the given replica's step at "
+                        "fleet step STEP until the watchdog trips")
+    p.add_argument("--inject_step_exception", type=int, default=None, metavar="STEP",
+                   help="fault injection: raise in whichever replica steps "
+                        "first at fleet step STEP")
+
+
+def make_injector(p: argparse.ArgumentParser, args: argparse.Namespace):
+    """Check the fault flags (with the JAX CLI's texts); return a
+    :class:`resilience.FaultInjector`, or None when no injection was
+    asked for. Torch-free, so the CLIs refuse before the torch import."""
+    from gpt_2_distributed_torch.resilience import FaultInjector, parse_fault_spec
+
+    if args.request_timeout_s is not None and args.request_timeout_s < 0:
+        p.error(f"--request_timeout_s={args.request_timeout_s} must be >= 0")
+    if args.watchdog_timeout_s is not None and args.watchdog_timeout_s <= 0:
+        p.error(f"--watchdog_timeout_s={args.watchdog_timeout_s} must be > 0")
+    try:
+        fail_at = (parse_fault_spec(args.inject_replica_fail_at, "--inject_replica_fail_at")
+                   if args.inject_replica_fail_at else None)
+        hang_at = (parse_fault_spec(args.inject_replica_hang_at, "--inject_replica_hang_at")
+                   if args.inject_replica_hang_at else None)
+    except ValueError as e:
+        p.error(str(e))
+    exc_at = args.inject_step_exception
+    if exc_at is not None and exc_at < 1:
+        p.error(f"--inject_step_exception={exc_at} must be >= 1")
+    if hang_at is not None and args.watchdog_timeout_s is None:
+        p.error("--inject_replica_hang_at needs --watchdog_timeout_s "
+                "(nothing else ever detects the hang)")
+    if fail_at is None and hang_at is None and exc_at is None:
+        return None
+    return FaultInjector(fail_at=fail_at, hang_at=hang_at, exception_at=exc_at)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -396,16 +464,41 @@ def load_checkpoint_params(ckpt: str, config, device, label: str = "checkpoint",
     return params
 
 
-def check_common_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
-    """The refusals both serving CLIs share."""
-    from gpt_2_distributed_torch.config import validate_spec_flags
+def check_common_args(p: argparse.ArgumentParser, args: argparse.Namespace):
+    """The refusals both serving CLIs share, all before the torch import.
+    Returns the fault injector the flags ask for (None without one)."""
+    from gpt_2_distributed_torch.config import validate_spec_flags, validate_worker_flags
 
     _refuse_unported(p, args)
+    validate_worker_flags(p, args)
     validate_spec_flags(p, args)
     if sum((args.params_npz is not None, args.init_random, args.ckpt is not None)) != 1:
         p.error("exactly one of --ckpt / --params_npz / --init_random is required")
-    if args.request_timeout_s is not None and args.request_timeout_s < 0:
-        p.error(f"--request_timeout_s={args.request_timeout_s} must be >= 0")
+    return make_injector(p, args)
+
+
+def make_engine_source(p: argparse.ArgumentParser, args: argparse.Namespace,
+                       initial_replicas: int):
+    """The router's ``make_engine`` for ``--placement``, and a label of
+    where the engines run. Under ``subprocess`` and ``remote`` this process
+    loads no weights and touches no device: it builds only the model config
+    and the ``ServeConfig`` the workers must match, and the spawner gets
+    ``spawner.router`` once the router exists."""
+    if args.placement == "inprocess":
+        device = cli_device(args)
+        return engine_factory(p, args, device), str(device)
+    from gpt_2_distributed_torch.serving.frontend import worker
+
+    config = model_config_from_args(args)
+    try:
+        serve = build_serve_config(args, config)
+    except ValueError as e:
+        p.error(str(e))
+    if args.placement == "subprocess":
+        return (worker.spawner_from_args(args, serve, initial_replicas=initial_replicas),
+                f"{args.device} worker processes")
+    return (worker.remote_spawner_from_args(args, serve, initial_replicas=initial_replicas),
+            "remote workers")
 
 
 DRAIN_NOTICE = ("draining: in-flight requests will complete, new submits "
@@ -415,25 +508,28 @@ DRAIN_NOTICE = ("draining: in-flight requests will complete, new submits "
 def main(argv: list[str] | None = None) -> None:
     p = build_argparser()
     args = p.parse_args(argv)
-    check_common_args(p, args)
+    injector = check_common_args(p, args)
 
     from gpt_2_distributed_torch.obs.trace import configure_tracing
     from gpt_2_distributed_torch.resilience import PreemptionHandler
     from gpt_2_distributed_torch.serving.frontend.driver import EngineDriver
     from gpt_2_distributed_torch.serving.frontend.router import ReplicaRouter
 
-    device = cli_device(args)
     capture = setup_observability(p, args)
     tracker = make_tracker(args)
     specs = read_requests(args.requests, args)
-    router = ReplicaRouter(engine_factory(p, args, device), replicas=1)
+    make_engine, where = make_engine_source(p, args, initial_replicas=1)
+    router = ReplicaRouter(make_engine, replicas=1)
+    if args.placement != "inprocess":
+        make_engine.router = router   # respawn-vs-scale-up attribution
     # SIGTERM = finish what was accepted, exit 0. Every request below is
     # submitted before the loop starts, so the flag can only stop further
     # submits: a TERM during the batch drains instead of cutting streams.
     handler = PreemptionHandler(notice=DRAIN_NOTICE).install()
     driver = EngineDriver(router, tracker=tracker, metrics_every=args.metrics_every,
                           profiler_capture=capture, preemption=handler,
-                          request_timeout_s=args.request_timeout_s)
+                          request_timeout_s=args.request_timeout_s,
+                          watchdog_timeout_s=args.watchdog_timeout_s, injector=injector)
 
     def on_token(req, tok):
         if args.stream:
@@ -472,7 +568,7 @@ def main(argv: list[str] | None = None) -> None:
     toks = sum(len(h.generated) for h in handles)
     print(f"{len(handles)} requests, {toks} tokens, {wall:.3f}s "
           f"({toks / wall:.0f} tok/s), {eng.stats['decode_steps']} decode "
-          f"steps on {device}, {eng.stats['preemptions']} preemptions, "
+          f"steps on {where}, {eng.stats['preemptions']} preemptions, "
           f"{eng.stats['prefix_hit_tokens']} prefix-cached tokens", file=sys.stderr)
 
 

@@ -40,6 +40,9 @@ REQUIRED = (
     "gpt_2_distributed_torch.serving.frontend.router",
     "gpt_2_distributed_torch.serving.frontend.autoscale",
     "gpt_2_distributed_torch.serving.frontend.server",
+    "gpt_2_distributed_torch.serving.frontend.rpc",
+    "gpt_2_distributed_torch.serving.frontend.netchaos",
+    "gpt_2_distributed_torch.serving.frontend.worker",
 )
 
 

@@ -197,11 +197,21 @@ def test_cli_parses_every_jax_serve_flag():
                                                    "watermark_blocks", "tb_dir",
                                                    "metrics_every", "trace_dir",
                                                    "trace_max_file_bytes",
-                                                   "xla_profile_at"):
+                                                   "xla_profile_at", *PLACEMENT_DESTS):
             assert port_actions[a.dest].default == a.default, a.dest
             assert port_actions[a.dest].type == a.type, a.dest
             assert port_actions[a.dest].nargs == a.nargs, a.dest
     port_p.parse_args(argv)
+
+
+# The placement, worker, watchdog and fault flags: ported with process
+# isolation, so no longer refused.
+PLACEMENT_DESTS = (
+    "placement", "worker_max_respawns", "worker_respawn_backoff_s", "worker_rpc_timeout_s",
+    "worker_heartbeat_s", "worker_connect_timeout_s", "worker_heartbeat_timeout_s",
+    "worker_auth_token_file", "worker_pool", "watchdog_timeout_s", "inject_replica_fail_at",
+    "inject_replica_hang_at", "inject_step_exception",
+)
 
 
 def test_cli_refuses_each_unported_flag(capsys):
@@ -211,8 +221,9 @@ def test_cli_refuses_each_unported_flag(capsys):
     # 23 until the tracing and metric sinks were ported (tb_dir,
     # metrics_every, trace_dir, trace_max_file_bytes and xla_profile_at),
     # 18 until checkpoints were (ckpt), 17 until speculation was
-    # (draft_preset, spec_k, draft_ckpt).
-    assert len(serve._UNPORTED) == 14
+    # (draft_preset, spec_k, draft_ckpt), 14 until process isolation was
+    # (the 13 PLACEMENT_DESTS): only the serving mesh is left.
+    assert len(serve._UNPORTED) == 1 and not set(PLACEMENT_DESTS) & set(serve._UNPORTED)
     for dest in serve._UNPORTED:
         with pytest.raises(SystemExit) as e:
             serve.main(["--requests", "r.jsonl", "--init_random"]

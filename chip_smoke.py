@@ -179,6 +179,23 @@ that does not hold:
    a layer and batch, its du pass, dgrad and wgrad once a leg and
    micro-batch; prints each run's ms/step, tok/s and MFU, and the
    ``fused_matmul all`` step beside the ``fused_layers all`` step;
+13b. activation recompute (``phase_remat``): 4 steps of 4 x [4, 1024] at
+   dropout 0.1 through ``make_train_step`` in ``off``, ``fused_layers
+   all`` and ``fused_matmul all``, each without remat and with ``remat``
+   block, mlp, attn and dots: every remat run's losses, final params and
+   AdamW moments bit-equal to the run without, and the launches exact (the
+   forward kernels of each recomputed half once more a micro-batch, K5's
+   forward not, the backward kernels once); prints each run's ms/step and
+   peak allocation; ``train.main()`` as 13's ``fused_matmul all`` run for 4
+   steps with ``--remat block``, its losses bit-equal to that run's first
+   4 and its launches exact; then the 1.5B preset (``fused_matmul all``) at
+   micro-batch 8 x 1024, 2 steps without remat and with ``block``: peak
+   allocation and ms/step of each;
+13c. the bf16 gradient carry (``phase_accum``): ``train.main()`` as in 13
+   with ``--fused_matmul all --fused_layers all``, 8 steps, with
+   ``--accum_dtype fp32`` and ``bf16``: exact launches, the bf16 losses
+   within rtol = atol = 5e-2 of the fp32 ones (the JAX test's bound);
+   prints both peaks and ms/step;
 14. checkpoints and exact resume (``phase_resume``), at 124M with
    ``--fused_matmul all --fused_layers all`` as in 13: run A saves every 8
    steps with ``--async_save on`` (its losses bit-equal to 13's
@@ -194,6 +211,16 @@ that does not hold:
    and the launches of K1, K3, K7's forward and K4 those its decode steps
    imply; prints a checkpoint's bytes, the step loop's stall for an async
    and a sync save, the commit time and the restore time;
+14b. the sampling CLI (``phase_sample``): ``gpt2-torch-sample``'s ``main``
+   on C's final checkpoint (its save dir, resolved to the newest step) for
+   prompts of 16 and 960 tokens, 64 new tokens each: ``--decode_path
+   cached`` and ``--stream`` greedily and sampled (0.9, top-k 40), each
+   stream equal to the cached one with the same seed, and ``--decode_path
+   reforward`` greedily, whose first token must equal cached's (both come
+   from K1's prefill); prints how long the greedy streams agree and the
+   largest difference of the chosen token's logit until they part, and
+   requires each run's launches (reforward: K1 12 a token, no K3); then
+   ms/token of each sampler at batch 1 on the restored weights, in turns;
 15. the fault detectors of a mesh run (``phase_detectors``): the
    parameter fingerprint of the 124M params on the card, twice
    bit-identical, moved by ``perturb_params`` x1.001, bit-identical after
@@ -331,6 +358,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -2886,6 +2914,235 @@ def phase_training(profile: bool) -> tuple[dict[str, dict[str, int]], dict[str, 
     return counts, ms_steps, run_losses
 
 
+REMAT_MODES = (False, "block", "mlp", "attn", "dots")
+REMAT_RUNS = (("off", "off", "off"), ("fused_layers all", "all", "off"),
+              ("fused_matmul all", "all", "all"))
+REMAT_STEPS = 4
+BIG_PRESET, BIG_BATCH, BIG_STEPS = "1.5B", 8, 2
+
+
+def state_bits(params: dict, optimizer) -> list[torch.Tensor]:
+    """A run's params and AdamW moments as int32 views (bit comparisons)."""
+    from gpt_2_distributed_torch.parallel.train_step import param_list
+
+    out = [p.detach() for p in param_list(params)]
+    out += [st[k] for st in optimizer.state.values() for k in ("exp_avg", "exp_avg_sq")]
+    return [t.view(torch.int32) for t in out]
+
+
+def remat_launches(mode, fused_layers: str, fused_matmul: str, micro: int) -> dict[str, int]:
+    """The launches per ``micro`` micro-batches of 124M under
+    ``remat=mode``: the forward kernels of every recomputed region launch
+    again in the backward, except K5's forward, which closes the MLP half
+    and saves nothing, so the recompute stops before it (torch's early
+    stop); the backward kernels launch once."""
+    want = training_launches(fused_layers, fused_matmul, steps=micro, eval_batches=0,
+                             accum=1)
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+
+    attn = mode in ("block", "attn", "dots")
+    mlp = mode in ("block", "mlp", "dots")
+    n = MODEL_PRESETS["124M"].n_layer * micro
+    if attn:
+        want["flash_attention_fwd"] += n
+    if fused_matmul == "all":
+        want["mm_bias_fwd"] += n * attn
+        want["mm_gelu_fwd"] += n * mlp
+        want["mm_resid_fwd"] += n * (attn + mlp)
+    elif fused_layers == "all":
+        want["ln_residual_dropout_fwd"] += n * attn
+        want["bias_gelu_dropout_fwd"] += n * mlp
+    return want
+
+
+def phase_remat(fused_losses: list[float], card: str) -> dict[str, int]:
+    """Activation recompute (``--remat``) at 124M, then its memory at
+    ``BIG_PRESET``; returns the launches of the counted runs."""
+    from gpt_2_distributed_torch import train
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+    from gpt_2_distributed_torch.models import gpt2
+    from gpt_2_distributed_torch.parallel import train_step as ts
+
+    wrappers = training_wrappers()
+    total: dict[str, int] = collections.Counter()
+    t_phase = time.monotonic()
+    config = MODEL_PRESETS["124M"].replace(embd_dropout=DROPOUT, attn_dropout=DROPOUT,
+                                           resid_dropout=DROPOUT)
+    init = gpt2.init_params(config, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shape = (REMAT_STEPS, TRAIN_ACCUM, 4, 1024)
+    xs = torch.randint(0, config.vocab_size, shape, generator=gen, device="cuda")
+    ys = torch.randint(0, config.vocab_size, shape, generator=gen, device="cuda")
+
+    def run(cfg, steps, x, y, params_init):
+        """``steps`` unguarded AdamW steps from ``params_init``; (losses,
+        median ms/step of steps 2.., peak bytes above the start, launches,
+        the run's state)."""
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = ts.trainable_params(params_init, torch.device("cuda"))
+        opt = ts.make_optimizer(params, 6e-4)
+        step = ts.make_train_step(cfg, opt)
+        for w in wrappers.values():
+            w.launches = 0
+        losses, walls = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            m = step(params, x[i], y[i], 42, i)
+            losses.append(m.loss.item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+        got = {name: w.launches for name, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() - start
+        ms = sorted(walls[1:])[len(walls[1:]) // 2] if steps > 1 else walls[0]
+        return losses, ms, peak, got, (params, opt)
+
+    for label, fused_layers, fused_matmul in REMAT_RUNS:
+        cfg = config.replace(fused_layers=fused_layers, fused_matmul=fused_matmul)
+        base = None
+        for mode in REMAT_MODES:
+            losses, ms, peak, got, state = run(cfg.replace(remat=mode), REMAT_STEPS, xs, ys,
+                                                init)
+            total.update(got)
+            bits = state_bits(*state)
+            del state
+            want = remat_launches(mode, fused_layers, fused_matmul, REMAT_STEPS * TRAIN_ACCUM)
+            if base is None:
+                base = (losses, bits, ms, peak)
+                same = True
+            else:
+                same = losses == base[0] and all(torch.equal(a, b)
+                                                  for a, b in zip(bits, base[1]))
+                del bits
+            print(f"remat 124M, {label}, remat {mode}: {REMAT_STEPS} steps of {TRAIN_ACCUM} x "
+                  f"[4, 1024], dropout {DROPOUT}; median {ms:.1f} ms/step "
+                  f"({ms / base[2]:.3f}x no remat); peak allocated {peak / 2**30:.3f} GiB "
+                  f"above the start ({peak / base[3]:.3f}x); losses "
+                  f"{[round(v, 4) for v in losses]}, losses, params and AdamW moments "
+                  f"bit-equal to no remat: {same}; launches {got}", flush=True)
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"remat {mode} ({label}) produced a non-finite loss")
+            if not same:
+                fail(f"remat {mode} ({label}) differs from no remat: losses {losses} "
+                     f"against {base[0]}, or its params / moments")
+            if got != want:
+                fail(f"remat {mode} ({label}) launches {got} != {want}")
+        del base
+    del xs, ys, init
+    torch.cuda.empty_cache()
+
+    # The CLI: the first REMAT_STEPS steps of phase 13's fused_matmul all run
+    # again under --remat block (a constant learning rate and no eval before
+    # step 16, so its losses are the first REMAT_STEPS of that run's).
+    with tempfile.TemporaryDirectory() as data_dir:
+        write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
+        for w in wrappers.values():
+            w.launches = 0
+        tracker = train.main(train_argv(data_dir, "all", "all") + [
+            "--max_steps", str(REMAT_STEPS), "--remat", "block"])
+        got = {name: w.launches for name, w in wrappers.items()}
+    total.update(got)
+    losses = list(tracker.buffers["loss"])
+    want = remat_launches("block", "all", "all", REMAT_STEPS * TRAIN_ACCUM)
+    print(f"remat 124M, train.main --fused_matmul all --remat block, {REMAT_STEPS} steps: "
+          f"losses bit-equal to phase 13's first {REMAT_STEPS}: "
+          f"{losses == fused_losses[:REMAT_STEPS]}; launches {got}", flush=True)
+    if losses != fused_losses[:REMAT_STEPS]:
+        fail("--remat block's losses differ from phase 13's at "
+             + first_difference(losses, fused_losses))
+    if got != want:
+        fail(f"--remat block through train.main launched {got}, not {want}")
+
+    # The memory remat buys where it is needed: BIG_PRESET at micro-batch
+    # BIG_BATCH, seq 1024, BIG_STEPS steps, no remat against --remat block.
+    big = MODEL_PRESETS[BIG_PRESET].replace(fused_layers="all", fused_matmul="all",
+                                            embd_dropout=DROPOUT, attn_dropout=DROPOUT,
+                                            resid_dropout=DROPOUT)
+    t0 = time.monotonic()
+    init = gpt2.init_params(big, seed=0)
+    t_init = time.monotonic() - t0
+    x = torch.randint(0, big.vocab_size, (BIG_STEPS, 1, BIG_BATCH, 1024), generator=gen,
+                      device="cuda")
+    y = torch.randint(0, big.vocab_size, x.shape, generator=gen, device="cuda")
+    peaks = {}
+    for mode in (False, "block"):
+        losses, ms, peak, got, state = run(big.replace(remat=mode), BIG_STEPS, x, y, init)
+        del state
+        torch.cuda.empty_cache()
+        total.update(got)
+        peaks[mode] = peak
+        print(f"remat {BIG_PRESET} (fused_matmul all), remat {mode}: {BIG_STEPS} steps of "
+              f"[{BIG_BATCH}, 1024], dropout {DROPOUT}; step walls "
+              f"{ms:.1f} ms (median of steps 2..), peak allocated {peak / 2**30:.3f} GiB "
+              f"above the start; losses {[round(v, 4) for v in losses]}; launches K1 "
+              f"{got['flash_attention_fwd']}, K2 {got['flash_attention_bwd']}, K7 fc "
+              f"{got['mm_gelu_fwd']}", flush=True)
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"remat {mode} at {BIG_PRESET} produced a non-finite loss")
+    print(f"remat {BIG_PRESET}: --remat block peaks at {peaks['block'] / peaks[False]:.3f}x "
+          f"the no-remat peak ({card}); params init on the host {t_init:.1f} s", flush=True)
+    del init, x, y
+    torch.cuda.empty_cache()
+    print(f"remat phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return dict(total)
+
+
+ACCUM_STEPS = 8
+ACCUM_TOL = 5e-2   # tests/test_train_step.py's bound for the bf16 carry
+
+
+def phase_accum(card: str) -> dict[str, int]:
+    """``train.main()`` at 124M with ``--fused_matmul all --fused_layers
+    all``, ``--grad_accum_steps 4``, ACCUM_STEPS steps, with the fp32 and
+    with the bf16 gradient carry; returns their launches."""
+    import tempfile
+
+    from gpt_2_distributed_torch import train
+    from gpt_2_distributed_torch.data.synthetic import write_synthetic_shards
+
+    wrappers = training_wrappers()
+    total: dict[str, int] = collections.Counter()
+    losses, peaks, ms = {}, {}, {}
+    want = training_launches("all", "all", steps=ACCUM_STEPS, eval_batches=0)
+    with tempfile.TemporaryDirectory() as data_dir:
+        write_synthetic_shards(data_dir, num_shards=4, tokens_per_shard=131072, seed=0)
+        for dtype in ("fp32", "bf16"):
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tracker = train.main(train_argv(data_dir, "all", "all") + [
+                "--max_steps", str(ACCUM_STEPS), "--accum_dtype", dtype])
+            torch.cuda.synchronize()
+            peaks[dtype] = torch.cuda.max_memory_allocated() - start
+            got = {name: w.launches for name, w in wrappers.items()}
+            total.update(got)
+            losses[dtype] = list(tracker.buffers["loss"])
+            tok_s = sorted(tracker.buffers["tokens_per_second"])[ACCUM_STEPS // 2]
+            ms[dtype] = tracker.tokens_per_step / tok_s * 1e3
+            print(f"accum 124M, fused_matmul all, --accum_dtype {dtype}: {ACCUM_STEPS} steps "
+                  f"of {TRAIN_ACCUM} x [4, 1024]; median {ms[dtype]:.1f} ms/step; peak "
+                  f"allocated {peaks[dtype] / 2**30:.3f} GiB above the start; losses "
+                  f"{[round(v, 4) for v in losses[dtype]]}; launches {got}", flush=True)
+            if len(losses[dtype]) != ACCUM_STEPS or not all(
+                    math.isfinite(v) for v in losses[dtype]):
+                fail(f"--accum_dtype {dtype}: missing or non-finite losses")
+            if got != want:
+                fail(f"--accum_dtype {dtype} launches {got} != {want}")
+    diff = [abs(a - b) for a, b in zip(losses["bf16"], losses["fp32"])]
+    ok = all(d <= ACCUM_TOL + ACCUM_TOL * abs(b) for d, b in zip(diff, losses["fp32"]))
+    print(f"accum 124M: bf16 carry against fp32 carry: largest loss difference "
+          f"{max(diff):.3e} (bound rtol = atol = {ACCUM_TOL}): {ok}; peak allocated "
+          f"{(peaks['fp32'] - peaks['bf16']) / 2**30:.3f} GiB lower with bf16 "
+          f"({peaks['bf16'] / peaks['fp32']:.3f}x); ms/step {ms['bf16'] / ms['fp32']:.3f}x "
+          f"({card})", flush=True)
+    if not ok:
+        fail("the bf16 carry's losses leave the bound around the fp32 carry's")
+    return dict(total)
+
+
 RESUME_PROMPTS = (1, 17, 100, 208)   # phase_serving's first 4 prompt lengths
 RESUME_NEW = 16
 
@@ -2964,11 +3221,13 @@ def first_difference(a: list[float], b: list[float]) -> str:
     return f"lengths {len(a)} against {len(b)}"
 
 
-def phase_resume(fused_losses: list[float]) -> tuple[dict[str, int], dict[str, str]]:
-    """Checkpoints and exact resume at 124M (step 13 of the module
+def phase_resume(fused_losses: list[float], keep: str
+                 ) -> tuple[dict[str, int], dict[str, str]]:
+    """Checkpoints and exact resume at 124M (step 14 of the module
     docstring); returns the launches of the runs and of the served
     checkpoint by wrapper name, and the sha256 of run A's final params,
-    AdamW moments and step count."""
+    AdamW moments and step count. Run C's final checkpoint is moved into
+    the directory ``keep`` (for ``phase_sample``)."""
     import contextlib
     import hashlib
     import io
@@ -3144,8 +3403,139 @@ def phase_resume(fused_losses: list[float]) -> tuple[dict[str, int], dict[str, s
             fail(f"serve --ckpt: {len(prompts) - same} streams differ from generate_cached's")
         if got_s != want_s:
             fail(f"serve --ckpt launches {got_s} != {want_s}")
+        shutil.move(end_c, os.path.join(keep, os.path.basename(end_c)))
     print(f"resume phase: {time.monotonic() - t_phase:.1f} s", flush=True)
     return dict(total), dig_a
+
+
+SAMPLE_LENGTHS = (16, 960)
+SAMPLE_NEW = 64
+SAMPLE_SAMPLING = (0.9, 40, 5)   # temperature, top-k, seed of the sampled runs
+
+
+def phase_sample(ckpt: str, card: str) -> dict[str, int]:
+    """``gpt2-torch-sample``'s ``main`` on ``ckpt`` (a 124M checkpoint the
+    port trained) for SAMPLE_LENGTHS prompts; returns the launches of the
+    counted CLI runs."""
+    import contextlib
+    import io
+
+    from gpt_2_distributed_torch import sample
+    from gpt_2_distributed_torch.checkpoint import latest_checkpoint, restore_params
+    from gpt_2_distributed_torch.config import MODEL_PRESETS
+    from gpt_2_distributed_torch.models import decode
+    from gpt_2_distributed_torch.models import generate as generate_mod
+    from gpt_2_distributed_torch.ops import fused_matmul as fm
+    from gpt_2_distributed_torch.ops.flash_attention import flash_attention_fwd
+    from gpt_2_distributed_torch.ops.fused_layer import ln_residual_dropout_fwd
+    from gpt_2_distributed_torch.ops.paged_attention import paged_attention_kernel
+
+    wrappers = {"flash_attention_fwd": flash_attention_fwd,
+                "paged_attention_kernel": paged_attention_kernel,
+                "linear": fm.linear, "head_logits": fm.head_logits,
+                "ln_residual_dropout_fwd": ln_residual_dropout_fwd}
+    config = MODEL_PRESETS["124M"]
+    total: dict[str, int] = collections.Counter()
+    t_phase = time.monotonic()
+    rng = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, config.vocab_size, (p,), generator=rng).tolist()
+               for p in SAMPLE_LENGTHS]
+    # The greedy runs' logits, row by row, read from the samplers' calls.
+    seen: dict[str, list[torch.Tensor]] = {"generate": [], "decode": []}
+    originals = {"generate": generate_mod.sample_token, "decode": decode.sample_token}
+
+    def recording(where):
+        def sample_token(logits, gens, temperature, top_k):
+            seen[where].append(logits.detach().clone())
+            return originals[where](logits, gens, temperature, top_k)
+
+        return sample_token
+
+    def cli(prompt, *flags):
+        """One counted CLI run: (generated ids, launches)."""
+        for w in wrappers.values():
+            w.launches = 0
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            sample.main(["--ckpt", ckpt, "--model", "124M", "--new", str(SAMPLE_NEW),
+                         "--prompt_ids", ",".join(map(str, prompt)), *flags])
+        got = {name: w.launches for name, w in wrappers.items()}
+        total.update(got)
+        if "checkpoint: " not in err.getvalue():
+            fail(f"gpt2-torch-sample did not report its checkpoint: {err.getvalue()[-500:]}")
+        ids = [int(t) for t in out.getvalue().strip().splitlines()[-1].split(",")]
+        if len(ids) != len(prompt) + SAMPLE_NEW or ids[:len(prompt)] != prompt:
+            fail(f"gpt2-torch-sample printed {len(ids)} ids, not the prompt and "
+                 f"{SAMPLE_NEW} more")
+        return ids[len(prompt):], got
+
+    n, layers = SAMPLE_NEW, config.n_layer
+    fwd = {"linear": 4 * layers * n, "head_logits": n,
+           "ln_residual_dropout_fwd": (2 * layers + 1) * n}
+    want_cached = {"flash_attention_fwd": layers,
+                   "paged_attention_kernel": layers * (n - 1), **fwd}
+    want_reforward = {"flash_attention_fwd": layers * n, "paged_attention_kernel": 0, **fwd}
+    temperature, top_k, seed = SAMPLE_SAMPLING
+    warm = ["--temperature", str(temperature), "--top_k", str(top_k), "--seed", str(seed)]
+    for prompt in prompts:
+        p = len(prompt)
+        decode.sample_token = recording("decode")
+        generate_mod.sample_token = recording("generate")
+        try:
+            for rows in seen.values():
+                rows.clear()
+            cached, got_c = cli(prompt, "--decode_path", "cached", "--temperature", "0")
+            reforward, got_r = cli(prompt, "--decode_path", "reforward", "--temperature", "0")
+        finally:
+            decode.sample_token = originals["decode"]
+            generate_mod.sample_token = originals["generate"]
+        stream, got_s = cli(prompt, "--stream", "--temperature", "0")
+        sampled, got_sc = cli(prompt, "--decode_path", "cached", *warm)
+        sampled_stream, got_ss = cli(prompt, "--stream", *warm)
+        agree = next((i for i, (a, b) in enumerate(zip(reforward, cached)) if a != b), n)
+        upto = min(agree + 1, n)
+        logit_diff = max(abs(seen["generate"][i][0, cached[i]].item()
+                             - seen["decode"][i][0, cached[i]].item()) for i in range(upto))
+        print(f"sample 124M, prompt of {p} tokens, {n} new: --stream equals --decode_path "
+              f"cached greedy: {stream == cached}, sampled ({temperature} / top-k {top_k}, "
+              f"seed {seed}): {sampled_stream == sampled}; reforward's first token equals "
+              f"cached's: {reforward[0] == cached[0]}; the greedy streams agree for "
+              f"{agree} of {n} tokens, the chosen token's logit differs by at most "
+              f"{logit_diff:.3e} up to the first divergence; launches cached {got_c}, "
+              f"reforward {got_r}, stream {got_s}", flush=True)
+        if stream != cached or sampled_stream != sampled:
+            fail(f"prompt of {p}: --stream differs from --decode_path cached")
+        if reforward[0] != cached[0]:
+            fail(f"prompt of {p}: reforward's first token {reforward[0]} is not cached's "
+                 f"{cached[0]}")
+        for label, got, want in (("cached", got_c, want_cached), ("sampled", got_sc, want_cached),
+                                 ("reforward", got_r, want_reforward),
+                                 ("stream", got_s, want_cached),
+                                 ("sampled stream", got_ss, want_cached)):
+            if got != want:
+                fail(f"prompt of {p}, {label}: launches {got} != {want}")
+
+    # ms/token at batch 1, outside the counted runs: each sampler twice in
+    # turns on the restored weights, the second run read.
+    params, _ = restore_params(latest_checkpoint(ckpt), "cuda", config)
+    for prompt in prompts:
+        walls = {}
+        for _ in range(2):
+            for label, fn in (("reforward", generate_mod.generate),
+                              ("cached", decode.generate_cached)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(params, config, [prompt], max_new_tokens=n, temperature=0.0)
+                torch.cuda.synchronize()
+                walls[label] = (time.perf_counter() - t0) * 1e3 / n
+        print(f"sample 124M, batch 1, prompt of {len(prompt)} tokens: reforward "
+              f"{walls['reforward']:.3f} ms/token, cached {walls['cached']:.3f} ms/token "
+              f"(prefill included; {walls['reforward'] / walls['cached']:.3f}x; {card})",
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+    print(f"sample phase: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return dict(total)
 
 
 # The fault detectors' phase: the hang is injected before step 9 of
@@ -5057,7 +5447,13 @@ def main() -> None:
     spec = phase_spec_serving(card)
     phase_model_paths()
     counts, ms_steps, train_losses = phase_training(profile)
-    resume, digest_a = phase_resume(train_losses["fused_matmul all"])
+    remat = phase_remat(train_losses["fused_matmul all"], card)
+    accum = phase_accum(card)
+    with tempfile.TemporaryDirectory() as sample_dir:
+        resume, digest_a = phase_resume(train_losses["fused_matmul all"], sample_dir)
+        sample = phase_sample(sample_dir, card)
+    # This slice's runs, added to every kernel's launches below.
+    extra = collections.Counter(remat) + collections.Counter(accum) + collections.Counter(sample)
     detectors = phase_detectors(train_losses["fused_matmul all"], digest_a, card)
     elastic = phase_elastic(card)
     front = phase_frontend(train_losses["off"])
@@ -5090,7 +5486,10 @@ def main() -> None:
           + "; elastic (E0, E1 and, on two cards, the shrink's resume and rank 0 of S and "
           "the grow): " + ", ".join(f"{name} {n}" for name, n in elastic.items() if n)
           + "; worker processes (those that reported at their exit; a killed worker reports "
-          "none): " + ", ".join(f"{name} {n}" for name, n in workers.items()),
+          "none): " + ", ".join(f"{name} {n}" for name, n in workers.items())
+          + "; remat: " + ", ".join(f"{name} {n}" for name, n in remat.items() if n)
+          + "; accum: " + ", ".join(f"{name} {n}" for name, n in accum.items() if n)
+          + "; sample CLI: " + ", ".join(f"{name} {n}" for name, n in sample.items() if n),
           flush=True)
 
     kernels = [
@@ -5100,7 +5499,7 @@ def main() -> None:
              launches=k1_serve + k1_train + front["flash_attention_fwd"]
              + resume["flash_attention_fwd"] + detectors["flash_attention_fwd"]
              + elastic["flash_attention_fwd"] + spec["flash_attention_fwd"]
-             + workers["flash_attention_fwd"], **k1_row),
+             + workers["flash_attention_fwd"] + extra["flash_attention_fwd"], **k1_row),
         dict(name="flash_attention_fwd_offset", route="cuda",
              source="gpt_2_distributed_torch/csrc/flash_fwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:175",
@@ -5112,28 +5511,30 @@ def main() -> None:
              source="gpt_2_distributed_torch/csrc/flash_bwd.cu",
              replaces="gpt_2_distributed_tpu/ops/flash_attention.py:254",
              launches=k2 + front["flash_attention_bwd"] + resume["flash_attention_bwd"]
-             + detectors["flash_attention_bwd"] + elastic["flash_attention_bwd"], **k2_row),
+             + detectors["flash_attention_bwd"] + elastic["flash_attention_bwd"]
+             + extra["flash_attention_bwd"], **k2_row),
         dict(name="paged_attention_kernel", route="cuda",
              source="gpt_2_distributed_torch/csrc/paged_decode.cu",
              replaces="gpt_2_distributed_tpu/ops/paged_attention.py:177",
              launches=k3 + preempt["paged_attention_kernel"] + front["paged_attention_kernel"]
              + resume["paged_attention_kernel"] + spec["paged_attention_kernel"]
-             + workers["paged_attention_kernel"], **k3_row),
+             + workers["paged_attention_kernel"] + extra["paged_attention_kernel"], **k3_row),
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_layer.cu",
              replaces=replaces, launches=counts["fused_layers all"][name] + front.get(name, 0)
              + resume.get(name, 0) + spec.get(name, 0) + detectors[name] + elastic[name]
-             + workers.get(name, 0), **fused_rows[name])
+             + workers.get(name, 0) + extra[name], **fused_rows[name])
         for name, replaces in FUSED_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
              replaces=replaces, launches=counts["fused_matmul all"][name] + resume[name]
-             + detectors[name] + elastic[name], **mm_rows[name])
+             + detectors[name] + elastic[name] + extra[name], **mm_rows[name])
         for name, replaces in MM_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/fused_matmul.cu",
              replaces=replaces, launches=serving[name] + front[name] + resume[name]
-             + spec[name] + detectors[name] + elastic[name] + workers[name], **mm_rows[name])
+             + spec[name] + detectors[name] + elastic[name] + workers[name] + extra[name],
+             **mm_rows[name])
         for name, replaces in MM_SERVE_WRAPPERS
     ] + [
         dict(name=name, route="cuda", source="gpt_2_distributed_torch/csrc/flash_block.cu",

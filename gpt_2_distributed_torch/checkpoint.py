@@ -461,8 +461,12 @@ class _Reader:
 
     def __init__(self, path: str):
         self.path = path
-        with open(os.path.join(path, INDEX_NAME)) as f:
-            self.index = json.load(f)
+        try:
+            with open(os.path.join(path, INDEX_NAME)) as f:
+                self.index = json.load(f)
+        except FileNotFoundError:
+            # e.g. the JAX package's orbax trees, which have no index
+            self.index = {}
         if self.index.get("format") != 1 or self.index.get("dtype") != "float32":
             raise ValueError(f"{path}: unknown checkpoint format")
         self._maps: dict[tuple[str, int], np.memmap] = {}

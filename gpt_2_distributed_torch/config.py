@@ -7,8 +7,8 @@ can move between the two packages, but nothing here depends on JAX.
 
 Fields whose code paths are not ported yet are still fields — so a caller
 moving from the JAX package sees them — but a non-default value is refused
-at construction instead of being ignored: ``GPT2Config.remat`` and the
-``ServeConfig`` scheduler options named in its docstring.
+at construction instead of being ignored: the ``ServeConfig`` options
+named in its docstring.
 """
 
 from __future__ import annotations
@@ -68,8 +68,10 @@ class GPT2Config:
       the attention and MLP out-projections' matmul+bias+dropout+residual,
       "all" for both and the qkv matmul+bias. A fused leg takes the place
       of the ``fused_layers`` epilogue on the same leg.
-    * ``remat`` — activation checkpointing; only its default (off) is
-      ported.
+    * ``remat`` — activation checkpointing (``models/gpt2.py``): False
+      saves everything; True/"block" recomputes each whole block in the
+      backward; "mlp" or "attn" only that half of each block; "dots"
+      saves the 2-D matmul outputs of both halves and recomputes the rest.
     """
 
     vocab_size: int = 50257
@@ -123,8 +125,6 @@ class GPT2Config:
                 f"remat={self.remat!r}: expected False, True, 'block', "
                 f"'mlp', 'attn' or 'dots'"
             )
-        if self.remat is not False:
-            raise _later_slice("GPT2Config", "remat", self.remat)
 
     @property
     def head_dim(self) -> int:

@@ -59,21 +59,13 @@ def prefill(
     positions [0, P). ``w`` is the compute copy of the weights
     (:func:`gpt2.compute_weights`)."""
     b, p = prompt.shape
-    h, d = config.n_head, config.head_dim
-    dtype = w["wte"].dtype
     positions = torch.arange(p, device=prompt.device)
     x = gpt2.embed(w, config, prompt, positions[None])
-    attn_fn = select_attention_impl(attn_impl, x.device)
-    kcs = torch.zeros((config.n_layer, b, h, total, d), dtype=dtype, device=x.device)
+    kcs = torch.zeros((config.n_layer, b, config.n_head, total, config.head_dim),
+                      dtype=w["wte"].dtype, device=x.device)
     vcs = torch.zeros_like(kcs)
-    for layer, bp in enumerate(w["blocks"]):
-        y = gpt2.norm(x, bp["ln1_scale"], bp["ln1_bias"], config.layer_norm_eps, infer=True)
-        q, k, v = gpt2.qkv_proj(config, y, bp, infer=True)  # [B, P, H, D]
-        o = attn_fn(q, k, v).reshape(b, p, config.n_embd)
-        x = x + gpt2.attn_out(o, bp, infer=True)
-        x = gpt2.mlp_sublayer(config, x, bp, infer=True)
-        kcs[layer, :, :, :p] = k.transpose(1, 2)
-        vcs[layer, :, :, :p] = v.transpose(1, 2)
+    x = gpt2.infer_layers(w, config, x, select_attention_impl(attn_impl, x.device),
+                          (kcs, vcs))
     return gpt2.final_norm(w, config, x), KVCache(k=kcs, v=vcs)
 
 

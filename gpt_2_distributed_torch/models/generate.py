@@ -1,9 +1,9 @@
-"""Sampling and generation-argument checks
+"""Sampling, generation-argument checks and the uncached sampler
 (``gpt_2_distributed_tpu/models/generate.py``).
 
-:func:`sample_token` is THE sampling rule of both the one-shot sampler
-(``models/decode.py::generate_cached``) and the serving engine, so the
-two cannot drift apart. Randomness comes from explicit
+:func:`sample_token` is THE sampling rule of the one-shot samplers
+(:func:`generate` here, ``models/decode.py::generate_cached``) and of the
+serving engine, so they cannot drift apart. Randomness comes from explicit
 ``torch.Generator``s, one draw of ``V`` exponentials per sampled row, so a
 row's token depends only on its own logits and its own generator's state —
 never on which other rows share the call.
@@ -16,6 +16,9 @@ from typing import Sequence
 import torch
 
 from gpt_2_distributed_torch.config import GPT2Config
+from gpt_2_distributed_torch.models import gpt2
+from gpt_2_distributed_torch.ops.attention import select_attention_impl
+from gpt_2_distributed_torch.utils.device import resolve_device
 
 
 def sample_token(
@@ -74,3 +77,45 @@ def check_generation_args(
             f"top_k={top_k} must be in [1, vocab_size={config.vocab_size}]"
         )
     return total
+
+
+@torch.no_grad()
+def generate(
+    params: dict,
+    config: GPT2Config,
+    prompt,                      # [B, P] int (tensor or nested lists)
+    seed: int = 0,
+    max_new_tokens: int = 32,
+    temperature: float = 1.0,
+    top_k: int | None = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """Sampling without a KV cache; returns ``[B, P + max_new_tokens]``
+    ids on the CPU. Runs on CUDA unless ``device="cpu"`` is passed.
+
+    Each step runs the whole causal forward over the ``t`` ids so far
+    (the inference paths of ``models/gpt2.py``; on the card attention is
+    the flash kernel over ``[B, H, t, D]``) and takes the next token from
+    row ``t - 1``, sliced before the tied head, so no ``[B, t, V]`` logits
+    are made. The JAX package runs the forward over a buffer padded to the
+    final length for ``lax.scan``'s static shapes; a causal row does not
+    see the padding, so here the forward covers ``ids[:, :t]`` only.
+    Sampling draws from one ``torch.Generator`` seeded with ``seed``, row
+    by row, in :func:`models.decode.generate_cached`'s order: the two give
+    the same ids wherever their logits pick the same tokens."""
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
+    b, p = prompt.shape
+    total = check_generation_args(config, p, max_new_tokens, top_k, batch=b)
+    w = gpt2.compute_weights(params, compute_dtype, dev)
+    gens = [torch.Generator(device=dev).manual_seed(seed)] * b
+    attn_fn = select_attention_impl("auto", dev)
+    ids = torch.zeros((b, total), dtype=torch.long, device=dev)
+    ids[:, :p] = prompt
+    positions = torch.arange(total, device=dev)[None]
+    for t in range(p, total):
+        x = gpt2.embed(w, config, ids[:, :t], positions[:, :t])
+        h = gpt2.final_norm(w, config, gpt2.infer_layers(w, config, x, attn_fn))
+        ids[:, t] = sample_token(gpt2.logits_fp32(w, h[:, t - 1]), gens, temperature, top_k)
+    return ids.cpu()

@@ -34,11 +34,33 @@ Two dictionaries of the same structure:
 Seeded init draws N(0, 0.02) from a ``torch.Generator`` on the CPU; it
 cannot reproduce ``jax.random``'s bits, so parity with the JAX package is
 always tested through weights carried across with ``models/convert.py``.
+
+Activation recompute (``GPT2Config.remat``) is split as the JAX model
+splits it, with ``torch.utils.checkpoint`` (non-reentrant) in place of
+``jax.checkpoint``: True/"block" recomputes each whole block in the
+backward, "mlp" and "attn" that half of each block only, "dots" both
+halves under a selective policy that saves the outputs of 2-D products
+(``aten.mm``/``aten.addmm``: JAX's ``dots_with_no_batch_dims_saveable``)
+and recomputes the rest. A hand-written kernel is not a dot to that
+policy, as a ``pallas_call`` is not one to JAX's: under "dots" every
+kernel of the block runs again in the backward, so with ``fused_matmul``
+"all" it saves almost nothing. The recompute redraws the same dropout
+masks because every site's bits come from its stateless key, and no
+checkpointed region reads a generator.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from gpt_2_distributed_torch.config import GPT2Config
 from gpt_2_distributed_torch.ops import fused_matmul as fm
@@ -64,7 +86,7 @@ from gpt_2_distributed_torch.ops.layers import (
 )
 from gpt_2_distributed_torch.ops.losses import IGNORE_INDEX, blocked_cross_entropy
 from gpt_2_distributed_torch.ops.spmd import batch_axes, shard_offset, shard_seed
-from gpt_2_distributed_torch.parallel.mesh import active_mesh
+from gpt_2_distributed_torch.parallel.mesh import activate_mesh, active_mesh
 
 INIT_SEED = 42
 
@@ -238,6 +260,26 @@ def mlp_sublayer(config: GPT2Config, x: torch.Tensor, bp: dict,
     return x + dropout(y, rate, keys[1], rate == 0.0, origin)
 
 
+def infer_layers(w: dict, config: GPT2Config, x: torch.Tensor, attn_fn,
+                 cache: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """The block stack of the inference paths over embedded positions
+    ``0 .. T-1`` (``x`` [B, T, C]), causal attention through ``attn_fn``;
+    returns its output before the final LayerNorm. With ``cache`` (K and
+    V, ``[L, B, H, S, D]``) each layer's K/V is written at positions
+    ``[0, T)``."""
+    b, t, c = x.shape
+    for layer, bp in enumerate(w["blocks"]):
+        y = norm(x, bp["ln1_scale"], bp["ln1_bias"], config.layer_norm_eps, infer=True)
+        q, k, v = qkv_proj(config, y, bp, infer=True)  # [B, T, H, D]
+        o = attn_fn(q, k, v).reshape(b, t, c)
+        x = x + attn_out(o, bp, infer=True)
+        x = mlp_sublayer(config, x, bp, infer=True)
+        if cache is not None:
+            cache[0][layer, :, :, :t] = k.transpose(1, 2)
+            cache[1][layer, :, :, :t] = v.transpose(1, 2)
+    return x
+
+
 def final_norm(w: dict, config: GPT2Config, x: torch.Tensor) -> torch.Tensor:
     """The inference paths' final LayerNorm."""
     return norm(x, w["ln_f_scale"], w["ln_f_bias"], config.layer_norm_eps, infer=True)
@@ -282,6 +324,35 @@ def _mlp_half_fused(config: GPT2Config, x: torch.Tensor, y2: torch.Tensor, bp: d
                                   deterministic=rate == 0.0)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Save 2-D products, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _recomputed(fn, dots: bool = False):
+    """``fn`` run under non-reentrant activation checkpointing: its
+    activations are dropped after the forward and recomputed in the
+    backward (all of them, or with ``dots`` all but the 2-D products').
+    The mesh active at the forward is entered again for the recompute,
+    which autograd may run on another thread."""
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                  if dots else noop_context_fn)
+
+    def run(*args):
+        mesh = active_mesh()
+
+        def region(*a):
+            with activate_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+                return fn(*a)
+
+        return checkpoint(region, *args, use_reentrant=False, context_fn=context_fn)
+
+    return run
+
+
 def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
            rng: tuple[int, int, int] | None, deterministic: bool,
            origin: tuple[int, int, int]) -> torch.Tensor:
@@ -294,7 +365,9 @@ def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
     with ``fused_layers`` in ("ln", "all") the attention half ends in the
     fused LN+residual+dropout junction (K4), which hands ``(r, ln2(r))`` to
     the MLP half. ``origin`` is x's place in the global ``[B, T, C]`` (the
-    unfused dropout sites hash global coordinates)."""
+    unfused dropout sites hash global coordinates). Under ``remat`` "mlp",
+    "attn" or "dots" (with grad enabled) the halves are the checkpointed
+    units."""
     train = not deterministic
 
     def key(site):
@@ -302,23 +375,36 @@ def _block(config: GPT2Config, x: torch.Tensor, bp: dict, layer: int,
 
     resid_rate = config.resid_dropout if train else 0.0
     mlp_keys = (key(SITE_MLP_ACT), key(SITE_MLP_RESID))
-    o = _attention(config, x, bp, config.attn_dropout if train else 0.0, key(SITE_ATTN))
-    if _mm_proj_fused(config):
-        x = fm.matmul_bias_residual_dropout(
-            o, bp["attn_proj_w"], bp["attn_proj_b"], x, rate=resid_rate,
-            seed=_site_seed(key(SITE_ATTN_RESID), resid_rate, x.shape[0]),
-            deterministic=not train,
-            salt=fm.SALT_MM_ATTN_PROJ)
-    elif _ln_fused(config):
-        x, y2 = fused_ln_residual_dropout(
-            x, attn_out(o, bp), bp["ln2_scale"], bp["ln2_bias"], eps=config.layer_norm_eps,
-            rate=resid_rate, seed=_site_seed(key(SITE_ATTN_RESID), resid_rate, x.shape[0]),
-            deterministic=not train)
-        return _mlp_half_fused(config, x, y2, bp, resid_rate, mlp_keys)
-    else:
-        x = x + dropout(attn_out(o, bp), resid_rate, key(SITE_ATTN_RESID), resid_rate == 0.0,
-                        origin)
-    return mlp_sublayer(config, x, bp, resid_rate, mlp_keys, origin=origin)
+    junction = _ln_fused(config) and not _mm_proj_fused(config)
+
+    def attn_half(x):
+        o = _attention(config, x, bp, config.attn_dropout if train else 0.0, key(SITE_ATTN))
+        seed = _site_seed(key(SITE_ATTN_RESID), resid_rate, x.shape[0])
+        if _mm_proj_fused(config):
+            return fm.matmul_bias_residual_dropout(
+                o, bp["attn_proj_w"], bp["attn_proj_b"], x, rate=resid_rate, seed=seed,
+                deterministic=not train, salt=fm.SALT_MM_ATTN_PROJ)
+        if junction:
+            return fused_ln_residual_dropout(
+                x, attn_out(o, bp), bp["ln2_scale"], bp["ln2_bias"],
+                eps=config.layer_norm_eps, rate=resid_rate, seed=seed, deterministic=not train)
+        return x + dropout(attn_out(o, bp), resid_rate, key(SITE_ATTN_RESID),
+                           resid_rate == 0.0, origin)
+
+    def mlp_half(x, y2=None):
+        if junction:
+            return _mlp_half_fused(config, x, y2, bp, resid_rate, mlp_keys)
+        return mlp_sublayer(config, x, bp, resid_rate, mlp_keys, origin=origin)
+
+    attn, mlp = attn_half, mlp_half
+    if torch.is_grad_enabled():
+        dots = config.remat == "dots"
+        if config.remat in ("attn", "dots"):
+            attn = _recomputed(attn_half, dots)
+        if config.remat in ("mlp", "dots"):
+            mlp = _recomputed(mlp_half, dots)
+    h = attn(x)
+    return mlp(*h) if junction else mlp(h)
 
 
 def hidden_states(
@@ -371,9 +457,17 @@ def hidden_states(
     x = embed(w, config, idx, seq0 + torch.arange(t, device=idx.device)[None])
     if not deterministic:
         x = dropout(x, config.embd_dropout, site_key(*rng, 0, SITE_EMBD), False, origin)
+    whole = config.remat in (True, "block") and torch.is_grad_enabled()
     for layer, bp in enumerate(params["blocks"]):
-        x = _block(config, x, _cast_block(bp, compute_dtype), layer, rng,
-                   deterministic, origin)
+        if whole:
+            # The compute-dtype weights are made inside the checkpointed
+            # region, so the backward holds only the fp32 params.
+            x = _recomputed(lambda x, bp=bp, layer=layer: _block(
+                config, x, _cast_block(bp, compute_dtype), layer, rng, deterministic,
+                origin))(x)
+        else:
+            x = _block(config, x, _cast_block(bp, compute_dtype), layer, rng,
+                       deterministic, origin)
     return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"],
                       config.layer_norm_eps)
 

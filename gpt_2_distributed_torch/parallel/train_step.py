@@ -7,7 +7,13 @@ As in the JAX package:
 * **Gradient accumulation** over the ``[accum, B, T]`` micro-batches of one
   optimizer step, with the loss scaled by ``1/accum`` inside the
   differentiated function, so the accumulated grads are the sum of
-  ``g_i / accum`` (here summed by autograd into each param's fp32 ``.grad``).
+  ``g_i / accum`` (by default summed by autograd into each param's fp32
+  ``.grad``). ``accum_dtype=torch.bfloat16`` carries the sum in bf16
+  instead: each tensor's fp32 grad is folded into its bf16 carry the moment
+  the backward completes it (``carry = carry + g.to(bf16)``, micro-batches
+  in order, from bf16 zeros, as the JAX scan does) and its ``.grad`` is
+  freed, so no fp32 grad tree lives beside the carry; the carry is upcast
+  to fp32 before the mesh reduction, the norm, the clip and AdamW.
 * **The reported loss is the mean over micro-batches**; the grad norm is the
   global L2 norm of the accumulated grad, measured and never clipped unless
   the guard's clip threshold is set.
@@ -438,13 +444,46 @@ def _all_reduce_buckets(mesh, tensors: list[torch.Tensor], axes=AXES) -> None:
             offset += t.numel()
 
 
+def _grad_leaves(params: dict, sharded: ShardedUpdate | None) -> list[torch.Tensor]:
+    """The tensors whose ``.grad`` a backward fills: the params, or under
+    a sharded state each 'fsdp'-placed tensor's shard (its gather's
+    backward reduce-scatters onto it) and every other tensor's param."""
+    if sharded is None:
+        return param_list(params)
+    return [s if g else p for p, s, g in zip(sharded.params, sharded.shards, sharded.gathered)]
+
+
+class _Carry:
+    """A reduced-precision running sum of the micro-batches' grads: a hook
+    on each leaf folds the fp32 ``.grad`` its backward just completed into
+    the leaf's carry and frees it; :meth:`close` upcasts the carries into
+    ``.grad`` and removes the hooks."""
+
+    def __init__(self, leaves: list[torch.Tensor], dtype: torch.dtype):
+        self.sums = {id(t): torch.zeros_like(t, dtype=dtype) for t in leaves}
+        self.leaves = leaves
+        self.hooks = [t.register_post_accumulate_grad_hook(self._fold) for t in leaves]
+
+    def _fold(self, t: torch.Tensor) -> None:
+        c = self.sums[id(t)]
+        self.sums[id(t)] = c + t.grad.to(c.dtype)
+        t.grad = None
+
+    def close(self) -> None:
+        for h in self.hooks:
+            h.remove()
+        for t in self.leaves:
+            t.grad = self.sums.pop(id(t)).to(t.dtype)
+
+
 def _accumulate_grads(config, compute_dtype, params, x, y, seed, step_idx,
-                      loss_scale=None, sharded=None):
+                      loss_scale=None, sharded=None, accum_dtype=None):
     """Forward + backward of every micro-batch of ``x, y`` ``[accum, B,
     T]`` (this process's rows and ``T/sp`` blocks under a mesh), summing
-    ``g_i / accum`` into each param's ``.grad``, then over the mesh (onto
-    ``sharded``'s shards when given). Returns ``(mean loss, grad norm,
-    per-leaf squared norms or None)`` as device values."""
+    ``g_i / accum`` into each param's ``.grad`` (through a running sum in
+    ``accum_dtype`` when it is given and not fp32), then over the mesh
+    (onto ``sharded``'s shards when given). Returns ``(mean loss, grad
+    norm, per-leaf squared norms or None)`` as device values."""
     mesh = multi_mesh()
     accum = x.shape[0]
     inv_accum = 1.0 / accum
@@ -454,18 +493,25 @@ def _accumulate_grads(config, compute_dtype, params, x, y, seed, step_idx,
     else:
         for p in param_list(params):
             p.grad = None
+    carry = None
+    if accum_dtype is not None and accum_dtype != torch.float32:
+        carry = _Carry(_grad_leaves(params, sharded), accum_dtype)
     loss_acc = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(accum):
-        w = params if sharded is None else sharded.working(params)
-        _, loss = gpt2.forward(w, config, x[i], y[i], rng=(seed, step_idx, i),
-                               deterministic=False, compute_dtype=compute_dtype)
-        if share is not None:
-            loss = loss * share[i]
-        if loss_scale is not None:
-            loss = loss * loss_scale[i]
-        loss = loss * inv_accum
-        loss.backward()
-        loss_acc = loss_acc + loss.detach()
+    try:
+        for i in range(accum):
+            w = params if sharded is None else sharded.working(params)
+            _, loss = gpt2.forward(w, config, x[i], y[i], rng=(seed, step_idx, i),
+                                   deterministic=False, compute_dtype=compute_dtype)
+            if share is not None:
+                loss = loss * share[i]
+            if loss_scale is not None:
+                loss = loss * loss_scale[i]
+            loss = loss * inv_accum
+            loss.backward()
+            loss_acc = loss_acc + loss.detach()
+    finally:
+        if carry is not None:
+            carry.close()
     if sharded is not None:
         sharded.reduce_grads()
         leaf_sq, loss_acc = sharded.leaf_sq_norms(loss_acc)
@@ -494,6 +540,7 @@ def make_train_step(
     clip_threshold: float | None = None,
     layer_clip_norm: float = 1.0,
     sharded: ShardedUpdate | None = None,
+    accum_dtype: torch.dtype | None = None,
 ) -> Callable:
     """Build the train step. It updates ``params`` (and ``optimizer``) in
     place::
@@ -514,7 +561,9 @@ def make_train_step(
 
     With ``sharded`` (the :class:`ShardedUpdate` whose shards ``optimizer``
     holds) the grads are reduced onto the shards, and the full params are
-    gathered from them after each applied update."""
+    gathered from them after each applied update. ``accum_dtype`` (None:
+    fp32) is the dtype of the cross-micro-batch gradient sum (module
+    docstring)."""
 
     def apply_update():
         optimizer.step()
@@ -523,7 +572,8 @@ def make_train_step(
 
     def train_step(params, x, y, seed, step_idx):
         loss, grad_norm, _ = _accumulate_grads(config, compute_dtype, params, x, y,
-                                               seed, step_idx, sharded=sharded)
+                                               seed, step_idx, sharded=sharded,
+                                               accum_dtype=accum_dtype)
         apply_update()
         return StepMetrics(loss=loss, grad_norm=grad_norm)
 
@@ -533,7 +583,8 @@ def make_train_step(
     def guarded_train_step(params, guard_state: GuardState, x, y, seed, step_idx,
                            loss_scale):
         loss, grad_norm, leaf_sq = _accumulate_grads(config, compute_dtype, params, x, y,
-                                                     seed, step_idx, loss_scale, sharded)
+                                                     seed, step_idx, loss_scale, sharded,
+                                                     accum_dtype)
         # The one host sync of the step: the decision below needs both.
         loss_ok = bool(torch.isfinite(loss))
         finite = loss_ok and bool(torch.isfinite(grad_norm))

@@ -76,9 +76,17 @@ The multi-host launch flags ``--coordinator_address``, ``--num_processes``
 and ``--process_id`` (falling back on ``COORDINATOR_ADDRESS`` or
 ``MASTER_ADDR``:``MASTER_PORT``, ``NUM_PROCESSES`` or ``WORLD_SIZE``,
 ``PROCESS_ID`` or ``RANK``; ``parallel/mesh.py::init_distributed``) start a
-mesh without ``torchrun``. Every flag whose plane is not ported yet (tp
-meshes, bf16 grad accumulation, remat) is refused with a "later slice"
-error instead of being ignored.
+mesh without ``torchrun``. A tp mesh, whose plane is not ported yet, is
+refused with a "later slice" error instead of being ignored.
+
+``--remat block|mlp|attn|dots`` recomputes activations in the backward as
+the JAX CLI's flag does (``models/gpt2.py``: the whole block, one half of
+it, or both halves saving only their 2-D products); the kernels of a
+recomputed region launch again in the backward, with the same dropout
+masks. ``--accum_dtype bf16`` sums the micro-batches' grads in a bf16
+carry that is upcast to fp32 before the mesh reduction, the norm and AdamW
+(``parallel/train_step.py``). Both run under every ``--training_mode`` and
+under ``--mesh sp=S``.
 
 Runs on CUDA unless ``--device cpu`` is given; without a visible GPU it
 exits with the "no CUDA device" message. On CUDA the attention runs
@@ -136,11 +144,6 @@ from gpt_2_distributed_torch.data.dataloader import (
 from gpt_2_distributed_torch.parallel.mesh import TRAINING_MODES, validate_mesh_for_config
 
 DEFAULT_SEED = 42
-
-# Flags whose planes come with later slices of the port, with the value
-# that leaves them off; any other value is refused.
-_UNPORTED = {"accum_dtype": "fp32"}
-
 
 def _claim_one_shot(save_dir: str | None, name: str, fired: set) -> bool:
     """True exactly once per resumable run for a named fault injection: a
@@ -279,8 +282,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "exchange (alone, with the reason, where no exchange runs). "
                    "One-shot")
     p.add_argument("--remat", nargs="?", const="block", default=False,
-                   choices=["block", "mlp", "attn", "dots"])
-    p.add_argument("--accum_dtype", default="fp32", choices=["fp32", "bf16"])
+                   choices=["block", "mlp", "attn", "dots"],
+                   help="activation recompute: 'block' (the whole block; the bare "
+                   "flag means this), 'mlp' or 'attn' (that half of each block) or "
+                   "'dots' (both halves, saving only their 2-D products)")
+    p.add_argument("--accum_dtype", default="fp32", choices=["fp32", "bf16"],
+                   help="dtype of the gradient sum over micro-batches: fp32 "
+                   "(default) or bf16 (half the carry; upcast before the update)")
     p.add_argument("--loss_impl", default="blocked", choices=["blocked", "dense"])
     p.add_argument("--fused_layers", default="off", choices=["off", "ln", "gelu", "all"])
     p.add_argument("--fused_matmul", default="off", choices=["off", "mlp", "proj", "all"])
@@ -440,20 +448,11 @@ def make_lr_schedule(args, steps_per_epoch: int):
     return args.lr
 
 
-def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
-    for dest, off in _UNPORTED.items():
-        value = getattr(args, dest)
-        if value != off:
-            p.error(f"--{dest} {value!r} is not ported to PyTorch yet: it comes "
-                    f"in a later slice of the port")
-
-
 def main(argv: list[str] | None = None):
     """Run the CLI; returns the run's ``StatsTracker`` (its ``buffers`` hold
     the last 50 steps' metrics, e.g. ``buffers["loss"]``)."""
     p = build_parser()
     args = p.parse_args(argv)
-    _refuse_unported(p, args)
     if args.inject_nan_at and args.step_guard != "on":
         p.error("--inject_nan_at requires --step_guard on (an unguarded NaN "
                 "update poisons the params permanently)")
@@ -767,6 +766,7 @@ def _run(args, config, device, mesh, profile_spec, saved_world=None, elastic_del
         config, optimizer, guard=use_guard,
         clip_threshold=args.guard_max_grad_norm or None,
         layer_clip_norm=args.guard_clip_norm, sharded=sharded,
+        accum_dtype=torch.bfloat16 if args.accum_dtype == "bf16" else None,
     )
     guard_state = init_guard_state() if use_guard else None
     monitor = (SpikeMonitor(sigma=args.spike_sigma, max_consecutive=args.max_consecutive_skips)

@@ -36,6 +36,7 @@ REQUIRED = (
     "gpt_2_distributed_torch.coordination",
     "gpt_2_distributed_torch.obs.trace",
     "gpt_2_distributed_torch.resilience",
+    "gpt_2_distributed_torch.sample",
     "gpt_2_distributed_torch.serving.frontend.driver",
     "gpt_2_distributed_torch.serving.frontend.router",
     "gpt_2_distributed_torch.serving.frontend.autoscale",

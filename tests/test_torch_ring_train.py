@@ -222,10 +222,23 @@ def test_cli_sp2_under_torchrun_descends(shard_dir):
     (["--mesh", "sp=2", "--fused_matmul", "mlp"], "later slice"),
     (["--mesh", "sp=2", "--attention_impl", "flash"], "later slice"),
     (["--mesh", "sp=2", "--attention_impl", "dense"], "later slice"),
-    (["--mesh", "sp=2", "--remat"], "later slice"),
+    # Remat runs under sp now (message None: a torchrun launch goes through).
+    pytest.param(["--mesh", "sp=2", "--remat"], None, id="argv7-later slice"),
     (["--mesh", "pp=2"], "unknown mesh axis"),
 ])
-def test_cli_refuses_what_this_slice_does_not_run(capsys, argv, message):
+def test_cli_refuses_what_this_slice_does_not_run(capsys, shard_dir, argv, message):
+    if message is None:
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", "-m", "gpt_2_distributed_torch.train", "--device", "cpu",
+             "--data_dir", shard_dir, "--n_layer", "2", "--n_embd", "32", "--n_head", "2",
+             "--vocab_size", "257", "--seq_len", "32", "--batch", "2",
+             "--grad_accum_steps", "2", "--max_steps", "2", "--dropout", "0.1", *argv],
+            cwd=REPO, capture_output=True, text=True, timeout=240,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+        assert out.returncode == 0, out.stdout + out.stderr
+        assert "sp=2" in out.stdout and "training done: 2 optimizer steps" in out.stdout
+        return
     with pytest.raises(SystemExit) as exc:
         train.main(["--data_dir", "unused", "--device", "cpu", *argv])
     assert message in capsys.readouterr().err + str(exc.value.code)
